@@ -2,9 +2,12 @@
 FasterRCNN branch of ``boosting_rcnn_tpu/builder.py::build_detector``).
 
 Ported types: ``FasterRCNN`` with ``ResNet`` (depth 18 or 50, pytorch
-style, frozen BN), ``PAFPN`` (extra convs on output), ``ATSSRPNHead``,
-``ProbRoIHead`` and a Shared2FC ``ProbConvFCBBoxHead``.  Anything else
-raises ``NotImplementedError`` naming what is missing.
+style, frozen BN, ``frozen_stages``), ``PAFPN`` (extra convs on output),
+``ATSSRPNHead`` with max-IoU assignment and its focal / IoU / MSE / BCE
+losses, ``ProbRoIHead`` (boosting loss, random sampler) and a Shared2FC
+``ProbConvFCBBoxHead`` with cross entropy and L1.  The ``train_cfg`` is
+read as the JAX builder reads it for the flagship.  Any type or value the
+port does not implement raises ``NotImplementedError`` naming it.
 
 Weights are seeded random (flax-default initialisers drawn from a
 ``torch.Generator``); ``weights.from_jax_params`` loads the JAX package's.
@@ -64,7 +67,8 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator) -> ResNet:
                        ("out_indices", (0, 1, 2, 3))):
         _check({key: tuple(cfg.get(key, value))}, key, (value,))
     return ResNet(gen, depth=cfg.get("depth", 50),
-                  base_channels=cfg.get("base_channels", 64))
+                  base_channels=cfg.get("base_channels", 64),
+                  frozen_stages=cfg.get("frozen_stages", -1))
 
 
 def _build_neck(cfg: Dict[str, Any], gen: torch.Generator) -> PAFPN:
@@ -89,12 +93,139 @@ def _coder(cfg: Dict[str, Any], stds):
             tuple(coder.get("target_stds", stds)))
 
 
+def _only(cfg: Dict[str, Any], what: str, keys) -> None:
+    """Raise on keys of ``cfg`` that the port does not read."""
+    extra = sorted(set(cfg) - set(keys))
+    if extra:
+        raise NotImplementedError(f"{what}: {extra} not ported to PyTorch yet")
+
+
+_LOSS_KEYS = {
+    "FocalLoss": ("type", "use_sigmoid", "gamma", "alpha", "loss_weight"),
+    "IoULoss": ("type", "linear", "mode", "loss_weight"),
+    "CrossEntropyLoss": ("type", "use_sigmoid", "use_mask", "class_weight", "loss_weight"),
+    "MSELoss": ("type", "loss_weight"),
+    "L1Loss": ("type", "loss_weight"),
+}
+
+
+def _loss(cfg: Dict[str, Any], key: str, types, default=None) -> Dict[str, Any]:
+    """The loss config ``cfg[key]``, its type checked against ``types``."""
+    loss = cfg.get(key) or dict(default or {})
+    if loss.get("type") not in types:
+        raise _unported(f"{key}.type", loss.get("type"))
+    _only(loss, key, _LOSS_KEYS[loss["type"]])
+    return loss
+
+
+def _max_iou_assigner(cfg: Dict[str, Any], defaults) -> Dict[str, Any]:
+    """The fields of a ``MaxIoUAssigner`` config, with ``defaults`` for
+    the thresholds; values the port does not implement raise."""
+    _only(cfg, "assigner", ("type", "pos_iou_thr", "neg_iou_thr", "min_pos_iou",
+                            "match_low_quality", "gt_max_assign_all", "ignore_iof_thr",
+                            "ignore_wrt_candidates", "iou_calculator"))
+    _check(cfg, "type", ("MaxIoUAssigner",), "MaxIoUAssigner")
+    _check(cfg, "gt_max_assign_all", (True,), True)
+    _check(cfg, "ignore_iof_thr", (-1,), -1)
+    _check(cfg, "ignore_wrt_candidates", (True,), True)
+    _check(cfg, "iou_calculator", ({"type": "BboxOverlaps2D"},), {"type": "BboxOverlaps2D"})
+    pos, neg, min_pos, low = defaults
+    return dict(pos_iou_thr=cfg.get("pos_iou_thr", pos), neg_iou_thr=cfg.get("neg_iou_thr", neg),
+                min_pos_iou=cfg.get("min_pos_iou", min_pos),
+                match_low_quality=cfg.get("match_low_quality", low))
+
+
+def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
+    """The ATSS RPN's coder, losses and train assigner (JAX
+    ``build_rpn``)."""
+    _check(rpn, "atss", (False,), False)
+    _check(rpn, "reg_decoded_bbox", (True,), True)
+    loss_cls = _loss(rpn, "loss_cls", ("FocalLoss",), {"type": "FocalLoss"})
+    _check(loss_cls, "use_sigmoid", (True,), True)
+    loss_bbox = _loss(rpn, "loss_bbox", ("IoULoss",), {"type": "IoULoss"})
+    _check(loss_bbox, "linear", (False,), False)
+    _check(loss_bbox, "mode", ("log",), "log")
+    loss_iou = _loss(rpn, "loss_centerness", ("CrossEntropyLoss",),
+                     {"type": "CrossEntropyLoss", "use_sigmoid": True})
+    _check(loss_iou, "use_sigmoid", (True,), False)
+    aug = _loss(rpn, "aug_reg_loss", ("MSELoss",))
+    _only(train_rpn, "train_cfg.rpn", ("assigner", "sampler", "allowed_border", "pos_weight",
+                                       "debug"))
+    _check(train_rpn, "sampler", ({"type": "PseudoSampler"},), {"type": "PseudoSampler"})
+    _check(train_rpn, "allowed_border", (-1,), -1)
+    _check(train_rpn, "pos_weight", (-1,), -1)
+    _check(train_rpn, "debug", (False,), False)
+    means, stds = _coder(rpn, (1.0,) * 4)
+    return ATSSRPNCfg(
+        gamma=rpn.get("gamma", 1.0), atss=False, reg_decoded_bbox=True,
+        target_means=means, target_stds=stds,
+        focal_gamma=loss_cls.get("gamma", 2.0), focal_alpha=loss_cls.get("alpha", 0.25),
+        loss_cls_weight=loss_cls.get("loss_weight", 1.0),
+        loss_bbox_weight=loss_bbox.get("loss_weight", 1.0),
+        loss_iou_weight=loss_iou.get("loss_weight", 1.0),
+        aug_loss_weight=aug.get("loss_weight", 1.0),
+        **_max_iou_assigner(train_rpn.get("assigner", {}), (0.5, 0.5, 0.0, True)),
+    )
+
+
+def _bbox_cfg(head: Dict[str, Any]) -> BBoxHeadCfg:
+    """The Shared2FC head's coder and losses (JAX ``build_bbox_head``)."""
+    _check(head, "reg_decoded_bbox", (False,), False)
+    _check(head, "focal_reg", (False,), False)
+    loss_cls = _loss(head, "loss_cls", ("CrossEntropyLoss",), {"type": "CrossEntropyLoss"})
+    for key in ("use_sigmoid", "use_mask"):
+        _check(loss_cls, key, (False,), False)
+    _check(loss_cls, "class_weight", (None,))
+    loss_bbox = _loss(head, "loss_bbox", ("L1Loss",), {"type": "L1Loss"})
+    means, stds = _coder(head, (1.0,) * 4)
+    return BBoxHeadCfg(
+        num_classes=head.get("num_classes", 80), target_means=means, target_stds=stds,
+        loss_cls_weight=loss_cls.get("loss_weight", 1.0),
+        loss_bbox_weight=loss_bbox.get("loss_weight", 1.0),
+    )
+
+
+def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
+    """The ProbRoIHead's boosting options and its train sampler and
+    assigner (JAX ``build_detector``, two-stage branch)."""
+    _check(roi, "quality", (False,), False)
+    _check(roi, "alpha", (0,), 0)
+    _check(roi, "reg_norm", ("bbox_num",), "bbox_num")
+    _only(train_rcnn, "train_cfg.rcnn", ("assigner", "sampler", "pos_weight", "debug"))
+    sampler = train_rcnn.get("sampler", {})
+    _only(sampler, "train_cfg.rcnn.sampler", ("type", "num", "pos_fraction", "neg_pos_ub",
+                                              "add_gt_as_proposals"))
+    _check(sampler, "type", ("RandomSampler",), "RandomSampler")
+    _check(sampler, "add_gt_as_proposals", (True,), True)
+    _check(train_rcnn, "pos_weight", (-1,), -1)
+    _check(train_rcnn, "debug", (False,), False)
+    return ProbRoICfg(
+        gamma=roi.get("gamma", 0.1), boost=roi.get("boost", True), prob=roi.get("prob", True),
+        num_samples=sampler.get("num", 512), pos_fraction=sampler.get("pos_fraction", 0.25),
+        neg_pos_ub=sampler.get("neg_pos_ub", -1),
+        **_max_iou_assigner(train_rcnn.get("assigner", {}), (0.5, 0.5, 0.5, False)),
+    )
+
+
+def _proposal_cfg(cfg: Dict[str, Any], nms_pre: int, max_per_img: int) -> ProposalCfg:
+    _only(cfg, "proposal cfg", ("nms_pre", "max_per_img", "nms", "min_bbox_size"))
+    _only(cfg.get("nms", {}), "proposal nms", ("type", "iou_threshold"))
+    _check(cfg.get("nms", {}), "type", ("nms",), "nms")
+    return ProposalCfg(
+        nms_pre=cfg.get("nms_pre", nms_pre), max_per_img=cfg.get("max_per_img", max_per_img),
+        nms_iou_thr=cfg.get("nms", {}).get("iou_threshold", 0.7),
+        min_bbox_size=cfg.get("min_bbox_size", 0),
+    )
+
+
 def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0) -> TwoStageDetector:
     """Flagship detector with seeded random weights on ``device`` (the GPU
     when ``device`` is None; raises without one)."""
     device = resolve_device(device)
     _check(model_cfg, "type", ("FasterRCNN",))
     gen = torch.Generator().manual_seed(seed)
+    train_cfg = model_cfg.get("train_cfg") or {}
+    _only(train_cfg, "train_cfg", ("rpn", "rpn_proposal", "rcnn"))
     test_cfg = model_cfg.get("test_cfg") or {}
 
     backbone = _build_backbone(model_cfg["backbone"], gen)
@@ -114,8 +245,7 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0) -> Two
         feat_channels=rpn.get("feat_channels", 256),
         stacked_convs=rpn.get("stacked_convs", 4), num_levels=ag.num_levels,
     )
-    means, stds = _coder(rpn, (1.0,) * 4)
-    rpn_cfg = ATSSRPNCfg(target_means=means, target_stds=stds)
+    rpn_cfg = _rpn_cfg(rpn, train_cfg.get("rpn") or {})
 
     roi = model_cfg["roi_head"]
     _check(roi, "type", ("ProbRoIHead",))
@@ -137,27 +267,20 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0) -> Two
         fc_out_channels=head.get("fc_out_channels", 1024),
         roi_feat_size=out_size,
     )
-    means, stds = _coder(head, (1.0,) * 4)
-    bbox_cfg = BBoxHeadCfg(num_classes=num_classes, target_means=means,
-                           target_stds=stds)
-    roi_cfg = ProbRoICfg(prob=roi.get("prob", True))
+    bbox_cfg = _bbox_cfg(head)
+    roi_cfg = _roi_cfg(roi, train_cfg.get("rcnn") or {})
 
     net = TwoStageNet(
         backbone, neck, rpn_module, bbox_module,
         roi_strides=tuple(extractor.get("featmap_strides", (8, 16, 32, 64, 128))),
         roi_out_size=out_size, roi_finest_scale=extractor.get("finest_scale", 56),
     )
-    rpn_test = test_cfg.get("rpn", {})
     rcnn_test = test_cfg.get("rcnn", {})
     _check(rcnn_test.get("nms", {}), "type", ("nms",), "nms")
     return TwoStageDetector(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
-        test_proposal_cfg=ProposalCfg(
-            nms_pre=rpn_test.get("nms_pre", 1000),
-            max_per_img=rpn_test.get("max_per_img", 256),
-            nms_iou_thr=rpn_test.get("nms", {}).get("iou_threshold", 0.7),
-            min_bbox_size=rpn_test.get("min_bbox_size", 0),
-        ),
+        train_proposal_cfg=_proposal_cfg(train_cfg.get("rpn_proposal") or {}, 4000, 2000),
+        test_proposal_cfg=_proposal_cfg(test_cfg.get("rpn") or {}, 1000, 256),
         rcnn_test_cfg=RCNNTestCfg(
             score_thr=rcnn_test.get("score_thr", 0.05),
             nms_iou_thr=rcnn_test.get("nms", {}).get("iou_threshold", 0.5),

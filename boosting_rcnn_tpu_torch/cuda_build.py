@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``_build/lib<name>-<hash>.so`` inside the package (a directory that
-``.gitignore`` lists), at first use, for ``sm_90a``.  The file name carries
+``.gitignore`` lists), at first use, for ``sm_90a``; ``build_all`` starts
+one ``nvcc`` per source, all together.  The file name carries
 a hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  PyTorch's extension builder is not used: a
 source that includes PyTorch's headers takes minutes to compile, a plain
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -67,21 +68,43 @@ def build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
     seconds the build took (0.0 when already built); the ``ptxas`` report
     goes beside the library as ``<lib>.log``."""
-    out = library_path(name)
-    if out.is_file():
-        return 0.0
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, timeout=BUILD_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc exited {proc.returncode} building {name}:\n{proc.stdout}")
-    os.replace(tmp, out)
+    return build_all([name])[name]
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """Compile every source of ``names`` that is not built yet, one
+    ``nvcc`` each, all started together.  Returns each name's build
+    seconds (0.0 when already built); raises naming every source that
+    failed, with the compiler's output."""
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file() or name in started:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        try:
+            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for other, *_ in started.values():
+                other.kill()
+                other.wait()
+            raise
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited {proc.returncode} building {name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -6,7 +6,11 @@ as a space-to-depth 4x4 conv (``_S2DStemConv``), a TPU-only exact rewrite;
 here it is the plain 7x7/s2 conv over the same (7, 7, 3, F) weights.
 Submodule names follow the JAX package's (``conv1``, ``bn1``,
 ``layer{s}_{b}``, ``downsample_conv``) so weights map one to one.
-``frozen_stages`` only matters for training and is not consumed here.
+``frozen_stages`` = k freezes the stem and stages 1..k, as the JAX
+package does (``resnet.py:320-323``, ``:367-368``): the activations are
+detached after the stem and after each frozen stage, so no gradient is
+computed there, and those parameters get ``requires_grad=False``, so no
+optimizer moves them.
 """
 from __future__ import annotations
 
@@ -80,8 +84,10 @@ class ResNet(nn.Module):
     """NCHW images -> the outputs of the four stages C2-C5 (NCHW), stage
     strides (1, 2, 2, 2)."""
 
-    def __init__(self, gen: torch.Generator, depth: int = 50, base_channels: int = 64):
+    def __init__(self, gen: torch.Generator, depth: int = 50, base_channels: int = 64,
+                 frozen_stages: int = -1):
         super().__init__()
+        self.frozen_stages = frozen_stages
         if depth not in ARCH_SETTINGS:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
         kind, blocks = ARCH_SETTINGS[depth]
@@ -102,13 +108,22 @@ class ResNet(nn.Module):
                 cin = out
             self.stage_names.append(names)
             planes *= 2
+        frozen = [self.conv1, self.bn1] if frozen_stages >= 0 else []
+        for names in self.stage_names[:max(frozen_stages, 0)]:
+            frozen += [getattr(self, name) for name in names]
+        for module in frozen:
+            module.requires_grad_(False)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool(x, 3, 2, 1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
-        for names in self.stage_names:
+        for stage, names in enumerate(self.stage_names):
             for name in names:
                 x = getattr(self, name)(x)
+            if stage + 1 <= self.frozen_stages:
+                x = x.detach()
             outs.append(x)
         return tuple(outs)

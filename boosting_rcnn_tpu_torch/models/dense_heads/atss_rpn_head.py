@@ -1,4 +1,4 @@
-"""ATSSRPNHead, inference (PyTorch port of
+"""ATSSRPNHead (PyTorch port of
 ``boosting_rcnn_tpu/models/dense_heads/atss_rpn_head.py``).
 
 ``ATSSRPNConvs``: a GN(32) + ReLU conv tower shared by the five FPN levels,
@@ -6,7 +6,17 @@ then ``rpn_cls`` (A objectness logits), ``rpn_reg`` (A*4 deltas through a
 per-level learnable ``Scale``) and ``rpn_iou`` (A IoU logits).
 ``atss_rpn_proposals``: fused score ``sqrt(sigmoid(cls) * sigmoid(iou))``,
 per-level exact top-``nms_pre``, decode, level-aware NMS, keep
-``max_per_img``.  The train-time targets and losses are not ported yet.
+``max_per_img``.
+
+Training (``atss_rpn_targets``, ``atss_rpn_loss``), the flagship's branch:
+max-IoU assignment (``atss=False``), sigmoid focal loss on objectness, and
+the regression on decoded boxes (``reg_decoded_bbox=True``): IoU loss plus
+the MSE on deltas, weighted by ``max(iou_target**gamma, EPS)``, halved and
+divided by ``max(sum iou_target, 1)``; BCE of the IoU branch against the
+IoU target, averaged over the positives.  The JAX package's ``lax.pmean``
+normalisers become plain sums over the batch on one card.  ATSS
+assignment, the encoded-delta branch and varifocal loss raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,11 +27,14 @@ import torch
 from torch import nn
 
 from ...ops import box_ops
+from ...ops import losses as L
+from ...ops.assigners import max_iou_assign
 from ...ops.nms import batched_nms_padded
 from ...ops.topk import select_topk
 from ..layers import ConvModule, Scale, make_conv
 
 PRIOR_BIAS = -4.595  # rpn_cls bias init: prior probability 0.01
+EPS = 1e-12
 
 
 class ATSSRPNConvs(nn.Module):
@@ -65,10 +78,40 @@ def flatten_levels(per_level: Sequence[torch.Tensor], last_dim: int) -> torch.Te
 
 @dataclasses.dataclass(frozen=True)
 class ATSSRPNCfg:
-    """The inference part of the JAX ``ATSSRPNCfg``: the box coder."""
+    """The JAX ``ATSSRPNCfg``: box coder, losses and train assigner."""
 
+    gamma: float = 0.5
+    atss: bool = False
+    reg_decoded_bbox: bool = True
     target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
     target_stds: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    # losses
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    loss_cls_weight: float = 1.0
+    loss_bbox_weight: float = 1.0
+    loss_bbox_type: str = "iou"
+    loss_cls_type: str = "focal"
+    loss_iou_weight: float = 1.0
+    aug_loss_weight: float = 1.0
+    # train assigner
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.5
+    min_pos_iou: float = 0.0
+    match_low_quality: bool = True
+
+
+def _check_train_cfg(cfg: ATSSRPNCfg) -> None:
+    for what, value, ported in (("atss", cfg.atss, False),
+                                ("reg_decoded_bbox", cfg.reg_decoded_bbox, True),
+                                ("loss_cls_type", cfg.loss_cls_type, "focal"),
+                                ("loss_bbox_type", cfg.loss_bbox_type, "iou")):
+        if value != ported:
+            raise NotImplementedError(f"ATSS RPN {what}={value!r} is not ported")
+
+
+def _encode(cfg: ATSSRPNCfg, anchors, boxes):
+    return box_ops.bbox2delta(anchors, boxes, cfg.target_means, cfg.target_stds, eps=1e-6)
 
 
 def _decode(cfg: ATSSRPNCfg, anchors, deltas, max_shape=None):
@@ -123,3 +166,64 @@ def atss_rpn_proposals(
         out_scores.append(torch.where(valid, sc, torch.zeros_like(sc)))
         out_valid.append(valid)
     return torch.stack(out_boxes), torch.stack(out_scores), torch.stack(out_valid)
+
+
+def atss_rpn_targets(cfg: ATSSRPNCfg, anchors: torch.Tensor, valid: torch.Tensor,
+                     gt_bboxes: torch.Tensor, gt_mask: torch.Tensor):
+    """Targets of one image: ``anchors`` ``(A, 4)``, ``valid`` ``(A,)``,
+    padded ``gt_bboxes`` ``(G, 4)`` and ``gt_mask`` ``(G,)`` -> (positive
+    mask, label weights, decoded box targets ``(A, 4)``, zero off the
+    positives)."""
+    _check_train_cfg(cfg)
+    assign = max_iou_assign(anchors, valid, gt_bboxes, gt_mask,
+                            pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
+                            min_pos_iou=cfg.min_pos_iou,
+                            match_low_quality=cfg.match_low_quality)
+    pos = assign.gt_inds > 0
+    label_weights = (pos | (assign.gt_inds == 0)).float()
+    safe_gt = torch.clamp(assign.gt_inds - 1, 0, gt_bboxes.shape[0] - 1)
+    matched = box_ops.take_small_table(gt_bboxes, safe_gt)
+    bbox_targets = torch.where(pos[:, None], matched, torch.zeros_like(matched))
+    return pos, label_weights, bbox_targets
+
+
+def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
+                  iou_logits: torch.Tensor, anchors: torch.Tensor, valid: torch.Tensor,
+                  gt_bboxes: torch.Tensor, gt_mask: torch.Tensor):
+    """RPN losses of a batch: ``cls_logits``/``iou_logits`` ``(B, A)``,
+    ``bbox_preds`` ``(B, A, 4)``, ``anchors`` ``(A, 4)``, ``valid``
+    ``(B, A)``, ``gt_bboxes`` ``(B, G, 4)``, ``gt_mask`` ``(B, G)``."""
+    _check_train_cfg(cfg)
+    b, a = cls_logits.shape
+    targets = [atss_rpn_targets(cfg, anchors, valid[i], gt_bboxes[i], gt_mask[i])
+               for i in range(b)]
+    pos, label_weights, bbox_targets = (torch.stack(x) for x in zip(*targets))
+    num_total = torch.clamp(pos.float().sum(), min=1.0)
+
+    loss_cls = L.sigmoid_focal_loss(
+        cls_logits.reshape(-1, 1), pos.reshape(-1, 1).float(),
+        weight=label_weights.reshape(-1), gamma=cfg.focal_gamma, alpha=cfg.focal_alpha,
+        avg_factor=num_total) * cfg.loss_cls_weight
+
+    anchors_b = anchors.expand(b, a, 4)
+    posf = pos.reshape(-1).float()
+    pos_flat = posf[:, None] > 0
+    decoded = _decode(cfg, anchors_b, bbox_preds).reshape(-1, 4)
+    # the regression target of a non-positive is the prediction itself,
+    # with zero weight (so that its IoU and deltas stay finite)
+    safe_t = torch.where(pos_flat, bbox_targets.reshape(-1, 4), decoded)
+    with torch.no_grad():
+        iou_target = torch.where(pos_flat[:, 0], box_ops.bbox_overlaps_aligned(decoded, safe_t),
+                                 torch.zeros_like(posf))
+        w = torch.clamp(iou_target ** cfg.gamma, min=EPS) * posf
+    loss_iou = L.iou_loss(decoded, safe_t, weight=w, avg_factor=1.0)
+    enc_t = _encode(cfg, anchors_b.reshape(-1, 4), safe_t)
+    loss_aug = L.mse_loss(bbox_preds.reshape(-1, 4), enc_t, weight=w[:, None].expand_as(enc_t),
+                          avg_factor=1.0) * cfg.aug_loss_weight
+    loss_bbox = ((loss_iou + loss_aug) * 0.5 * cfg.loss_bbox_weight
+                 / torch.clamp(iou_target.sum(), min=1.0))
+
+    loss_rpn_iou = L.binary_cross_entropy_loss(
+        iou_logits.reshape(-1), iou_target, weight=posf, avg_factor=num_total,
+    ) * cfg.loss_iou_weight
+    return {"loss_rpn_cls": loss_cls, "loss_rpn_bbox": loss_bbox, "loss_rpn_iou": loss_rpn_iou}

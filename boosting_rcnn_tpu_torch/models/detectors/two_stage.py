@@ -1,11 +1,15 @@
-"""Two-stage detector, inference (PyTorch port of
+"""Two-stage detector (PyTorch port of
 ``boosting_rcnn_tpu/models/detectors/two_stage.py``).
 
 ``TwoStageNet`` holds the networks; ``TwoStageDetector`` owns the anchors,
 the configs and the device, and runs ``predict`` (``FasterRCNN.simple_test``
 + ``ProbRoIHead.simple_test``): features, RPN proposals, multi-level
 RoIAlign (the CUDA kernel on the GPU), the Shared2FC head, prior fusion and
-per-image multiclass NMS.
+per-image multiclass NMS.  ``loss`` is the train forward
+(``forward_train``): the RPN runs once, its outputs give the RPN losses and,
+detached, the train-config proposals, which are assigned and sampled
+without gradient; the sampled RoIs go through RoIAlign (forward and
+gradient kernels on the GPU) and the head into the boosting R-CNN loss.
 
 Layouts at the public functions are the JAX package's: images
 ``(B, H, W, 3)``, pyramid levels ``(B, H, W, C)``, pooled RoI features
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +28,20 @@ from torch import nn
 
 from ...ops.anchors import AnchorGenerator
 from ...ops.roi_align_kernel import batched_multilevel_roi_align
-from ..dense_heads.atss_rpn_head import ATSSRPNCfg, atss_rpn_proposals, flatten_levels
+from ..dense_heads.atss_rpn_head import (
+    ATSSRPNCfg,
+    atss_rpn_loss,
+    atss_rpn_proposals,
+    flatten_levels,
+)
 from ..roi_heads.bbox_head import BBoxHeadCfg, bbox_head_decode
-from ..roi_heads.prob_roi_head import ProbRoICfg, prob_fuse_scores
+from ..roi_heads.prob_roi_head import (
+    ProbRoICfg,
+    RoISample,
+    prob_fuse_scores,
+    prob_roi_loss,
+    sample_rois,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,14 +116,19 @@ class TwoStageDetector:
 
     def __init__(self, net: TwoStageNet, anchor_generator: AnchorGenerator,
                  rpn_cfg: ATSSRPNCfg, roi_cfg: ProbRoICfg, bbox_cfg: BBoxHeadCfg,
-                 device: torch.device, test_proposal_cfg: ProposalCfg = ProposalCfg(),
+                 device: torch.device,
+                 train_proposal_cfg: ProposalCfg = ProposalCfg(4000, 2000),
+                 test_proposal_cfg: ProposalCfg = ProposalCfg(),
                  rcnn_test_cfg: RCNNTestCfg = RCNNTestCfg()):
+        # eval mode throughout: the flagship has only frozen BN and
+        # GroupNorm, which compute the same in both modes
         self.net = net.to(device).eval()
         self.anchor_generator = anchor_generator
         self.rpn_cfg = rpn_cfg
         self.roi_cfg = roi_cfg
         self.bbox_cfg = bbox_cfg
         self.device = torch.device(device)
+        self.train_proposal_cfg = train_proposal_cfg
         self.test_proposal_cfg = test_proposal_cfg
         self.rcnn_test_cfg = rcnn_test_cfg
 
@@ -125,8 +145,88 @@ class TwoStageDetector:
         flat = torch.from_numpy(np.concatenate(per_level)).to(self.device)
         return flat, tuple(a.shape[0] for a in per_level)
 
-    def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _rpn_flat(self, feats):
+        """Flat RPN outputs: cls and iou logits ``(B, A)``, deltas
+        ``(B, A, 4)``."""
+        cls_l, reg_l, iou_l = self.net.rpn_out(feats)
+        return (flatten_levels(cls_l, 1)[..., 0], flatten_levels(reg_l, 4),
+                flatten_levels(iou_l, 1)[..., 0])
+
+    def _proposals(self, cls, reg, iou, anchors, num_level_anchors, img_shape,
+                   pc: ProposalCfg):
+        return atss_rpn_proposals(
+            self.rpn_cfg, cls, reg, iou, self._tensor(anchors), num_level_anchors,
+            self._tensor(img_shape), nms_pre=pc.nms_pre, max_per_img=pc.max_per_img,
+            nms_iou_thr=pc.nms_iou_thr, min_bbox_size=pc.min_bbox_size)
+
+    # ---------- training ----------
+    def _gt(self, batch):
+        return (self._tensor(batch["gt_bboxes"]), self._tensor(batch["gt_mask"], torch.bool),
+                self._tensor(batch["gt_labels"], torch.int64))
+
+    def _vmap_sample(self, prop_boxes, prop_scores, prop_valid, batch,
+                     generator: Optional[torch.Generator] = None) -> RoISample:
+        """Assign and sample each image's RoIs; fields ``(B, R, ...)``."""
+        gt_bboxes, gt_mask, gt_labels = self._gt(batch)
+        per_image = [
+            sample_rois(self.roi_cfg, prop_boxes[i], prop_scores[i], prop_valid[i],
+                        gt_bboxes[i], gt_mask[i], gt_labels[i], generator=generator)
+            for i in range(prop_boxes.shape[0])
+        ]
+        return RoISample(*(torch.stack(x) for x in zip(*per_image)))
+
+    @torch.no_grad()
+    def sample_from_rpn_outs(self, rpn_outs, batch, anchors, num_level_anchors,
+                             generator: Optional[torch.Generator] = None) -> RoISample:
+        """Train-config proposals from flat RPN outputs ``(cls, reg, iou)``,
+        then RoI sampling; no gradient."""
+        cls, reg, iou = (x.detach() for x in rpn_outs)
+        boxes, scores, valid = self._proposals(
+            cls, reg, iou, anchors, num_level_anchors, batch["img_shape"],
+            self.train_proposal_cfg)
+        return self._vmap_sample(boxes, scores, valid, batch, generator)
+
+    @torch.no_grad()
+    def train_sample(self, batch, anchors, num_level_anchors,
+                     generator: Optional[torch.Generator] = None) -> RoISample:
+        """A forward without gradient to the train ``RoISample``, for the
+        ``external`` train step."""
+        feats = self.net.features(self._tensor(batch["images"]))
+        return self.sample_from_rpn_outs(self._rpn_flat(feats), batch, anchors,
+                                         num_level_anchors, generator)
+
+    def loss(self, batch, anchors, num_level_anchors,
+             generator: Optional[torch.Generator] = None,
+             sample: Optional[RoISample] = None) -> Dict[str, torch.Tensor]:
+        """Forward and losses of a padded batch on the detector's device.
+
+        ``batch``: ``images`` ``(B, H, W, 3)``, ``gt_bboxes`` ``(B, G, 4)``,
+        ``gt_labels`` ``(B, G)``, ``gt_mask`` ``(B, G)``, ``img_shape``
+        ``(B, 2)``; tensors or numpy arrays.  ``generator`` drives the RoI
+        sampler.  A given ``sample`` (fields ``(B, R, ...)``) skips the
+        proposals and the sampling.  Returns the five losses."""
+        images = self._tensor(batch["images"])
+        gt_bboxes, gt_mask, _ = self._gt(batch)
+        anchors = self._tensor(anchors)
+        feats = self.net.features(images)
+        cls, reg, iou = self._rpn_flat(feats)
+        valid = torch.ones(cls.shape, dtype=torch.bool, device=self.device)
+        losses = atss_rpn_loss(self.rpn_cfg, cls, reg, iou, anchors, valid,
+                               gt_bboxes, gt_mask)
+        if sample is None:
+            sample = self.sample_from_rpn_outs((cls, reg, iou), batch, anchors,
+                                               num_level_anchors, generator)
+        else:
+            sample = RoISample(*(torch.as_tensor(x, device=self.device) for x in sample))
+        cls_s, reg_s = self.net.roi_out(feats, sample.boxes.float(), sample.valid.bool())
+        flat = RoISample(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in sample))
+        flat = flat._replace(matched_label=flat.matched_label.long(),
+                             is_pos=flat.is_pos.bool(), valid=flat.valid.bool())
+        losses.update(prob_roi_loss(self.roi_cfg, self.bbox_cfg, cls_s, reg_s, flat))
+        return losses
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor], anchors: torch.Tensor,
@@ -150,15 +250,9 @@ class TwoStageDetector:
         the test-cfg proposals ``(B, R, 4)`` with their prior scores and
         validity."""
         feats = self.net.features(self._tensor(images))
-        cls_l, reg_l, iou_l = self.net.rpn_out(feats)
-        pc = self.test_proposal_cfg
-        boxes, scores, valid = atss_rpn_proposals(
-            self.rpn_cfg, flatten_levels(cls_l, 1)[..., 0], flatten_levels(reg_l, 4),
-            flatten_levels(iou_l, 1)[..., 0], self._tensor(anchors),
-            num_level_anchors, self._tensor(img_shape), nms_pre=pc.nms_pre,
-            max_per_img=pc.max_per_img, nms_iou_thr=pc.nms_iou_thr,
-            min_bbox_size=pc.min_bbox_size,
-        )
+        cls, reg, iou = self._rpn_flat(feats)
+        boxes, scores, valid = self._proposals(cls, reg, iou, anchors, num_level_anchors,
+                                               img_shape, self.test_proposal_cfg)
         return feats, boxes, scores, valid
 
     @torch.inference_mode()

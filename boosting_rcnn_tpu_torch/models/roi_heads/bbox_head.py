@@ -5,18 +5,21 @@
 ``(N, 7, 7, C)`` RoI features are flattened in (H, W, C) order, as in the
 JAX package, so the first FC takes the JAX kernel with no column
 permutation.  ``bbox_head_decode`` decodes the class-wise deltas and runs
-multiclass NMS for one image.  The targets and losses are not ported yet.
+multiclass NMS for one image.  ``bbox_targets`` and ``bbox_head_loss`` are
+the train side with the flagship's losses, softmax cross entropy and L1 on
+encoded class-wise deltas; other loss types raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops import box_ops
+from ...ops import losses as L
 from ...ops.nms import multiclass_nms_padded
 from ..layers import make_linear
 
@@ -46,11 +49,67 @@ class ConvFCBBoxHead(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class BBoxHeadCfg:
-    """The inference part of the JAX ``BBoxHeadCfg``: classes and coder."""
+    """The JAX ``BBoxHeadCfg``, as far as the flagship sets it."""
 
     num_classes: int = 4
     target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
     target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
+    reg_class_agnostic: bool = False
+    reg_decoded_bbox: bool = False
+    loss_cls_weight: float = 2.0
+    loss_bbox_weight: float = 2.0
+    loss_bbox_type: str = "l1"
+    loss_cls_type: str = "ce"
+
+
+def _check_train_cfg(cfg: BBoxHeadCfg) -> None:
+    for what, value, ported in (("reg_class_agnostic", cfg.reg_class_agnostic, False),
+                                ("reg_decoded_bbox", cfg.reg_decoded_bbox, False),
+                                ("loss_bbox_type", cfg.loss_bbox_type, "l1"),
+                                ("loss_cls_type", cfg.loss_cls_type, "ce")):
+        if value != ported:
+            raise NotImplementedError(f"bbox head {what}={value!r} is not ported")
+
+
+def bbox_targets(cfg: BBoxHeadCfg, sampled_boxes: torch.Tensor, is_pos: torch.Tensor,
+                 valid: torch.Tensor, matched_gt_boxes: torch.Tensor,
+                 matched_gt_labels: torch.Tensor):
+    """Targets of ``(R,)`` sampled RoIs: labels (background =
+    ``num_classes``), unit label weights on valid slots, encoded box
+    targets and unit box weights on positives."""
+    _check_train_cfg(cfg)
+    labels = torch.where(is_pos, matched_gt_labels.long(),
+                         torch.full_like(matched_gt_labels.long(), cfg.num_classes))
+    label_weights = valid.float()
+    t = box_ops.bbox2delta(sampled_boxes, matched_gt_boxes, cfg.target_means,
+                           cfg.target_stds, eps=1e-6)
+    t = torch.where(is_pos[:, None], t, torch.zeros_like(t))
+    bbox_weights = is_pos[:, None].float().expand(-1, 4)
+    return labels, label_weights, t, bbox_weights
+
+
+def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.Tensor,
+                   rois: torch.Tensor, labels: torch.Tensor, label_weights: torch.Tensor,
+                   bbox_t: torch.Tensor, bbox_w: torch.Tensor,
+                   reduction_override: Optional[str] = None):
+    """The head loss on ``(R, K+1)`` logits and ``(R, 4K)`` deltas.  With
+    ``reduction_override='none'`` the elementwise losses come back, for the
+    boosting renormalisation; else cls is averaged over the weighted slots
+    and the box loss over all ``R``."""
+    _check_train_cfg(cfg)
+    r = cls_score.shape[0]
+    c = cfg.num_classes
+    pos = (labels >= 0) & (labels < c)
+    safe_lab = torch.clamp(labels, 0, c - 1)
+    pred4 = torch.gather(bbox_pred.reshape(r, c, 4), 1,
+                         safe_lab[:, None, None].expand(r, 1, 4))[:, 0]
+    elem = (pred4 - bbox_t).abs() * bbox_w * pos.float()[:, None] * cfg.loss_bbox_weight
+    ce = L.cross_entropy_loss(cls_score, labels, reduction="none")
+    ce = ce * label_weights * cfg.loss_cls_weight
+    if reduction_override == "none":
+        return {"loss_cls": ce, "loss_bbox": elem, "pos": pos}
+    avg_cls = torch.clamp((label_weights > 0).float().sum(), min=1.0)
+    return {"loss_cls": ce.sum() / avg_cls, "loss_bbox": elem.sum() / max(r, 1), "pos": pos}
 
 
 def bbox_head_decode(

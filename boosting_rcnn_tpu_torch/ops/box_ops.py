@@ -1,4 +1,4 @@
-"""Box primitives: IoU, delta decoding, clipping (PyTorch port).
+"""Box primitives: IoU, delta encoding and decoding, clipping (PyTorch port).
 
 Counterpart of ``boosting_rcnn_tpu/ops/box_ops.py``.  Functions work on
 tensors of any leading shape; where the JAX package adds a batch axis with
@@ -19,7 +19,9 @@ MAX_LOG_RATIO = abs(math.log(16.0 / 1000.0))
 __all__ = [
     "bbox_area",
     "bbox_overlaps",
+    "bbox_overlaps_aligned",
     "bbox_center_wh",
+    "bbox2delta",
     "delta2bbox",
     "clip_boxes",
     "take_small_table",
@@ -69,6 +71,18 @@ def bbox_overlaps(
     return ious - (enc_area - union) / enc_area
 
 
+def bbox_overlaps_aligned(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """Element-wise IoU of two equally shaped ``(..., 4)`` box tensors ->
+    ``(...)``, the union floored at ``eps``."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    overlap = wh[..., 0] * wh[..., 1]
+    union = bbox_area(boxes1) + bbox_area(boxes2) - overlap
+    return overlap / torch.clamp(union, min=eps)
+
+
 def bbox_center_wh(boxes: torch.Tensor):
     """(cx, cy, w, h) of ``(..., 4)`` xyxy boxes."""
     cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
@@ -76,6 +90,27 @@ def bbox_center_wh(boxes: torch.Tensor):
     w = boxes[..., 2] - boxes[..., 0]
     h = boxes[..., 3] - boxes[..., 1]
     return cx, cy, w, h
+
+
+def bbox2delta(
+    proposals: torch.Tensor,
+    gt: torch.Tensor,
+    means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
+    stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Encode ``gt`` relative to ``proposals``, both ``(..., 4)`` xyxy.
+    Widths and heights are floored at ``eps``, so that padded zero-size
+    rows give finite deltas (they are masked downstream)."""
+    px, py, pw, ph = bbox_center_wh(proposals)
+    gx, gy, gw, gh = bbox_center_wh(gt)
+    pw, ph = torch.clamp(pw, min=eps), torch.clamp(ph, min=eps)
+    gw, gh = torch.clamp(gw, min=eps), torch.clamp(gh, min=eps)
+    deltas = torch.stack(
+        [(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw), torch.log(gh / ph)], dim=-1)
+    means_t = torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds_t = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means_t) / stds_t
 
 
 def delta2bbox(

@@ -1,0 +1,93 @@
+"""The losses of the flagship, in the mmdet reduction protocol (PyTorch port).
+
+Counterpart of ``boosting_rcnn_tpu/ops/losses.py``, only what the flagship
+calls: sigmoid focal loss (RPN objectness), IoU loss and MSE (RPN boxes),
+binary cross entropy on logits (RPN IoU branch), softmax cross entropy and
+L1 (R-CNN head).  Every loss goes through ``weight_reduce_loss``:
+elementwise loss times an optional weight, then ``mean`` / ``sum`` /
+``none``, or the sum divided by an explicit ``avg_factor``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .box_ops import bbox_overlaps_aligned
+
+__all__ = [
+    "weight_reduce_loss",
+    "sigmoid_focal_loss",
+    "cross_entropy_loss",
+    "binary_cross_entropy_loss",
+    "l1_loss",
+    "mse_loss",
+    "iou_loss",
+]
+
+
+def weight_reduce_loss(loss, weight=None, reduction="mean", avg_factor=None):
+    """The mmdet reduction protocol (``losses/utils.py:29``)."""
+    if weight is not None:
+        loss = loss * weight
+    if avg_factor is None:
+        if reduction == "mean":
+            return loss.mean()
+        if reduction == "sum":
+            return loss.sum()
+        return loss
+    if reduction == "mean":
+        return loss.sum() / avg_factor
+    if reduction == "none":
+        return loss
+    raise ValueError('avg_factor can not be used with reduction="sum"')
+
+
+def _bce_with_logits(pred, target):
+    """Elementwise binary cross entropy on logits, in the stable form
+    ``max(x, 0) - x * t + log1p(exp(-|x|))``."""
+    return torch.clamp(pred, min=0) - pred * target + torch.log1p(torch.exp(-pred.abs()))
+
+
+def sigmoid_focal_loss(pred, target, weight=None, gamma: float = 2.0,
+                       alpha: float = 0.25, reduction: str = "mean", avg_factor=None):
+    """Focal loss on ``(N, C)`` logits against ``(N, C)`` 0/1 targets
+    (``py_sigmoid_focal_loss``); an ``(N,)`` weight broadcasts over C."""
+    p = torch.sigmoid(pred)
+    target = target.to(pred.dtype)
+    pt = (1 - p) * target + p * (1 - target)
+    focal_weight = (alpha * target + (1 - alpha) * (1 - target)) * pt ** gamma
+    loss = _bce_with_logits(pred, target) * focal_weight
+    if weight is not None and weight.ndim == 1 and loss.ndim == 2:
+        weight = weight[:, None]
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def cross_entropy_loss(pred, label, weight=None, reduction: str = "mean",
+                       avg_factor=None):
+    """Softmax cross entropy of ``(N, C)`` logits against int labels."""
+    loss = -torch.gather(F.log_softmax(pred, dim=-1), 1, label[:, None].long())[:, 0]
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def binary_cross_entropy_loss(pred, target, weight=None, reduction: str = "mean",
+                              avg_factor=None):
+    """BCE with logits (mmdet ``CrossEntropyLoss(use_sigmoid=True)``)."""
+    loss = _bce_with_logits(pred, target.to(pred.dtype))
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def l1_loss(pred, target, weight=None, reduction="mean", avg_factor=None):
+    return weight_reduce_loss((pred - target).abs(), weight, reduction, avg_factor)
+
+
+def mse_loss(pred, target, weight=None, reduction="mean", avg_factor=None):
+    return weight_reduce_loss((pred - target) ** 2, weight, reduction, avg_factor)
+
+
+def iou_loss(pred, target, weight=None, eps=1e-6, reduction="mean", avg_factor=None):
+    """``-log(max(iou, eps))`` of aligned ``(N, 4)`` boxes; ``(N, 4)``
+    weights are averaged over the last axis, as mmdet does."""
+    loss = -torch.log(torch.clamp(bbox_overlaps_aligned(pred, target, eps=eps), min=eps))
+    if weight is not None and weight.ndim == loss.ndim + 1:
+        weight = weight.mean(dim=-1)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)

@@ -14,6 +14,11 @@ module names, so the mapping is by rule:
     ``Scale``) stays ``scale``; ``mean`` / ``var`` -> ``running_mean`` /
     ``running_var``.
 
+Every rule is linear (a transpose or a rename), so the same mapping
+carries a flax *gradient* tree (the ``params`` tree of ``jax.grad``) onto
+the ``state_dict`` names of the port's parameters, where their ``.grad``
+can be held against it.
+
 Nothing here imports JAX: callers turn the flax tree into numpy first.
 """
 from __future__ import annotations
@@ -56,7 +61,9 @@ def _convert(path: Tuple[str, ...], value: np.ndarray):
 
 
 def from_jax_params(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``state_dict`` of ``TwoStageNet`` from JAX flax variables as numpy."""
+    """``state_dict`` of ``TwoStageNet`` from JAX flax variables as numpy
+    (or, by the same rules, the port's gradients from a flax gradient
+    tree)."""
     collections = (variables if "params" in variables else {"params": variables})
     state = {}
     for coll in ("params", "batch_stats"):
