@@ -2,138 +2,124 @@
 //
 // Replaces the TPU kernel `_kernel_flat` (boosting_rcnn_tpu/ops/
 // pallas_roi_align.py:586), launched by `batched_multilevel_roi_align_pallas`
-// (pallas_roi_align.py:766).  For every RoI n and channel c it computes
+// (pallas_roi_align.py:766).  For every RoI n of image b and channel c it
+// computes the 7 x 7 pooled output
 //
-//     out[n, py, px, c] = sum_i sum_j wy[n, py, i] * wx[n, px, j]
-//                                     * stacked[row0[n] + i, x0[n] + j, c]
+//     out[n, py, px, c] = sum_k sum_m wy[py, k] * wx[px, m]
+//                                     * level[b, wy0 + k, wx0 + m, c]
 //
-// over the 24 x win_w window of the stacked pyramid at (row0, x0), with the
-// 2x2 bin mean already folded into wy (7 x 24) and wx (7 x win_w).  RoIs with
-// valid[n] == 0 are written as zeros and read nothing.  The window geometry
-// and the interpolation matrices are computed by the caller
-// (boosting_rcnn_tpu_torch/ops/roi_align.py).
+// over the RoI's 24 x win_w window of its pyramid level, with wy and wx the
+// bilinear weights of the bin's two samples per axis averaged (the 2 x 2 bin
+// mean folded in).  The level, the window and the weights come from the RoI
+// in the kernel itself (roi_geometry.cuh).  RoIs with valid[n] == 0 are
+// written as zeros and read nothing.
 //
-// What bounds it on an H100: at the flagship's shapes (B*R = 512 RoIs,
-// C = 256) the function reads ~16 MB of pyramid cells (each cell that some
-// RoI weights, once) and writes 25.7 MB, ~0.012 ms at 3.35 TB/s.  Its
-// operations are few: after the pool fold each row of wy and wx has at most
-// 4 nonzero taps, so it needs at most ~0.23 GFLOP (~0.003 ms at the float32
-// peak), and bytes bind.  This kernel does more than that: it contracts the
-// whole 7 x 24 x win_w window, zero taps included (~1.4 GFLOP, ~0.02 ms at
-// the float32 peak), and reads each 0.59 MB window once per RoI (~0.3 GB in
-// all, ~0.1 ms if every window came from HBM), leaving the overlap of
-// neighbouring windows to the 50 MB L2.
+// What bounds it on an H100: bytes.  At the flagship's predict shapes (B*R =
+// 512 RoIs, C = 256) the function reads ~16 MB of level cells (each cell
+// that some RoI weights, once) and writes 25.7 MB, ~0.012 ms at 3.35 TB/s;
+// its operations, on the nonzero taps only, take a few microseconds at the
+// float32 peak.
 //
-// Design: one block per (RoI, 64-channel tile), one thread per channel, so
-// that each window cell load is 64 consecutive floats of the NHWC layout
-// (coalesced: 128 contiguous bytes per warp).  wy and wx go to shared
-// memory once per block.  Each thread walks the 24 window rows: it loads
-// the row's win_w values into registers, contracts them with the 7 rows of
-// wx, and accumulates the 7 results into its 7 x 7 output tile with the
-// row's wy column; all accumulation is in float32 registers.  No tensor
-// cores: their float32 path is TF32, which would change the numbers, and
-// the per-RoI products (7 x 24 x 24) are small.  Making it fast (one
-// staged copy of each window shared by the channel tiles of a RoI,
-// cp.async/TMA, bf16 windows) is later work.
+// Design: one block per RoI, 256 threads: 64 threads along the channels,
+// each loading float4 (one 1 KB coalesced row of 256 channels per cell
+// across the 64 threads), times 4 groups that share the 49 bins.  Warp 0
+// computes the RoI's geometry into shared memory first.  Each bin then reads
+// only the cells of its nonzero taps (2 x 2 samples, 2 x 2 taps each, on
+// 2-4 distinct rows and columns) and accumulates in float32 registers; the
+// bins of one RoI share cells, which L1 serves.  The levels are read in
+// place (NHWC, unit channel stride; the wrapper passes their strides), so
+// there is no stacked copy of the pyramid and no geometry pass before the
+// kernel.  No tensor cores: their float32 path is TF32, which would change
+// the numbers, and each bin is a handful of products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roi_geometry.cuh"
+
 namespace {
 
-constexpr int kOut = 7;       // pooled output size
-constexpr int kWin = 24;      // window rows (and the widest window)
-constexpr int kThreads = 64;  // channels per block
+using namespace roi;
+
+constexpr int kQuads = 64;   // threads along the channels, 4 channels each
+constexpr int kGroups = 4;   // thread groups that share the bins
+constexpr int kThreads = kQuads * kGroups;
 
 __global__ void __launch_bounds__(kThreads)
-roi_align_fwd_kernel(const float* __restrict__ stacked,
-                     const int32_t* __restrict__ row0,
-                     const int32_t* __restrict__ x0,
-                     const float* __restrict__ wy,
-                     const float* __restrict__ wx,
-                     const uint8_t* __restrict__ valid,
-                     float* __restrict__ out,
-                     int width, int channels, int win_w) {
+roi_align_fwd_kernel(const float* __restrict__ rois, const uint8_t* __restrict__ valid,
+                     const Levels L, int rois_per_img, int quads,
+                     float4* __restrict__ out) {
   const int n = blockIdx.x;
-  const int c = blockIdx.y * kThreads + threadIdx.x;
-
-  __shared__ float s_wy[kOut][kWin];
-  __shared__ float s_wx[kOut][kWin];
-  for (int t = threadIdx.x; t < kOut * kWin; t += kThreads) {
-    const int o = t / kWin;
-    const int k = t % kWin;
-    s_wy[o][k] = wy[static_cast<size_t>(n) * kOut * kWin + t];
-    s_wx[o][k] = k < win_w
-        ? wx[(static_cast<size_t>(n) * kOut + o) * win_w + k] : 0.0f;
-  }
-  __syncthreads();
-  if (c >= channels) return;
-
-  float* dst = out + static_cast<size_t>(n) * kOut * kOut * channels + c;
-  if (!valid[n]) {
-#pragma unroll
-    for (int p = 0; p < kOut * kOut; ++p) dst[static_cast<size_t>(p) * channels] = 0.0f;
+  const int q0 = threadIdx.x % kQuads;
+  const int group = threadIdx.x / kQuads;
+  float4* dst = out + static_cast<size_t>(n) * kOut * kOut * quads;
+  if (!valid[n]) {  // the same branch for the whole block, before any barrier
+    for (int b = group; b < kOut * kOut; b += kGroups) {
+      for (int q = q0; q < quads; q += kQuads) {
+        dst[static_cast<size_t>(b) * quads + q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
     return;
   }
 
-  float acc[kOut][kOut];
-#pragma unroll
-  for (int py = 0; py < kOut; ++py) {
-#pragma unroll
-    for (int px = 0; px < kOut; ++px) acc[py][px] = 0.0f;
-  }
+  __shared__ Geom g;
+  if (threadIdx.x < 32) roi_geometry(rois, n, rois_per_img, L, &g);
+  __syncthreads();
 
-  const size_t row_stride = static_cast<size_t>(width) * channels;
-  const float* src = stacked + static_cast<size_t>(row0[n]) * row_stride
-                     + static_cast<size_t>(x0[n]) * channels + c;
-  for (int i = 0; i < kWin; ++i) {
-    const float* row = src + i * row_stride;
-    float v[kWin];
-#pragma unroll
-    for (int j = 0; j < kWin; ++j) {
-      v[j] = j < win_w ? __ldg(row + static_cast<size_t>(j) * channels) : 0.0f;
-    }
-#pragma unroll
-    for (int px = 0; px < kOut; ++px) {
-      float t = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kWin; ++j) t = fmaf(s_wx[px][j], v[j], t);
-#pragma unroll
-      for (int py = 0; py < kOut; ++py) acc[py][px] = fmaf(s_wy[py][i], t, acc[py][px]);
-    }
-  }
-
-#pragma unroll
-  for (int py = 0; py < kOut; ++py) {
-#pragma unroll
-    for (int px = 0; px < kOut; ++px) {
-      dst[static_cast<size_t>(py * kOut + px) * channels] = acc[py][px];
+  const Level lv = L.lv[g.level];
+  const float* win = lv.base + g.img * lv.s_img + g.wy0 * lv.s_row + g.wx0 * lv.s_col;
+  for (int b = group; b < kOut * kOut; b += kGroups) {
+    const int py = b / kOut;
+    const int px = b % kOut;
+    const int ylo = g.ylo[py], yhi = g.yhi[py];
+    const int xlo = g.xlo[px], xhi = g.xhi[px];
+    for (int q = q0; q < quads; q += kQuads) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int k = ylo; k <= yhi; ++k) {
+        const float a = g.wy[py][k];
+        if (a == 0.0f) continue;
+        const float* row = win + k * lv.s_row + 4 * q;
+        float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int m = xlo; m <= xhi; ++m) {
+          const float c = g.wx[px][m];
+          if (c == 0.0f) continue;
+          const float4 v = __ldg(reinterpret_cast<const float4*>(row + m * lv.s_col));
+          t.x = fmaf(c, v.x, t.x);
+          t.y = fmaf(c, v.y, t.y);
+          t.z = fmaf(c, v.z, t.z);
+          t.w = fmaf(c, v.w, t.w);
+        }
+        acc.x = fmaf(a, t.x, acc.x);
+        acc.y = fmaf(a, t.y, acc.y);
+        acc.z = fmaf(a, t.z, acc.z);
+        acc.w = fmaf(a, t.w, acc.w);
+      }
+      dst[static_cast<size_t>(b) * quads + q] = acc;
     }
   }
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Pointers are device pointers of
-// contiguous tensors: stacked (rows, width, channels) f32, row0 and x0 (n,)
-// int32, wy (n, 7, 24) f32, wx (n, 7, win_w) f32, valid (n,) uint8, out
-// (n, 7, 7, channels) f32.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); shapes it does not take give
-// cudaErrorInvalidValue without a launch.
-extern "C" int roi_align_fwd_f32(const void* stacked, const void* row0,
-                                 const void* x0, const void* wy,
-                                 const void* wx, const void* valid, void* out,
-                                 int n, int width, int channels, int win_w,
-                                 int out_size, int win, void* stream) {
-  if (out_size != kOut || win != kWin || win_w < 1 || win_w > kWin ||
-      win_w > width || channels < 1 || n < 1) {
+// Plain C entry point, loaded with ctypes.  Device pointers of contiguous
+// tensors: rois (batch * rois_per_img, 4) f32, valid (batch * rois_per_img,)
+// uint8, out (batch * rois_per_img, 7, 7, channels) f32.  levels: a host
+// array of 7 int64 per route level (roi_geometry.cuh, fill_levels), the
+// level (batch, h, w, channels) f32 with unit channel stride.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); shapes it does not
+// take give cudaErrorInvalidValue without a launch.
+extern "C" int roi_align_fwd_f32(const void* rois, const void* valid, void* out, int batch,
+                                 int rois_per_img, int channels, float finest_scale,
+                                 int num_levels, const long long* levels, void* stream) {
+  Levels L;
+  if (batch < 1 || rois_per_img < 1 || channels < 4 || channels % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      !fill_levels(&L, num_levels, levels, finest_scale)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(n, (channels + kThreads - 1) / kThreads);
-  roi_align_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(stacked), static_cast<const int32_t*>(row0),
-      static_cast<const int32_t*>(x0), static_cast<const float*>(wy),
-      static_cast<const float*>(wx), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(out), width, channels, win_w);
+  roi_align_fwd_kernel<<<batch * rois_per_img, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rois), static_cast<const uint8_t*>(valid), L, rois_per_img,
+      channels / 4, static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

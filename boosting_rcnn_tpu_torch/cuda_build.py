@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``_build/lib<name>-<hash>.so`` inside the package (a directory that
 ``.gitignore`` lists), at first use, for ``sm_90a``; ``build_all`` starts
-one ``nvcc`` per source, all together.  The file name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  PyTorch's extension builder is not used: a
+one ``nvcc`` per source, all together.  The file name carries a hash of
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  PyTorch's extension builder is not used: a
 source that includes PyTorch's headers takes minutes to compile, a plain
 C one seconds.
 """
@@ -57,9 +57,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, the
+    headers of ``csrc/`` and the flags."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

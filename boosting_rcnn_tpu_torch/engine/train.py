@@ -4,15 +4,15 @@ of ``boosting_rcnn_tpu/engine/train.py``).
 The optimizer is the JAX package's optax chain in the same order: clip the
 gradients to a global norm of 35, add the weight decay ``1e-4 * p``, then
 SGD with momentum 0.9; the learning rate comes from the schedule at the
-step count of the updates done so far.  Here that is ``clip_grad_norm_``
-over the trainable parameters, then ``torch.optim.SGD(weight_decay,
-momentum)`` with the group's learning rate set before each step: the same
-arithmetic, except that ``clip_grad_norm_`` scales by ``35 / (norm +
-1e-6)`` where optax divides by the norm alone, a relative difference of
-``1e-6 / norm`` in the clipped gradients (below 3e-8 whenever the clip
-acts).  Frozen parameters (``requires_grad=False``: the frozen backbone
-stages) get no gradient and are not in the optimizer, so they never move,
-as the JAX package's zeroed updates leave them.
+step count of the updates done so far.  Here that is optax's
+``clip_by_global_norm`` arithmetic over the trainable parameters (the
+global norm ``sqrt(sum of squares)``; where it is at least 35 each
+gradient becomes ``(g / norm) * 35``, else it is left as it is), then
+``torch.optim.SGD(weight_decay, momentum)`` with the group's learning rate
+set before each step.  The clip is a device-side select: no host sync.
+Frozen parameters (``requires_grad=False``: the frozen backbone stages)
+get no gradient and are not in the optimizer, so they never move, as the
+JAX package's zeroed updates leave them.
 
 ``make_train_step`` returns ``train_step(batch, sample=None, generator=None)
 -> metrics``.  Without a ``sample`` it computes the proposals and samples
@@ -80,7 +80,12 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = torch.nn.utils.clip_grad_norm_(self.params, self.grad_clip_norm)
+        grads = [p.grad for p in self.params]
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))  # leaf by leaf, as optax
+        clip = norm >= self.grad_clip_norm
+        # (g / norm) * max_norm where the clip acts, (g / 1) * 1 == g elsewhere
+        torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(clip, self.grad_clip_norm, 1.0))
         lr = self.lr_schedule(self.step_count)
         for group in self.sgd.param_groups:
             group["lr"] = lr

@@ -13,18 +13,22 @@ launch counts set to 0 just before it and read just after:
     ``TwoStageDetector.predict`` (RoIAlign forward kernel);
   * train: four SGD steps of ``engine.train.make_train_step`` at the
     config's batch of 4 and its learning-rate schedule, on synthetic
-    images with seeded ground-truth boxes (RoIAlign forward and gradient
-    kernels, once per step each);
+    images with seeded ground-truth boxes (RoIAlign forward kernel, tile-key
+    kernel and gradient kernel, once per step each);
   * per image: the batch-of-one RoIAlign entry forward and backward on
     each image of the train batch.
 
 It checks the outputs (detections finite and inside the image, repeatable;
 losses finite and positive, the frozen stages bit-identical and every
 other part moved), that each kernel ran on its path, that each kernel
-agrees with its plain PyTorch version at the path's shapes and at an odd
-shape (invalid RoIs add nothing to the gradient), and that the tiny
+agrees with its plain PyTorch version at the predict and train shapes and
+at an odd shape with level-boundary, clamped, degenerate and invalid RoIs
+(the tile lists equal to the plain mirror's; invalid RoIs add nothing to
+the gradient), that the gradient is bitwise repeatable (two launches, and
+two backward passes of the train path's RoIAlign), and that the tiny
 flagship predicts and takes a train step on the GPU as on the CPU.  Then
-it times each kernel, its plain version, ``predict`` and the train step.
+it times each kernel alone and its whole call (NHWC copies, tile lists) at
+both shapes, its plain version, ``predict`` and the train step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -55,7 +59,6 @@ from boosting_rcnn_tpu_torch.ops import roi_align
 from boosting_rcnn_tpu_torch.ops.roi_align_kernel import (
     batched_multilevel_roi_align,
     multilevel_roi_align,
-    prepare,
     roi_align_bwd_plain,
 )
 
@@ -70,7 +73,7 @@ TRAIN_STEPS = 4  # step 0 warms up, steps 1-3 are timed
 GT_PER_IMAGE = 8
 STEPS_PER_EPOCH = 1000  # only places the decay epochs (8, 11), far beyond these steps
 ATOL = 1e-5  # forward: float32, kernel and plain version sum in different orders
-BWD_RTOL = 1e-5  # gradient: atol = BWD_RTOL * max|plain|; float32 atomics add in run-dependent order
+BWD_RTOL = 1e-5  # gradient: atol = BWD_RTOL * max|plain|; kernel and plain version sum in other orders
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, float32 outside tensor cores
 KERNELS = ("roi_align_fwd", "roi_align_bwd")
@@ -103,24 +106,42 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean milliseconds of the device work of ``fn``: captured once in a
+    CUDA graph and replayed ``iters`` times, so that no Python runs between
+    the launches (the wrappers' host work, checks and allocations, is not
+    in the figure; ``cuda_ms`` of the call has it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
 def counters():
-    """Every kernel wrapper's launch count, by kernel record name."""
+    """Every kernel's launch count, by name: (wrapper, attribute)."""
     per_image = multilevel_roi_align.batched
     return {
-        "roi_align_fwd": batched_multilevel_roi_align,
-        "roi_align_bwd": batched_multilevel_roi_align.backward,
-        "roi_align_fwd_per_image": per_image,
-        "roi_align_bwd_per_image": per_image.backward,
+        "roi_align_fwd": (batched_multilevel_roi_align, "launches"),
+        "roi_align_bwd": (batched_multilevel_roi_align.backward, "launches"),
+        "roi_tile_keys": (batched_multilevel_roi_align.backward, "tile_launches"),
+        "roi_align_fwd_per_image": (per_image, "launches"),
+        "roi_align_bwd_per_image": (per_image.backward, "launches"),
+        "roi_tile_keys_per_image": (per_image.backward, "tile_launches"),
     }
 
 
 def reset_counts() -> None:
-    for wrapper in counters().values():
-        wrapper.launches = 0
+    for wrapper, attr in counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_counts():
-    return {name: wrapper.launches for name, wrapper in counters().items()}
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in counters().items()}
 
 
 def requests(seed: int):
@@ -230,9 +251,19 @@ def roi_bwd_bound(feats, rois, valid, strides, out_size=7):
     return (*_bound(nbytes, flops), nbytes, flops)
 
 
+def flat(rois, valid):
+    """The kernels' flat RoIs ``(B*R, 4)`` float32 and valid mask ``(B*R,)``
+    uint8."""
+    return (rois.reshape(-1, 4).float().contiguous(),
+            valid.reshape(-1).to(torch.uint8).contiguous())
+
+
 def kernel_vs_plain(feats, rois, valid, strides) -> float:
-    got = batched_multilevel_roi_align(feats, rois, valid, strides)
-    ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, strides)
+    """The forward kernel, through the entry point, against the plain
+    forward; returns the max abs error."""
+    with torch.no_grad():
+        got = batched_multilevel_roi_align(feats, rois, valid, strides)
+        ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, strides)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     if not err <= ATOL or got.shape != ref.shape:
@@ -240,14 +271,40 @@ def kernel_vs_plain(feats, rois, valid, strides) -> float:
     return err
 
 
-def bwd_vs_plain(g, inputs, shape, what: str):
-    """The gradient kernel against ``roi_align_bwd_plain``; returns the max
-    abs error and the largest plain value."""
-    got = batched_multilevel_roi_align.backward.launch(g, inputs, shape)
-    ref = roi_align_bwd_plain(g, inputs, shape)
+def tiles_vs_plain(feats, rois, valid, strides) -> str:
+    """The tile-key kernel's bitmap against the plain mirror's, equal;
+    returns how many (tile, RoI) pairs it marks, and the most on one tile."""
+    shapes = [tuple(f.shape) for f in feats]
+    level_hw = [s[1:3] for s in shapes]
+    rf, vf = flat(rois, valid)
+    got = batched_multilevel_roi_align.backward.tile_lists(shapes, rf, vf, strides)
+    keys = roi_align.tile_keys(rf, vf, level_hw, rois.shape[1], strides)
+    ref = roi_align.tile_bitmap(keys, shapes[0][0] * roi_align.tile_grid(level_hw)[2])
+    if not torch.equal(got.bitmap.long() & 0xFFFFFFFF, ref):
+        raise AssertionError("the tile-key kernel's bitmap differs from the plain mirror's")
+    per_tile = torch.bincount(keys[keys != roi_align.NO_TILE].long())
+    return f"{int(per_tile.sum())} (tile, RoI) pairs, at most {int(per_tile.max())} on one tile"
+
+
+def bwd_vs_plain(g, feats, rois, valid, strides, what: str):
+    """The gradient kernels against ``roi_align_bwd_plain``, every level
+    within ``BWD_RTOL`` of the largest plain value; a second launch gives
+    the same bits, and a cotangent on the invalid RoIs only adds nothing.
+    Returns the max abs error and the largest plain value."""
+    shapes = [tuple(f.shape) for f in feats]
+    rf, vf = flat(rois, valid)
+    bwd = batched_multilevel_roi_align.backward
+    got = bwd.launch(g, shapes, rf, vf, strides)
+    again = bwd.launch(g, shapes, rf, vf, strides)
+    leaked = bwd.launch(g * (vf == 0)[:, None, None, None], shapes, rf, vf, strides)
+    ref = roi_align_bwd_plain(g, feats, rois, valid, strides)
     torch.cuda.synchronize()
-    scale = ref.abs().max().item()
-    err = (got - ref).abs().max().item()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"RoIAlign gradient kernel is not bitwise repeatable ({what})")
+    if any(torch.count_nonzero(d).item() for d in leaked):
+        raise AssertionError(f"invalid RoIs added to the level gradients ({what})")
+    scale = max(r.abs().max().item() for r in ref)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
     if not (scale > 0 and err <= BWD_RTOL * scale):
         raise AssertionError(f"RoIAlign gradient kernel disagrees with its plain version "
                              f"({what}): max abs err {err}, largest value {scale}")
@@ -255,20 +312,30 @@ def bwd_vs_plain(g, inputs, shape, what: str):
 
 
 def odd_case(seed: int):
-    """C=200 (no multiple of 32), a 600 x 1000 canvas, RoIs on every level,
-    wider than the window, at the right and bottom edges, invalid ones."""
+    """C=200 (no multiple of 32), a 600 x 1000 canvas, three images (the
+    last with no valid RoI): random RoIs on every level, RoIs wider than
+    the window (clamped), at the right and bottom edges, empty, reversed
+    (x2 < x1), outside the image, and RoIs whose sqrt(w*h) is 112, 224 or
+    448 px (the level boundaries), exactly and one float32 ulp either side."""
     rs = np.random.RandomState(seed)
     H, W = 600, 1000
-    feats = [torch.from_numpy((rs.randn(2, -(-H // s), -(-W // s), 200) * 4).astype(np.float32)).cuda()
+    feats = [torch.from_numpy((rs.randn(3, -(-H // s), -(-W // s), 200) * 4).astype(np.float32)).cuda()
              for s in STRIDES]
-    xy = rs.uniform(0, [W - 10, H - 10], (2, 31, 2))
-    wh = rs.uniform(4, [W, H], (2, 31, 2))
+    xy = rs.uniform(0, [W - 10, H - 10], (3, 31, 2))
+    wh = rs.uniform(4, [W, H], (3, 31, 2))
     rand = np.concatenate([xy, np.minimum(xy + wh, [W, H])], -1)
-    edge = np.array([[W - 300, H - 200, W, H], [0, 0, W, H], [2, 10, 400, 25],
-                     [W - 40, 0, W, H], [0, H - 30, W, H], [5, 5, 5, 5]], np.float32)
-    rois = np.concatenate([rand, np.broadcast_to(edge, (2, 6, 4))], 1).astype(np.float32)
-    valid = np.ones((2, 37), bool)
+    edge = [[W - 300, H - 200, W, H], [0, 0, W, H], [2, 10, 400, 25], [W - 40, 0, W, H],
+            [0, H - 30, W, H], [5, 5, 5, 5], [50, 60, 40, 70], [W + 200, 10, W + 300, 90],
+            [-100, -50, -10, -5]]
+    for side in (112, 224, 448):
+        for v in (np.nextafter(np.float32(side), np.float32(0)), np.float32(side),
+                  np.nextafter(np.float32(side), np.float32(1e9))):
+            edge += [[0, 0, v, v], [64, 32, np.float32(64) + v, np.float32(32) + v]]
+    edge = np.array(edge, np.float32)
+    rois = np.concatenate([rand, np.broadcast_to(edge, (3,) + edge.shape)], 1).astype(np.float32)
+    valid = np.ones(rois.shape[:2], bool)
     valid[:, [3, 20, 36]] = False
+    valid[2] = False
     return feats, torch.from_numpy(rois).cuda(), torch.from_numpy(valid).cuda(), STRIDES
 
 
@@ -324,6 +391,7 @@ def tiny_train_gpu_matches_cpu(seed: int):
     anchors, nla = dets["cpu"].anchors_for((128, 160))
     sample = dets["cpu"].train_sample(batch, anchors, nla,
                                       generator=torch.Generator().manual_seed(seed))
+    dets["cuda again"] = build_detector(mc, device="cuda", seed=seed)
     p0 = {k: v.detach().clone() for k, v in dets["cpu"].net.named_parameters()}
     metrics, params = {}, {}
     threads = torch.get_num_threads()
@@ -349,7 +417,8 @@ def tiny_train_gpu_matches_cpu(seed: int):
         worst = max(worst, err / max(tol, 1e-30))
     if moved < 50:
         raise AssertionError(f"tiny train step moved only {moved} tensors")
-    return metrics["cuda"], worst
+    repeat = all(torch.equal(params["cuda"][k], params["cuda again"][k]) for k in params["cuda"])
+    return metrics["cuda"], worst, repeat
 
 
 def main() -> int:
@@ -367,9 +436,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(KERNELS)
     for name in KERNELS:
-        ptxas = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        say(f"built {name} in {build_s[name]:.1f} s: {' | '.join(ptxas[-2:])}")
+        log = cuda_build.build_log(name).splitlines()
+        ptxas = [f"{ln.split('_kernel')[0].split('_')[-1]}: " + nxt.split('info    : ')[-1]
+                 for ln, nxt in zip(log, log[3:]) if "Compiling entry function" in ln]
+        spills = sorted({ln.strip().split(", ", 1)[-1] for ln in log if "spill" in ln})
+        say(f"built {name} in {build_s[name]:.1f} s: {' | '.join(ptxas)}; {' | '.join(spills)}")
     say(f"nvcc builds, in parallel: {time.perf_counter() - t0:.1f} s wall")
 
     mc = load_config(CONFIG).model.to_dict()
@@ -404,19 +475,40 @@ def main() -> int:
     err_main = kernel_vs_plain(feats, boxes, valid, strides)
     odd = odd_case(seed=2)
     err_odd = kernel_vs_plain(*odd)
+    pairs = (tiles_vs_plain(feats, boxes, valid, strides), tiles_vs_plain(*odd))
     say(f"roi_align_fwd vs plain: max abs err {err_main:.3g} at B*R={boxes.shape[0] * boxes.shape[1]} "
-        f"C={feats[0].shape[-1]}, {err_odd:.3g} at C=200 odd shape (atol {ATOL})")
+        f"C={feats[0].shape[-1]}, {err_odd:.3g} at C=200 odd shape with level-boundary, clamped, "
+        f"degenerate and invalid RoIs (atol {ATOL}); tile bitmaps equal the plain mirror's "
+        f"({pairs[0]}; {pairs[1]})")
     n_tiny = tiny_gpu_matches_cpu(seed=3)
     say(f"tiny flagship: GPU predict matches CPU predict ({n_tiny} detections)")
 
-    stacked, inputs = prepare(feats, boxes, valid, strides)
+    fwd, bwd = batched_multilevel_roi_align, batched_multilevel_roi_align.backward
+    levels = [f.contiguous() for f in feats]
+    shapes = [tuple(f.shape) for f in levels]
+    rf, vf = flat(boxes, valid)
     with torch.inference_mode():
-        kernel_ms = cuda_ms(lambda: batched_multilevel_roi_align.launch(stacked, inputs), 50)
-        fn_ms = cuda_ms(lambda: batched_multilevel_roi_align(feats, boxes, valid, strides), 20)
+        kernel_ms = graph_ms(lambda: fwd.launch(levels, rf, vf, strides), 50)
+        fn_ms = cuda_ms(lambda: fwd(feats, boxes, valid, strides), 20)
         plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align_fast(feats, boxes, valid, strides), 5)
     bound_ms, bound_by, nbytes, flops = roi_bound(feats, boxes, valid, strides)
-    say(f"roi_align_fwd: kernel {kernel_ms:.4f} ms, with geometry {fn_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} FLOP)")
+    say(f"roi_align_fwd at the predict shapes ({gpu}): kernel {kernel_ms:.4f} ms, call with the "
+        f"NHWC copies {fn_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes} B, {flops} FLOP)")
+    # the gradient kernels at the predict shapes, on a seeded cotangent
+    gp = torch.from_numpy(np.random.RandomState(8).randn(
+        rf.shape[0], 7, 7, feats[0].shape[-1]).astype(np.float32)).cuda()
+    tiles = bwd.tile_lists(shapes, rf, vf, strides)
+    bwd_p = {
+        "kernel": graph_ms(lambda: bwd.launch(gp, shapes, rf, vf, strides, tiles=tiles), 50),
+        "call": cuda_ms(lambda: bwd.launch(gp, shapes, rf, vf, strides), 20),
+        "plain": cuda_ms(lambda: roi_align_bwd_plain(gp, feats, boxes, valid, strides), 5),
+        "bound": roi_bwd_bound(feats, boxes, valid, strides)[0],
+    }
+    say(f"roi_align_bwd at the predict shapes ({gpu}): kernel {bwd_p['kernel']:.4f} ms, call with "
+        f"the tile lists {bwd_p['call']:.4f} ms, plain {bwd_p['plain']:.4f} ms, bound "
+        f"{bwd_p['bound']:.4f} ms")
+    del levels, gp, tiles
 
     pred_ms = cuda_ms(lambda: det.predict(batches[1], anchors, nla), 5, warmup=1)
     stage = {}
@@ -435,7 +527,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2f}" for k, v in stage.items()))
     say(f"predict peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"wall {time.perf_counter() - t_start:.1f} s")
-    del feats, boxes, scores, valid, stacked, inputs, fts, pb, ps, pv, results, again
+    del feats, boxes, scores, valid, fts, pb, ps, pv, results, again
 
     # -------------------------------------------------------------- train path
     cfg = load_config(CONFIG)
@@ -474,7 +566,7 @@ def main() -> int:
             raise AssertionError(f"train step {i}: non-finite metrics {m}")
     if not all(metrics[0][k] > 0 for k in metrics[0] if k.startswith("loss")):
         raise AssertionError(f"train step 0: a loss is not positive: {metrics[0]}")
-    for name in ("roi_align_fwd", "roi_align_bwd"):
+    for name in ("roi_align_fwd", "roi_align_bwd", "roi_tile_keys"):
         if train_counts[name] != TRAIN_STEPS:
             raise AssertionError(f"kernel {name} launched {train_counts[name]} times in "
                                  f"{TRAIN_STEPS} train steps, not once per step")
@@ -523,49 +615,69 @@ def main() -> int:
     del rpn_outs
     say("train step parts (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in parts_ms.items()))
 
-    # the gradient kernel against its plain version at the train path's shapes
+    # both kernels against their plain versions at the train path's shapes
     with torch.no_grad():
         feats = det.net.features(tb["images"])
     rois, rvalid = sample0.boxes, sample0.valid
-    stacked, inputs = prepare(feats, rois, rvalid, strides)
-    shape = stacked.shape
+    c = feats[0].shape[-1]
     rs = np.random.RandomState(6)
     n = rois.shape[0] * rois.shape[1]
-    g = torch.from_numpy(rs.randn(n, 7, 7, feats[0].shape[-1]).astype(np.float32)).cuda()
-    err_bwd_main = bwd_vs_plain(g, inputs, shape, "train path")
+    g = torch.from_numpy(rs.randn(n, 7, 7, c).astype(np.float32)).cuda()
+    err_fwd_train = kernel_vs_plain(feats, rois, rvalid, strides)
+    pairs_train = tiles_vs_plain(feats, rois, rvalid, strides)
+    err_bwd_main = bwd_vs_plain(g, feats, rois, rvalid, strides, "train path")
     ofeats, orois, ovalid, _ = odd
-    ostacked, oinputs = prepare(ofeats, orois, ovalid, STRIDES)
     og = torch.from_numpy(rs.randn(orois.shape[0] * orois.shape[1], 7, 7, ofeats[0].shape[-1])
                           .astype(np.float32)).cuda()
-    err_bwd_odd = bwd_vs_plain(og, oinputs, ostacked.shape, "odd shape")
-    invalid_only = og * (~ovalid.reshape(-1))[:, None, None, None]
-    leaked = batched_multilevel_roi_align.backward.launch(invalid_only, oinputs, ostacked.shape)
-    if torch.count_nonzero(leaked).item() != 0:
-        raise AssertionError("invalid RoIs added to the pyramid gradient")
-    say(f"roi_align_bwd vs plain: max abs err {err_bwd_main[0]:.3g} (max|plain| "
-        f"{err_bwd_main[1]:.3g}) at B*R={n} C={feats[0].shape[-1]} ({int(rvalid.sum())} valid), "
-        f"{err_bwd_odd[0]:.3g} (max|plain| {err_bwd_odd[1]:.3g}) at C={ofeats[0].shape[-1]} odd shape "
-        f"(atol {BWD_RTOL} x max|plain|); invalid RoIs add nothing")
+    err_bwd_odd = bwd_vs_plain(og, ofeats, orois, ovalid, STRIDES, "odd shape")
+    # the train path's RoIAlign, forward and backward through autograd, twice
+    repeat = []
+    for _ in range(2):
+        lv = [f.detach().requires_grad_() for f in feats]
+        batched_multilevel_roi_align(lv, rois, rvalid, strides).backward(g.reshape(*rois.shape[:2], 7, 7, c))
+        repeat.append([f.grad for f in lv])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*repeat)):
+        raise AssertionError("two backward passes of the train path's RoIAlign differ")
+    del repeat, lv
+    say(f"roi_align_fwd vs plain at B*R={n} C={c}: max abs err {err_fwd_train:.3g}; tile lists "
+        f"equal the plain mirror's ({pairs_train}); roi_align_bwd vs plain: max abs err "
+        f"{err_bwd_main[0]:.3g} (max|plain| {err_bwd_main[1]:.3g}, {int(rvalid.sum())} valid), "
+        f"{err_bwd_odd[0]:.3g} (max|plain| {err_bwd_odd[1]:.3g}) at C={ofeats[0].shape[-1]} odd "
+        f"shape (atol {BWD_RTOL} x max|plain|); invalid RoIs add nothing; two launches, and two "
+        "backward passes of the train path's RoIAlign, bitwise equal")
 
-    bwd = batched_multilevel_roi_align.backward
-    acc = torch.zeros(shape, dtype=torch.float32, device=g.device)
-    bwd_kernel_ms = cuda_ms(lambda: bwd.launch(g, inputs, shape, out=acc), 50)
-    bwd_ms = cuda_ms(lambda: bwd.launch(g, inputs, shape), 20)
-    bwd_plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g, inputs, shape), 5)
+    levels = [f.contiguous() for f in feats]
+    shapes = [tuple(f.shape) for f in levels]
+    rf, vf = flat(rois, rvalid)
+    tiles = bwd.tile_lists(shapes, rf, vf, strides)
+    bwd_kernel_ms = graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=tiles), 50)
+    no_rois = tiles._replace(bitmap=torch.zeros_like(tiles.bitmap))
+    bwd_floor_ms = graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=no_rois), 50)
+    tile_ms = graph_ms(lambda: bwd.tile_lists(shapes, rf, vf, strides), 50)
+    bwd_ms = cuda_ms(lambda: bwd.launch(g, shapes, rf, vf, strides), 20)
+    bwd_plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g, feats, rois, rvalid, strides), 5)
     bwd_bound_ms, bwd_bound_by, bwd_bytes, bwd_flops = roi_bwd_bound(feats, rois, rvalid, strides)
-    say(f"roi_align_bwd: kernel {bwd_kernel_ms:.4f} ms, wrapper with zero fill {bwd_ms:.4f} ms, "
-        f"plain {bwd_plain_ms:.4f} ms, bound {bwd_bound_ms:.4f} ms by {bwd_bound_by} "
-        f"({bwd_bytes} B, {bwd_flops} FLOP)")
-    # the forward kernel at the train path's shapes, for the record
-    fwd_train_ms = cuda_ms(lambda: batched_multilevel_roi_align.launch(stacked, inputs), 20)
+    say(f"roi_align_bwd at the train shapes ({gpu}): kernel {bwd_kernel_ms:.4f} ms (on an empty "
+        f"bitmap, the stores alone: {bwd_floor_ms:.4f} ms), tile-key kernel with its zeroing "
+        f"{tile_ms:.4f} ms (kernels by CUDA-graph replay), call "
+        f"with the tile lists {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, bound "
+        f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bwd_bytes} B, {bwd_flops} FLOP)")
+    with torch.inference_mode():
+        fwd_train = {
+            "kernel": graph_ms(lambda: fwd.launch(levels, rf, vf, strides), 50),
+            "call": cuda_ms(lambda: fwd(feats, rois, rvalid, strides), 20),
+            "plain": cuda_ms(lambda: roi_align.multilevel_roi_align_fast(feats, rois, rvalid, strides), 5),
+        }
     fwd_train_bound = roi_bound(feats, rois, rvalid, strides)
-    say(f"roi_align_fwd at the train path's shapes: kernel {fwd_train_ms:.4f} ms, bound "
-        f"{fwd_train_bound[0]:.4f} ms by {fwd_train_bound[1]}")
-    del acc, stacked, inputs
+    say(f"roi_align_fwd at the train shapes ({gpu}): kernel {fwd_train['kernel']:.4f} ms, call "
+        f"with the NHWC copies {fwd_train['call']:.4f} ms, plain {fwd_train['plain']:.4f} ms, "
+        f"bound {fwd_train_bound[0]:.4f} ms by {fwd_train_bound[1]}")
+    del levels, tiles
 
     # ---------------------------------------------------------- per-image path
     levels = [f.detach().requires_grad_() for f in feats]
-    g_img = g.reshape(TRAIN_BATCH, -1, 7, 7, g.shape[-1])
+    g_img = g.reshape(TRAIN_BATCH, -1, 7, 7, c)
     torch.cuda.synchronize()
     reset_counts()
     for i in range(TRAIN_BATCH):
@@ -574,46 +686,49 @@ def main() -> int:
     torch.cuda.synchronize()
     image_counts = read_counts()
     say(f"per-image path: launches {image_counts}")
-    for name in ("roi_align_fwd_per_image", "roi_align_bwd_per_image"):
+    for name in ("roi_align_fwd_per_image", "roi_align_bwd_per_image", "roi_tile_keys_per_image"):
         if image_counts[name] != TRAIN_BATCH:
             raise AssertionError(f"kernel {name} launched {image_counts[name]} times for "
                                  f"{TRAIN_BATCH} images")
     feats0 = [f[0].detach().contiguous() for f in feats]
     one = [f[None] for f in feats0]
-    got = multilevel_roi_align(feats0, rois[0], rvalid[0], strides)
-    ref = roi_align.multilevel_roi_align_fast(one, rois[:1], rvalid[:1], strides)[0]
+    shapes1 = [tuple(f.shape) for f in one]
+    rf1, vf1 = flat(rois[:1], rvalid[:1])
+    g0 = g_img[0].contiguous()
+    fwd1 = multilevel_roi_align.batched
+    with torch.no_grad():
+        got = multilevel_roi_align(feats0, rois[0], rvalid[0], strides)
+        ref = roi_align.multilevel_roi_align_fast(one, rois[:1], rvalid[:1], strides)[0]
     err_img_fwd = (got - ref).abs().max().item()
     if not err_img_fwd <= ATOL:
         raise AssertionError(f"per-image forward disagrees with its plain version: {err_img_fwd}")
-    stacked1, inputs1 = prepare(one, rois[:1], rvalid[:1], strides)
-    d_got = multilevel_roi_align.batched.backward.launch(g_img[0].contiguous(), inputs1,
-                                                         stacked1.shape)
-    d_ref = roi_align_bwd_plain(g_img[0].contiguous(), inputs1, stacked1.shape)
-    err_img_bwd = (d_got - d_ref).abs().max().item()
-    if not err_img_bwd <= BWD_RTOL * d_ref.abs().max().item():
+    d_got = fwd1.backward.launch(g0, shapes1, rf1, vf1, strides)
+    d_ref = roi_align_bwd_plain(g0, one, rois[:1], rvalid[:1], strides)
+    err_img_bwd = max((a - b).abs().max().item() for a, b in zip(d_got, d_ref))
+    img_scale = max(b.abs().max().item() for b in d_ref)
+    if not err_img_bwd <= BWD_RTOL * img_scale:
         raise AssertionError(f"per-image gradient disagrees with its plain version: {err_img_bwd}")
     say(f"per-image entry vs plain: forward max abs err {err_img_fwd:.3g}, gradient max abs "
-        f"err {err_img_bwd:.3g} (max|plain| {d_ref.abs().max().item():.3g})")
-    fwd1 = multilevel_roi_align.batched
-    img_fwd_kernel_ms = cuda_ms(lambda: fwd1.launch(stacked1, inputs1), 50)
+        f"err {err_img_bwd:.3g} (max|plain| {img_scale:.3g})")
+    img_fwd_kernel_ms = graph_ms(lambda: fwd1.launch(one, rf1, vf1, strides), 50)
     with torch.inference_mode():
         img_fwd_ms = cuda_ms(lambda: multilevel_roi_align(feats0, rois[0], rvalid[0], strides), 20)
         img_fwd_plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align_fast(
             one, rois[:1], rvalid[:1], strides), 5)
-    g0 = g_img[0].contiguous()
-    img_bwd_ms = cuda_ms(lambda: fwd1.backward.launch(g0, inputs1, stacked1.shape), 20)
-    img_bwd_plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g0, inputs1, stacked1.shape), 5)
+    img_bwd_ms = cuda_ms(lambda: fwd1.backward.launch(g0, shapes1, rf1, vf1, strides), 20)
+    img_bwd_plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g0, one, rois[:1], rvalid[:1], strides), 5)
     img_fwd_bound = roi_bound(one, rois[:1], rvalid[:1], strides)
     img_bwd_bound = roi_bwd_bound(one, rois[:1], rvalid[:1], strides)
-    say(f"per-image forward: kernel {img_fwd_kernel_ms:.4f} ms, with geometry {img_fwd_ms:.4f} ms, "
+    say(f"per-image forward ({gpu}): kernel {img_fwd_kernel_ms:.4f} ms, call {img_fwd_ms:.4f} ms, "
         f"plain {img_fwd_plain_ms:.4f} ms, bound {img_fwd_bound[0]:.4f} ms by {img_fwd_bound[1]}; "
-        f"per-image gradient: wrapper {img_bwd_ms:.4f} ms, plain {img_bwd_plain_ms:.4f} ms, "
-        f"bound {img_bwd_bound[0]:.4f} ms by {img_bwd_bound[1]}")
+        f"per-image gradient: call with the tile lists {img_bwd_ms:.4f} ms, plain "
+        f"{img_bwd_plain_ms:.4f} ms, bound {img_bwd_bound[0]:.4f} ms by {img_bwd_bound[1]}")
     del levels, out, feats
 
-    tiny_metrics, tiny_worst = tiny_train_gpu_matches_cpu(seed=7)
+    tiny_metrics, tiny_worst, tiny_repeat = tiny_train_gpu_matches_cpu(seed=7)
     say(f"tiny flagship: a GPU train step matches the CPU one (loss {tiny_metrics['loss']:.6g}, "
-        f"worst parameter error {tiny_worst:.3g} of its tolerance)")
+        f"worst parameter error {tiny_worst:.3g} of its tolerance); two GPU steps from the same "
+        f"state give the same bits: {tiny_repeat} (cuDNN's algorithms are not pinned)")
     say(f"wall {time.perf_counter() - t_start:.1f} s")
 
     src = "boosting_rcnn_tpu_torch/csrc/"
@@ -624,18 +739,24 @@ def main() -> int:
          "launches": predict_counts["roi_align_fwd"] + train_counts["roi_align_fwd"],
          "launches_by_path": {"predict": predict_counts["roi_align_fwd"],
                               "train": train_counts["roi_align_fwd"]},
-         "max_abs_err": max(err_main, err_odd), "ms": fn_ms, "kernel_ms": kernel_ms,
-         "kernel_ms_train_shapes": fwd_train_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None},
+         "max_abs_err": max(err_main, err_odd, err_fwd_train), "ms": fn_ms,
+         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None,
+         "train_shapes": {"call_ms": fwd_train["call"], "kernel_ms": fwd_train["kernel"],
+                          "plain_ms": fwd_train["plain"], "bound_ms": fwd_train_bound[0]}},
         {"name": "roi_align_bwd", "route": "cuda", "source": src + "roi_align_bwd.cu",
          "replaces": f"{tpu}:244", "tpu_kernel": "pallas_roi_align.py:244 _bwd_kernel via :828 (K4)",
          "launches": train_counts["roi_align_bwd"],
          "launches_by_path": {"predict": predict_counts["roi_align_bwd"],
                               "train": train_counts["roi_align_bwd"]},
+         "tile_key_launches": train_counts["roi_tile_keys"],
          "max_abs_err": max(err_bwd_main[0], err_bwd_odd[0]),
-         "max_abs_plain": max(err_bwd_main[1], err_bwd_odd[1]), "ms": bwd_ms,
-         "kernel_ms": bwd_kernel_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
-         "bound_by": bwd_bound_by, "library_ms": None},
+         "max_abs_plain": max(err_bwd_main[1], err_bwd_odd[1]), "bitwise_repeatable": True,
+         "ms": bwd_ms, "kernel_ms": bwd_kernel_ms, "tile_key_kernel_ms": tile_ms,
+         "empty_bitmap_kernel_ms": bwd_floor_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,
+         "predict_shapes": {"call_ms": bwd_p["call"], "kernel_ms": bwd_p["kernel"],
+                            "plain_ms": bwd_p["plain"], "bound_ms": bwd_p["bound"]}},
         {"name": "roi_align_fwd_per_image", "route": "cuda", "source": src + "roi_align_fwd.cu",
          "replaces": f"{tpu}:52", "tpu_kernel": "pallas_roi_align.py:52 _kernel via :121 (K2), B=1 of K1",
          "launches": image_counts["roi_align_fwd_per_image"],
@@ -645,11 +766,14 @@ def main() -> int:
         {"name": "roi_align_bwd_per_image", "route": "cuda", "source": src + "roi_align_bwd.cu",
          "replaces": f"{tpu}:244", "tpu_kernel": "pallas_roi_align.py:244 _bwd_kernel via :405 (K3), B=1 of K4",
          "launches": image_counts["roi_align_bwd_per_image"],
+         "tile_key_launches": image_counts["roi_tile_keys_per_image"],
          "max_abs_err": err_img_bwd, "ms": img_bwd_ms, "plain_ms": img_bwd_plain_ms,
          "bound_ms": img_bwd_bound[0], "bound_by": img_bwd_bound[1], "library_ms": None},
     ]
     for record in records:
-        timings = [v for k, v in record.items() if k.endswith("_ms") and v is not None]
+        timings = [v for part in (record, record.get("train_shapes", {}),
+                                  record.get("predict_shapes", {}))
+                   for k, v in part.items() if k.endswith("_ms") and v is not None]
         if not all(math.isfinite(v) and v > 0 for v in timings):
             raise AssertionError(f"non-finite timing in {record}")
     say(json.dumps({"kernels": records}))

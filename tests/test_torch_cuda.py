@@ -8,8 +8,9 @@ dependencies are installed:
 Every test is marked ``cuda`` and skips without a CUDA device.  Inputs
 are seeded numpy arrays moved to the card.  Tolerances, float32: the
 forward kernel within 1e-5 (kernel and plain version sum in other
-orders); the gradient kernel within 1e-5 of the largest plain value
-(float32 atomics add in an order that changes from run to run).
+orders); the gradient kernel within 1e-5 of the largest plain value (the
+same reason); the gradient kernel against itself bit for bit (it sums in
+a fixed order).
 """
 import os
 import sys
@@ -57,33 +58,61 @@ def _max_err(got, ref):
     return (got - ref).abs().max().item()
 
 
+def _flat(rois, valid):
+    return rois.reshape(-1, 4).contiguous(), valid.reshape(-1).to(torch.uint8)
+
+
 @pytest.mark.cuda
 def test_cuda_backward_kernel_matches_plain_version(cuda):
-    """The gradient kernel against ``roi_align_bwd_plain`` on the same
-    prepared CUDA inputs; a cotangent on invalid RoIs only adds nothing."""
+    """The gradient kernel against ``roi_align_bwd_plain`` on the same CUDA
+    inputs, the tile bitmap against the plain mirror; a cotangent on invalid
+    RoIs only adds nothing."""
     rs = np.random.RandomState(16)
     feats, rois, valid = _case(rs, 2, 20, 96)
     feats = _on(cuda, *feats)
     rois, valid = _on(cuda, rois, valid)
-    stacked, inputs = kern.prepare(feats, rois, valid, STRIDES)
+    rf, vf = _flat(rois, valid)
+    shapes = [tuple(f.shape) for f in feats]
     g = torch.from_numpy(rs.randn(40, 7, 7, 96).astype(np.float32)).to(cuda)
     wrapper = kern.RoIAlignBackward()
-    got = wrapper.launch(g, inputs, stacked.shape)
-    ref = kern.roi_align_bwd_plain(g, inputs, stacked.shape)
-    invalid_only = wrapper.launch(g * (~valid.reshape(-1))[:, None, None, None], inputs,
-                                  stacked.shape)
+    tiles = wrapper.tile_lists(shapes, rf, vf, STRIDES)
+    level_hw = [s[1:3] for s in shapes]
+    ref_bitmap = roi_align.tile_bitmap(roi_align.tile_keys(rf, vf, level_hw, 20, STRIDES),
+                                       2 * roi_align.tile_grid(level_hw)[2])
+    got = wrapper.launch(g, shapes, rf, vf, STRIDES, tiles=tiles)
+    ref = kern.roi_align_bwd_plain(g, feats, rois, valid, STRIDES)
+    invalid_only = wrapper.launch(g * (~valid.reshape(-1))[:, None, None, None], shapes, rf, vf,
+                                  STRIDES)
     torch.cuda.synchronize()
-    assert wrapper.launches == 2
-    assert _max_err(got, ref) <= 1e-5 * ref.abs().max().item()
-    assert torch.count_nonzero(invalid_only).item() == 0
+    assert (wrapper.launches, wrapper.tile_launches) == (2, 2)
+    assert torch.equal(tiles.bitmap.long() & 0xFFFFFFFF, ref_bitmap)
+    for a, b in zip(got, ref):
+        assert _max_err(a, b) <= 1e-5 * b.abs().max().item()
+    assert all(torch.count_nonzero(d).item() == 0 for d in invalid_only)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_is_bitwise_repeatable(cuda):
+    """Two launches of the gradient kernel on the same inputs, many RoIs
+    on few tiles, give the same bits."""
+    rs = np.random.RandomState(19)
+    feats, rois, valid = _case(rs, 2, 200, 256, canvas=(96, 128))
+    shapes = [f.shape for f in feats]
+    rf, vf = _flat(*_on(cuda, rois, valid))
+    g = torch.from_numpy(rs.randn(400, 7, 7, 256).astype(np.float32)).to(cuda)
+    wrapper = kern.RoIAlignBackward()
+    first = wrapper.launch(g, shapes, rf, vf, STRIDES)
+    second = wrapper.launch(g, shapes, rf, vf, STRIDES)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
 def test_cuda_autograd_path_matches_plain_autograd(cuda):
     """``batched_multilevel_roi_align`` on CUDA tensors that need a
-    gradient: the forward kernel, then the gradient kernel through the
-    autograd Function and ``batched_stack``'s pad and cat, against
-    autograd of the plain version; one launch of each."""
+    gradient: the forward kernel, then the gradient kernels through the
+    autograd Function, one gradient per level, against autograd of the
+    plain version; one launch of each."""
     rs = np.random.RandomState(17)
     feats, rois, valid = _case(rs, 2, 24, 64)
     g = torch.from_numpy(rs.randn(2, 24, 7, 7, 64).astype(np.float32)).to(cuda)
@@ -98,7 +127,7 @@ def test_cuda_autograd_path_matches_plain_autograd(cuda):
         results.append((out.detach(), [f.grad for f in levels]))
     torch.cuda.synchronize()
     (out_k, d_k), (out_p, d_p) = results
-    assert (fn.launches, fn.backward.launches) == (1, 1)
+    assert (fn.launches, fn.backward.launches, fn.backward.tile_launches) == (1, 1, 1)
     assert _max_err(out_k, out_p) <= 1e-5
     for a, b in zip(d_k, d_p):
         assert _max_err(a, b) <= 1e-5 * max(b.abs().max().item(), 1e-30)

@@ -4,7 +4,10 @@ Inputs are made from seeds with numpy and go through both packages in
 float32.  Box ops, anchors, top-k and NMS: exact selections and orders,
 coordinates within 1e-6 relative.  RoIAlign: the port's plain version
 against the JAX package's vmapped ``multilevel_roi_align_fast`` and the
-Pallas kernel ``_kernel_flat`` in interpret mode, atol 1e-5.  Also: the
+Pallas kernel ``_kernel_flat`` in interpret mode, atol 1e-5; the kernels'
+per-sample geometry (``sample_taps``) against the JAX package's
+``_batched_geometry``, levels and origins equal, weights within 1e-6; the
+gradient kernel's tile lists against a brute-force overlap list, exact.  Also: the
 port and ``chip_smoke.py`` import no JAX, and entry points refuse to fall
 back to the CPU silently.
 """
@@ -226,18 +229,117 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
     ref = t_roi.multilevel_roi_align_fast(feats, _t(rois), _t(valid), STRIDES)
     assert torch.equal(got, ref) and wrapper.launches == 0
 
-    # what the kernel computes from the prepared inputs, in plain torch
-    stacked, _ = t_roi.batched_stack(feats, 5)
-    g = t_roi.batched_geometry([(f.shape[1], f.shape[2]) for f in feats],
-                               _t(rois).reshape(-1, 4), 2, STRIDES)
-    wy, wx = t_roi.fold_pool(g.wy, 7, 2), t_roi.fold_pool(g.wx, 7, 2)
-    rows = g.row0.long()[:, None] + torch.arange(24)
-    cols = g.x0.long()[:, None] + torch.arange(wx.shape[-1])
-    win = stacked[rows[:, :, None], cols[:, None, :]]
-    folded = torch.einsum("rik,rkmc,rjm->rijc", wy, win, wx)
-    folded = folded * _t(valid).reshape(-1)[:, None, None, None]
+    # what the kernels compute from the RoIs: each RoI's level, window and
+    # pool-folded taps (``sample_taps``) applied to its level in place; the
+    # window may run past the level's end only where the weights are zero
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    rf = _t(rois).reshape(-1, 4)
+    taps = t_roi.sample_taps(rf, level_hw, STRIDES)
+    win_w = min(24, max(w for _, w in level_hw))
+    wy = t_roi.fold_pool(t_roi.taps_to_dense(taps.ky, taps.wy, 24), 7, 2)
+    wx = t_roi.fold_pool(t_roi.taps_to_dense(taps.kx, taps.wx, win_w), 7, 2)
+    pooled = []
+    for n in range(rf.shape[0]):
+        y0, x0 = int(taps.wy0[n]), int(taps.wx0[n])
+        win = feats[int(taps.level[n])][n // rois.shape[1], y0:y0 + 24, x0:x0 + win_w]
+        k, m = win.shape[:2]
+        assert not wy[n, :, k:].any() and not wx[n, :, m:].any()
+        pooled.append(torch.einsum("ik,kmc,jm->ijc", wy[n, :, :k], win, wx[n, :, :m]))
+    folded = torch.stack(pooled) * _t(valid).reshape(-1)[:, None, None, None]
     np.testing.assert_allclose(folded.reshape(got.shape).numpy(), got.numpy(),
                                rtol=0, atol=1e-5)
+
+
+def _boundary_rois():
+    """RoIs whose sqrt(w*h) is 112, 224 or 448 px (where the level changes),
+    exactly and one float32 ulp either side, at two origins."""
+    out = []
+    for side in (112, 224, 448):
+        for v in (np.nextafter(np.float32(side), np.float32(0)), np.float32(side),
+                  np.nextafter(np.float32(side), np.float32(1e9))):
+            out += [[0, 0, v, v], [16, 8, np.float32(16) + v, np.float32(8) + v]]
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("canvas", [(200, 264), (120, 100)])
+def test_sample_taps_match_jax_interp_matrix(canvas):
+    """The kernels' per-sample geometry (``sample_taps``, the plain mirror
+    of ``csrc/roi_geometry.cuh``) against the JAX package's
+    ``_batched_geometry``: levels, window origins and image rows equal; the
+    taps scattered into the window equal ``_interp_matrix`` within 1e-6,
+    before and after the pool fold.  Random, clamped, edge, degenerate and
+    level-boundary RoIs; the second canvas is narrower than the window."""
+    from boosting_rcnn_tpu.ops.pallas_roi_align import _batched_geometry
+
+    rs = np.random.RandomState(21)
+    feats = _pyramid(rs, 2, 4, canvas)
+    rois, _ = _rois(rs, 2, canvas)
+    rois = np.concatenate([rois, np.broadcast_to(_boundary_rois(), (2, 18, 4))], 1)
+    rf = rois.reshape(-1, 4)
+    level_hw = [f.shape[1:3] for f in feats]
+    win_w = min(24, max(w for _, w in level_hw))
+    rows_img = sum(h for h, _ in level_hw) + 24
+    row0, wx0, wy, wx = _batched_geometry(feats, jnp.asarray(rf), 5, STRIDES, 56, 7, 2, 24,
+                                          win_w, rows_img)
+    taps = t_roi.sample_taps(_t(rf), level_hw, STRIDES)
+    level = taps.level.numpy()
+    np.testing.assert_array_equal(level, np.asarray(j_roi.map_roi_levels(jnp.asarray(rf), 5)))
+    np.testing.assert_array_equal(taps.wx0.numpy(), np.asarray(wx0))
+    row_off = np.cumsum([0] + [h for h, _ in level_hw])[level]
+    img = np.arange(rf.shape[0]) // rois.shape[1]
+    np.testing.assert_array_equal(taps.wy0.numpy() + row_off + img * rows_img, np.asarray(row0))
+    dense_y = t_roi.taps_to_dense(taps.ky, taps.wy, 24)
+    dense_x = t_roi.taps_to_dense(taps.kx, taps.wx, win_w)
+    np.testing.assert_allclose(dense_y.numpy(), np.asarray(wy), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(dense_x.numpy(), np.asarray(wx), rtol=0, atol=1e-6)
+    pool = np.repeat(np.eye(7, dtype=np.float32), 2, axis=1) / 2
+    np.testing.assert_allclose(t_roi.fold_pool(dense_y, 7, 2).numpy(),
+                               np.einsum("ok,rkw->row", pool, np.asarray(wy)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t_roi.fold_pool(dense_x, 7, 2).numpy(),
+                               np.einsum("ok,rkw->row", pool, np.asarray(wx)), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("canvas", [(200, 264), (120, 100), (600, 1000)])
+def test_tile_lists_match_brute_force(canvas):
+    """The gradient kernel's tile lists (the plain mirror ``tile_keys``,
+    through ``tile_lists``) against a brute-force overlap list: every
+    (RoI, tile) pair whose tile meets the bounding box of the RoI's nonzero
+    interpolation weights (from the dense ``batched_geometry``) appears
+    once, RoIs ascending within each tile; invalid RoIs, and the third
+    image whose RoIs are all invalid, appear nowhere."""
+    rs = np.random.RandomState(22)
+    b = 3
+    rois, valid = _rois(rs, b, canvas)
+    rois = np.concatenate([rois, np.broadcast_to(_boundary_rois(), (b, 18, 4))], 1)
+    valid = np.concatenate([valid, np.ones((b, 18), bool)], 1)
+    valid[2] = False
+    r = rois.shape[1]
+    level_hw = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in STRIDES]
+    rf, vf = _t(rois.reshape(-1, 4)), _t(valid.reshape(-1))
+    base, per_row, per_img = t_roi.tile_grid(level_hw)
+    tile_rois, tile_start = t_roi.tile_lists(
+        t_roi.tile_keys(rf, vf, level_hw, r, STRIDES), b * per_img)
+
+    g = t_roi.batched_geometry(level_hw, rf, b, STRIDES)
+    level = t_roi.map_roi_levels(rf, 5).numpy()
+    row_off = np.cumsum([0] + [h for h, _ in level_hw])
+    rows_img = row_off[-1] + 24
+    expect = {t: [] for t in range(b * per_img)}
+    for n in np.flatnonzero(valid.reshape(-1)):
+        img, lv = n // r, level[n]
+        y0 = int(g.row0[n]) - img * rows_img - row_off[lv]
+        ys = y0 + np.flatnonzero(g.wy[n].numpy().any(0))
+        xs = int(g.x0[n]) + np.flatnonzero(g.wx[n].numpy().any(0))
+        h, w = level_hw[lv]
+        for ty in range(-(-h // t_roi.TILE)):
+            for tx in range(per_row[lv]):
+                t0y, t0x = ty * t_roi.TILE, tx * t_roi.TILE
+                if (t0y <= ys.max() and ys.min() < t0y + t_roi.TILE
+                        and t0x <= xs.max() and xs.min() < t0x + t_roi.TILE):
+                    expect[img * per_img + base[lv] + ty * per_row[lv] + tx].append(n)
+    assert int(tile_start[-1]) == sum(len(v) for v in expect.values()) > 0
+    for t, want in expect.items():
+        np.testing.assert_array_equal(tile_rois[tile_start[t]:tile_start[t + 1]].numpy(), want)
 
 
 def test_kernel_wrapper_rejects_other_devices():

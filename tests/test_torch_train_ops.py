@@ -8,11 +8,13 @@ package's own uniform draws).  The RoIAlign gradient: the port's plain
 backward against the TPU kernel ``_bwd_kernel`` in interpret mode at
 C = 128 (batched, K4, and per image, K3) and against ``jax.vjp`` of the
 vmapped ``multilevel_roi_align_fast`` at C = 32, atol 1e-5 of the largest
-gradient.  The optimizer: parameters after each of three steps within
-1e-6 relative (``clip_grad_norm_`` adds 1e-6 to the norm it divides by).
-The CUDA kernels' autograd plumbing is checked here with their launches
-replaced by the plain versions; the kernels themselves only on the card
-(``tests/test_torch_cuda.py``).
+gradient, for autograd through the wrapper's CPU path and for
+``roi_align_bwd_plain``.  The optimizer: parameters after each of three
+steps within 1e-6 relative (float32 sums in other orders); the clip
+against ``optax.clip_by_global_norm``: the norm within 1e-7 relative (the
+sum orders differ), the clipped gradients bit for bit at that norm.  The CUDA kernels' autograd plumbing is checked here
+with their launches replaced by the plain versions; the kernels
+themselves only on the card (``tests/test_torch_cuda.py``).
 """
 import os
 import sys
@@ -472,15 +474,20 @@ def test_plain_gradient_matches_pallas_bwd_interpret():
     (ref,) = vjp(jnp.asarray(g))
     _, got = _port_grad(lambda lv: t_kern.batched_multilevel_roi_align(
         lv, _t(rois), _t(valid), strides), feats, g)
-    for gl, rl in zip(got, ref):
-        np.testing.assert_allclose(gl.numpy(), np.asarray(rl), rtol=0,
-                                   atol=1e-5 * np.abs(np.asarray(rl)).max())
+    plain = t_kern.roi_align_bwd_plain(_t(g).reshape(-1, 7, 7, 128), [_t(f) for f in feats],
+                                       _t(rois), _t(valid), strides)
+    for gl, pl, rl in zip(got, plain, ref):
+        for d in (gl, pl):
+            np.testing.assert_allclose(d.numpy(), np.asarray(rl), rtol=0,
+                                       atol=1e-5 * np.abs(np.asarray(rl)).max())
 
 
 def test_plain_gradient_matches_jax_vjp_of_fast():
     """Against ``jax.vjp`` of the vmapped ``multilevel_roi_align_fast``
-    at C = 32 on the five flagship levels, and ``roi_align_bwd_plain`` on
-    the prepared inputs against the same autograd."""
+    at C = 32 on the five flagship levels: autograd through the wrapper's
+    CPU path and ``roi_align_bwd_plain``, the plain gradient the card
+    holds the gradient kernel against, each level within 1e-5 of its
+    largest value."""
     rs = np.random.RandomState(13)
     hw = [(-(-200 // s), -(-264 // s)) for s in STRIDES]
     feats = [rs.randn(2, h, w, 32).astype(np.float32) for h, w in hw]
@@ -492,21 +499,13 @@ def test_plain_gradient_matches_jax_vjp_of_fast():
     (ref,) = vjp(jnp.asarray(g))
     _, got = _port_grad(lambda lv: t_kern.batched_multilevel_roi_align(
         lv, _t(rois), _t(valid), STRIDES), feats, g)
-    for gl, rl in zip(got, ref):
-        np.testing.assert_allclose(gl.numpy(), np.asarray(rl), rtol=0,
-                                   atol=1e-5 * np.abs(np.asarray(rl)).max())
-
-    stacked, inputs = t_kern.prepare([_t(f) for f in feats], _t(rois), _t(valid), STRIDES)
-    s_leaf = stacked.requires_grad_()
-    rows = inputs.row0.long()[:, None] + torch.arange(24)
-    cols = inputs.x0.long()[:, None] + torch.arange(inputs.wx.shape[-1])
-    win = s_leaf[rows[:, :, None], cols[:, None, :]]
-    out = torch.einsum("nok,nkmc,npm->nopc", inputs.wy, win, inputs.wx)
-    out = out * inputs.valid.float()[:, None, None, None]
-    (d_auto,) = torch.autograd.grad(out, s_leaf, _t(g).reshape(out.shape))
-    d_plain = t_kern.roi_align_bwd_plain(_t(g).reshape(out.shape), inputs, stacked.shape)
-    np.testing.assert_allclose(d_plain.numpy(), d_auto.numpy(), rtol=0,
-                               atol=1e-5 * d_auto.abs().max().item())
+    plain = t_kern.roi_align_bwd_plain(_t(g).reshape(-1, 7, 7, 32), [_t(f) for f in feats],
+                                       _t(rois).reshape(-1, 4), _t(valid).reshape(-1), STRIDES)
+    assert [tuple(p.shape) for p in plain] == [f.shape for f in feats]
+    for gl, pl, rl in zip(got, plain, ref):
+        for d in (gl, pl):
+            np.testing.assert_allclose(d.numpy(), np.asarray(rl), rtol=0,
+                                       atol=1e-5 * np.abs(np.asarray(rl)).max())
 
 
 def test_per_image_entry_matches_pallas_interpret():
@@ -535,33 +534,37 @@ def test_per_image_entry_matches_pallas_interpret():
 
 
 def test_autograd_function_wiring_with_plain_launches(monkeypatch):
-    """The CUDA path's plumbing (prepare, the autograd Function, the
-    gradient through ``batched_stack`` to the levels, launch counts),
-    exercised on the CPU with each kernel launch replaced by its plain
-    version; against autograd of the plain RoIAlign."""
+    """The CUDA path's plumbing (the autograd Function on the route levels,
+    one gradient per level back to each, the saved RoIs and valid mask,
+    launch counts), exercised on the CPU with each kernel launch replaced
+    by its plain version; against autograd of the plain RoIAlign."""
     rs = np.random.RandomState(15)
     feats, strides = _small_pyramid(rs, 2, 16)
     rois, valid = _small_rois(rs, 2)
     g = rs.randn(2, rois.shape[1], 7, 7, 16).astype(np.float32)
     wrapper = t_kern.RoIAlignForward()
+    r = rois.shape[1]
 
-    def fwd_launch(stacked, inputs):
+    def fwd_launch(levels, rois_flat, valid_u8, strides_, finest_scale=56):
         wrapper.launches += 1
-        rows = inputs.row0.long()[:, None] + torch.arange(24)
-        cols = inputs.x0.long()[:, None] + torch.arange(inputs.wx.shape[-1])
-        win = stacked[rows[:, :, None], cols[:, None, :]]
-        out = torch.einsum("nok,nkmc,npm->nopc", inputs.wy, win, inputs.wx)
-        return out * inputs.valid.float()[:, None, None, None]
+        out = t_roi.multilevel_roi_align_fast(
+            [f.detach() for f in levels], rois_flat.reshape(2, r, 4),
+            valid_u8.reshape(2, r).bool(), strides_, finest_scale=finest_scale)
+        return out.reshape(2 * r, 7, 7, -1)
 
-    def bwd_launch(gr, inputs, shape, out=None):
+    def bwd_launch(gr, level_shapes, rois_flat, valid_u8, strides_, finest_scale=56,
+                   tiles=None):
         wrapper.backward.launches += 1
-        return t_kern.roi_align_bwd_plain(gr, inputs, shape)
+        wrapper.backward.tile_launches += 1
+        return t_kern.roi_align_bwd_plain(gr, [torch.empty(s) for s in level_shapes],
+                                          rois_flat, valid_u8, strides_, finest_scale)
 
     monkeypatch.setattr(wrapper, "launch", fwd_launch)
     monkeypatch.setattr(wrapper.backward, "launch", bwd_launch)
     leaves = [_t(f, grad=True) for f in feats]
-    stacked, inputs = t_kern.prepare(leaves, _t(rois), _t(valid), strides)
-    out = t_kern._RoIAlignFunction.apply(stacked, *inputs, wrapper)
+    rf = _t(rois).reshape(-1, 4).contiguous()
+    vf = _t(valid).reshape(-1).to(torch.uint8)
+    out = t_kern._RoIAlignFunction.apply(rf, vf, wrapper, strides, 56.0, *leaves)
     out.backward(_t(g).reshape(out.shape))
     ref_out, ref = _port_grad(lambda lv: t_roi.multilevel_roi_align_fast(
         lv, _t(rois), _t(valid), strides), feats, g)
@@ -569,18 +572,30 @@ def test_autograd_function_wiring_with_plain_launches(monkeypatch):
                                rtol=0, atol=1e-5)
     for gl, rl in zip(leaves, ref):
         np.testing.assert_allclose(gl.grad.numpy(), rl.numpy(), rtol=0, atol=1e-5)
-    assert (wrapper.launches, wrapper.backward.launches) == (1, 1)
+    assert (wrapper.launches, wrapper.backward.launches, wrapper.backward.tile_launches) == (
+        1, 1, 1)
     with torch.inference_mode():  # no graph: the forward alone
-        t_kern._RoIAlignFunction.apply(stacked.detach(), *inputs, wrapper)
+        t_kern._RoIAlignFunction.apply(rf, vf, wrapper, strides, 56.0,
+                                       *[f.detach() for f in leaves])
     assert (wrapper.launches, wrapper.backward.launches) == (2, 1)
 
 
 def test_backward_wrapper_rejects_cpu_and_bad_shapes():
-    inputs = t_kern.KernelInputs(torch.zeros(2, dtype=torch.int32),
-                                 torch.zeros(2, dtype=torch.int32), torch.zeros(2, 7, 24),
-                                 torch.zeros(2, 7, 24), torch.ones(2, dtype=torch.uint8))
+    """The gradient kernels' wrapper takes CUDA tensors only, and no channel
+    count that is not a multiple of 4."""
+    bwd = t_kern.RoIAlignBackward()
+    rois = torch.zeros((2, 4))
+    valid = torch.ones(2, dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
-        t_kern.RoIAlignBackward().launch(torch.zeros(2, 7, 7, 8), inputs, (60, 32, 8))
+        bwd.launch(torch.zeros(2, 7, 7, 8), [(1, 8, 8, 8)], rois, valid, (8,))
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd.tile_lists([(1, 8, 8, 8)], rois, valid, (8,))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        t_kern._check_shapes([(1, 8, 8, 6)])
+    with pytest.raises(ValueError, match="1 to 5"):
+        t_kern._check_shapes([(1, 8, 8, 8)] * 6)
+    with pytest.raises(ValueError, match="one batch"):
+        t_kern._check_shapes([(1, 8, 8, 8), (2, 4, 4, 8)])
 
 
 # ---------------------------------------------------------------- optimizer
@@ -642,6 +657,45 @@ def test_optimizer_matches_jax_chain():
     for key in flat:
         if key.startswith(frozen):
             np.testing.assert_array_equal(tparams[key].detach().numpy(), flat[key])
+
+
+@pytest.mark.parametrize("scale,clipped", [(6.0, True), (0.3, False)])
+def test_optimizer_clip_matches_optax(scale, clipped):
+    """The port's clip against optax's ``clip_by_global_norm(35)``, the
+    first stage of the JAX ``make_optimizer`` chain, on a small tree whose
+    global norm is above 35 (the clip acts) or below it (the gradients
+    pass unchanged): the global norm within 1e-7 relative of optax's
+    ``global_norm`` (the sum orders differ); the clipped gradients bit for
+    bit what ``clip_by_global_norm`` makes of them at that norm
+    (``select(norm < 35, g, (g / norm) * 35)``), and within 1e-6 of optax's
+    own; the parameters after the step against the whole chain."""
+    import optax
+
+    rs = np.random.RandomState(18)
+    shapes = {"layer2_0": (3, 3, 4, 8), "neck": (8,), "rpn": (16, 5)}
+    params = {k: (rs.randn(*v) * 0.1).astype(np.float32) for k, v in shapes.items()}
+    grads = {k: (rs.randn(*v) * scale).astype(np.float32) for k, v in shapes.items()}
+    jgrads = jax.tree.map(jnp.asarray, grads)
+    clip = optax.clip_by_global_norm(35.0)
+    ref, _ = clip.update(jgrads, clip.init(jgrads))
+    tx = j_train.make_optimizer(lambda step: 0.01, params=params, frozen_stages=0)
+    updates, _ = tx.update(jgrads, tx.init(jax.tree.map(jnp.asarray, params)),
+                           jax.tree.map(jnp.asarray, params))
+    tparams = {k: torch.nn.Parameter(_t(v)) for k, v in params.items()}
+    for k, p in tparams.items():
+        p.grad = _t(grads[k])
+    opt = t_train.make_optimizer(tparams.values(), lambda step: 0.01)
+    norm = opt.step()
+    ref_norm = float(optax.global_norm(jgrads))
+    np.testing.assert_allclose(float(norm), ref_norm, rtol=1e-7)
+    assert (ref_norm >= 35.0) == clipped
+    jnorm = jnp.asarray(norm.numpy())
+    for k, p in tparams.items():
+        at_norm = jax.lax.select(jnorm < 35.0, jgrads[k], (jgrads[k] / jnorm) * 35.0)
+        np.testing.assert_array_equal(p.grad.numpy(), np.asarray(at_norm))
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref[k]), rtol=1e-6)
+        np.testing.assert_allclose(p.detach().numpy(), params[k] + np.asarray(updates[k]),
+                                   rtol=1e-6, atol=1e-6 * np.abs(params[k]).max())
 
 
 # ------------------------------------------------------------------ builder
