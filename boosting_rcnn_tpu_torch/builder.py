@@ -11,6 +11,9 @@ port does not implement raises ``NotImplementedError`` naming it.
 
 Weights are seeded random (flax-default initialisers drawn from a
 ``torch.Generator``); ``weights.from_jax_params`` loads the JAX package's.
+``dtype`` is the compute dtype, float32 or bfloat16, as the JAX builder's
+``dtype``: the parameters are float32 in both (``models/layers.py`` casts
+them at each call), so one state dict serves both.
 """
 from __future__ import annotations
 
@@ -26,12 +29,15 @@ from .models.detectors.two_stage import (
     TwoStageDetector,
     TwoStageNet,
 )
+from .models.layers import set_compute_dtype
 from .models.necks.fpn import PAFPN
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
 from .models.roi_heads.prob_roi_head import ProbRoICfg
 from .ops.anchors import AnchorGenerator
 
-__all__ = ["build_detector", "resolve_device"]
+__all__ = ["COMPUTE_DTYPES", "build_detector", "resolve_device"]
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -218,9 +224,14 @@ def _proposal_cfg(cfg: Dict[str, Any], nms_pre: int, max_per_img: int) -> Propos
     )
 
 
-def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0) -> TwoStageDetector:
-    """Flagship detector with seeded random weights on ``device`` (the GPU
-    when ``device`` is None; raises without one)."""
+def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
+                   dtype: torch.dtype = torch.float32) -> TwoStageDetector:
+    """Flagship detector with seeded random float32 weights on ``device``
+    (the GPU when ``device`` is None; raises without one), computing in
+    ``dtype`` (float32 or bfloat16; anything else raises ``ValueError``)."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {dtype} is not supported; the port computes in "
+                         f"{' or '.join(map(str, COMPUTE_DTYPES))}")
     device = resolve_device(device)
     _check(model_cfg, "type", ("FasterRCNN",))
     gen = torch.Generator().manual_seed(seed)
@@ -275,6 +286,7 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0) -> Two
         roi_strides=tuple(extractor.get("featmap_strides", (8, 16, 32, 64, 128))),
         roi_out_size=out_size, roi_finest_scale=extractor.get("finest_scale", 56),
     )
+    set_compute_dtype(net, dtype)
     rcnn_test = test_cfg.get("rcnn", {})
     _check(rcnn_test.get("nms", {}), "type", ("nms",), "nms")
     return TwoStageDetector(

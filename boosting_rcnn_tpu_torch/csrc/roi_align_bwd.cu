@@ -1,4 +1,5 @@
-// Batched multi-level RoIAlign feature gradient, float32, for Hopper (sm_90a).
+// Batched multi-level RoIAlign feature gradient, float32 and bfloat16, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_bwd_kernel` (boosting_rcnn_tpu/ops/
 // pallas_roi_align.py:244), launched by
@@ -9,14 +10,18 @@
 //     d[b, wy0 + k, wx0 + m, c] += sum_py sum_px wy[py, k] * wx[px, m] * g[n, py, px, c]
 //
 // summed over the RoIs, into the gradient of each route level, (batch, h, w,
-// channels) f32.  The geometry is recomputed from the RoIs
-// (roi_geometry.cuh).  Invalid RoIs add nothing, whatever their cotangent.
+// channels), in the type of the cotangent and the levels.  The geometry is
+// recomputed from the RoIs (roi_geometry.cuh).  Invalid RoIs add nothing,
+// whatever their cotangent.  In bfloat16 the arithmetic is the Pallas
+// kernel's: the cotangent widened to float32 (pallas_roi_align.py:894),
+// the weights rounded as the forward's (roi_geometry.cuh), float32 sums,
+// and each cell rounded once to bfloat16 when it is stored (:919).
 //
 // What bounds it on an H100: bytes.  At the flagship's train shapes (B*R =
-// 2048 sampled RoIs, C = 256) it reads the 103 MB cotangent and writes the
-// 91.75 MB gradient of the five levels, ~0.058 ms at 3.35 TB/s; its
-// operations, on the nonzero taps only, are ~0.2 GFLOP, ~0.003 ms at the
-// float32 peak.
+// 2048 sampled RoIs, C = 256) the float32 function reads the 103 MB
+// cotangent and writes the 91.75 MB gradient of the five levels, ~0.058 ms
+// at 3.35 TB/s; bfloat16 halves both.  Its operations, on the nonzero taps
+// only, are ~0.2 GFLOP, ~0.003 ms at the float32 peak.
 //
 // Design: deterministic, without float atomics and without a separate zero
 // fill of the gradient.  The levels are cut into 8 x 8-cell tiles.  A first
@@ -25,7 +30,8 @@
 // that its nonzero taps meet (at most 4 x 4 tiles) with an integer atomicOr,
 // whose result does not depend on the order.  Then one block per (tile, 256
 // channels): 8 warps, one per tile row; lane l takes the channel quads l and
-// l + 32 (each load and store of a warp one contiguous 512 bytes), and the
+// l + 32 in float32, the 8 channels 8l..8l+7 in bfloat16 (each load and
+// store of a warp one contiguous 512 bytes), and the
 // row's 8 cells x 8 channels of sums stay in registers.  Warp 0 turns the
 // tile's bitmap into the list of its RoIs in ascending order in shared
 // memory; the block walks it 16 RoIs at a time, their geometry copied into
@@ -54,7 +60,8 @@ using namespace roi;
 
 constexpr int kKeyWarps = 4;                 // RoIs per block of the key kernel
 constexpr int kLanes = 32;                   // lanes along the channels, 8 channels each
-constexpr int kChannels = kLanes * 8;        // channels per block
+constexpr int kLaneChannels = 8;
+constexpr int kChannels = kLanes * kLaneChannels;  // channels per block
 constexpr int kWarps = kTile;                // one warp per tile row
 constexpr int kThreads = kWarps * kLanes;
 constexpr int kChunk = 16;                   // RoIs whose geometry is staged at once
@@ -78,13 +85,40 @@ __device__ inline void copies_done() {
 #endif
 }
 
-__device__ inline void fma4(float4& acc, float w, const float4& v) {
-  acc.x = fmaf(w, v.x, acc.x);
-  acc.y = fmaf(w, v.y, acc.y);
-  acc.z = fmaf(w, v.z, acc.z);
-  acc.w = fmaf(w, v.w, acc.w);
+// The 8 channels of lane l inside a block's 256: kParts runs of Pack<T>'s
+// width, run p at channel kW * (l + 32 p) (float: 4l.. and 4(l + 32)..;
+// bfloat16: 8l..), so that each run of a warp is one contiguous 512 bytes.
+// A run at or past `width` (the block's channels) is not read or written.
+template <typename T>
+struct LaneChannels {
+  static constexpr int kW = Pack<T>::kWidth;
+  static constexpr int kParts = kLaneChannels / kW;
+  __device__ static int offset(int lane, int p) { return kW * (lane + kLanes * p); }
+  __device__ static void load(const T* base, int lane, int width, float* v) {
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      if (offset(lane, p) < width) {
+        Pack<T>::load(base + offset(lane, p), v + kW * p);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kW; ++i) v[kW * p + i] = 0.0f;
+      }
+    }
+  }
+  __device__ static void store(T* base, int lane, int width, const float* v) {
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      if (offset(lane, p) < width) Pack<T>::store(base + offset(lane, p), v + kW * p);
+    }
+  }
+};
+
+__device__ inline void fma8(float* acc, float w, const float* v) {
+#pragma unroll
+  for (int i = 0; i < kLaneChannels; ++i) acc[i] = fmaf(w, v[i], acc[i]);
 }
 
+template <bool kBf16Weights>
 __global__ void __launch_bounds__(kKeyWarps * 32)
 roi_tile_keys_kernel(const float* __restrict__ rois, const uint8_t* __restrict__ valid,
                      const Levels L, int n_rois, int rois_per_img, Geom* __restrict__ geo,
@@ -95,7 +129,7 @@ roi_tile_keys_kernel(const float* __restrict__ rois, const uint8_t* __restrict__
   const int n = blockIdx.x * kKeyWarps + warp;
   if (n >= n_rois || !valid[n]) return;  // whole warps only; no block barrier below
   Geom* g = &gs[warp];
-  roi_geometry(rois, n, rois_per_img, L, g);
+  roi_geometry<kBf16Weights>(rois, n, rois_per_img, L, g);
   const int4* src = reinterpret_cast<const int4*>(g);
   int4* dst = reinterpret_cast<int4*>(geo + n);
   for (int v = lane; v < kGeomVecs; v += 32) dst[v] = src[v];
@@ -118,10 +152,12 @@ roi_tile_keys_kernel(const float* __restrict__ rois, const uint8_t* __restrict__
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-roi_align_bwd_kernel(const float4* __restrict__ grad_out, const Geom* __restrict__ geo,
+roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom* __restrict__ geo,
                      const unsigned* __restrict__ bitmap, int n_rois, const Levels L,
-                     int quads) {
+                     int channels) {
+  using Lane = LaneChannels<T>;
   __shared__ Geom gs[kChunk];
   __shared__ int2 bins_y[kChunk][kTile];  // per RoI and tile row: its y bins py0..py1
   __shared__ int2 bins_x[kChunk];         // per RoI: the x bins that meet the tile
@@ -130,10 +166,9 @@ roi_align_bwd_kernel(const float4* __restrict__ grad_out, const Geom* __restrict
   const int tile = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int qbase = static_cast<int>(blockIdx.y) * (kChannels / 4);
-  const int q0 = qbase + lane;  // this lane's two channel quads: q0 and q0 + 32
-  const bool has0 = q0 < quads;
-  const bool has1 = q0 + kLanes < quads;
+  const int cbase = static_cast<int>(blockIdx.y) * kChannels;
+  const int width = min(kChannels, channels - cbase);  // this block's channels
+  const bool has0 = Lane::offset(lane, 0) < width;
 
   const int img = tile / L.tiles_per_img;
   int rem = tile - img * L.tiles_per_img;
@@ -146,12 +181,7 @@ roi_align_bwd_kernel(const float4* __restrict__ grad_out, const Geom* __restrict
   const int words = (n_rois + 31) / 32;
   const unsigned* bits = bitmap + static_cast<size_t>(tile) * words;
 
-  float4 acc0[kTile], acc1[kTile];
-#pragma unroll
-  for (int j = 0; j < kTile; ++j) {
-    acc0[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    acc1[j] = acc0[j];
-  }
+  float acc[kTile][kLaneChannels] = {};
 
   for (int w0 = 0; w0 < words; w0 += kListWords) {
     // warp 0 lists the RoIs of bitmap words w0.. in ascending order
@@ -218,31 +248,22 @@ roi_align_bwd_kernel(const float4* __restrict__ grad_out, const Geom* __restrict
         const int pyhi = bins_y[i][warp].y;
         if (pyhi < 0) continue;
         const int kx0 = x0 - g.wx0;
-        const float4* gn = grad_out + static_cast<size_t>(g.n) * kBins * quads + q0;
+        const T* gn = grad_out + static_cast<size_t>(g.n) * kBins * channels + cbase;
         const int pxa = bins_x[i].x;
         const int pxb = bins_x[i].y;
         // two x bins at a time, so that their loads are in flight together
         for (int px = pxa; px <= pxb; px += 2) {
           const bool two = px + 1 <= pxb;
-          float4 h[2][2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            h[e][0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            h[e][1] = h[e][0];
-          }
+          float h[2][kLaneChannels] = {};
 #pragma unroll 2
           for (int py = pylo; py <= pyhi; ++py) {
             const float a = g.wy[py][ky];
-            const float4* src = gn + (py * kOut + px) * quads;
-            const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            const float4 v00 = __ldg(src);
-            const float4 v01 = has1 ? __ldg(src + kLanes) : zero;
-            const float4 v10 = two ? __ldg(src + quads) : zero;
-            const float4 v11 = two && has1 ? __ldg(src + quads + kLanes) : zero;
-            fma4(h[0][0], a, v00);
-            fma4(h[0][1], a, v01);
-            fma4(h[1][0], a, v10);
-            fma4(h[1][1], a, v11);
+            const T* src = gn + (py * kOut + px) * channels;
+            float v0[kLaneChannels], v1[kLaneChannels];
+            Lane::load(src, lane, width, v0);
+            Lane::load(src + channels, lane, two ? width : 0, v1);
+            fma8(h[0], a, v0);
+            fma8(h[1], a, v1);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -253,9 +274,7 @@ roi_align_bwd_kernel(const float4* __restrict__ grad_out, const Geom* __restrict
             for (int j = 0; j < kTile; ++j) {
               const int kx = kx0 + j;
               if (kx < xlo || kx > xhi) continue;
-              const float w = g.wx[px + e][kx];
-              fma4(acc0[j], w, h[e][0]);
-              fma4(acc1[j], w, h[e][1]);
+              fma8(acc[j], g.wx[px + e][kx], h[e]);
             }
           }
         }
@@ -267,42 +286,60 @@ roi_align_bwd_kernel(const float4* __restrict__ grad_out, const Geom* __restrict
 
   const Level lv = L.lv[l];
   if (y >= lv.h || !has0) return;
-  float* row = lv.base + img * lv.s_img + y * lv.s_row + 4 * q0;
+  T* row = static_cast<T*>(lv.base) + img * lv.s_img + y * lv.s_row + cbase;
 #pragma unroll
   for (int j = 0; j < kTile; ++j) {
-    if (x0 + j < lv.w) {
-      float4* dst = reinterpret_cast<float4*>(row + (x0 + j) * lv.s_col);
-      dst[0] = acc0[j];
-      if (has1) dst[kLanes] = acc1[j];
-    }
+    if (x0 + j < lv.w) Lane::store(row + (x0 + j) * lv.s_col, lane, width, acc[j]);
   }
+}
+
+template <typename T>
+int launch_bwd(const void* g, const void* geo, const void* bitmap, int batch,
+               int rois_per_img, int channels, float finest_scale, int num_levels,
+               const long long* levels, void* stream) {
+  constexpr int kW = Pack<T>::kWidth;
+  Levels L;
+  if (batch < 1 || rois_per_img < 1 || channels < kW || channels % kW ||
+      reinterpret_cast<uintptr_t>(g) % 16 || reinterpret_cast<uintptr_t>(geo) % 16 ||
+      !fill_levels(&L, num_levels, levels, finest_scale, sizeof(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int l = 0; l < num_levels; ++l) {
+    if (L.lv[l].base == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(batch * L.tiles_per_img, (channels + kChannels - 1) / kChannels);
+  roi_align_bwd_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const Geom*>(geo),
+      static_cast<const unsigned*>(bitmap), batch * rois_per_img, L, channels);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes.  The level arguments are host
-// arrays, one entry per route level, as for roi_align_fwd_f32: level_ptrs
-// (device pointers; the gradients here, (batch, h, w, channels) f32 with
-// unit channel stride; may be null for the key kernel), level_h, level_w,
-// level_strides (image, row, column, in elements), inv_strides.  rois
-// (batch * rois_per_img, 4) f32 and valid (batch * rois_per_img,) uint8 are
-// device pointers.  Each launches on `stream` and returns cudaGetLastError()
-// (0 on success); shapes it does not take give cudaErrorInvalidValue
-// without a launch.
+// Plain C entry points, loaded with ctypes.  levels: a host array of 7
+// int64 per route level, as for roi_align_fwd_f32 (roi_geometry.cuh,
+// fill_levels); the level gradients here, (batch, h, w, channels) with
+// unit channel stride, in the entry point's type (the key kernel reads
+// only the shapes; its bases may be 0).  rois (batch * rois_per_img, 4)
+// f32 and valid (batch * rois_per_img,) uint8 are device pointers.  Each
+// launches on `stream` and returns cudaGetLastError() (0 on success);
+// shapes it does not take give cudaErrorInvalidValue without a launch.
 
 // sizeof(Geom), for the caller that allocates geo.
 extern "C" int roi_geom_bytes() { return static_cast<int>(sizeof(Geom)); }
 
 // geo (batch * rois_per_img,) Geom (1488 bytes each, 16-byte aligned): each
-// valid RoI's geometry; bitmap (batch * tiles_per_img, ceil(batch *
+// valid RoI's geometry, its weights rounded for bfloat16 levels when
+// bf16_weights is not 0; bitmap (batch * tiles_per_img, ceil(batch *
 // rois_per_img / 32)) uint32: bit n of tile t's row is set when valid RoI n
 // meets tile t (image * tiles_per_img + tile_base[level] + ty *
 // tiles_x[level] + tx).  The bitmap is zeroed on `stream` first.
 extern "C" int roi_tile_keys(const void* rois, const void* valid, void* geo, void* bitmap,
-                             int batch, int rois_per_img, float finest_scale, int num_levels, const long long* levels, void* stream) {
+                             int batch, int rois_per_img, int bf16_weights, float finest_scale,
+                             int num_levels, const long long* levels, void* stream) {
   Levels L;
   if (batch < 1 || rois_per_img < 1 || reinterpret_cast<uintptr_t>(geo) % 16 ||
-      !fill_levels(&L, num_levels, levels, finest_scale)) {
+      !fill_levels(&L, num_levels, levels, finest_scale, bf16_weights ? 2 : 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = batch * rois_per_img;
@@ -311,32 +348,36 @@ extern "C" int roi_tile_keys(const void* rois, const void* valid, void* geo, voi
   const cudaError_t zeroed =
       cudaMemsetAsync(bitmap, 0, bitmap_bytes, static_cast<cudaStream_t>(stream));
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  roi_tile_keys_kernel<<<(n + kKeyWarps - 1) / kKeyWarps, kKeyWarps * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rois), static_cast<const uint8_t*>(valid), L, n, rois_per_img,
-      static_cast<Geom*>(geo), static_cast<unsigned*>(bitmap));
+  const dim3 grid((n + kKeyWarps - 1) / kKeyWarps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  if (bf16_weights) {
+    roi_tile_keys_kernel<true><<<grid, kKeyWarps * 32, 0, s>>>(
+        r, v, L, n, rois_per_img, static_cast<Geom*>(geo), static_cast<unsigned*>(bitmap));
+  } else {
+    roi_tile_keys_kernel<false><<<grid, kKeyWarps * 32, 0, s>>>(
+        r, v, L, n, rois_per_img, static_cast<Geom*>(geo), static_cast<unsigned*>(bitmap));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// g (batch * rois_per_img, 7, 7, channels) f32: the cotangent; geo and
-// bitmap: roi_tile_keys' output for the same RoIs.  Writes every cell of
-// every level gradient.
+// g (batch * rois_per_img, 7, 7, channels), float or bfloat16: the
+// cotangent; geo and bitmap: roi_tile_keys' output for the same RoIs (with
+// bf16_weights for the bfloat16 entry).  channels is a multiple of 4
+// (float) or 8 (bfloat16).  Writes every cell of every level gradient.
 extern "C" int roi_align_bwd_f32(const void* g, const void* geo, const void* bitmap,
                                  int batch, int rois_per_img, int channels,
-                                 float finest_scale, int num_levels, const long long* levels, void* stream) {
-  Levels L;
-  if (batch < 1 || rois_per_img < 1 || channels < 4 || channels % 4 ||
-      reinterpret_cast<uintptr_t>(g) % 16 || reinterpret_cast<uintptr_t>(geo) % 16 ||
-      !fill_levels(&L, num_levels, levels, finest_scale)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int l = 0; l < num_levels; ++l) {
-    if (L.lv[l].base == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int quads = channels / 4;
-  const dim3 grid(batch * L.tiles_per_img, (channels + kChannels - 1) / kChannels);
-  roi_align_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(g), static_cast<const Geom*>(geo),
-      static_cast<const unsigned*>(bitmap), batch * rois_per_img, L, quads);
-  return static_cast<int>(cudaGetLastError());
+                                 float finest_scale, int num_levels, const long long* levels,
+                                 void* stream) {
+  return launch_bwd<float>(g, geo, bitmap, batch, rois_per_img, channels, finest_scale,
+                           num_levels, levels, stream);
+}
+
+extern "C" int roi_align_bwd_bf16(const void* g, const void* geo, const void* bitmap,
+                                  int batch, int rois_per_img, int channels,
+                                  float finest_scale, int num_levels, const long long* levels,
+                                  void* stream) {
+  return launch_bwd<__nv_bfloat16>(g, geo, bitmap, batch, rois_per_img, channels,
+                                   finest_scale, num_levels, levels, stream);
 }

@@ -20,9 +20,16 @@
 // A sample at window coordinate rel in [0, hi] has the nonzero taps
 // k = floor(rel) (weight 1 - (rel - k)) and k + 1 (weight rel - k, zero
 // when rel is whole); both lie inside the level and inside the window.
+//
+// For a bfloat16 pyramid the weights take the Pallas kernels' roundings
+// (boosting_rcnn_tpu/ops/pallas_roi_align.py:797 and :740): each tap weight
+// rounded to bfloat16, each bin's two samples averaged in float32 and the
+// mean rounded to bfloat16 again (plain mirror: ops/roi_align.py,
+// `fold_pool_rounded`).  Both kernels then sum in float32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,9 +45,10 @@ constexpr int kTilesPerAxis = 4;         // a 24-cell span meets at most 4 tiles
 constexpr int kMaxTiles = kTilesPerAxis * kTilesPerAxis;
 
 // One route level of the pyramid, NHWC with unit channel stride: element
-// (b, y, x, c) is base[b * s_img + y * s_row + x * s_col + c].
+// (b, y, x, c) is base[b * s_img + y * s_row + x * s_col + c], of the
+// kernel's element type (float or __nv_bfloat16).
 struct Level {
-  float* base;
+  void* base;
   int h, w;
   long long s_img, s_row, s_col;
 };
@@ -130,10 +138,17 @@ __device__ inline Tap sample_tap(float start, float bin, float origin, float hi,
   return t;
 }
 
+__device__ inline float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // Fills *g for RoI n (row n of rois (N, 4), image n / rois_per_img).  Called
 // by all 32 lanes of one warp; lanes 0-6 fold the rows of the 7 y bins,
 // lanes 7-13 the columns of the 7 x bins, each adding its bin's two samples
-// in order, so the folded weights are exactly (w_a + w_b) / 2.
+// in order, so the folded weights are exactly (w_a + w_b) / 2.  With
+// kBf16Weights, w_a and w_b are rounded to bfloat16 first and the folded
+// weight after.
+template <bool kBf16Weights>
 __device__ inline void roi_geometry(const float* __restrict__ rois, int n, int rois_per_img,
                                     const Levels& L, Geom* g) {
   const int lane = threadIdx.x & 31;
@@ -152,12 +167,17 @@ __device__ inline void roi_geometry(const float* __restrict__ rois, int n, int r
       const Tap t = along_y
           ? sample_tap(win.y1, win.bin_h, static_cast<float>(win.wy0), win.hi_y, j)
           : sample_tap(win.x1, win.bin_w, static_cast<float>(win.wx0), win.hi_x, j);
-      row[t.k] = __fadd_rn(row[t.k], __fdiv_rn(t.w0, static_cast<float>(kSamples)));
+      const float w0 = kBf16Weights ? round_bf16(t.w0) : t.w0;
+      const float w1 = kBf16Weights ? round_bf16(t.w1) : t.w1;
+      row[t.k] = __fadd_rn(row[t.k], __fdiv_rn(w0, static_cast<float>(kSamples)));
       if (t.w1 > 0.0f) {
-        row[t.k + 1] = __fadd_rn(row[t.k + 1], __fdiv_rn(t.w1, static_cast<float>(kSamples)));
+        row[t.k + 1] = __fadd_rn(row[t.k + 1], __fdiv_rn(w1, static_cast<float>(kSamples)));
       }
       lo = min(lo, t.k);
       hi = max(hi, t.w1 > 0.0f ? t.k + 1 : t.k);
+    }
+    if (kBf16Weights) {
+      for (int k = lo; k <= hi; ++k) row[k] = round_bf16(row[k]);
     }
     (along_y ? g->ylo : g->xlo)[o] = lo;
     (along_y ? g->yhi : g->xhi)[o] = hi;
@@ -178,8 +198,9 @@ __device__ inline void roi_geometry(const float* __restrict__ rois, int n, int r
 // level's stride in pixels (1 / stride is rounded to float32 from double,
 // as the plain version computes it).  Returns false for what the kernels
 // do not take: no level or more than kMaxLevels, a level without cells, a
-// stride or base that breaks 16-byte (float4) alignment.
-inline bool fill_levels(Levels* L, int num_levels, const long long* desc, float finest_scale) {
+// stride or base that breaks 16-byte alignment for elements of elem_bytes.
+inline bool fill_levels(Levels* L, int num_levels, const long long* desc, float finest_scale,
+                        int elem_bytes) {
   if (num_levels < 1 || num_levels > kMaxLevels) return false;
   L->n = num_levels;
   L->finest_scale = finest_scale;
@@ -195,14 +216,17 @@ inline bool fill_levels(Levels* L, int num_levels, const long long* desc, float 
       continue;
     }
     const long long* d = desc + 7 * l;
-    lv.base = reinterpret_cast<float*>(static_cast<uintptr_t>(d[0]));
+    lv.base = reinterpret_cast<void*>(static_cast<uintptr_t>(d[0]));
     lv.h = static_cast<int>(d[1]);
     lv.w = static_cast<int>(d[2]);
     lv.s_img = d[3];
     lv.s_row = d[4];
     lv.s_col = d[5];
     if (lv.h < 1 || lv.w < 1 || d[6] < 1) return false;
-    if (lv.s_img % 4 || lv.s_row % 4 || lv.s_col % 4) return false;
+    if ((lv.s_img * elem_bytes) % 16 || (lv.s_row * elem_bytes) % 16 ||
+        (lv.s_col * elem_bytes) % 16) {
+      return false;
+    }
     if (reinterpret_cast<uintptr_t>(lv.base) % 16) return false;
     L->inv_stride[l] = static_cast<float>(1.0 / static_cast<double>(d[6]));
     widest = widest > lv.w ? widest : lv.w;
@@ -213,5 +237,49 @@ inline bool fill_levels(Levels* L, int num_levels, const long long* desc, float 
   L->tiles_per_img = tiles;
   return true;
 }
+
+// 16 bytes of one element type as float32 values: 4 float channels, or 8
+// bfloat16 channels in memory order (channel 2i is the low half of the
+// i-th __nv_bfloat162).  Loads go through the read-only cache; stores
+// round to nearest even once.
+template <typename T>
+struct Pack;
+
+template <>
+struct Pack<float> {
+  static constexpr int kWidth = 4;
+  __device__ static void load(const float* p, float* v) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  __device__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int kWidth = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* v) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    uint4 x;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = x;
+  }
+};
 
 }  // namespace roi

@@ -19,16 +19,25 @@ JAX package's zeroed updates leave them.
 the RoIs inside the step (the JAX step's ``"fused"`` mode); with one it
 trains on that ``RoISample`` (its ``"external"`` mode).  Metrics carry the
 JAX names: ``loss``, each loss, and ``grad_norm`` (the norm before
-clipping).  The step runs on the detector's device.
+clipping).  The step runs on the detector's device, in the detector's
+compute dtype; the parameters and their gradients stay float32.
+
+The step is bitwise repeatable on the GPU, as the JAX step is on the TPU:
+it pins cuDNN to deterministic algorithms (``cudnn.deterministic`` on,
+``cudnn.benchmark`` off) for its own duration, and the port's train path
+uses no other nondeterministic op (its gathers with a gradient are one-hot
+products, the RoIAlign gradient adds in a fixed order).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["step_lr_schedule", "Optimizer", "make_optimizer", "make_train_step"]
+__all__ = ["step_lr_schedule", "Optimizer", "make_optimizer", "deterministic_cudnn",
+           "make_train_step"]
 
 
 def step_lr_schedule(
@@ -107,18 +116,35 @@ def make_optimizer(
     return Optimizer(params, lr_schedule, momentum, weight_decay, grad_clip_norm)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn(on: bool = True):
+    """cuDNN pinned to deterministic algorithms (and no autotuning) inside
+    the block when ``on``; the previous settings after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    if on:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def make_train_step(
     detector,
     anchors: torch.Tensor,
     num_level_anchors: Sequence[int],
     optimizer: Optimizer,
+    deterministic: bool = True,
 ):
     """The train step of ``detector`` with ``optimizer``:
     ``train_step(batch, sample=None, generator=None)`` trains on ``sample``
     (a ``RoISample`` from ``detector.train_sample``) when one is given, else
     computes proposals and samples RoIs inside, with ``generator`` driving
-    the sampler."""
+    the sampler.  Each step runs under ``deterministic_cudnn(deterministic)``:
+    the pin is on unless the caller turns it off (to time its cost)."""
 
+    @deterministic_cudnn(deterministic)
     def train_step(batch, sample=None, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
         losses = detector.loss(batch, anchors, num_level_anchors, generator=generator,

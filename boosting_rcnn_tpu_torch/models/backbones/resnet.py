@@ -3,7 +3,13 @@
 Depths 18 (``BasicBlock``) and 50 (``Bottleneck``), ``style='pytorch'``
 (stride on the 3x3), frozen BN.  The JAX package computes the 7x7/s2 stem
 as a space-to-depth 4x4 conv (``_S2DStemConv``), a TPU-only exact rewrite;
-here it is the plain 7x7/s2 conv over the same (7, 7, 3, F) weights.
+here it is the plain 7x7/s2 conv over the same (7, 7, 3, F) weights.  In
+bfloat16 the JAX stem contracts with ``preferred_element_type=bfloat16``
+(``backbones/resnet.py:101-110``): float32 sums, one rounding, as a
+bfloat16 convolution here; the tiny flagship's C2-C4 agree with the JAX
+package's bit for bit on the CPU (tests/test_torch_bf16.py), and cuDNN's
+bfloat16 stem on an H100 gives the CPU's C2-C5 bit for bit too
+(``chip_smoke.py``), inside the 2.5% tolerance of those checks.
 Submodule names follow the JAX package's (``conv1``, ``bn1``,
 ``layer{s}_{b}``, ``downsample_conv``) so weights map one to one.
 ``frozen_stages`` = k freezes the stem and stages 1..k, as the JAX
@@ -115,6 +121,7 @@ class ResNet(nn.Module):
             module.requires_grad_(False)
 
     def forward(self, x):
+        # conv1 casts the images to the compute dtype (JAX backbones/resnet.py:89)
         x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool(x, 3, 2, 1)
         if self.frozen_stages >= 0:

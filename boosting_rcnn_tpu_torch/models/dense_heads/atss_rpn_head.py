@@ -38,7 +38,8 @@ EPS = 1e-12
 
 
 class ATSSRPNConvs(nn.Module):
-    """Per-level NCHW features -> per-level (cls, reg, iou) NCHW maps."""
+    """Per-level NCHW features -> per-level (cls, reg, iou) NCHW maps; cls
+    and iou in the compute dtype, reg in float32."""
 
     def __init__(self, gen: torch.Generator, in_channels: int = 256,
                  num_anchors: int = 9, feat_channels: int = 256,
@@ -63,7 +64,8 @@ class ATSSRPNConvs(nn.Module):
             for i in range(self.stacked_convs):
                 x = getattr(self, f"rpn_conv_{i}")(x)
             cls_out.append(self.rpn_cls(x))
-            reg_out.append(getattr(self, f"scale_{lvl}")(self.rpn_reg(x)))
+            # reg leaves the compute dtype after its Scale (JAX atss_rpn_head.py:174)
+            reg_out.append(getattr(self, f"scale_{lvl}")(self.rpn_reg(x)).float())
             iou_out.append(self.rpn_iou(x))
         return cls_out, reg_out, iou_out
 
@@ -135,7 +137,8 @@ def atss_rpn_proposals(
     """Proposals for a batch: ``cls_logits``/``iou_logits`` ``(B, A)``,
     ``bbox_preds`` ``(B, A, 4)``, ``anchors`` ``(A, 4)``, ``img_shapes``
     ``(B, 2)``.  Returns ``(boxes (B, max, 4), scores (B, max), valid)``;
-    the score is the fused prior ``sqrt(sigmoid(cls) * sigmoid(iou))``."""
+    the score is the fused prior ``sqrt(sigmoid(cls) * sigmoid(iou))``, in
+    float32 whatever the logits' dtype (JAX ``atss_rpn_head.py:423-424``)."""
     fused = torch.sqrt(torch.sigmoid(cls_logits.float()) * torch.sigmoid(iou_logits.float()))
     sel_scores, sel_deltas, sel_anchors, sel_ids = [], [], [], []
     start = 0

@@ -14,7 +14,15 @@ gradient kernels on the GPU) and the head into the boosting R-CNN loss.
 Layouts at the public functions are the JAX package's: images
 ``(B, H, W, 3)``, pyramid levels ``(B, H, W, C)``, pooled RoI features
 ``(B, R, 7, 7, C)``.  The convolutions run on NCHW views of the same
-tensors.
+tensors (channels-last memory).
+
+Dtypes follow the JAX package's cast points: ``features``, the RPN's cls
+and iou maps, the pooled RoI features and the head's cls and reg are in
+the compute dtype (``builder.build_detector(dtype=)``); the RPN's reg is
+float32 after its ``Scale``; the proposals' scores, the softmax of the
+R-CNN scores and the prior fusion are float32 (JAX ``two_stage.py:793``,
+``prob_roi_head.py:209``); the decoders take the deltas in their own
+dtype, as ``delta2bbox`` does there; ``loss`` returns float32 losses.
 """
 from __future__ import annotations
 

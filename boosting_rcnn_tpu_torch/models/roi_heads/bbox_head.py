@@ -8,6 +8,10 @@ permutation.  ``bbox_head_decode`` decodes the class-wise deltas and runs
 multiclass NMS for one image.  ``bbox_targets`` and ``bbox_head_loss`` are
 the train side with the flagship's losses, softmax cross entropy and L1 on
 encoded class-wise deltas; other loss types raise ``NotImplementedError``.
+The head computes in the compute dtype of its ``Linear`` layers, and cls
+and reg come out in it (JAX ``roi_heads/bbox_head.py:143-157``); the
+losses compute in the predictions' dtype until a float32 weight promotes
+them.
 """
 from __future__ import annotations
 
@@ -101,8 +105,10 @@ def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.T
     c = cfg.num_classes
     pos = (labels >= 0) & (labels < c)
     safe_lab = torch.clamp(labels, 0, c - 1)
-    pred4 = torch.gather(bbox_pred.reshape(r, c, 4), 1,
-                         safe_lab[:, None, None].expand(r, 1, 4))[:, 0]
+    # the label's deltas by a one-hot product, exact, with an elementwise
+    # gradient (a gather's is a scatter-add with float atomics on the GPU)
+    onehot = F.one_hot(safe_lab.long(), c).to(bbox_pred.dtype)
+    pred4 = (bbox_pred.reshape(r, c, 4) * onehot[:, :, None]).sum(1)
     elem = (pred4 - bbox_t).abs() * bbox_w * pos.float()[:, None] * cfg.loss_bbox_weight
     ce = L.cross_entropy_loss(cls_score, labels, reduction="none")
     ce = ce * label_weights * cfg.loss_cls_weight

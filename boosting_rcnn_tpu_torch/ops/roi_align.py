@@ -16,10 +16,18 @@ the 24-cell window (RoIs that span more than 23 cells of their level).
 ``multilevel_roi_align_fast`` is the plain PyTorch version of the CUDA
 forward kernel in ``roi_align_kernel.py``; it gathers the windows and runs
 the two contractions with ``einsum``, and autograd through it is the plain
-gradient.  ``sample_taps`` is the plain mirror of the kernels' per-RoI
-geometry (``csrc/roi_geometry.cuh``), ``tile_keys`` and ``tile_bitmap``
-of the gradient kernel's tile lists (``csrc/roi_align_bwd.cu``), and
-``tile_lists`` spells out the per-tile lists, in the kernel's order.
+gradient.  It follows the Pallas kernels' arithmetic (``_kernel_flat``,
+``_bwd_kernel``): the pool fold of ``_fold_and_align`` (``:740``) in the
+weights, in a bfloat16 pyramid each sample weight rounded to bfloat16
+(``pallas_roi_align.py:797``) and each folded weight again
+(``fold_pool_rounded``), the contractions rows first in float32 on the
+widened window, one rounding of the output; its autograd widens the
+cotangent, sums in float32 with the same weights and rounds each level's
+gradient once (``:894``, ``:919``).  ``sample_taps`` is the plain
+mirror of the kernels' per-RoI geometry (``csrc/roi_geometry.cuh``),
+``tile_keys`` and ``tile_bitmap`` of the gradient kernel's tile lists
+(``csrc/roi_align_bwd.cu``), and ``tile_lists`` spells out the per-tile
+lists, in the kernel's order.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ __all__ = [
     "batched_stack",
     "batched_geometry",
     "fold_pool",
+    "fold_pool_rounded",
     "multilevel_roi_align_fast",
     "tile_grid",
     "tile_keys",
@@ -256,6 +265,18 @@ def fold_pool(w: torch.Tensor, out_size: int, s: int) -> torch.Tensor:
     return w.reshape(w.shape[0], out_size, s, w.shape[-1]).mean(dim=2)
 
 
+def fold_pool_rounded(w: torch.Tensor, out_size: int, s: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The pool fold of the Pallas kernels in ``dtype``: each weight of
+    ``w`` ``(n, out*s, win)`` rounded to ``dtype``, each bin's ``s`` samples
+    averaged in float32 and the mean rounded to ``dtype`` again; returned
+    as float32 values ``(n, out, win)``.  With ``s = 2`` it is ``bf16((bf16(w_a)
+    + bf16(w_b)) / 2)``, what ``_fold_and_align`` gives bit for bit."""
+    w = w.to(dtype).to(torch.float32)
+    w = (w.reshape(w.shape[0], out_size, s, w.shape[-1]) / s).sum(dim=2)
+    return w.to(dtype).to(torch.float32)
+
+
 def multilevel_roi_align_fast(
     feats: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -268,26 +289,30 @@ def multilevel_roi_align_fast(
 ) -> torch.Tensor:
     """Plain batched RoIAlign: ``feats`` L x ``(B, H, W, C)``, ``rois``
     ``(B, R, 4)``, ``roi_valid`` ``(B, R)`` -> ``(B, R, out, out, C)``,
-    invalid RoIs zero.  Same function as the JAX package's vmapped
-    ``multilevel_roi_align_fast``: sample with ``wy``/``wx``, then average
-    the ``s x s`` samples of each bin."""
+    invalid RoIs zero, in the pyramid's dtype, with the Pallas kernels'
+    arithmetic: the interpolation weights folded over each bin's ``s x s``
+    samples (``fold_pool_rounded``; in a narrow dtype each weight and each
+    folded weight rounded to it), the levels widened to float32 (so that
+    autograd sums the gradient in float32 and rounds each level once), rows
+    then columns contracted in float32, the output rounded once.  In
+    float32 it is the JAX package's ``multilevel_roi_align_fast`` (sample,
+    then average) with the average folded into the weights."""
     b, r = rois.shape[:2]
     nl = num_route_levels or len(feats)
-    c = feats[0].shape[-1]
-    s = sample_num
-    stacked, _ = batched_stack(feats, nl)
+    dtype, c = feats[0].dtype, feats[0].shape[-1]
+    stacked, _ = batched_stack([f.to(torch.float32) for f in feats[:nl]], nl)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats[:nl]]
     g = batched_geometry(level_hw, rois.reshape(b * r, 4), b, strides,
-                         finest_scale, out_size, s)
-    win_w = g.wx.shape[-1]
+                         finest_scale, out_size, sample_num)
+    wy = fold_pool_rounded(g.wy, out_size, sample_num, dtype)
+    wx = fold_pool_rounded(g.wx, out_size, sample_num, dtype)
     dev = stacked.device
     rows = g.row0.to(torch.int64)[:, None] + torch.arange(WIN, device=dev)
-    cols = g.x0.to(torch.int64)[:, None] + torch.arange(win_w, device=dev)
+    cols = g.x0.to(torch.int64)[:, None] + torch.arange(wx.shape[-1], device=dev)
     windows = stacked[rows[:, :, None], cols[:, None, :]]  # (n, WIN, win_w, C)
-    t = torch.einsum("rik,rkmc->rimc", g.wy, windows)
-    sampled = torch.einsum("rimc,rjm->rijc", t, g.wx)
-    pooled = sampled.reshape(b * r, out_size, s, out_size, s, c).mean(dim=(2, 4))
-    pooled = pooled * roi_valid.reshape(b * r)[:, None, None, None].to(pooled.dtype)
+    t = torch.einsum("rik,rkmc->rimc", wy, windows)
+    pooled = torch.einsum("rimc,rjm->rijc", t, wx).to(dtype)
+    pooled = pooled * roi_valid.reshape(b * r)[:, None, None, None].to(dtype)
     return pooled.reshape(b, r, out_size, out_size, c)
 
 

@@ -44,8 +44,16 @@ tensor reaches the plain version, and a failed build or launch raises.
 and ``_bwd_kernel`` are the TPU's per-image forms): the batch-of-one case
 of the same kernels, with launch counts of its own.
 
-``launches`` on each wrapper counts its kernel launches;
-``RoIAlignBackward.tile_launches`` counts the tile-key kernel's.
+Each kernel comes in float32 and bfloat16 (``roi_align_fwd_f32`` /
+``_bf16``, ``roi_align_bwd_f32`` / ``_bf16``), chosen by the levels'
+dtype; the levels must all have one dtype, the cotangent the levels', and
+bfloat16 levels a channel count that is a multiple of 8.  Nothing is cast
+on the way: a level of another dtype is a ``ValueError``.  The tile lists
+carry the dtype their weights were rounded for (``TileLists.dtype``).
+
+``launches`` on each wrapper counts its float32 kernel's launches and
+``bf16_launches`` its bfloat16 kernel's; ``RoIAlignBackward.tile_launches``
+counts the tile-key kernel's, in either dtype.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ from .. import cuda_build
 from .roi_align import multilevel_roi_align_fast, tile_grid
 
 __all__ = [
+    "KERNEL_DTYPES",
     "TileLists",
     "RoIAlignForward",
     "RoIAlignBackward",
@@ -74,6 +83,9 @@ OUT_SIZE = 7
 SAMPLE_NUM = 2
 MAX_LEVELS = 5
 GEOM_BYTES = 1488  # sizeof(roi::Geom) in csrc/roi_geometry.cuh
+# the kernels' element types: the C entry points' suffix and the channel
+# multiple that 16-byte loads need
+KERNEL_DTYPES = {torch.float32: ("f32", 4), torch.bfloat16: ("bf16", 8)}
 
 
 class TileLists(NamedTuple):
@@ -81,10 +93,12 @@ class TileLists(NamedTuple):
     ``bitmap`` ``(B * tiles_per_img, ceil(B*R / 32))`` int32, bit ``n`` of
     tile ``t``'s row set when valid RoI ``n`` meets tile ``t``
     (``roi_align.tile_bitmap`` is its plain mirror); ``geo`` ``(B*R,
-    GEOM_BYTES)`` uint8, each valid RoI's geometry."""
+    GEOM_BYTES)`` uint8, each valid RoI's geometry, its weights rounded for
+    levels of ``dtype``."""
 
     bitmap: torch.Tensor
     geo: torch.Tensor
+    dtype: torch.dtype = torch.float32
 
 
 _LEVEL_ARGTYPES = [
@@ -120,32 +134,45 @@ def _level_args(levels, strides: Sequence[int], finest_scale: float):
     return args, desc
 
 
-def _check_shapes(level_shapes) -> Tuple[int, int]:
+def _kernel_dtype(dtype: torch.dtype) -> Tuple[str, int]:
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the RoIAlign kernels take float32 or bfloat16 levels, not {dtype}")
+    return KERNEL_DTYPES[dtype]
+
+
+def _check_shapes(level_shapes, dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """1 to ``MAX_LEVELS`` route levels ``(B, H, W, C)`` of one batch and
-    one channel count, a multiple of 4; returns ``(B, C)``."""
+    one channel count, a multiple of 4 (float32) or 8 (bfloat16); returns
+    ``(B, C)``."""
     if not 1 <= len(level_shapes) <= MAX_LEVELS:
         raise ValueError(f"{len(level_shapes)} route levels; the kernels take 1 to {MAX_LEVELS}")
     b, c = level_shapes[0][0], level_shapes[0][-1]
-    if c % 4:
-        raise ValueError(f"{c} channels: the kernels take a multiple of 4")
+    multiple = _kernel_dtype(dtype)[1]
+    if c % multiple:
+        raise ValueError(f"{c} channels: the {dtype} kernels take a multiple of {multiple}")
     if any(len(s) != 4 or s[0] != b or s[-1] != c for s in level_shapes):
         raise ValueError("route levels must be (B, H, W, C) of one batch and channel count")
     return b, c
 
 
-def _check_levels(levels: Sequence[torch.Tensor], device: torch.device) -> Tuple[int, int]:
-    """Route levels ``(B, H, W, C)`` float32 on the CUDA ``device``, unit
-    channel stride, 16-byte aligned rows; returns ``(B, C)``."""
+def _check_levels(levels: Sequence[torch.Tensor],
+                  device: torch.device) -> Tuple[int, int, torch.dtype]:
+    """Route levels ``(B, H, W, C)`` of one dtype, float32 or bfloat16, on
+    the CUDA ``device``, unit channel stride, 16-byte aligned rows; returns
+    ``(B, C, dtype)``."""
     if device.type != "cuda":
         raise ValueError(f"the RoIAlign kernels run on CUDA tensors, not {device}")
-    b, c = _check_shapes([f.shape for f in levels])
+    dtype = levels[0].dtype
+    b, c = _check_shapes([f.shape for f in levels], dtype)
     for f in levels:
         s = f.stride()
-        if f.device != device or f.dtype != torch.float32:
-            raise ValueError("route levels must be float32 on the CUDA device")
-        if s[3] != 1 or s[0] % 4 or s[1] % 4 or s[2] % 4 or f.data_ptr() % 16:
+        if f.device != device or f.dtype != dtype:
+            raise ValueError(f"route levels must be of one dtype on the CUDA device; got "
+                             f"{[(str(x.dtype), str(x.device)) for x in levels]}")
+        step = 16 // f.element_size()
+        if s[3] != 1 or s[0] % step or s[1] % step or s[2] % step or f.data_ptr() % 16:
             raise ValueError("route levels need unit channel stride and 16-byte aligned rows")
-    return b, c
+    return b, c, dtype
 
 
 def _on(device: torch.device):
@@ -178,25 +205,30 @@ def _raise_on(err: int, name: str) -> None:
 
 class RoIAlignBackward:
     """Callable wrapper of the RoIAlign gradient kernels with launch counts:
-    ``launches`` of the gradient kernel, ``tile_launches`` of the tile-key
-    kernel."""
+    ``launches`` of the float32 gradient kernel, ``bf16_launches`` of the
+    bfloat16 one, ``tile_launches`` of the tile-key kernel."""
 
     KERNEL = "roi_align_bwd"
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
         self.tile_launches = 0
         self._fns = None
 
     def _kernels(self):
+        """The tile-key entry point and the gradient entry points by suffix."""
         if self._fns is None:
             lib = cuda_build.load(self.KERNEL)
             keys = lib.roi_tile_keys
-            keys.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + _LEVEL_ARGTYPES
+            keys.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
             keys.restype = ctypes.c_int
-            bwd = lib.roi_align_bwd_f32
-            bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
-            bwd.restype = ctypes.c_int
+            bwd = {}
+            for suffix, _ in KERNEL_DTYPES.values():
+                fn = getattr(lib, f"roi_align_bwd_{suffix}")
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
+                fn.restype = ctypes.c_int
+                bwd[suffix] = fn
             if lib.roi_geom_bytes() != GEOM_BYTES:
                 raise RuntimeError(f"{self.KERNEL}: the kernels' Geom is {lib.roi_geom_bytes()} "
                                    f"bytes, the wrapper allocates {GEOM_BYTES}")
@@ -205,13 +237,13 @@ class RoIAlignBackward:
 
     def tile_lists(self, level_shapes: Sequence[Sequence[int]], rois: torch.Tensor,
                    valid: torch.Tensor, strides: Sequence[int],
-                   finest_scale: float = 56) -> TileLists:
+                   finest_scale: float = 56, dtype: torch.dtype = torch.float32) -> TileLists:
         """The tile lists of flat CUDA ``rois`` ``(B*R, 4)`` and ``valid``
         ``(B*R,)`` uint8 over route levels of ``level_shapes`` ``(B, H, W,
-        C)``: the tile-key kernel."""
+        C)`` and ``dtype``: the tile-key kernel."""
         if rois.device.type != "cuda":
             raise ValueError(f"the RoIAlign kernels run on CUDA tensors, not {rois.device}")
-        b, _ = _check_shapes(level_shapes)
+        b, _ = _check_shapes(level_shapes, dtype)
         r = _check_rois(rois, valid, b, rois.device)
         _, _, per_img = tile_grid([(s[1], s[2]) for s in level_shapes])
         words = -(-b * r // 32)
@@ -221,37 +253,47 @@ class RoIAlignBackward:
         args, _desc = _level_args(level_shapes, strides, finest_scale)
         with _on(rois.device):
             err = fn(rois.data_ptr(), valid.data_ptr(), geo.data_ptr(), bitmap.data_ptr(), b, r,
-                     *args)
+                     int(dtype == torch.bfloat16), *args)
         _raise_on(err, "roi_tile_keys")
         self.tile_launches += 1
-        return TileLists(bitmap, geo)
+        return TileLists(bitmap, geo, dtype)
 
     def launch(self, g: torch.Tensor, level_shapes: Sequence[Sequence[int]],
                rois: torch.Tensor, valid: torch.Tensor, strides: Sequence[int],
-               finest_scale: float = 56, tiles: TileLists | None = None) -> List[torch.Tensor]:
+               finest_scale: float = 56, tiles: TileLists | None = None,
+               dtype: torch.dtype | None = None) -> List[torch.Tensor]:
         """Gradients ``(B, H, W, C)`` of route levels of ``level_shapes``
-        for the cotangent ``g`` ``(B*R, 7, 7, C)`` float32 of flat CUDA
+        and ``dtype`` (float32 or bfloat16; ``g``'s when None) for the
+        cotangent ``g`` ``(B*R, 7, 7, C)`` of that dtype, of flat CUDA
         ``rois`` ``(B*R, 4)`` and ``valid`` ``(B*R,)`` uint8.  Builds the
-        tile lists unless ``tiles`` are given."""
+        tile lists unless ``tiles`` (for the same dtype) are given."""
         if g.device.type != "cuda":
             raise ValueError(f"the RoIAlign kernels run on CUDA tensors, not {g.device}")
-        b, c = _check_shapes(level_shapes)
+        dtype = g.dtype if dtype is None else dtype
+        suffix, _ = _kernel_dtype(dtype)
+        b, c = _check_shapes(level_shapes, dtype)
         r = _check_rois(rois, valid, b, g.device)
-        if (g.dtype != torch.float32 or tuple(g.shape) != (b * r, OUT_SIZE, OUT_SIZE, c)
+        if (g.dtype != dtype or tuple(g.shape) != (b * r, OUT_SIZE, OUT_SIZE, c)
                 or not g.is_contiguous() or g.data_ptr() % 16):
-            raise ValueError(f"g: want contiguous float32 {(b * r, OUT_SIZE, OUT_SIZE, c)}, "
+            raise ValueError(f"g: want contiguous {dtype} {(b * r, OUT_SIZE, OUT_SIZE, c)}, "
                              f"got {g.dtype} {tuple(g.shape)}")
+        if tiles is not None and tiles.dtype != dtype:
+            raise ValueError(f"tile lists made for {tiles.dtype} levels, not {dtype}")
         if r == 0:
-            return [torch.zeros(s, dtype=torch.float32, device=g.device) for s in level_shapes]
+            return [torch.zeros(s, dtype=dtype, device=g.device) for s in level_shapes]
         if tiles is None:
-            tiles = self.tile_lists(level_shapes, rois, valid, strides, finest_scale)
-        grads = [torch.empty(s, dtype=torch.float32, device=g.device) for s in level_shapes]
+            tiles = self.tile_lists(level_shapes, rois, valid, strides, finest_scale, dtype)
+        grads = [torch.empty(s, dtype=dtype, device=g.device) for s in level_shapes]
         _, bwd = self._kernels()
         args, _desc = _level_args(grads, strides, finest_scale)
         with _on(g.device):
-            err = bwd(g.data_ptr(), tiles.geo.data_ptr(), tiles.bitmap.data_ptr(), b, r, c, *args)
-        _raise_on(err, self.KERNEL)
-        self.launches += 1
+            err = bwd[suffix](g.data_ptr(), tiles.geo.data_ptr(), tiles.bitmap.data_ptr(), b, r,
+                              c, *args)
+        _raise_on(err, f"{self.KERNEL}_{suffix}")
+        if dtype == torch.bfloat16:
+            self.bf16_launches += 1
+        else:
+            self.launches += 1
         return grads
 
 
@@ -262,37 +304,47 @@ class _RoIAlignFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rois, valid, wrapper, strides, finest_scale, *levels):
         ctx.save_for_backward(rois, valid)
-        ctx.meta = (wrapper, strides, finest_scale, [tuple(f.shape) for f in levels])
+        ctx.meta = (wrapper, strides, finest_scale, [tuple(f.shape) for f in levels],
+                    levels[0].dtype)
         return wrapper.launch(levels, rois, valid, strides, finest_scale)
 
     @staticmethod
     def backward(ctx, g):
         rois, valid = ctx.saved_tensors
-        wrapper, strides, finest_scale, level_shapes = ctx.meta
+        wrapper, strides, finest_scale, level_shapes, dtype = ctx.meta
+        # autograd gives g the output's dtype, the levels'; the kernel reads
+        # it as it is, and another dtype is an error, not a cast
+        if g.dtype != dtype:
+            raise ValueError(f"RoIAlign cotangent is {g.dtype}, the levels are {dtype}")
         grads = wrapper.backward.launch(g.contiguous(), level_shapes, rois, valid, strides,
                                         finest_scale)
         return (None, None, None, None, None, *grads)
 
 
 class RoIAlignForward:
-    """Callable wrapper of the RoIAlign forward kernel with a launch count;
-    ``backward`` is its own wrapper of the gradient kernels, which autograd
-    launches through it."""
+    """Callable wrapper of the RoIAlign forward kernels with launch counts
+    (``launches`` float32, ``bf16_launches`` bfloat16); ``backward`` is its
+    own wrapper of the gradient kernels, which autograd launches through
+    it."""
 
     KERNEL = "roi_align_fwd"
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
         self.backward = RoIAlignBackward()
-        self._fn = None
+        self._fns = None
 
-    def _kernel(self):
-        if self._fn is None:
-            fn = cuda_build.load(self.KERNEL).roi_align_fwd_f32
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    def _kernel(self, suffix: str):
+        if self._fns is None:
+            lib = cuda_build.load(self.KERNEL)
+            self._fns = {}
+            for name, _ in KERNEL_DTYPES.values():
+                fn = getattr(lib, f"roi_align_fwd_{name}")
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
+                fn.restype = ctypes.c_int
+                self._fns[name] = fn
+        return self._fns[suffix]
 
     def __call__(
         self,
@@ -337,21 +389,25 @@ class RoIAlignForward:
 
     def launch(self, levels: Sequence[torch.Tensor], rois: torch.Tensor, valid: torch.Tensor,
                strides: Sequence[int], finest_scale: float = 56) -> torch.Tensor:
-        """Run the kernel on CUDA route ``levels`` ``(B, H, W, C)`` float32
-        (unit channel stride), flat ``rois`` ``(B*R, 4)`` float32 and
-        ``valid`` ``(B*R,)`` uint8 -> ``(B*R, 7, 7, C)``."""
-        b, c = _check_levels(levels, rois.device)
+        """Run the kernel of the levels' dtype on CUDA route ``levels``
+        ``(B, H, W, C)`` (float32 or bfloat16, one dtype, unit channel
+        stride), flat ``rois`` ``(B*R, 4)`` float32 and ``valid`` ``(B*R,)``
+        uint8 -> ``(B*R, 7, 7, C)`` in the levels' dtype."""
+        b, c, dtype = _check_levels(levels, rois.device)
         r = _check_rois(rois, valid, b, rois.device)
-        out = torch.empty((b * r, OUT_SIZE, OUT_SIZE, c), dtype=torch.float32,
-                          device=rois.device)
+        out = torch.empty((b * r, OUT_SIZE, OUT_SIZE, c), dtype=dtype, device=rois.device)
         if r == 0:
             return out
-        fn = self._kernel()
+        suffix, _ = _kernel_dtype(dtype)
+        fn = self._kernel(suffix)
         args, _desc = _level_args(levels, strides, finest_scale)
         with _on(rois.device):
             err = fn(rois.data_ptr(), valid.data_ptr(), out.data_ptr(), b, r, c, *args)
-        _raise_on(err, self.KERNEL)
-        self.launches += 1
+        _raise_on(err, f"{self.KERNEL}_{suffix}")
+        if dtype == torch.bfloat16:
+            self.bf16_launches += 1
+        else:
+            self.launches += 1
         return out
 
 

@@ -6,11 +6,13 @@ Builds the CUDA kernels of the port from ``boosting_rcnn_tpu_torch/csrc``
 with ``nvcc`` (sm_90a, one process per source, started together), builds
 the full-width flagship Boosting R-CNN (ResNet-50 with frozen stem and
 stage 1, PAFPN 256, ATSS RPN 256 x 4, Shared2FC 1024, 4 classes) with
-seeded random weights, and drives three paths, each with the kernels'
-launch counts set to 0 just before it and read just after:
+seeded random weights, in float32 and again in bfloat16 (the JAX entry's
+full-size compute dtype: float32 parameters, explicit casts), and in each
+dtype drives three paths, each with the kernels' launch counts set to 0
+just before it and read just after:
 
   * predict: three requests of two 800 x 1344 images through
-    ``TwoStageDetector.predict`` (RoIAlign forward kernel);
+    ``TwoStageDetector.predict`` (RoIAlign forward kernel of the dtype);
   * train: four SGD steps of ``engine.train.make_train_step`` at the
     config's batch of 4 and its learning-rate schedule, on synthetic
     images with seeded ground-truth boxes (RoIAlign forward kernel, tile-key
@@ -18,17 +20,31 @@ launch counts set to 0 just before it and read just after:
   * per image: the batch-of-one RoIAlign entry forward and backward on
     each image of the train batch.
 
-It checks the outputs (detections finite and inside the image, repeatable;
-losses finite and positive, the frozen stages bit-identical and every
-other part moved), that each kernel ran on its path, that each kernel
+In each dtype it checks the outputs (detections finite and inside the
+image, repeatable; losses finite and positive, the frozen stages
+bit-identical and every other part moved), that each kernel of the dtype
+ran on its path and no kernel of the other dtype did, that each kernel
 agrees with its plain PyTorch version at the predict and train shapes and
 at an odd shape with level-boundary, clamped, degenerate and invalid RoIs
 (the tile lists equal to the plain mirror's; invalid RoIs add nothing to
-the gradient), that the gradient is bitwise repeatable (two launches, and
-two backward passes of the train path's RoIAlign), and that the tiny
-flagship predicts and takes a train step on the GPU as on the CPU.  Then
-it times each kernel alone and its whole call (NHWC copies, tile lists) at
-both shapes, its plain version, ``predict`` and the train step.
+the gradient), and that the gradient is bitwise repeatable (two launches,
+and two backward passes of the train path's RoIAlign).  float32 kernels
+are held within an absolute tolerance of their plain versions; bfloat16
+ones (against the Pallas kernels' arithmetic), on levels and cotangents
+scaled by ``c + 1`` along the channels, within 1 ulp of every plain value
+(the gradient plus 1e-5 of the largest) with at most 1% of the values not
+bit-equal.  Then the tiny flagship predicts and takes a train step on the
+GPU as on the CPU, in both dtypes, and the repeatability check (ROADMAP
+C.2) takes two tiny train steps from one saved state on the same batch
+and sample in each dtype and asserts that the losses, every gradient and
+every parameter are bit-identical (cuDNN pinned by the train step; the
+same steps without the pin are reported, and two more run under
+``torch.use_deterministic_algorithms``, which raises on an op that has no
+deterministic form).  Timings, per dtype: each kernel alone by CUDA-graph
+replay and its whole call at the predict, train and per-image shapes,
+its plain version and its bound; ``predict`` and its stages; the train
+step and its parts, a step with and without the cuDNN pin; peak device
+memory; a ``torch.profiler`` view of one ``predict`` and one step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -45,18 +61,22 @@ import sys
 import time
 
 import numpy as np
-import torch
 
-from boosting_rcnn_tpu_torch import cuda_build
-from boosting_rcnn_tpu_torch.builder import build_detector
-from boosting_rcnn_tpu_torch.config import load_config
-from boosting_rcnn_tpu_torch.engine.train import (
+# cuBLAS needs a fixed workspace to run under torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+
+from boosting_rcnn_tpu_torch import cuda_build  # noqa: E402
+from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
+from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.engine.train import (  # noqa: E402
     make_optimizer,
     make_train_step,
     step_lr_schedule,
 )
-from boosting_rcnn_tpu_torch.ops import roi_align
-from boosting_rcnn_tpu_torch.ops.roi_align_kernel import (
+from boosting_rcnn_tpu_torch.ops import roi_align  # noqa: E402
+from boosting_rcnn_tpu_torch.ops.roi_align_kernel import (  # noqa: E402
     batched_multilevel_roi_align,
     multilevel_roi_align,
     roi_align_bwd_plain,
@@ -78,10 +98,34 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, float32 outside tensor cores
 KERNELS = ("roi_align_fwd", "roi_align_bwd")
 STRIDES = (8, 16, 32, 64, 128)
+BF16 = torch.bfloat16
+BF16_SHARE = 0.01  # most values a bfloat16 kernel may leave not bit-equal to its plain version
+# the bfloat16 stage tolerances of tests/test_torch_bf16.py, as fractions
+BF16_TOL = {"levels": 0.025, "loss": 0.015, "device_step": 0.35}
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_report(log: str):
+    """Registers and spills of each kernel instantiation in an ``nvcc
+    -Xptxas=-v`` log, by kernel and element type (float32 or bfloat16
+    levels; the tile-key kernel by its weights' rounding)."""
+    lines = log.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" not in ln:
+            continue
+        name = ln.split("'")[1]
+        base = next((k for k in ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
+                                 "roi_tile_keys_kernel") if k in name), name)
+        kind = ("bf16" if "bfloat16" in name or "ILb1E" in name else
+                "f32" if "IfE" in name or "ILb0E" in name else "?")
+        regs = lines[i + 3].split("info    : ")[-1] if i + 3 < len(lines) else ""
+        spill = lines[i + 2].strip() if i + 2 < len(lines) else ""
+        out.append(f"{base.replace('_kernel', '')} {kind}: {regs}; {spill}")
+    return out
 
 
 def card() -> str:
@@ -125,13 +169,18 @@ def graph_ms(fn, iters: int) -> float:
 def counters():
     """Every kernel's launch count, by name: (wrapper, attribute)."""
     per_image = multilevel_roi_align.batched
+    fwd, bwd = batched_multilevel_roi_align, batched_multilevel_roi_align.backward
     return {
-        "roi_align_fwd": (batched_multilevel_roi_align, "launches"),
-        "roi_align_bwd": (batched_multilevel_roi_align.backward, "launches"),
-        "roi_tile_keys": (batched_multilevel_roi_align.backward, "tile_launches"),
+        "roi_align_fwd": (fwd, "launches"),
+        "roi_align_bwd": (bwd, "launches"),
+        "roi_tile_keys": (bwd, "tile_launches"),
+        "roi_align_fwd_bf16": (fwd, "bf16_launches"),
+        "roi_align_bwd_bf16": (bwd, "bf16_launches"),
         "roi_align_fwd_per_image": (per_image, "launches"),
         "roi_align_bwd_per_image": (per_image.backward, "launches"),
         "roi_tile_keys_per_image": (per_image.backward, "tile_launches"),
+        "roi_align_fwd_bf16_per_image": (per_image, "bf16_launches"),
+        "roi_align_bwd_bf16_per_image": (per_image.backward, "bf16_launches"),
     }
 
 
@@ -229,25 +278,29 @@ def _bound(nbytes, flops):
 
 def roi_bound(feats, rois, valid, strides, out_size=7):
     """Least time of the RoIAlign forward on these inputs: the bytes it
-    must move (every pyramid cell that some valid RoI weights, once; the
-    RoIs; the output, once) at the HBM rate, against its float32
-    operations (nonzero taps only) at the float32 rate."""
+    must move (every pyramid cell that some valid RoI weights, once, in the
+    levels' element size; the float32 RoIs; the output, once, in the
+    levels' dtype) at the HBM rate, against its float32 operations (nonzero
+    taps only) at the float32 rate."""
     b, r = rois.shape[:2]
-    c = feats[0].shape[-1]
+    c, esize = feats[0].shape[-1], feats[0].element_size()
     cells, flops, _ = _taps(feats, rois, valid, strides, out_size)
-    nbytes = cells * c * 4 + rois.numel() * 4 + valid.numel() + b * r * out_size ** 2 * c * 4
+    nbytes = (cells * c * esize + rois.numel() * 4 + valid.numel()
+              + b * r * out_size ** 2 * c * esize)
     return (*_bound(nbytes, flops), nbytes, flops)
 
 
-def roi_bwd_bound(feats, rois, valid, strides, out_size=7):
+def roi_bwd_bound(feats, rois, valid, strides, out_size=7, g_esize=None):
     """Least time of the RoIAlign feature gradient on these inputs: the
-    cotangent of the valid RoIs, the RoIs and the valid mask read once and
-    the dense gradient of every level written once, at the HBM rate,
-    against its float32 operations (nonzero taps only)."""
-    c = feats[0].shape[-1]
+    cotangent of the valid RoIs (``g_esize`` bytes an element, the levels'
+    by default), the float32 RoIs and the valid mask read once and the
+    dense gradient of every level written once in the levels' dtype, at the
+    HBM rate, against its float32 operations (nonzero taps only)."""
+    c, esize = feats[0].shape[-1], feats[0].element_size()
     _, flops, n_valid = _taps(feats, rois, valid, strides, out_size)
-    level_bytes = sum(f.numel() for f in feats) * 4
-    nbytes = n_valid * out_size ** 2 * c * 4 + rois.numel() * 4 + valid.numel() + level_bytes
+    level_bytes = sum(f.numel() for f in feats) * esize
+    nbytes = (n_valid * out_size ** 2 * c * (g_esize or esize) + rois.numel() * 4
+              + valid.numel() + level_bytes)
     return (*_bound(nbytes, flops), nbytes, flops)
 
 
@@ -258,17 +311,77 @@ def flat(rois, valid):
             valid.reshape(-1).to(torch.uint8).contiguous())
 
 
-def kernel_vs_plain(feats, rois, valid, strides) -> float:
-    """The forward kernel, through the entry point, against the plain
-    forward; returns the max abs error."""
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at ``|x|`` (8 significant bits)."""
+    x = x.float().abs()
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def channel_scaled(x: torch.Tensor, dtype=BF16) -> torch.Tensor:
+    """``x`` times ``c + 1`` along the channels, in ``dtype``: a lane that
+    swaps two channels changes the result."""
+    scale = torch.arange(1, x.shape[-1] + 1, device=x.device, dtype=torch.float32)
+    return (x.float() * scale).to(dtype)
+
+
+def close(got, ref, what: str, atol: float):
+    """A kernel's result against its plain version: float32 within
+    ``atol``; bfloat16 within 1 ulp of the plain value plus ``atol``, and at
+    most ``BF16_SHARE`` of the values not bit-equal.  Returns (max abs err,
+    share not bit-equal)."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against {ref.dtype} "
+                             f"{tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs()
+    share = (got != ref).float().mean().item()
+    if got.dtype == BF16:
+        past = (err - bf16_ulp(ref) - atol).max().item()
+        if past > 0 or share > BF16_SHARE:
+            raise AssertionError(f"{what}: max abs err {err.max().item()}, {past} past 1 ulp + "
+                                 f"{atol}; {share:.4%} of the values not bit-equal")
+    elif not err.max().item() <= atol:
+        raise AssertionError(f"{what}: max abs err {err.max().item()} > {atol}")
+    return err.max().item(), share
+
+
+def kernels_vs_plain(feats, rois, valid, strides, g, dtype, what: str):
+    """Both kernels in ``dtype`` against their plain versions: the forward
+    through the entry point, the gradient through its wrapper on the
+    cotangent ``g`` ``(B*R, 7, 7, C)``.  float32: the forward within
+    ``ATOL``, the gradient within ``BWD_RTOL`` of the largest plain value
+    (the plain versions sum in other orders).  bfloat16, on levels and a
+    cotangent scaled by ``c + 1`` along the channels: within 1 ulp (the
+    gradient plus ``BWD_RTOL`` of the largest plain value).  In both, a
+    second launch of the gradient gives the same bits and a cotangent on
+    the invalid RoIs only adds nothing.  Returns {"fwd": (err, share),
+    "bwd": (err, share, max|plain|)}."""
+    if dtype == BF16:
+        levels, g = [channel_scaled(f) for f in feats], channel_scaled(g)
+    else:
+        levels = list(feats)
     with torch.no_grad():
-        got = batched_multilevel_roi_align(feats, rois, valid, strides)
-        ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, strides)
+        got = batched_multilevel_roi_align(levels, rois, valid, strides)
+        ref = roi_align.multilevel_roi_align_fast(levels, rois, valid, strides)
+    fwd = close(got, ref, f"roi_align_fwd ({dtype}, {what})", ATOL if dtype != BF16 else 0.0)
+    shapes = [tuple(f.shape) for f in levels]
+    rf, vf = flat(rois, valid)
+    bwd = batched_multilevel_roi_align.backward
+    d_got = bwd.launch(g, shapes, rf, vf, strides)
+    d_again = bwd.launch(g, shapes, rf, vf, strides)
+    leaked = bwd.launch(g * (vf == 0)[:, None, None, None], shapes, rf, vf, strides)
+    d_ref = roi_align_bwd_plain(g, levels, rois, valid, strides)
     torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    if not err <= ATOL or got.shape != ref.shape:
-        raise AssertionError(f"RoIAlign kernel disagrees with its plain version: {err}")
-    return err
+    if not all(torch.equal(a, b) for a, b in zip(d_got, d_again)):
+        raise AssertionError(f"roi_align_bwd ({dtype}, {what}) is not bitwise repeatable")
+    if any(torch.count_nonzero(d).item() for d in leaked):
+        raise AssertionError(f"invalid RoIs added to the level gradients ({dtype}, {what})")
+    scale = max(r.float().abs().max().item() for r in d_ref)
+    if not scale > 0:
+        raise AssertionError(f"roi_align_bwd ({dtype}, {what}): the plain gradient is zero")
+    res = [close(a, r, f"roi_align_bwd ({dtype}, {what})", BWD_RTOL * scale)
+           for a, r in zip(d_got, d_ref)]
+    return {"fwd": fwd, "bwd": (max(e for e, _ in res), max(sh for _, sh in res), scale)}
 
 
 def tiles_vs_plain(feats, rois, valid, strides) -> str:
@@ -284,31 +397,6 @@ def tiles_vs_plain(feats, rois, valid, strides) -> str:
         raise AssertionError("the tile-key kernel's bitmap differs from the plain mirror's")
     per_tile = torch.bincount(keys[keys != roi_align.NO_TILE].long())
     return f"{int(per_tile.sum())} (tile, RoI) pairs, at most {int(per_tile.max())} on one tile"
-
-
-def bwd_vs_plain(g, feats, rois, valid, strides, what: str):
-    """The gradient kernels against ``roi_align_bwd_plain``, every level
-    within ``BWD_RTOL`` of the largest plain value; a second launch gives
-    the same bits, and a cotangent on the invalid RoIs only adds nothing.
-    Returns the max abs error and the largest plain value."""
-    shapes = [tuple(f.shape) for f in feats]
-    rf, vf = flat(rois, valid)
-    bwd = batched_multilevel_roi_align.backward
-    got = bwd.launch(g, shapes, rf, vf, strides)
-    again = bwd.launch(g, shapes, rf, vf, strides)
-    leaked = bwd.launch(g * (vf == 0)[:, None, None, None], shapes, rf, vf, strides)
-    ref = roi_align_bwd_plain(g, feats, rois, valid, strides)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"RoIAlign gradient kernel is not bitwise repeatable ({what})")
-    if any(torch.count_nonzero(d).item() for d in leaked):
-        raise AssertionError(f"invalid RoIs added to the level gradients ({what})")
-    scale = max(r.abs().max().item() for r in ref)
-    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
-    if not (scale > 0 and err <= BWD_RTOL * scale):
-        raise AssertionError(f"RoIAlign gradient kernel disagrees with its plain version "
-                             f"({what}): max abs err {err}, largest value {scale}")
-    return err, scale
 
 
 def odd_case(seed: int):
@@ -374,51 +462,578 @@ def tiny_gpu_matches_cpu(seed: int) -> int:
     return int(v0.sum())
 
 
-def tiny_train_gpu_matches_cpu(seed: int):
+def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32):
     """One train step of the tiny flagship on the GPU (CUDA kernels) and on
     the CPU (plain versions, held against the JAX package by the CPU
     tests), on the same weights, batch and ``RoISample`` (drawn on the
-    CPU), at a constant learning rate of 0.01: the losses and the gradient
-    norm within rtol 1e-4, every updated parameter within ``1e-3 *
+    CPU), at a constant learning rate of 0.01.  float32: the losses and the
+    gradient norm within rtol 1e-4, every updated parameter within ``1e-3 *
     max|p - p0| + 1e-7 * max|p|`` of the tensor plus ``1e-6`` of the
     largest update in the network (float32 sums in other orders; the last
     term covers tensors whose update is a near-cancelling sum, such as the
-    P6 and P7 convs' biases).  The CPU backward runs on one thread (torch's threaded CPU
-    convolution backward was seen to be non-repeatable)."""
+    P6 and P7 convs' biases).  bfloat16, held as tests/test_torch_bf16.py
+    holds the port against JAX: the metrics within 1.5%; (a) each
+    parameter within 35% of its update (a rounding that lands one ulp
+    apart, cuDNN's sums against the CPU's, grows through the backward: on
+    an H100 a frozen-BN scale, whose gradient sums the whole map, was seen
+    24% of its update apart); (b) for at least 90% of the tensors, closer
+    to the CPU's bfloat16 step than the CPU's float32 step is.  The CPU
+    backward runs on one thread (torch's threaded CPU convolution backward
+    was seen to be non-repeatable).  Returns the GPU's metrics, the worst
+    error as a share of its tolerance, whether a second GPU run gave the
+    same bits, and the median error as a share of the update."""
+    rtol, step_tol = (1e-4, 1e-3) if dtype == torch.float32 else (BF16_TOL["loss"],
+                                                                    BF16_TOL["device_step"])
     mc = tiny_config()
     batch = train_batch(seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0))
-    dets = {d: build_detector(mc, device=d, seed=seed) for d in ("cpu", "cuda")}
+    dets = {d: build_detector(mc, device=d, seed=seed, dtype=dtype) for d in ("cpu", "cuda")}
     anchors, nla = dets["cpu"].anchors_for((128, 160))
     sample = dets["cpu"].train_sample(batch, anchors, nla,
                                       generator=torch.Generator().manual_seed(seed))
-    dets["cuda again"] = build_detector(mc, device="cuda", seed=seed)
+    dets["cuda again"] = build_detector(mc, device="cuda", seed=seed, dtype=dtype)
+    if dtype != torch.float32:
+        dets["cpu float32"] = build_detector(mc, device="cpu", seed=seed)
     p0 = {k: v.detach().clone() for k, v in dets["cpu"].net.named_parameters()}
     metrics, params = {}, {}
     threads = torch.get_num_threads()
     for device, det in dets.items():
-        torch.set_num_threads(1 if device == "cpu" else threads)
+        torch.set_num_threads(1 if device.startswith("cpu") else threads)
         a, n = det.anchors_for((128, 160))
         step = make_train_step(det, a, n, make_optimizer(det.net.parameters(), lambda s: 0.01))
         metrics[device] = {k: float(v) for k, v in step(batch, sample).items()}
         params[device] = {k: v.detach().cpu() for k, v in det.net.named_parameters()}
     torch.set_num_threads(threads)
     for k, ref in metrics["cpu"].items():
-        if not (math.isfinite(ref) and abs(metrics["cuda"][k] - ref) <= 1e-4 * abs(ref)):
+        if not (math.isfinite(ref) and abs(metrics["cuda"][k] - ref) <= rtol * abs(ref)):
             raise AssertionError(f"tiny train step: {k} GPU {metrics['cuda'][k]} CPU {ref}")
-    worst, moved = 0.0, 0
+    worst, moved, rel, closer = 0.0, 0, [], 0
     delta_max = max((ref - p0[name]).abs().max().item() for name, ref in params["cpu"].items())
     for name, ref in params["cpu"].items():
         delta = (ref - p0[name]).abs().max().item()
         moved += delta > 0
         err = (params["cuda"][name] - ref).abs().max().item()
-        tol = 1e-3 * delta + 1e-7 * ref.abs().max().item() + 1e-6 * delta_max
+        tol = step_tol * delta + 1e-7 * ref.abs().max().item() + 1e-6 * delta_max
         if err > tol:
             raise AssertionError(f"tiny train step: {name} GPU and CPU differ by {err} > {tol}")
         worst = max(worst, err / max(tol, 1e-30))
+        if delta > 0:
+            rel.append(err / delta)
+            if "cpu float32" in params:
+                closer += err <= (params["cpu float32"][name] - ref).abs().max().item()
     if moved < 50:
         raise AssertionError(f"tiny train step moved only {moved} tensors")
+    if dtype != torch.float32 and closer < 0.9 * len(rel):
+        raise AssertionError(f"tiny bf16 train step: only {closer} of {len(rel)} tensors closer "
+                             "to the CPU's bfloat16 step than its float32 step is")
     repeat = all(torch.equal(params["cuda"][k], params["cuda again"][k]) for k in params["cuda"])
-    return metrics["cuda"], worst, repeat
+    return metrics["cuda"], worst, repeat, float(np.median(rel))
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| as a fraction of max |ref| (float32 arithmetic)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def matched_dets(dets, labels, valid, ref):
+    """Detections kept by both (the same label, boxes within 1 px): (matched,
+    smaller kept count, max box error px, max score error)."""
+    rd, rl, rv = (x.cpu() for x in ref)
+    dets, labels, valid = dets.cpu(), labels.cpu(), valid.cpu()
+    n_match = n_min = 0
+    box_err = score_err = 0.0
+    for i in range(dets.shape[0]):
+        got, glab = dets[i][valid[i]], labels[i][valid[i]]
+        want, wlab = rd[i][rv[i]], rl[i][rv[i]]
+        n_min += min(len(got), len(want))
+        for d, lab in zip(got, glab):
+            if not len(want):
+                break
+            dist = (want[:, :4] - d[:4]).abs().max(1).values
+            ok = (wlab == lab) & (dist < 1.0)
+            if ok.any():
+                j = int(torch.where(ok, dist, torch.inf).argmin())
+                n_match += 1
+                box_err = max(box_err, dist[j].item())
+                score_err = max(score_err, abs(want[j, 4] - d[4]).item())
+    return n_match, n_min, box_err, score_err
+
+
+def tiny_bf16_gpu_matches_cpu(seed: int):
+    """The tiny flagship in bfloat16 on the GPU (cuDNN, cuBLAS, the bfloat16
+    kernels) against the same on the CPU (the plain versions, held against
+    the JAX package's bfloat16 build by tests/test_torch_bf16.py), at that
+    file's tolerances: C2-C5 and P3-P7 within 2.5% of each level's largest
+    value (C2 is the stem: cuDNN's 7x7/s2 bfloat16 convolution against the
+    CPU's, which equals the JAX package's space-to-depth stem bit for bit
+    there); ``roi_predict`` on the CPU's levels and proposals: at least 90%
+    of the kept detections matched, boxes within 0.5 px, scores within
+    0.01.  Returns the levels' errors and the match."""
+    mc = tiny_config()
+    rs = np.random.RandomState(seed)
+    batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
+             "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
+             "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32)}
+    dets = {d: build_detector(mc, device=d, seed=seed, dtype=BF16) for d in ("cpu", "cuda")}
+    levels = {}
+    for d, det in dets.items():
+        with torch.inference_mode():
+            x = torch.from_numpy(batch["images"]).to(d)
+            levels[d] = [c.permute(0, 2, 3, 1) for c in det.net.backbone(x.permute(0, 3, 1, 2))]
+            levels[d] += list(det.net.features(x))
+    errs = [rel_err(g, r) for g, r in zip(levels["cuda"], levels["cpu"])]
+    if not all(levels["cuda"][i].dtype == BF16 for i in range(len(errs))) or \
+            max(errs) > BF16_TOL["levels"]:
+        raise AssertionError(f"tiny bfloat16 levels: GPU against CPU {errs}")
+    anchors, nla = dets["cpu"].anchors_for((128, 160))
+    img_shape = torch.from_numpy(batch["img_shape"])
+    feats, boxes, scores, valid = dets["cpu"].proposals(batch["images"], img_shape, anchors, nla)
+    outs = {}
+    for d, det in dets.items():
+        outs[d] = det.roi_predict([f.to(d) for f in feats], boxes.to(d), scores.to(d),
+                                  valid.to(d), img_shape.to(d),
+                                  torch.from_numpy(batch["scale_factor"]).to(d))
+    match = matched_dets(*outs["cuda"], outs["cpu"])
+    if not (match[0] >= 0.9 * match[1] > 0 and match[2] <= 0.5 and match[3] <= 0.01):
+        raise AssertionError(f"tiny bfloat16 roi_predict: GPU against CPU {match}")
+    return errs, match
+
+
+def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool = False):
+    """Two tiny train steps on the GPU from one saved state, on the same
+    batch and ``RoISample``: whether the metrics, every gradient and every
+    parameter are bit-identical, and how many tensors differ.  With
+    ``flagged`` the steps run under ``torch.use_deterministic_algorithms``,
+    which raises on an op that has no deterministic form."""
+    mc = tiny_config()
+    batch = train_batch(seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0))
+    det = build_detector(mc, device="cuda", seed=seed, dtype=dtype)
+    anchors, nla = det.anchors_for((128, 160))
+    sample = det.train_sample(batch, anchors, nla,
+                              generator=torch.Generator(device="cuda").manual_seed(seed))
+    state = {k: v.clone() for k, v in det.net.state_dict().items()}
+    runs = []
+    torch.use_deterministic_algorithms(flagged)
+    try:
+        for _ in range(2):
+            det.net.load_state_dict(state)
+            opt = make_optimizer(det.net.parameters(), lambda s: 0.01)
+            metrics = make_train_step(det, anchors, nla, opt, deterministic=deterministic)(
+                batch, sample)
+            runs.append({**{f"metric {k}": v for k, v in metrics.items()},
+                         **{f"grad {k}": p.grad.clone() for k, p in det.net.named_parameters()
+                            if p.grad is not None},
+                         **{f"param {k}": p.detach().clone()
+                            for k, p in det.net.named_parameters()}})
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    return not differ, differ, len(runs[0])
+
+
+def step_timing(det, anchors, nla, tb, sample, deterministic: bool, steps: int = 3) -> float:
+    """Milliseconds of a train step on a given sample (forward, losses,
+    backward, clip, SGD at a small learning rate), mean of ``steps`` after
+    one warm-up step."""
+    opt = make_optimizer(det.net.parameters(), lambda s: 1e-5)
+    step = make_train_step(det, anchors, nla, opt, deterministic=deterministic)
+    step(tb, sample)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(tb, sample)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def profile(fn, what: str) -> str:
+    """One call of ``fn`` under ``torch.profiler`` (CUDA activity): device
+    kernel time against the wall time of the call, the largest kernels, and
+    the layout kernels (NCHW <-> NHWC conversions, transposes, channel
+    padding).  'not measured' when the profiler records no device time."""
+    try:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_time_total > 0]
+    except Exception as exc:  # the profiler is untried on this machine
+        return f"{what}: profile not measured ({type(exc).__name__}: {exc})"
+    if not kernels:
+        return f"{what}: profile not measured (no device time recorded)"
+    busy = sum(r[0] for r in kernels)
+    layout = [r for r in kernels if any(w in r[2].lower() for w in (
+        "tonhwc", "tonchw", "transpose", "addpadding"))]
+    top = sorted(kernels, reverse=True)[:8]
+    return (f"{what}: device kernels {busy:.2f} ms in a {wall:.2f} ms call (idle share "
+            f"{max(0.0, 1 - busy / wall):.1%}); layout kernels: "
+            + (", ".join(f"{k[:60]} x{n} {ms:.3f} ms" for ms, n, k in layout) or "none")
+            + "; largest: " + "; ".join(f"{k[:70]} x{n} {ms:.3f} ms" for ms, n, k in top))
+
+
+def train_setup(det, anchors, nla):
+    """The config's optimizer and schedule on ``det``, its train step (cuDNN
+    pinned), the seeded train batch on the card and the RoIs that step 0
+    samples (the same weights and sampler seed)."""
+    cfg = load_config(CONFIG)
+    opt_cfg, lr_cfg = cfg.get("optimizer"), cfg.get("lr_config")
+    schedule = step_lr_schedule(opt_cfg["lr"], STEPS_PER_EPOCH, lr_cfg["step"],
+                                warmup_iters=lr_cfg["warmup_iters"],
+                                warmup_ratio=lr_cfg["warmup_ratio"])
+    optimizer = make_optimizer(det.net.parameters(), schedule, opt_cfg["momentum"],
+                               opt_cfg["weight_decay"],
+                               cfg.get("optimizer_config")["grad_clip"]["max_norm"])
+    step = make_train_step(det, anchors, nla, optimizer)
+    tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
+    tb = {k: torch.as_tensor(v).cuda() for k, v in tb.items()}
+    sample0 = det.train_sample(tb, anchors, nla,
+                               generator=torch.Generator(device="cuda").manual_seed(5))
+    return step, tb, sample0
+
+
+def run_steps(step, tb, what: str):
+    """``TRAIN_STEPS`` steps with the sampler seeded, counts reset before and
+    read after; returns (metrics, ms per step, launch counts, peak GiB)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(tb, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, m in enumerate(metrics):
+        say(f"{what} step {i}: {step_ms[i]:.1f} ms, "
+            + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{what} step {i}: non-finite metrics {m}")
+    if not all(metrics[0][k] > 0 for k in metrics[0] if k.startswith("loss")):
+        raise AssertionError(f"{what} step 0: a loss is not positive: {metrics[0]}")
+    return metrics, step_ms, counts, peak
+
+
+def check_moved(before, det, what: str) -> dict:
+    """The frozen stem and layer1 bit-identical, every other part moved."""
+    after = dict(det.net.named_parameters())
+    frozen = [k for k in before if k.startswith(("backbone.conv1.", "backbone.bn1.",
+                                                 "backbone.layer1_"))]
+    if not frozen or not all(torch.equal(before[k], after[k]) for k in frozen):
+        raise AssertionError(f"{what}: a frozen parameter (stem or layer1) moved")
+    parts = ("backbone.layer2_", "backbone.layer3_", "backbone.layer4_", "neck.", "rpn.",
+             "bbox_head.")
+    moved = {p: sum(not torch.equal(before[k], after[k]) for k in before if k.startswith(p))
+             for p in parts}
+    if not all(moved.values()):
+        raise AssertionError(f"{what}: some part did not move in training: {moved}")
+    say(f"{what}: frozen stem and layer1: {len(frozen)} tensors bit-identical; tensors moved "
+        f"per part: {moved}")
+    return moved
+
+
+def timed_kernels(fwd, call, feats, rois, valid, strides, g, dtype) -> dict:
+    """Each kernel alone by CUDA-graph replay and its whole call eagerly
+    (``call()`` for the forward: checks, NHWC copies; the gradient with its
+    tile lists), the plain versions, and the bounds, on these inputs in
+    ``dtype``; ``fwd`` is the forward wrapper, its ``backward`` the
+    gradient's."""
+    bwd = fwd.backward
+    levels = [f.contiguous() for f in feats]
+    shapes = [tuple(f.shape) for f in levels]
+    rf, vf = flat(rois, valid)
+    g = g.to(dtype).contiguous()
+    tiles = bwd.tile_lists(shapes, rf, vf, strides, dtype=dtype)
+    no_rois = tiles._replace(bitmap=torch.zeros_like(tiles.bitmap))
+    with torch.inference_mode():
+        t_fwd = {
+            "kernel": graph_ms(lambda: fwd.launch(levels, rf, vf, strides), 50),
+            "call": cuda_ms(call, 20),
+            "plain": cuda_ms(lambda: roi_align.multilevel_roi_align_fast(
+                feats, rois, valid, strides), 5),
+            "bound": roi_bound(feats, rois, valid, strides)}
+    t_bwd = {
+        "kernel": graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=tiles), 50),
+        "tile_keys": graph_ms(lambda: bwd.tile_lists(shapes, rf, vf, strides, dtype=dtype), 50),
+        "empty": graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=no_rois), 50),
+        "call": cuda_ms(lambda: bwd.launch(g, shapes, rf, vf, strides), 20),
+        "plain": cuda_ms(lambda: roi_align_bwd_plain(g, feats, rois, valid, strides), 5),
+        "bound": roi_bwd_bound(feats, rois, valid, strides)}
+    return {"fwd": t_fwd, "bwd": t_bwd}
+
+
+def say_timed(t: dict, what: str, gpu: str) -> None:
+    f, b = t["fwd"], t["bwd"]
+    say(f"roi_align_fwd {what} ({gpu}): kernel {f['kernel']:.4f} ms (CUDA-graph replay), call "
+        f"{f['call']:.4f} ms, plain {f['plain']:.4f} ms, bound {f['bound'][0]:.4f} ms by "
+        f"{f['bound'][1]} ({f['bound'][2]} B, {f['bound'][3]} FLOP)")
+    say(f"roi_align_bwd {what} ({gpu}): kernel {b['kernel']:.4f} ms (on an empty bitmap, the "
+        f"stores alone: {b['empty']:.4f} ms; tile-key kernel with its zeroing "
+        f"{b['tile_keys']:.4f} ms), call with the tile lists {b['call']:.4f} ms, plain "
+        f"{b['plain']:.4f} ms, bound {b['bound'][0]:.4f} ms by {b['bound'][1]} "
+        f"({b['bound'][2]} B, {b['bound'][3]} FLOP)")
+
+
+def run_paths(mc, dtype, gpu: str, odd) -> dict:
+    """The full-width flagship in ``dtype`` through its predict, train and
+    per-image paths, each with the launch counts set to 0 just before it
+    and read just after; both kernels against their plain versions at each
+    path's shapes and on the odd case; the timings.  Returns what the
+    kernel records and the summary need."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    sfx, other = ("", "_bf16") if dtype == torch.float32 else ("_bf16", "")
+    r = {}
+    t0 = time.perf_counter()
+    det = build_detector(mc, seed=0, dtype=dtype)
+    n_params = sum(p.numel() for p in det.net.parameters())
+    say(f"{tag} flagship built in {time.perf_counter() - t0:.1f} s: {n_params} float32 "
+        f"parameters on {det.device}, computing in {dtype}")
+    anchors, nla = det.anchors_for(CANVAS)
+    strides = det.net.roi_strides
+
+    # ------------------------------------------------------------ predict path
+    batches = list(requests(seed=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results = [det.predict(b, anchors, nla) for b in batches]
+    torch.cuda.synchronize()
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    n_dets = [check_dets(*x) for x in results]
+    say(f"{tag} predict: {REQUESTS} requests of {BATCH} images at {CANVAS[0]}x{CANVAS[1]}: "
+        f"{n_dets} valid detections, launches {counts}")
+    if counts["roi_align_fwd" + sfx] < 1 or counts["roi_align_fwd" + other]:
+        raise AssertionError(f"the {tag} predict path did not run roi_align_fwd{sfx} alone")
+    again = det.predict(batches[0], anchors, nla)
+    if not all(torch.equal(a, b) for a, b in zip(again, results[0])):
+        raise AssertionError(f"{tag}: the same request gave different detections")
+    say(f"{tag} repeat of request 0: identical detections")
+    feats, boxes, scores, valid = det.proposals(
+        batches[0]["images"], batches[0]["img_shape"], anchors, nla)
+    if feats[0].dtype != dtype:
+        raise AssertionError(f"the {tag} detector's levels are {feats[0].dtype}")
+    c = feats[0].shape[-1]
+    rs = np.random.RandomState(8)
+    gp = torch.from_numpy(rs.randn(boxes.shape[0] * boxes.shape[1], 7, 7, c)
+                          .astype(np.float32)).cuda()
+    r["check_predict"] = kernels_vs_plain(feats, boxes, valid, strides, gp, dtype,
+                                          "predict shapes")
+    ofeats, orois, ovalid, _ = odd
+    og = torch.from_numpy(rs.randn(orois.shape[0] * orois.shape[1], 7, 7, ofeats[0].shape[-1])
+                          .astype(np.float32)).cuda()
+    r["check_odd"] = kernels_vs_plain(ofeats, orois, ovalid, STRIDES, og, dtype, "odd case")
+    pairs = (tiles_vs_plain(feats, boxes, valid, strides), tiles_vs_plain(*odd))
+    say(f"{tag} kernels vs plain{' (levels and cotangent x (c + 1))' if sfx else ''}: "
+        f"predict shapes (B*R={boxes.shape[0] * boxes.shape[1]}, C={c}) {r['check_predict']}, "
+        f"odd case (C={ofeats[0].shape[-1]}, level-boundary, clamped, degenerate and invalid "
+        f"RoIs) {r['check_odd']} ((max abs err, share not bit-equal[, max|plain|]); forward atol "
+        f"{ATOL if not sfx else '1 ulp'}, gradient {BWD_RTOL} x max|plain|"
+        f"{' + 1 ulp' if sfx else ''}); gradient bitwise equal across two launches, invalid RoIs "
+        f"add nothing; tile bitmaps equal the plain mirror's ({pairs[0]}; {pairs[1]})")
+    r["predict_shapes"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(feats, boxes, valid, strides),
+        feats, boxes, valid, strides, gp, dtype)
+    say_timed(r["predict_shapes"], f"{tag} at the predict shapes", gpu)
+    del gp, og
+    r["predict_ms"] = cuda_ms(lambda: det.predict(batches[1], anchors, nla), 5, warmup=1)
+    stage = {}
+    with torch.inference_mode():
+        x = batches[1]
+        stage["features"] = cuda_ms(lambda: det.net.features(x["images"]), 5, 1)
+        fts = det.net.features(x["images"])
+        stage["rpn_head"] = cuda_ms(lambda: det.net.rpn_out(fts), 5, 1)
+        stage["features+rpn+proposals"] = cuda_ms(
+            lambda: det.proposals(x["images"], x["img_shape"], anchors, nla), 5, 1)
+        _, pb, ps, pv = det.proposals(x["images"], x["img_shape"], anchors, nla)
+        stage["roi_stage"] = cuda_ms(lambda: det.roi_predict(
+            fts, pb, ps, pv, x["img_shape"], x["scale_factor"]), 5, 1)
+    r["predict_stages"] = stage
+    say(f"{tag} predict ({gpu}): {r['predict_ms']:.2f} ms per batch of {BATCH}, "
+        f"{BATCH * 1e3 / r['predict_ms']:.2f} images/s; stages (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+        + f"; peak device memory over the {REQUESTS} requests {r['predict_peak']:.2f} GiB")
+    say(profile(lambda: det.predict(batches[1], anchors, nla), f"{tag} predict profile ({gpu})"))
+    del feats, boxes, scores, valid, fts, pb, ps, pv, results, again
+
+    # -------------------------------------------------------------- train path
+    step, tb, sample0 = train_setup(det, anchors, nla)
+    before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
+    metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train")
+    r["train_counts"] = counts
+    say(f"{tag} train: launches {counts}")
+    for name in ("roi_align_fwd" + sfx, "roi_align_bwd" + sfx, "roi_tile_keys"):
+        if counts[name] != TRAIN_STEPS:
+            raise AssertionError(f"kernel {name} launched {counts[name]} times in "
+                                 f"{TRAIN_STEPS} {tag} train steps, not once per step")
+    if counts["roi_align_fwd" + other] or counts["roi_align_bwd" + other]:
+        raise AssertionError(f"a RoIAlign kernel of the other dtype ran on the {tag} train path")
+    check_moved(before, det, f"{tag} train")
+    del before
+    r["train_ms"] = float(np.mean(step_ms[1:]))
+    say(f"{tag} train ({gpu}): {r['train_ms']:.1f} ms per step of {TRAIN_BATCH} images (mean "
+        f"of steps 1-{TRAIN_STEPS - 1}), {TRAIN_BATCH * 1e3 / r['train_ms']:.2f} images/s; "
+        f"peak device memory {r['train_peak']:.2f} GiB")
+
+    # where the step's time goes: the forward without gradient, the
+    # proposals with sampling, a step on a given sample with and without
+    # the cuDNN pin
+    def host_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    @torch.no_grad()
+    def rpn_forward():
+        return det._rpn_flat(det.net.features(tb["images"]))
+
+    rpn_outs = rpn_forward()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r["train_parts"] = {
+        "forward (features + RPN), no gradient": host_ms(rpn_forward),
+        "train proposals + sampling": host_ms(
+            lambda: det.sample_from_rpn_outs(rpn_outs, tb, anchors, nla, generator=gen)),
+        "step on a given sample, cuDNN pinned": step_timing(det, anchors, nla, tb, sample0, True),
+        "step on a given sample, not pinned": step_timing(det, anchors, nla, tb, sample0, False),
+    }
+    del rpn_outs
+    say(f"{tag} train step parts ({gpu}, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r["train_parts"].items()))
+    say(profile(lambda: step(tb, sample0), f"{tag} train step profile ({gpu})"))
+
+    # both kernels against their plain versions at the train path's shapes
+    with torch.no_grad():
+        feats = det.net.features(tb["images"])
+    rois, rvalid = sample0.boxes, sample0.valid
+    n = rois.shape[0] * rois.shape[1]
+    g = torch.from_numpy(np.random.RandomState(6).randn(n, 7, 7, c).astype(np.float32)).cuda()
+    r["check_train"] = kernels_vs_plain(feats, rois, rvalid, strides, g, dtype, "train shapes")
+    pairs = tiles_vs_plain(feats, rois, rvalid, strides)
+    repeat = []
+    for _ in range(2):  # the train path's RoIAlign, forward and backward through autograd
+        lv = [f.detach().requires_grad_() for f in feats]
+        batched_multilevel_roi_align(lv, rois, rvalid, strides).backward(
+            g.to(dtype).reshape(*rois.shape[:2], 7, 7, c))
+        repeat.append([f.grad for f in lv])
+    torch.cuda.synchronize()
+    if not all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(*repeat)):
+        raise AssertionError(f"two {tag} backward passes of the train path's RoIAlign differ")
+    del repeat, lv
+    say(f"{tag} kernels vs plain at the train shapes (B*R={n}, {int(rvalid.sum())} valid): "
+        f"{r['check_train']}; tile lists equal the plain mirror's ({pairs}); two backward "
+        f"passes of the train path's RoIAlign bitwise equal, {dtype} level gradients")
+    r["train_shapes"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(feats, rois, rvalid, strides),
+        feats, rois, rvalid, strides, g, dtype)
+    say_timed(r["train_shapes"], f"{tag} at the train shapes", gpu)
+
+    # ---------------------------------------------------------- per-image path
+    lv = [f.detach().requires_grad_() for f in feats]
+    g_img = g.to(dtype).reshape(TRAIN_BATCH, -1, 7, 7, c)
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(TRAIN_BATCH):
+        multilevel_roi_align([f[i] for f in lv], rois[i], rvalid[i], strides).backward(g_img[i])
+    torch.cuda.synchronize()
+    r["image_counts"] = counts = read_counts()
+    say(f"{tag} per-image path: launches {counts}")
+    for name in ("roi_align_fwd" + sfx + "_per_image", "roi_align_bwd" + sfx + "_per_image",
+                 "roi_tile_keys_per_image"):
+        if counts[name] != TRAIN_BATCH:
+            raise AssertionError(f"kernel {name} launched {counts[name]} times for "
+                                 f"{TRAIN_BATCH} {tag} images")
+    one = [(channel_scaled(f[:1]) if sfx else f[:1]).contiguous() for f in feats]
+    g0 = channel_scaled(g[:rois.shape[1]]) if sfx else g[:rois.shape[1]].contiguous()
+    entry = multilevel_roi_align.batched
+    with torch.no_grad():
+        got = multilevel_roi_align([f[0] for f in one], rois[0], rvalid[0], strides)
+        ref = roi_align.multilevel_roi_align_fast(one, rois[:1], rvalid[:1], strides)[0]
+    r["check_image_fwd"] = close(got, ref, f"per-image forward ({tag})", ATOL if not sfx else 0.0)
+    rf1, vf1 = flat(rois[:1], rvalid[:1])
+    d_got = entry.backward.launch(g0, [tuple(f.shape) for f in one], rf1, vf1, strides)
+    d_ref = roi_align_bwd_plain(g0, one, rois[:1], rvalid[:1], strides)
+    scale = max(x.float().abs().max().item() for x in d_ref)
+    res = [close(a, b, f"per-image gradient ({tag})", BWD_RTOL * scale)
+           for a, b in zip(d_got, d_ref)]
+    r["check_image_bwd"] = (max(e for e, _ in res), max(sh for _, sh in res), scale)
+    r["image"] = timed_kernels(
+        entry, lambda: multilevel_roi_align([f[0] for f in one], rois[0], rvalid[0], strides),
+        one, rois[:1], rvalid[:1], strides, g0, dtype)
+    say(f"{tag} per-image entry vs plain: forward {r['check_image_fwd']}, gradient "
+        f"{r['check_image_bwd']}")
+    say_timed(r["image"], f"{tag} per image (one train image)", gpu)
+    del det, lv, feats, g, g_img, one, g0
+    torch.cuda.empty_cache()
+    return r
+
+
+def kernel_records(r: dict, dtype) -> list:
+    """The ``{"kernels": [...]}`` records of one dtype's kernels: K1, K4 and
+    their batch-of-one forms K2, K3."""
+    sfx, note = ("", "") if dtype == torch.float32 else ("_bf16", ", bfloat16")
+    src = "boosting_rcnn_tpu_torch/csrc/"
+    tpu = "boosting_rcnn_tpu/ops/pallas_roi_align.py"
+    pc, tc, ic = r["predict_counts"], r["train_counts"], r["image_counts"]
+    checks = [r["check_predict"], r["check_odd"], r["check_train"]]
+    fp, bp = r["predict_shapes"]["fwd"], r["predict_shapes"]["bwd"]
+    ft, bt = r["train_shapes"]["fwd"], r["train_shapes"]["bwd"]
+    fi, bi = r["image"]["fwd"], r["image"]["bwd"]
+
+    def times(t):
+        return {"ms": t["call"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None}
+
+    def shapes(t):
+        return {"call_ms": t["call"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+                "bound_ms": t["bound"][0]}
+
+    fwd, bwd = "roi_align_fwd" + sfx, "roi_align_bwd" + sfx
+    return [
+        {"name": fwd, "route": "cuda", "source": src + "roi_align_fwd.cu",
+         "replaces": f"{tpu}:586", "tpu_kernel": f"pallas_roi_align.py:586 _kernel_flat (K1){note}",
+         "launches": pc[fwd] + tc[fwd], "launches_by_path": {"predict": pc[fwd], "train": tc[fwd]},
+         "max_abs_err": max(x["fwd"][0] for x in checks),
+         "share_not_bit_equal": max(x["fwd"][1] for x in checks),
+         **times(fp), "train_shapes": shapes(ft)},
+        {"name": bwd, "route": "cuda", "source": src + "roi_align_bwd.cu",
+         "replaces": f"{tpu}:244",
+         "tpu_kernel": f"pallas_roi_align.py:244 _bwd_kernel via :828 (K4){note}",
+         "launches": tc[bwd], "launches_by_path": {"predict": pc[bwd], "train": tc[bwd]},
+         "tile_key_launches": tc["roi_tile_keys"],
+         "max_abs_err": max(x["bwd"][0] for x in checks),
+         "share_not_bit_equal": max(x["bwd"][1] for x in checks),
+         "max_abs_plain": max(x["bwd"][2] for x in checks), "bitwise_repeatable": True,
+         **times(bt), "tile_key_kernel_ms": bt["tile_keys"], "empty_bitmap_kernel_ms": bt["empty"],
+         "predict_shapes": shapes(bp)},
+        {"name": fwd + "_per_image", "route": "cuda", "source": src + "roi_align_fwd.cu",
+         "replaces": f"{tpu}:52",
+         "tpu_kernel": f"pallas_roi_align.py:52 _kernel via :121 (K2), B=1 of K1{note}",
+         "launches": ic[fwd + "_per_image"], "max_abs_err": r["check_image_fwd"][0],
+         "share_not_bit_equal": r["check_image_fwd"][1], **times(fi)},
+        {"name": bwd + "_per_image", "route": "cuda", "source": src + "roi_align_bwd.cu",
+         "replaces": f"{tpu}:244",
+         "tpu_kernel": f"pallas_roi_align.py:244 _bwd_kernel via :405 (K3), B=1 of K4{note}",
+         "launches": ic[bwd + "_per_image"], "tile_key_launches": ic["roi_tile_keys_per_image"],
+         "max_abs_err": r["check_image_bwd"][0], "share_not_bit_equal": r["check_image_bwd"][1],
+         **times(bi)},
+    ]
 
 
 def main() -> int:
@@ -436,340 +1051,75 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(KERNELS)
     for name in KERNELS:
-        log = cuda_build.build_log(name).splitlines()
-        ptxas = [f"{ln.split('_kernel')[0].split('_')[-1]}: " + nxt.split('info    : ')[-1]
-                 for ln, nxt in zip(log, log[3:]) if "Compiling entry function" in ln]
-        spills = sorted({ln.strip().split(", ", 1)[-1] for ln in log if "spill" in ln})
-        say(f"built {name} in {build_s[name]:.1f} s: {' | '.join(ptxas)}; {' | '.join(spills)}")
+        say(f"built {name} in {build_s[name]:.1f} s: "
+            + " | ".join(ptxas_report(cuda_build.build_log(name))))
     say(f"nvcc builds, in parallel: {time.perf_counter() - t0:.1f} s wall")
 
     mc = load_config(CONFIG).model.to_dict()
-    t0 = time.perf_counter()
-    det = build_detector(mc, seed=0)
-    n_params = sum(p.numel() for p in det.net.parameters())
-    say(f"flagship built in {time.perf_counter() - t0:.1f} s: {n_params} parameters on "
-        f"{det.device}")
-    anchors, nla = det.anchors_for(CANVAS)
-    strides = det.net.roi_strides
-
-    # ------------------------------------------------------------ predict path
-    batches = list(requests(seed=1))
-    torch.cuda.synchronize()
-    reset_counts()
-    results = [det.predict(b, anchors, nla) for b in batches]
-    torch.cuda.synchronize()
-    predict_counts = read_counts()
-    n_dets = [check_dets(*r) for r in results]
-    say(f"predict: {REQUESTS} requests of {BATCH} images at {CANVAS[0]}x{CANVAS[1]}: "
-        f"{n_dets} valid detections, launches {predict_counts}")
-    if predict_counts["roi_align_fwd"] < 1:
-        raise AssertionError("kernel roi_align_fwd was not launched on the predict path")
-    again = det.predict(batches[0], anchors, nla)
-    if not all(torch.equal(a, b) for a, b in zip(again, results[0])):
-        raise AssertionError("the same request gave different detections")
-    say("repeat of request 0: identical detections")
-
-    # the forward kernel against its plain version at the predict path's shapes
-    feats, boxes, scores, valid = det.proposals(
-        batches[0]["images"], batches[0]["img_shape"], anchors, nla)
-    err_main = kernel_vs_plain(feats, boxes, valid, strides)
     odd = odd_case(seed=2)
-    err_odd = kernel_vs_plain(*odd)
-    pairs = (tiles_vs_plain(feats, boxes, valid, strides), tiles_vs_plain(*odd))
-    say(f"roi_align_fwd vs plain: max abs err {err_main:.3g} at B*R={boxes.shape[0] * boxes.shape[1]} "
-        f"C={feats[0].shape[-1]}, {err_odd:.3g} at C=200 odd shape with level-boundary, clamped, "
-        f"degenerate and invalid RoIs (atol {ATOL}); tile bitmaps equal the plain mirror's "
-        f"({pairs[0]}; {pairs[1]})")
+    runs = {}
+    for dtype in (torch.float32, BF16):
+        runs[dtype] = run_paths(mc, dtype, gpu, odd)
+        say(f"wall {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------------ tiny flagship, GPU vs CPU
     n_tiny = tiny_gpu_matches_cpu(seed=3)
     say(f"tiny flagship: GPU predict matches CPU predict ({n_tiny} detections)")
-
-    fwd, bwd = batched_multilevel_roi_align, batched_multilevel_roi_align.backward
-    levels = [f.contiguous() for f in feats]
-    shapes = [tuple(f.shape) for f in levels]
-    rf, vf = flat(boxes, valid)
-    with torch.inference_mode():
-        kernel_ms = graph_ms(lambda: fwd.launch(levels, rf, vf, strides), 50)
-        fn_ms = cuda_ms(lambda: fwd(feats, boxes, valid, strides), 20)
-        plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align_fast(feats, boxes, valid, strides), 5)
-    bound_ms, bound_by, nbytes, flops = roi_bound(feats, boxes, valid, strides)
-    say(f"roi_align_fwd at the predict shapes ({gpu}): kernel {kernel_ms:.4f} ms, call with the "
-        f"NHWC copies {fn_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({nbytes} B, {flops} FLOP)")
-    # the gradient kernels at the predict shapes, on a seeded cotangent
-    gp = torch.from_numpy(np.random.RandomState(8).randn(
-        rf.shape[0], 7, 7, feats[0].shape[-1]).astype(np.float32)).cuda()
-    tiles = bwd.tile_lists(shapes, rf, vf, strides)
-    bwd_p = {
-        "kernel": graph_ms(lambda: bwd.launch(gp, shapes, rf, vf, strides, tiles=tiles), 50),
-        "call": cuda_ms(lambda: bwd.launch(gp, shapes, rf, vf, strides), 20),
-        "plain": cuda_ms(lambda: roi_align_bwd_plain(gp, feats, boxes, valid, strides), 5),
-        "bound": roi_bwd_bound(feats, boxes, valid, strides)[0],
-    }
-    say(f"roi_align_bwd at the predict shapes ({gpu}): kernel {bwd_p['kernel']:.4f} ms, call with "
-        f"the tile lists {bwd_p['call']:.4f} ms, plain {bwd_p['plain']:.4f} ms, bound "
-        f"{bwd_p['bound']:.4f} ms")
-    del levels, gp, tiles
-
-    pred_ms = cuda_ms(lambda: det.predict(batches[1], anchors, nla), 5, warmup=1)
-    stage = {}
-    with torch.inference_mode():
-        x = batches[1]
-        stage["features"] = cuda_ms(lambda: det.net.features(x["images"]), 5, 1)
-        fts = det.net.features(x["images"])
-        stage["rpn_head"] = cuda_ms(lambda: det.net.rpn_out(fts), 5, 1)
-        stage["features+rpn+proposals"] = cuda_ms(
-            lambda: det.proposals(x["images"], x["img_shape"], anchors, nla), 5, 1)
-        _, pb, ps, pv = det.proposals(x["images"], x["img_shape"], anchors, nla)
-        stage["roi_stage"] = cuda_ms(lambda: det.roi_predict(
-            fts, pb, ps, pv, x["img_shape"], x["scale_factor"]), 5, 1)
-    say(f"predict: {pred_ms:.2f} ms per batch of {BATCH}, "
-        f"{BATCH * 1e3 / pred_ms:.2f} images/s; stages (ms): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stage.items()))
-    say(f"predict peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"wall {time.perf_counter() - t_start:.1f} s")
-    del feats, boxes, scores, valid, fts, pb, ps, pv, results, again
-
-    # -------------------------------------------------------------- train path
-    cfg = load_config(CONFIG)
-    opt_cfg, lr_cfg = cfg.get("optimizer"), cfg.get("lr_config")
-    schedule = step_lr_schedule(opt_cfg["lr"], STEPS_PER_EPOCH, lr_cfg["step"],
-                                warmup_iters=lr_cfg["warmup_iters"],
-                                warmup_ratio=lr_cfg["warmup_ratio"])
-    optimizer = make_optimizer(det.net.parameters(), schedule, opt_cfg["momentum"],
-                               opt_cfg["weight_decay"],
-                               cfg.get("optimizer_config")["grad_clip"]["max_norm"])
-    step = make_train_step(det, anchors, nla, optimizer)
-    tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
-    tb = {k: torch.as_tensor(v).cuda() for k, v in tb.items()}
-    before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
-    # the RoIs that step 0 samples: the same weights and generator seed
-    sample0 = det.train_sample(tb, anchors, nla,
-                               generator=torch.Generator(device="cuda").manual_seed(5))
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    metrics, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        m = step(tb, generator=gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        metrics.append({k: float(v) for k, v in m.items()})
-    train_counts = read_counts()
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    for i, m in enumerate(metrics):
-        say(f"train step {i}: {step_ms[i]:.1f} ms, " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
-    say(f"train: launches {train_counts}")
-    for i, m in enumerate(metrics):
-        if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"train step {i}: non-finite metrics {m}")
-    if not all(metrics[0][k] > 0 for k in metrics[0] if k.startswith("loss")):
-        raise AssertionError(f"train step 0: a loss is not positive: {metrics[0]}")
-    for name in ("roi_align_fwd", "roi_align_bwd", "roi_tile_keys"):
-        if train_counts[name] != TRAIN_STEPS:
-            raise AssertionError(f"kernel {name} launched {train_counts[name]} times in "
-                                 f"{TRAIN_STEPS} train steps, not once per step")
-    after = dict(det.net.named_parameters())
-    frozen = [k for k in before if k.startswith(("backbone.conv1.", "backbone.bn1.",
-                                                 "backbone.layer1_"))]
-    if not frozen or not all(torch.equal(before[k], after[k]) for k in frozen):
-        raise AssertionError("a frozen parameter (stem or layer1) moved")
-    parts = ("backbone.layer2_", "backbone.layer3_", "backbone.layer4_", "neck.", "rpn.",
-             "bbox_head.")
-    moved = {p: sum(not torch.equal(before[k], after[k]) for k in before if k.startswith(p))
-             for p in parts}
-    if not all(moved.values()):
-        raise AssertionError(f"some part did not move in training: {moved}")
-    say(f"frozen stem and layer1: {len(frozen)} tensors bit-identical; tensors moved per part: "
-        f"{moved}")
-    train_ms = float(np.mean(step_ms[1:]))
-    say(f"train: {train_ms:.1f} ms per step of {TRAIN_BATCH} images (mean of steps 1-"
-        f"{TRAIN_STEPS - 1}), {TRAIN_BATCH * 1e3 / train_ms:.2f} images/s; peak device memory "
-        f"{train_peak:.2f} GiB")
-    del before
-
-    # where the step's time goes: the forward without gradient, the
-    # proposals with sampling, and a step on a given sample
-    def host_ms(fn, iters=3):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / iters
-
-    @torch.no_grad()
-    def rpn_forward():
-        return det._rpn_flat(det.net.features(tb["images"]))
-
-    rpn_outs = rpn_forward()
-    parts_ms = {
-        "forward (features + RPN), no gradient": host_ms(rpn_forward),
-        "train proposals + sampling": host_ms(
-            lambda: det.sample_from_rpn_outs(rpn_outs, tb, anchors, nla, generator=gen)),
-        "step on a given sample": host_ms(
-            lambda: make_train_step(det, anchors, nla, optimizer)(tb, sample0)),
-    }
-    del rpn_outs
-    say("train step parts (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in parts_ms.items()))
-
-    # both kernels against their plain versions at the train path's shapes
-    with torch.no_grad():
-        feats = det.net.features(tb["images"])
-    rois, rvalid = sample0.boxes, sample0.valid
-    c = feats[0].shape[-1]
-    rs = np.random.RandomState(6)
-    n = rois.shape[0] * rois.shape[1]
-    g = torch.from_numpy(rs.randn(n, 7, 7, c).astype(np.float32)).cuda()
-    err_fwd_train = kernel_vs_plain(feats, rois, rvalid, strides)
-    pairs_train = tiles_vs_plain(feats, rois, rvalid, strides)
-    err_bwd_main = bwd_vs_plain(g, feats, rois, rvalid, strides, "train path")
-    ofeats, orois, ovalid, _ = odd
-    og = torch.from_numpy(rs.randn(orois.shape[0] * orois.shape[1], 7, 7, ofeats[0].shape[-1])
-                          .astype(np.float32)).cuda()
-    err_bwd_odd = bwd_vs_plain(og, ofeats, orois, ovalid, STRIDES, "odd shape")
-    # the train path's RoIAlign, forward and backward through autograd, twice
-    repeat = []
-    for _ in range(2):
-        lv = [f.detach().requires_grad_() for f in feats]
-        batched_multilevel_roi_align(lv, rois, rvalid, strides).backward(g.reshape(*rois.shape[:2], 7, 7, c))
-        repeat.append([f.grad for f in lv])
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(*repeat)):
-        raise AssertionError("two backward passes of the train path's RoIAlign differ")
-    del repeat, lv
-    say(f"roi_align_fwd vs plain at B*R={n} C={c}: max abs err {err_fwd_train:.3g}; tile lists "
-        f"equal the plain mirror's ({pairs_train}); roi_align_bwd vs plain: max abs err "
-        f"{err_bwd_main[0]:.3g} (max|plain| {err_bwd_main[1]:.3g}, {int(rvalid.sum())} valid), "
-        f"{err_bwd_odd[0]:.3g} (max|plain| {err_bwd_odd[1]:.3g}) at C={ofeats[0].shape[-1]} odd "
-        f"shape (atol {BWD_RTOL} x max|plain|); invalid RoIs add nothing; two launches, and two "
-        "backward passes of the train path's RoIAlign, bitwise equal")
-
-    levels = [f.contiguous() for f in feats]
-    shapes = [tuple(f.shape) for f in levels]
-    rf, vf = flat(rois, rvalid)
-    tiles = bwd.tile_lists(shapes, rf, vf, strides)
-    bwd_kernel_ms = graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=tiles), 50)
-    no_rois = tiles._replace(bitmap=torch.zeros_like(tiles.bitmap))
-    bwd_floor_ms = graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=no_rois), 50)
-    tile_ms = graph_ms(lambda: bwd.tile_lists(shapes, rf, vf, strides), 50)
-    bwd_ms = cuda_ms(lambda: bwd.launch(g, shapes, rf, vf, strides), 20)
-    bwd_plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g, feats, rois, rvalid, strides), 5)
-    bwd_bound_ms, bwd_bound_by, bwd_bytes, bwd_flops = roi_bwd_bound(feats, rois, rvalid, strides)
-    say(f"roi_align_bwd at the train shapes ({gpu}): kernel {bwd_kernel_ms:.4f} ms (on an empty "
-        f"bitmap, the stores alone: {bwd_floor_ms:.4f} ms), tile-key kernel with its zeroing "
-        f"{tile_ms:.4f} ms (kernels by CUDA-graph replay), call "
-        f"with the tile lists {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, bound "
-        f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bwd_bytes} B, {bwd_flops} FLOP)")
-    with torch.inference_mode():
-        fwd_train = {
-            "kernel": graph_ms(lambda: fwd.launch(levels, rf, vf, strides), 50),
-            "call": cuda_ms(lambda: fwd(feats, rois, rvalid, strides), 20),
-            "plain": cuda_ms(lambda: roi_align.multilevel_roi_align_fast(feats, rois, rvalid, strides), 5),
-        }
-    fwd_train_bound = roi_bound(feats, rois, rvalid, strides)
-    say(f"roi_align_fwd at the train shapes ({gpu}): kernel {fwd_train['kernel']:.4f} ms, call "
-        f"with the NHWC copies {fwd_train['call']:.4f} ms, plain {fwd_train['plain']:.4f} ms, "
-        f"bound {fwd_train_bound[0]:.4f} ms by {fwd_train_bound[1]}")
-    del levels, tiles
-
-    # ---------------------------------------------------------- per-image path
-    levels = [f.detach().requires_grad_() for f in feats]
-    g_img = g.reshape(TRAIN_BATCH, -1, 7, 7, c)
-    torch.cuda.synchronize()
-    reset_counts()
-    for i in range(TRAIN_BATCH):
-        out = multilevel_roi_align([f[i] for f in levels], rois[i], rvalid[i], strides)
-        out.backward(g_img[i])
-    torch.cuda.synchronize()
-    image_counts = read_counts()
-    say(f"per-image path: launches {image_counts}")
-    for name in ("roi_align_fwd_per_image", "roi_align_bwd_per_image", "roi_tile_keys_per_image"):
-        if image_counts[name] != TRAIN_BATCH:
-            raise AssertionError(f"kernel {name} launched {image_counts[name]} times for "
-                                 f"{TRAIN_BATCH} images")
-    feats0 = [f[0].detach().contiguous() for f in feats]
-    one = [f[None] for f in feats0]
-    shapes1 = [tuple(f.shape) for f in one]
-    rf1, vf1 = flat(rois[:1], rvalid[:1])
-    g0 = g_img[0].contiguous()
-    fwd1 = multilevel_roi_align.batched
-    with torch.no_grad():
-        got = multilevel_roi_align(feats0, rois[0], rvalid[0], strides)
-        ref = roi_align.multilevel_roi_align_fast(one, rois[:1], rvalid[:1], strides)[0]
-    err_img_fwd = (got - ref).abs().max().item()
-    if not err_img_fwd <= ATOL:
-        raise AssertionError(f"per-image forward disagrees with its plain version: {err_img_fwd}")
-    d_got = fwd1.backward.launch(g0, shapes1, rf1, vf1, strides)
-    d_ref = roi_align_bwd_plain(g0, one, rois[:1], rvalid[:1], strides)
-    err_img_bwd = max((a - b).abs().max().item() for a, b in zip(d_got, d_ref))
-    img_scale = max(b.abs().max().item() for b in d_ref)
-    if not err_img_bwd <= BWD_RTOL * img_scale:
-        raise AssertionError(f"per-image gradient disagrees with its plain version: {err_img_bwd}")
-    say(f"per-image entry vs plain: forward max abs err {err_img_fwd:.3g}, gradient max abs "
-        f"err {err_img_bwd:.3g} (max|plain| {img_scale:.3g})")
-    img_fwd_kernel_ms = graph_ms(lambda: fwd1.launch(one, rf1, vf1, strides), 50)
-    with torch.inference_mode():
-        img_fwd_ms = cuda_ms(lambda: multilevel_roi_align(feats0, rois[0], rvalid[0], strides), 20)
-        img_fwd_plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align_fast(
-            one, rois[:1], rvalid[:1], strides), 5)
-    img_bwd_ms = cuda_ms(lambda: fwd1.backward.launch(g0, shapes1, rf1, vf1, strides), 20)
-    img_bwd_plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g0, one, rois[:1], rvalid[:1], strides), 5)
-    img_fwd_bound = roi_bound(one, rois[:1], rvalid[:1], strides)
-    img_bwd_bound = roi_bwd_bound(one, rois[:1], rvalid[:1], strides)
-    say(f"per-image forward ({gpu}): kernel {img_fwd_kernel_ms:.4f} ms, call {img_fwd_ms:.4f} ms, "
-        f"plain {img_fwd_plain_ms:.4f} ms, bound {img_fwd_bound[0]:.4f} ms by {img_fwd_bound[1]}; "
-        f"per-image gradient: call with the tile lists {img_bwd_ms:.4f} ms, plain "
-        f"{img_bwd_plain_ms:.4f} ms, bound {img_bwd_bound[0]:.4f} ms by {img_bwd_bound[1]}")
-    del levels, out, feats
-
-    tiny_metrics, tiny_worst, tiny_repeat = tiny_train_gpu_matches_cpu(seed=7)
+    tiny_metrics, tiny_worst, tiny_repeat, _ = tiny_train_gpu_matches_cpu(seed=7)
     say(f"tiny flagship: a GPU train step matches the CPU one (loss {tiny_metrics['loss']:.6g}, "
         f"worst parameter error {tiny_worst:.3g} of its tolerance); two GPU steps from the same "
-        f"state give the same bits: {tiny_repeat} (cuDNN's algorithms are not pinned)")
-    say(f"wall {time.perf_counter() - t_start:.1f} s")
+        f"state give the same bits: {tiny_repeat}")
+    level_errs, match = tiny_bf16_gpu_matches_cpu(seed=3)
+    say("tiny bf16 flagship, GPU against CPU: C2-C5, P3-P7 max rel err "
+        + ", ".join(f"{e:.3g}" for e in level_errs)
+        + f" (tolerance {BF16_TOL['levels']}); roi_predict on the CPU's levels and proposals: "
+        f"{match[0]} of {match[1]} detections matched, boxes within {match[2]:.3g} px, scores "
+        f"within {match[3]:.3g}")
+    b16_metrics, b16_worst, _, b16_median = tiny_train_gpu_matches_cpu(seed=7, dtype=BF16)
+    say(f"tiny bf16 flagship: a GPU train step matches the CPU one (loss "
+        f"{b16_metrics['loss']:.6g}, worst parameter error {b16_worst:.3g} of its tolerance, "
+        f"median tensor {b16_median:.3g} of its update)")
 
-    src = "boosting_rcnn_tpu_torch/csrc/"
-    tpu = "boosting_rcnn_tpu/ops/pallas_roi_align.py"
-    records = [
-        {"name": "roi_align_fwd", "route": "cuda", "source": src + "roi_align_fwd.cu",
-         "replaces": f"{tpu}:586", "tpu_kernel": "pallas_roi_align.py:586 _kernel_flat (K1)",
-         "launches": predict_counts["roi_align_fwd"] + train_counts["roi_align_fwd"],
-         "launches_by_path": {"predict": predict_counts["roi_align_fwd"],
-                              "train": train_counts["roi_align_fwd"]},
-         "max_abs_err": max(err_main, err_odd, err_fwd_train), "ms": fn_ms,
-         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None,
-         "train_shapes": {"call_ms": fwd_train["call"], "kernel_ms": fwd_train["kernel"],
-                          "plain_ms": fwd_train["plain"], "bound_ms": fwd_train_bound[0]}},
-        {"name": "roi_align_bwd", "route": "cuda", "source": src + "roi_align_bwd.cu",
-         "replaces": f"{tpu}:244", "tpu_kernel": "pallas_roi_align.py:244 _bwd_kernel via :828 (K4)",
-         "launches": train_counts["roi_align_bwd"],
-         "launches_by_path": {"predict": predict_counts["roi_align_bwd"],
-                              "train": train_counts["roi_align_bwd"]},
-         "tile_key_launches": train_counts["roi_tile_keys"],
-         "max_abs_err": max(err_bwd_main[0], err_bwd_odd[0]),
-         "max_abs_plain": max(err_bwd_main[1], err_bwd_odd[1]), "bitwise_repeatable": True,
-         "ms": bwd_ms, "kernel_ms": bwd_kernel_ms, "tile_key_kernel_ms": tile_ms,
-         "empty_bitmap_kernel_ms": bwd_floor_ms, "plain_ms": bwd_plain_ms,
-         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,
-         "predict_shapes": {"call_ms": bwd_p["call"], "kernel_ms": bwd_p["kernel"],
-                            "plain_ms": bwd_p["plain"], "bound_ms": bwd_p["bound"]}},
-        {"name": "roi_align_fwd_per_image", "route": "cuda", "source": src + "roi_align_fwd.cu",
-         "replaces": f"{tpu}:52", "tpu_kernel": "pallas_roi_align.py:52 _kernel via :121 (K2), B=1 of K1",
-         "launches": image_counts["roi_align_fwd_per_image"],
-         "max_abs_err": err_img_fwd, "ms": img_fwd_ms, "kernel_ms": img_fwd_kernel_ms,
-         "plain_ms": img_fwd_plain_ms, "bound_ms": img_fwd_bound[0], "bound_by": img_fwd_bound[1],
-         "library_ms": None},
-        {"name": "roi_align_bwd_per_image", "route": "cuda", "source": src + "roi_align_bwd.cu",
-         "replaces": f"{tpu}:244", "tpu_kernel": "pallas_roi_align.py:244 _bwd_kernel via :405 (K3), B=1 of K4",
-         "launches": image_counts["roi_align_bwd_per_image"],
-         "tile_key_launches": image_counts["roi_tile_keys_per_image"],
-         "max_abs_err": err_img_bwd, "ms": img_bwd_ms, "plain_ms": img_bwd_plain_ms,
-         "bound_ms": img_bwd_bound[0], "bound_by": img_bwd_bound[1], "library_ms": None},
-    ]
+    # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
+    repeat_report = {}
+    for dtype in (torch.float32, BF16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        unpinned, differ, n_tensors = repeatable_step(11, dtype, deterministic=False)
+        say(f"C.2 {tag}: two tiny steps from one state without the cuDNN pin: bit-identical "
+            f"{unpinned} ({len(differ)} of {n_tensors} metrics, gradients and parameters "
+            f"differ{': ' + ', '.join(differ[:4]) if differ else ''})")
+        same, differ, _ = repeatable_step(11, dtype)
+        if not same:
+            raise AssertionError(f"C.2 {tag}: two pinned train steps from one state differ in "
+                                 f"{len(differ)} tensors: {differ[:6]}")
+        try:
+            flagged, differ, _ = repeatable_step(11, dtype, flagged=True)
+        except RuntimeError as exc:
+            raise AssertionError(f"C.2 {tag}: an op of the train path has no deterministic "
+                                 f"form: {exc}") from exc
+        if not flagged:
+            raise AssertionError(f"C.2 {tag}: steps under use_deterministic_algorithms differ "
+                                 f"in {differ[:6]}")
+        repeat_report[tag] = {"unpinned_identical": unpinned, "pinned_identical": True}
+        say(f"C.2 {tag}: with the pin, the losses, every gradient and every parameter of two "
+            f"steps are bit-identical; under torch.use_deterministic_algorithms(True) no op "
+            f"raised and the steps are bit-identical")
+
+    r32, r16 = runs[torch.float32], runs[BF16]
+    say("summary (" + gpu + "): " + json.dumps({
+        "predict_ms": {"f32": r32["predict_ms"], "bf16": r16["predict_ms"]},
+        "predict_images_per_s": {"f32": BATCH * 1e3 / r32["predict_ms"],
+                                 "bf16": BATCH * 1e3 / r16["predict_ms"]},
+        "train_step_ms": {"f32": r32["train_ms"], "bf16": r16["train_ms"]},
+        "train_images_per_s": {"f32": TRAIN_BATCH * 1e3 / r32["train_ms"],
+                               "bf16": TRAIN_BATCH * 1e3 / r16["train_ms"]},
+        "peak_gib": {"predict_f32": r32["predict_peak"], "predict_bf16": r16["predict_peak"],
+                     "train_f32": r32["train_peak"], "train_bf16": r16["train_peak"]},
+        "train_parts_ms": {"f32": r32["train_parts"], "bf16": r16["train_parts"]},
+        "predict_stages_ms": {"f32": r32["predict_stages"], "bf16": r16["predict_stages"]},
+        "repeatable_step": repeat_report,
+        "wall_s": time.perf_counter() - t_start}))
+    records = kernel_records(r32, torch.float32) + kernel_records(r16, BF16)
     for record in records:
         timings = [v for part in (record, record.get("train_shapes", {}),
                                   record.get("predict_shapes", {}))

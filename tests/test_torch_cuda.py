@@ -10,7 +10,13 @@ are seeded numpy arrays moved to the card.  Tolerances, float32: the
 forward kernel within 1e-5 (kernel and plain version sum in other
 orders); the gradient kernel within 1e-5 of the largest plain value (the
 same reason); the gradient kernel against itself bit for bit (it sums in
-a fixed order).
+a fixed order).  bfloat16 (levels and cotangent scaled by ``c + 1`` along
+the channels, so that a lane that swaps channels shows): every value
+within 1 bfloat16 ulp of the plain value (the gradient plus 1e-5 of the
+largest plain value), and at most 1% of the values not bit-equal (both
+round the same float32 sums once; weights rounded in another place move
+about a quarter of the values by an ulp); the gradient against itself bit
+for bit.
 """
 import os
 import sys
@@ -156,3 +162,132 @@ def test_cuda_per_image_entry_matches_plain_version(cuda):
     assert _max_err(out_k, out_p) <= 1e-5
     for a, b in zip(d_k, d_p):
         assert _max_err(a, b) <= 1e-5 * max(b.abs().max().item(), 1e-30)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at ``|x|`` (8 significant bits)."""
+    x = x.float().abs()
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _within_bf16_ulp(got, ref, atol=0.0, share=0.01):
+    """Every value of ``got`` within 1 bfloat16 ulp of ``ref`` plus
+    ``atol``, and at most ``share`` of them not bit-equal."""
+    assert got.dtype == ref.dtype == torch.bfloat16
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= _bf16_ulp(ref) + atol).all()), err.max().item()
+    assert (got != ref).float().mean().item() <= share
+
+
+def _channel_scaled(a: np.ndarray) -> np.ndarray:
+    return a * (np.arange(a.shape[-1]) + 1.0).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_forward_kernel_matches_plain_version(cuda):
+    """The bfloat16 forward kernel against the plain bfloat16 version (the
+    Pallas kernel's arithmetic), C = 96 and C = 200 (not a multiple of 32)."""
+    for seed, c in ((20, 96), (21, 200)):
+        rs = np.random.RandomState(seed)
+        feats, rois, valid = _case(rs, 2, 20, c)
+        feats = [f.to(torch.bfloat16) for f in _on(cuda, *(_channel_scaled(f) for f in feats))]
+        rois, valid = _on(cuda, rois, valid)
+        fn = kern.RoIAlignForward()
+        got = fn(feats, rois, valid, STRIDES)
+        ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, STRIDES)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.bf16_launches) == (0, 1)
+        assert got.dtype == torch.bfloat16 and not got[~valid].any()
+        _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_kernel_matches_plain_and_repeats(cuda):
+    """The bfloat16 gradient kernels against ``roi_align_bwd_plain`` on a
+    bfloat16 cotangent, each level bfloat16; a second launch gives the same
+    bits."""
+    rs = np.random.RandomState(22)
+    feats, rois, valid = _case(rs, 2, 200, 256, canvas=(96, 128))
+    feats = [f.to(torch.bfloat16) for f in _on(cuda, *feats)]
+    rois, valid = _on(cuda, rois, valid)
+    rf, vf = _flat(rois, valid)
+    shapes = [tuple(f.shape) for f in feats]
+    g = torch.from_numpy(_channel_scaled(rs.randn(400, 7, 7, 256).astype(np.float32)))
+    g = g.to(cuda).to(torch.bfloat16)
+    wrapper = kern.RoIAlignBackward()
+    got = wrapper.launch(g, shapes, rf, vf, STRIDES)
+    again = wrapper.launch(g, shapes, rf, vf, STRIDES)
+    ref = kern.roi_align_bwd_plain(g, feats, rois, valid, STRIDES)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.bf16_launches, wrapper.tile_launches) == (0, 2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    scale = max(b.float().abs().max().item() for b in ref)
+    for a, b in zip(got, ref):
+        _within_bf16_ulp(a, b, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_autograd_and_per_image_paths(cuda):
+    """Forward and gradient kernels in bfloat16 through autograd, batched
+    and per image: one bfloat16 launch of each, a bfloat16 gradient per
+    level, within the bounds above of autograd of the plain version."""
+    rs = np.random.RandomState(23)
+    feats, rois, valid = _case(rs, 2, 24, 64)
+    feats = [_channel_scaled(f) for f in feats]
+    g = torch.from_numpy(rs.randn(2, 24, 7, 7, 64).astype(np.float32)).to(cuda)
+    g = g.to(torch.bfloat16)
+    rois, valid = _on(cuda, rois, valid)
+    batched, per_image = kern.RoIAlignForward(), kern.PerImageRoIAlign()
+    impls = {
+        "batched": lambda lv: batched(lv, rois, valid, STRIDES),
+        "per image": lambda lv: torch.stack([per_image([f[i] for f in lv], rois[i], valid[i],
+                                                       STRIDES) for i in range(2)]),
+        "plain": lambda lv: roi_align.multilevel_roi_align_fast(lv, rois, valid, STRIDES),
+    }
+    results = {}
+    for name, impl in impls.items():
+        levels = [f.to(torch.bfloat16).requires_grad_() for f in _on(cuda, *feats)]
+        out = impl(levels)
+        out.backward(g)
+        results[name] = (out.detach(), [f.grad for f in levels])
+    torch.cuda.synchronize()
+    assert (batched.bf16_launches, batched.backward.bf16_launches) == (1, 1)
+    assert (per_image.batched.bf16_launches, per_image.batched.backward.bf16_launches) == (2, 2)
+    out_p, d_p = results["plain"]
+    scale = max(b.float().abs().max().item() for b in d_p)
+    for name in ("batched", "per image"):
+        out_k, d_k = results[name]
+        _within_bf16_ulp(out_k, out_p)
+        for a, b in zip(d_k, d_p):
+            assert a.dtype == torch.bfloat16
+            _within_bf16_ulp(a, b, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_mixed_dtypes(cuda):
+    """Levels of two dtypes, a cotangent of another dtype than the levels',
+    tile lists made for the other dtype and bfloat16 channels that are not
+    a multiple of 8 raise ``ValueError``; nothing is launched."""
+    rs = np.random.RandomState(24)
+    feats, rois, valid = _case(rs, 1, 8, 32)
+    feats = _on(cuda, *feats)
+    rois, valid = _on(cuda, rois, valid)
+    rf, vf = _flat(rois, valid)
+    fn = kern.RoIAlignForward()
+    mixed = [feats[0].to(torch.bfloat16)] + feats[1:]
+    with pytest.raises(ValueError):
+        fn(mixed, rois, valid, STRIDES)
+    with pytest.raises(ValueError):
+        fn([f.half() for f in feats], rois, valid, STRIDES)
+    with pytest.raises(ValueError):
+        fn([f[..., :12].to(torch.bfloat16) for f in feats], rois, valid, STRIDES)
+    shapes = [tuple(f.shape) for f in feats]
+    g = torch.zeros((8, 7, 7, 32), device=cuda)
+    with pytest.raises(ValueError):
+        fn.backward.launch(g, shapes, rf, vf, STRIDES, dtype=torch.bfloat16)
+    tiles = fn.backward.tile_lists(shapes, rf, vf, STRIDES)
+    with pytest.raises(ValueError):
+        fn.backward.launch(g.to(torch.bfloat16), shapes, rf, vf, STRIDES, tiles=tiles)
+    assert (fn.launches, fn.bf16_launches, fn.backward.launches,
+            fn.backward.bf16_launches) == (0, 0, 0, 0)
