@@ -4,8 +4,9 @@
 // Replaces the TPU kernel `_bwd_kernel` (boosting_rcnn_tpu/ops/
 // pallas_roi_align.py:244), launched by
 // `batched_multilevel_roi_align_pallas_bwd` (pallas_roi_align.py:828).  It is
-// the transpose of the forward (roi_align_fwd.cu): for every valid RoI n of
-// image b and channel c the window gradient
+// the transpose of the forward (roi_align_fwd.cu), for a kOut x kOut
+// cotangent (kOut = 7 or 14, an instantiation and entry points each): for
+// every valid RoI n of image b and channel c the window gradient
 //
 //     d[b, wy0 + k, wx0 + m, c] += sum_py sum_px wy[py, k] * wx[px, m] * g[n, py, px, c]
 //
@@ -21,22 +22,27 @@
 // 2048 sampled RoIs, C = 256) the float32 function reads the 103 MB
 // cotangent and writes the 91.75 MB gradient of the five levels, ~0.058 ms
 // at 3.35 TB/s; bfloat16 halves both.  Its operations, on the nonzero taps
-// only, are ~0.2 GFLOP, ~0.003 ms at the float32 peak.
+// only, are ~0.2 GFLOP, ~0.003 ms at the float32 peak.  At 14 x 14 (Mask
+// R-CNN's 1024 train mask RoIs) the cotangent is 205 MB in float32 and the
+// gradient of P2-P5 at batch 2 ~183 MB: ~0.116 ms, bytes again.
 //
 // Design: deterministic, without float atomics and without a separate zero
 // fill of the gradient.  The levels are cut into 8 x 8-cell tiles.  A first
 // kernel (roi_tile_keys_kernel) computes each valid RoI's geometry once,
-// stores it (a Geom, 1.5 KB) and marks the RoI in the bitmap of every tile
-// that its nonzero taps meet (at most 4 x 4 tiles) with an integer atomicOr,
+// stores it (a Geom, 1.5 KB at 7, 2.9 KB at 14) and marks the RoI in the
+// bitmap of every tile that its nonzero taps meet (at most 4 x 4 tiles)
+// with an integer atomicOr,
 // whose result does not depend on the order.  Then one block per (tile, 256
 // channels): 8 warps, one per tile row; lane l takes the channel quads l and
 // l + 32 in float32, the 8 channels 8l..8l+7 in bfloat16 (each load and
 // store of a warp one contiguous 512 bytes), and the
 // row's 8 cells x 8 channels of sums stay in registers.  Warp 0 turns the
 // tile's bitmap into the list of its RoIs in ascending order in shared
-// memory; the block walks it 16 RoIs at a time, their geometry copied into
-// shared memory with cp.async, and finds once per RoI the y bins that meet
-// each tile row and the x bins that meet the tile.  For its row y, each warp
+// memory; the block walks it kChunk RoIs at a time (16 at 7; 8 at 14, so
+// that the staged geometry, 23 KB, and the list stay under the 48 KB of
+// static shared memory), their geometry copied into shared memory with
+// cp.async, and finds once per RoI the y bins that meet each tile row and
+// the x bins that meet the tile.  For its row y, each warp
 // takes those x bins two at a time (their cotangent loads in flight
 // together), forms h = sum_py wy[py, y] * g[n, py, px] and adds wx[px, x] * h
 // to the cells x of the bin's nonzero taps.  Each cell and channel belongs
@@ -64,8 +70,6 @@ constexpr int kLaneChannels = 8;
 constexpr int kChannels = kLanes * kLaneChannels;  // channels per block
 constexpr int kWarps = kTile;                // one warp per tile row
 constexpr int kThreads = kWarps * kLanes;
-constexpr int kChunk = 16;                   // RoIs whose geometry is staged at once
-constexpr int kBins = kOut * kOut;
 constexpr int kWordsPerLane = 2;
 constexpr int kListWords = 32 * kWordsPerLane;  // bitmap words listed at a time
 
@@ -118,21 +122,25 @@ __device__ inline void fma8(float* acc, float w, const float* v) {
   for (int i = 0; i < kLaneChannels; ++i) acc[i] = fmaf(w, v[i], acc[i]);
 }
 
-template <bool kBf16Weights>
+// RoIs whose geometry the gradient kernel stages in shared memory at once
+template <int kOut>
+constexpr int kChunk = kOut <= 7 ? 16 : 8;
+
+template <bool kBf16Weights, int kOut>
 __global__ void __launch_bounds__(kKeyWarps * 32)
 roi_tile_keys_kernel(const float* __restrict__ rois, const uint8_t* __restrict__ valid,
-                     const Levels L, int n_rois, int rois_per_img, Geom* __restrict__ geo,
-                     unsigned* __restrict__ bitmap) {
-  __shared__ Geom gs[kKeyWarps];
+                     const Levels L, int n_rois, int rois_per_img,
+                     Geom<kOut>* __restrict__ geo, unsigned* __restrict__ bitmap) {
+  __shared__ Geom<kOut> gs[kKeyWarps];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n = blockIdx.x * kKeyWarps + warp;
   if (n >= n_rois || !valid[n]) return;  // whole warps only; no block barrier below
-  Geom* g = &gs[warp];
-  roi_geometry<kBf16Weights>(rois, n, rois_per_img, L, g);
+  Geom<kOut>* g = &gs[warp];
+  roi_geometry<kBf16Weights, kOut>(rois, n, rois_per_img, L, g);
   const int4* src = reinterpret_cast<const int4*>(g);
   int4* dst = reinterpret_cast<int4*>(geo + n);
-  for (int v = lane; v < kGeomVecs; v += 32) dst[v] = src[v];
+  for (int v = lane; v < kGeomVecs<kOut>; v += 32) dst[v] = src[v];
   if (lane < kMaxTiles) {
     int ylo = kWin, yhi = -1, xlo = kWin, xhi = -1;
     for (int o = 0; o < kOut; ++o) {
@@ -152,15 +160,17 @@ roi_tile_keys_kernel(const float* __restrict__ rois, const uint8_t* __restrict__
   }
 }
 
-template <typename T>
+template <typename T, int kOut>
 __global__ void __launch_bounds__(kThreads, 2)
-roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom* __restrict__ geo,
+roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom<kOut>* __restrict__ geo,
                      const unsigned* __restrict__ bitmap, int n_rois, const Levels L,
                      int channels) {
   using Lane = LaneChannels<T>;
-  __shared__ Geom gs[kChunk];
-  __shared__ int2 bins_y[kChunk][kTile];  // per RoI and tile row: its y bins py0..py1
-  __shared__ int2 bins_x[kChunk];         // per RoI: the x bins that meet the tile
+  constexpr int kStage = kChunk<kOut>;
+  constexpr int kBins = kOut * kOut;
+  __shared__ Geom<kOut> gs[kStage];
+  __shared__ int2 bins_y[kStage][kTile];  // per RoI and tile row: its y bins py0..py1
+  __shared__ int2 bins_x[kStage];         // per RoI: the x bins that meet the tile
   __shared__ int list[kListWords * 32];
   __shared__ int list_len;
   const int tile = blockIdx.x;
@@ -211,11 +221,11 @@ roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom* __restrict__ ge
     }
     __syncthreads();
     const int len = list_len;
-    for (int c0 = 0; c0 < len; c0 += kChunk) {
-      const int count = min(kChunk, len - c0);
-      for (int t = threadIdx.x; t < count * kGeomVecs; t += kThreads) {
-        const int i = t / kGeomVecs;
-        const int v = t - i * kGeomVecs;
+    for (int c0 = 0; c0 < len; c0 += kStage) {
+      const int count = min(kStage, len - c0);
+      for (int t = threadIdx.x; t < count * kGeomVecs<kOut>; t += kThreads) {
+        const int i = t / kGeomVecs<kOut>;
+        const int v = t - i * kGeomVecs<kOut>;
         copy16(reinterpret_cast<int4*>(&gs[i]) + v,
                reinterpret_cast<const int4*>(geo + list[c0 + i]) + v);
       }
@@ -226,7 +236,7 @@ roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom* __restrict__ ge
       if (threadIdx.x < count * (kTile + 1)) {
         const int i = threadIdx.x / (kTile + 1);
         const int r = threadIdx.x % (kTile + 1);
-        const Geom& g = gs[i];
+        const Geom<kOut>& g = gs[i];
         int lo = kOut;
         int hi = -1;
         for (int o = 0; o < kOut; ++o) {
@@ -242,7 +252,7 @@ roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom* __restrict__ ge
       }
       __syncthreads();
       for (int i = 0; i < count && has0; ++i) {
-        const Geom& g = gs[i];
+        const Geom<kOut>& g = gs[i];
         const int ky = y - g.wy0;
         const int pylo = bins_y[i][warp].x;
         const int pyhi = bins_y[i][warp].y;
@@ -293,7 +303,7 @@ roi_align_bwd_kernel(const T* __restrict__ grad_out, const Geom* __restrict__ ge
   }
 }
 
-template <typename T>
+template <typename T, int kOut>
 int launch_bwd(const void* g, const void* geo, const void* bitmap, int batch,
                int rois_per_img, int channels, float finest_scale, int num_levels,
                const long long* levels, void* stream) {
@@ -308,35 +318,16 @@ int launch_bwd(const void* g, const void* geo, const void* bitmap, int batch,
     if (L.lv[l].base == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(batch * L.tiles_per_img, (channels + kChannels - 1) / kChannels);
-  roi_align_bwd_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const Geom*>(geo),
+  roi_align_bwd_kernel<T, kOut><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const Geom<kOut>*>(geo),
       static_cast<const unsigned*>(bitmap), batch * rois_per_img, L, channels);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry points, loaded with ctypes.  levels: a host array of 7
-// int64 per route level, as for roi_align_fwd_f32 (roi_geometry.cuh,
-// fill_levels); the level gradients here, (batch, h, w, channels) with
-// unit channel stride, in the entry point's type (the key kernel reads
-// only the shapes; its bases may be 0).  rois (batch * rois_per_img, 4)
-// f32 and valid (batch * rois_per_img,) uint8 are device pointers.  Each
-// launches on `stream` and returns cudaGetLastError() (0 on success);
-// shapes it does not take give cudaErrorInvalidValue without a launch.
-
-// sizeof(Geom), for the caller that allocates geo.
-extern "C" int roi_geom_bytes() { return static_cast<int>(sizeof(Geom)); }
-
-// geo (batch * rois_per_img,) Geom (1488 bytes each, 16-byte aligned): each
-// valid RoI's geometry, its weights rounded for bfloat16 levels when
-// bf16_weights is not 0; bitmap (batch * tiles_per_img, ceil(batch *
-// rois_per_img / 32)) uint32: bit n of tile t's row is set when valid RoI n
-// meets tile t (image * tiles_per_img + tile_base[level] + ty *
-// tiles_x[level] + tx).  The bitmap is zeroed on `stream` first.
-extern "C" int roi_tile_keys(const void* rois, const void* valid, void* geo, void* bitmap,
-                             int batch, int rois_per_img, int bf16_weights, float finest_scale,
-                             int num_levels, const long long* levels, void* stream) {
+template <int kOut>
+int tile_keys(const void* rois, const void* valid, void* geo, void* bitmap, int batch,
+              int rois_per_img, int bf16_weights, float finest_scale, int num_levels,
+              const long long* levels, void* stream) {
   Levels L;
   if (batch < 1 || rois_per_img < 1 || reinterpret_cast<uintptr_t>(geo) % 16 ||
       !fill_levels(&L, num_levels, levels, finest_scale, bf16_weights ? 2 : 4)) {
@@ -352,32 +343,69 @@ extern "C" int roi_tile_keys(const void* rois, const void* valid, void* geo, voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
+  Geom<kOut>* out = static_cast<Geom<kOut>*>(geo);
+  unsigned* bits = static_cast<unsigned*>(bitmap);
   if (bf16_weights) {
-    roi_tile_keys_kernel<true><<<grid, kKeyWarps * 32, 0, s>>>(
-        r, v, L, n, rois_per_img, static_cast<Geom*>(geo), static_cast<unsigned*>(bitmap));
+    roi_tile_keys_kernel<true, kOut><<<grid, kKeyWarps * 32, 0, s>>>(r, v, L, n, rois_per_img,
+                                                                     out, bits);
   } else {
-    roi_tile_keys_kernel<false><<<grid, kKeyWarps * 32, 0, s>>>(
-        r, v, L, n, rois_per_img, static_cast<Geom*>(geo), static_cast<unsigned*>(bitmap));
+    roi_tile_keys_kernel<false, kOut><<<grid, kKeyWarps * 32, 0, s>>>(r, v, L, n, rois_per_img,
+                                                                      out, bits);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// g (batch * rois_per_img, 7, 7, channels), float or bfloat16: the
-// cotangent; geo and bitmap: roi_tile_keys' output for the same RoIs (with
-// bf16_weights for the bfloat16 entry).  channels is a multiple of 4
-// (float) or 8 (bfloat16).  Writes every cell of every level gradient.
-extern "C" int roi_align_bwd_f32(const void* g, const void* geo, const void* bitmap,
-                                 int batch, int rois_per_img, int channels,
-                                 float finest_scale, int num_levels, const long long* levels,
-                                 void* stream) {
-  return launch_bwd<float>(g, geo, bitmap, batch, rois_per_img, channels, finest_scale,
-                           num_levels, levels, stream);
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  levels: a host array of 7
+// int64 per route level, as for roi_align_fwd_f32 (roi_geometry.cuh,
+// fill_levels); the level gradients here, (batch, h, w, channels) with
+// unit channel stride, in the entry point's type (the key kernel reads
+// only the shapes; its bases may be 0).  rois (batch * rois_per_img, 4)
+// f32 and valid (batch * rois_per_img,) uint8 are device pointers.  Each
+// launches on `stream` and returns cudaGetLastError() (0 on success);
+// shapes it does not take give cudaErrorInvalidValue without a launch.
+// The entries without a size suffix pool to 7 x 7, the _o14 ones to
+// 14 x 14; the geometry and the cotangent of one call are of one size.
+
+// sizeof(Geom) for the pooled size out_size (7 or 14; 0 for any other), for
+// the caller that allocates geo.
+extern "C" int roi_geom_bytes(int out_size) {
+  return out_size == 7 ? static_cast<int>(sizeof(Geom<7>))
+                       : out_size == 14 ? static_cast<int>(sizeof(Geom<14>)) : 0;
 }
 
-extern "C" int roi_align_bwd_bf16(const void* g, const void* geo, const void* bitmap,
-                                  int batch, int rois_per_img, int channels,
-                                  float finest_scale, int num_levels, const long long* levels,
-                                  void* stream) {
-  return launch_bwd<__nv_bfloat16>(g, geo, bitmap, batch, rois_per_img, channels,
-                                   finest_scale, num_levels, levels, stream);
-}
+// geo (batch * rois_per_img,) Geom (roi_geom_bytes(k) each, 16-byte
+// aligned): each valid RoI's geometry, its weights rounded for bfloat16
+// levels when bf16_weights is not 0; bitmap (batch * tiles_per_img,
+// ceil(batch * rois_per_img / 32)) uint32: bit n of tile t's row is set
+// when valid RoI n meets tile t (image * tiles_per_img + tile_base[level] +
+// ty * tiles_x[level] + tx).  The bitmap is zeroed on `stream` first.
+#define ROI_TILE_KEYS_ENTRY(name, k)                                                      \
+  extern "C" int name(const void* rois, const void* valid, void* geo, void* bitmap,       \
+                      int batch, int rois_per_img, int bf16_weights, float finest_scale,  \
+                      int num_levels, const long long* levels, void* stream) {            \
+    return tile_keys<k>(rois, valid, geo, bitmap, batch, rois_per_img, bf16_weights,      \
+                        finest_scale, num_levels, levels, stream);                        \
+  }
+
+ROI_TILE_KEYS_ENTRY(roi_tile_keys, 7)
+ROI_TILE_KEYS_ENTRY(roi_tile_keys_o14, 14)
+
+// g (batch * rois_per_img, k, k, channels), float or bfloat16: the
+// cotangent; geo and bitmap: the tile-key entry's output of the same size
+// for the same RoIs (with bf16_weights for the bfloat16 entries).
+// channels is a multiple of 4 (float) or 8 (bfloat16).  Writes every cell
+// of every level gradient.
+#define ROI_ALIGN_BWD_ENTRY(name, T, k)                                                   \
+  extern "C" int name(const void* g, const void* geo, const void* bitmap, int batch,      \
+                      int rois_per_img, int channels, float finest_scale, int num_levels, \
+                      const long long* levels, void* stream) {                            \
+    return launch_bwd<T, k>(g, geo, bitmap, batch, rois_per_img, channels, finest_scale,  \
+                            num_levels, levels, stream);                                  \
+  }
+
+ROI_ALIGN_BWD_ENTRY(roi_align_bwd_f32, float, 7)
+ROI_ALIGN_BWD_ENTRY(roi_align_bwd_bf16, __nv_bfloat16, 7)
+ROI_ALIGN_BWD_ENTRY(roi_align_bwd_f32_o14, float, 14)
+ROI_ALIGN_BWD_ENTRY(roi_align_bwd_bf16_o14, __nv_bfloat16, 14)

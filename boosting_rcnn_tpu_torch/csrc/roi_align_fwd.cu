@@ -4,7 +4,8 @@
 // Replaces the TPU kernel `_kernel_flat` (boosting_rcnn_tpu/ops/
 // pallas_roi_align.py:586), launched by `batched_multilevel_roi_align_pallas`
 // (pallas_roi_align.py:766).  For every RoI n of image b and channel c it
-// computes the 7 x 7 pooled output
+// computes the kOut x kOut pooled output (kOut = 7 for the box branch, 14
+// for the mask branch: one instantiation and one entry point each)
 //
 //     out[n, py, px, c] = sum_k sum_m wy[py, k] * wx[px, m]
 //                                     * level[b, wy0 + k, wx0 + m, c]
@@ -23,13 +24,15 @@
 // What bounds it on an H100: bytes.  At the flagship's predict shapes (B*R =
 // 512 RoIs, C = 256) the float32 function reads ~16 MB of level cells (each
 // cell that some RoI weights, once) and writes 25.7 MB, ~0.012 ms at
-// 3.35 TB/s; in bfloat16 both halve.  Its operations, on the nonzero taps
-// only, take a few microseconds at the float32 peak.
+// 3.35 TB/s; in bfloat16 both halve.  At 14 x 14 each RoI writes 4x the
+// output: Mask R-CNN's 1024 train mask RoIs write 205 MB in float32, so the
+// writes set the bound.  Its operations, on the nonzero taps only, take a
+// few microseconds at the float32 peak.
 //
 // Design: one block per RoI, 256 threads: along the channels, threads that
 // each load 16 bytes (4 float or 8 bfloat16 channels; 64 or 32 threads,
 // one coalesced row of 256 channels per cell), times 4 or 8 groups that
-// share the 49 bins.  Warp 0 computes the RoI's geometry into shared
+// share the kOut^2 bins (49 or 196).  Warp 0 computes the RoI's geometry into shared
 // memory first.  Each bin then reads only the cells of its nonzero taps
 // (2 x 2 samples, 2 x 2 taps each, on 2-4 distinct rows and columns) and
 // accumulates in float32 registers, a column's rows first; the
@@ -51,7 +54,7 @@ using namespace roi;
 constexpr int kThreads = 256;
 constexpr int kRowChannels = 256;  // channels of one cell row across the threads
 
-template <typename T>
+template <typename T, int kOut>
 __global__ void __launch_bounds__(kThreads)
 roi_align_fwd_kernel(const float* __restrict__ rois, const uint8_t* __restrict__ valid,
                      const Levels L, int rois_per_img, int channels, T* __restrict__ out) {
@@ -71,8 +74,8 @@ roi_align_fwd_kernel(const float* __restrict__ rois, const uint8_t* __restrict__
     return;
   }
 
-  __shared__ Geom g;
-  if (threadIdx.x < 32) roi_geometry<sizeof(T) == 2>(rois, n, rois_per_img, L, &g);
+  __shared__ Geom<kOut> g;
+  if (threadIdx.x < 32) roi_geometry<sizeof(T) == 2, kOut>(rois, n, rois_per_img, L, &g);
   __syncthreads();
 
   const Level lv = L.lv[g.level];
@@ -106,7 +109,7 @@ roi_align_fwd_kernel(const float* __restrict__ rois, const uint8_t* __restrict__
   }
 }
 
-template <typename T>
+template <typename T, int kOut>
 int launch(const void* rois, const void* valid, void* out, int batch, int rois_per_img,
            int channels, float finest_scale, int num_levels, const long long* levels,
            void* stream) {
@@ -117,7 +120,7 @@ int launch(const void* rois, const void* valid, void* out, int batch, int rois_p
       !fill_levels(&L, num_levels, levels, finest_scale, sizeof(T))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  roi_align_fwd_kernel<T><<<batch * rois_per_img, kThreads, 0,
+  roi_align_fwd_kernel<T, kOut><<<batch * rois_per_img, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rois), static_cast<const uint8_t*>(valid), L, rois_per_img,
       channels, static_cast<T*>(out));
@@ -128,22 +131,22 @@ int launch(const void* rois, const void* valid, void* out, int batch, int rois_p
 
 // Plain C entry points, loaded with ctypes.  Device pointers of contiguous
 // tensors: rois (batch * rois_per_img, 4) f32, valid (batch * rois_per_img,)
-// uint8, out (batch * rois_per_img, 7, 7, channels) in the levels' type.
+// uint8, out (batch * rois_per_img, k, k, channels) in the levels' type,
+// k = 7 for the entries without a size suffix, 14 for the _o14 ones.
 // levels: a host array of 7 int64 per route level (roi_geometry.cuh,
 // fill_levels), the level (batch, h, w, channels) with unit channel stride.
 // channels is a multiple of 4 (float) or 8 (bfloat16).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); shapes it does
 // not take give cudaErrorInvalidValue without a launch.
-extern "C" int roi_align_fwd_f32(const void* rois, const void* valid, void* out, int batch,
-                                 int rois_per_img, int channels, float finest_scale,
-                                 int num_levels, const long long* levels, void* stream) {
-  return launch<float>(rois, valid, out, batch, rois_per_img, channels, finest_scale,
-                       num_levels, levels, stream);
-}
+#define ROI_ALIGN_FWD_ENTRY(name, T, k)                                                   \
+  extern "C" int name(const void* rois, const void* valid, void* out, int batch,          \
+                      int rois_per_img, int channels, float finest_scale, int num_levels, \
+                      const long long* levels, void* stream) {                            \
+    return launch<T, k>(rois, valid, out, batch, rois_per_img, channels, finest_scale,    \
+                        num_levels, levels, stream);                                      \
+  }
 
-extern "C" int roi_align_fwd_bf16(const void* rois, const void* valid, void* out, int batch,
-                                  int rois_per_img, int channels, float finest_scale,
-                                  int num_levels, const long long* levels, void* stream) {
-  return launch<__nv_bfloat16>(rois, valid, out, batch, rois_per_img, channels, finest_scale,
-                               num_levels, levels, stream);
-}
+ROI_ALIGN_FWD_ENTRY(roi_align_fwd_f32, float, 7)
+ROI_ALIGN_FWD_ENTRY(roi_align_fwd_bf16, __nv_bfloat16, 7)
+ROI_ALIGN_FWD_ENTRY(roi_align_fwd_f32_o14, float, 14)
+ROI_ALIGN_FWD_ENTRY(roi_align_fwd_bf16_o14, __nv_bfloat16, 14)

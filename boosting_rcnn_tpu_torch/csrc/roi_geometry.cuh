@@ -1,7 +1,9 @@
 // RoIAlign geometry shared by the forward (roi_align_fwd.cu) and gradient
 // (roi_align_bwd.cu) kernels: the pyramid level of a RoI, its 24-cell window
-// in that level, and the two bilinear taps of each of its 14 sample
-// positions per axis (7 bins x 2 samples).
+// in that level, and the two bilinear taps of each of its 2 * kOut sample
+// positions per axis (kOut bins x 2 samples).  The pooled size kOut is a
+// template parameter: 7 for the box branch, 14 for the mask branch, the two
+// sizes the JAX package calls its Pallas kernels with.
 //
 // It computes, in the same order of IEEE float32 operations, what the plain
 // version computes in PyTorch (boosting_rcnn_tpu_torch/ops/roi_align.py:
@@ -35,9 +37,7 @@
 
 namespace roi {
 
-constexpr int kOut = 7;                  // pooled output size
 constexpr int kSamples = 2;              // samples per bin axis
-constexpr int kSteps = kOut * kSamples;  // sample positions per axis
 constexpr int kWin = 24;                 // window rows (and widest window)
 constexpr int kMaxLevels = 5;
 constexpr int kTile = 8;                 // gradient tile: kTile x kTile cells
@@ -83,20 +83,25 @@ struct Tap {
 // What both kernels keep of a RoI in shared memory: its pool-folded
 // interpolation weights over the window (the mean of each bin's two
 // samples) and, per bin, the first and last window cell with a nonzero
-// weight.  16-byte aligned and sized, so that blocks copy it as int4.
+// weight.  16-byte aligned and sized, so that blocks copy it as int4:
+// 1488 bytes at kOut = 7, 2944 at 14.
+template <int kOut>
 struct alignas(16) Geom {
   int n, img, level, wy0, wx0;
   int ylo[kOut], yhi[kOut], xlo[kOut], xhi[kOut];
   float wy[kOut][kWin], wx[kOut][kWin];
   int pad[3];
 };
-constexpr int kGeomVecs = static_cast<int>(sizeof(Geom) / 16);
-static_assert(sizeof(Geom) % 16 == 0, "Geom is copied as int4");
+template <int kOut>
+constexpr int kGeomVecs = static_cast<int>(sizeof(Geom<kOut>) / 16);
+static_assert(sizeof(Geom<7>) == 1488 && sizeof(Geom<14>) == 2944, "Geom sizes");
+static_assert(sizeof(Geom<7>) % 16 == 0 && sizeof(Geom<14>) % 16 == 0, "Geom is copied as int4");
 
 __host__ __device__ inline int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+template <int kOut>
 __device__ inline Window roi_window(const float* roi, const Levels& L) {
   const float bw = fmaxf(__fsub_rn(roi[2], roi[0]), 0.0f);
   const float bh = fmaxf(__fsub_rn(roi[3], roi[1]), 0.0f);
@@ -121,7 +126,7 @@ __device__ inline Window roi_window(const float* roi, const Levels& L) {
   return g;
 }
 
-// Sample j (0..13) along one axis: position start + frac_j * bin, frac_j =
+// Sample j (0..2 * kOut - 1) along one axis: position start + frac_j * bin, frac_j =
 // j / 2 + (j % 2 + 0.5) / 2, relative to the window origin, clamped to
 // [0, hi].
 __device__ inline Tap sample_tap(float start, float bin, float origin, float hi, int j) {
@@ -143,16 +148,17 @@ __device__ inline float round_bf16(float v) {
 }
 
 // Fills *g for RoI n (row n of rois (N, 4), image n / rois_per_img).  Called
-// by all 32 lanes of one warp; lanes 0-6 fold the rows of the 7 y bins,
-// lanes 7-13 the columns of the 7 x bins, each adding its bin's two samples
-// in order, so the folded weights are exactly (w_a + w_b) / 2.  With
-// kBf16Weights, w_a and w_b are rounded to bfloat16 first and the folded
-// weight after.
-template <bool kBf16Weights>
+// by all 32 lanes of one warp; lanes 0..kOut-1 fold the rows of the kOut y
+// bins, lanes kOut..2*kOut-1 the columns of the kOut x bins, each adding
+// its bin's two samples in order, so the folded weights are exactly
+// (w_a + w_b) / 2.  With kBf16Weights, w_a and w_b are rounded to bfloat16
+// first and the folded weight after.
+template <bool kBf16Weights, int kOut>
 __device__ inline void roi_geometry(const float* __restrict__ rois, int n, int rois_per_img,
-                                    const Levels& L, Geom* g) {
+                                    const Levels& L, Geom<kOut>* g) {
+  static_assert(2 * kOut <= 32, "one lane per bin and axis");
   const int lane = threadIdx.x & 31;
-  const Window win = roi_window(rois + 4 * static_cast<size_t>(n), L);
+  const Window win = roi_window<kOut>(rois + 4 * static_cast<size_t>(n), L);
   float* wflat = &g->wy[0][0];
   for (int i = lane; i < 2 * kOut * kWin; i += 32) wflat[i] = 0.0f;
   __syncwarp();

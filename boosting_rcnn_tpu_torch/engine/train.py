@@ -2,7 +2,8 @@
 of ``boosting_rcnn_tpu/engine/train.py``).
 
 The optimizer is the JAX package's optax chain in the same order: clip the
-gradients to a global norm of 35, add the weight decay ``1e-4 * p``, then
+gradients to a global norm of 35 (none where the config's ``grad_clip`` is
+None, as Mask R-CNN's), add the weight decay ``1e-4 * p``, then
 SGD with momentum 0.9; the learning rate comes from the schedule at the
 step count of the updates done so far.  Here that is optax's
 ``clip_by_global_norm`` arithmetic over the trainable parameters (the
@@ -14,10 +15,12 @@ Frozen parameters (``requires_grad=False``: the frozen backbone stages)
 get no gradient and are not in the optimizer, so they never move, as the
 JAX package's zeroed updates leave them.
 
-``make_train_step`` returns ``train_step(batch, sample=None, generator=None)
--> metrics``.  Without a ``sample`` it computes the proposals and samples
-the RoIs inside the step (the JAX step's ``"fused"`` mode); with one it
-trains on that ``RoISample`` (its ``"external"`` mode).  Metrics carry the
+``make_train_step`` returns ``train_step(batch, sample=None, generator=None,
+rpn_uniforms=None) -> metrics``.  Without a ``sample`` it computes the
+proposals and samples the RoIs inside the step (the JAX step's ``"fused"``
+mode); with one it trains on that ``RoISample`` (its ``"external"`` mode).
+The batch goes to ``detector.loss`` as it is (Mask R-CNN's
+``gt_mask_crops`` with it); ``rpn_uniforms`` too.  Metrics carry the
 JAX names: ``loss``, each loss, and ``grad_norm`` (the norm before
 clipping).  The step runs on the detector's device, in the detector's
 compute dtype; the parameters and their gradients stay float32.
@@ -71,7 +74,7 @@ class Optimizer:
 
     def __init__(self, params: Sequence[torch.nn.Parameter], lr_schedule: Callable[[int], float],
                  momentum: float = 0.9, weight_decay: float = 1e-4,
-                 grad_clip_norm: float = 35.0):
+                 grad_clip_norm: Optional[float] = 35.0):
         self.params = [p for p in params if p.requires_grad]
         self.lr_schedule = lr_schedule
         self.grad_clip_norm = grad_clip_norm
@@ -91,10 +94,11 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))  # leaf by leaf, as optax
-        clip = norm >= self.grad_clip_norm
-        # (g / norm) * max_norm where the clip acts, (g / 1) * 1 == g elsewhere
-        torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
-        torch._foreach_mul_(grads, torch.where(clip, self.grad_clip_norm, 1.0))
+        if self.grad_clip_norm is not None:
+            clip = norm >= self.grad_clip_norm
+            # (g / norm) * max_norm where the clip acts, (g / 1) * 1 == g elsewhere
+            torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
+            torch._foreach_mul_(grads, torch.where(clip, self.grad_clip_norm, 1.0))
         lr = self.lr_schedule(self.step_count)
         for group in self.sgd.param_groups:
             group["lr"] = lr
@@ -108,11 +112,11 @@ def make_optimizer(
     lr_schedule: Callable[[int], float],
     momentum: float = 0.9,
     weight_decay: float = 1e-4,
-    grad_clip_norm: float = 35.0,
+    grad_clip_norm: Optional[float] = 35.0,
 ) -> Optimizer:
     """SGD with momentum, L2 weight decay and a global-norm clip (the
-    reference's ``optimizer_config``: ``grad_clip`` max_norm 35), over the
-    parameters that require a gradient."""
+    reference's ``optimizer_config``: ``grad_clip`` max_norm 35; None
+    clips nothing), over the parameters that require a gradient."""
     return Optimizer(params, lr_schedule, momentum, weight_decay, grad_clip_norm)
 
 
@@ -141,14 +145,17 @@ def make_train_step(
     ``train_step(batch, sample=None, generator=None)`` trains on ``sample``
     (a ``RoISample`` from ``detector.train_sample``) when one is given, else
     computes proposals and samples RoIs inside, with ``generator`` driving
-    the sampler.  Each step runs under ``deterministic_cudnn(deterministic)``:
-    the pin is on unless the caller turns it off (to time its cost)."""
+    the samplers; ``rpn_uniforms`` rank the plain RPN's anchors instead
+    (``detector.loss``).  Each step runs under
+    ``deterministic_cudnn(deterministic)``: the pin is on unless the caller
+    turns it off (to time its cost)."""
 
     @deterministic_cudnn(deterministic)
-    def train_step(batch, sample=None, generator: Optional[torch.Generator] = None):
+    def train_step(batch, sample=None, generator: Optional[torch.Generator] = None,
+                   rpn_uniforms=None):
         optimizer.zero_grad()
         losses = detector.loss(batch, anchors, num_level_anchors, generator=generator,
-                               sample=sample)
+                               sample=sample, rpn_uniforms=rpn_uniforms)
         total = sum(v.sum() for v in losses.values())
         total.backward()
         grad_norm = optimizer.step()

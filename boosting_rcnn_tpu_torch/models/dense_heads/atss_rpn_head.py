@@ -140,11 +140,25 @@ def atss_rpn_proposals(
     the score is the fused prior ``sqrt(sigmoid(cls) * sigmoid(iou))``, in
     float32 whatever the logits' dtype (JAX ``atss_rpn_head.py:423-424``)."""
     fused = torch.sqrt(torch.sigmoid(cls_logits.float()) * torch.sigmoid(iou_logits.float()))
+    return level_topk_nms(fused, bbox_preds, anchors, num_level_anchors, img_shapes,
+                          cfg.target_means, cfg.target_stds, nms_pre, max_per_img, nms_iou_thr,
+                          min_bbox_size)
+
+
+def level_topk_nms(scores: torch.Tensor, bbox_preds: torch.Tensor, anchors: torch.Tensor,
+                   num_level_anchors: Sequence[int], img_shapes: torch.Tensor, means, stds,
+                   nms_pre: int, max_per_img: int, nms_iou_thr: float, min_bbox_size: float):
+    """The proposal steps after the score, shared by both RPN heads:
+    per-level exact top-``nms_pre`` of ``scores`` ``(B, A)``, decode of
+    their ``bbox_preds`` ``(B, A, 4)`` within ``img_shapes`` ``(B, 2)``,
+    boxes wider and taller than ``min_bbox_size``, then NMS with the level
+    as the class id, keeping ``max_per_img``.  Returns ``(boxes (B, max,
+    4), scores (B, max), valid)``, scores zero off the valid slots."""
     sel_scores, sel_deltas, sel_anchors, sel_ids = [], [], [], []
     start = 0
     for lvl, na in enumerate(num_level_anchors):
         k = min(nms_pre, na) if nms_pre > 0 else na
-        top_s, top_i = select_topk(fused[:, start:start + na], k)
+        top_s, top_i = select_topk(scores[:, start:start + na], k)
         idx = top_i + start
         sel_scores.append(top_s)
         sel_deltas.append(torch.gather(bbox_preds, 1, idx[..., None].expand(-1, -1, 4)))
@@ -156,7 +170,7 @@ def atss_rpn_proposals(
     ancs = torch.cat(sel_anchors, dim=1)
     ids = torch.cat(sel_ids, dim=1)
 
-    proposals = _decode(cfg, ancs, deltas, max_shape=img_shapes)
+    proposals = box_ops.delta2bbox(ancs, deltas, means, stds, max_shape=img_shapes)
     w = proposals[..., 2] - proposals[..., 0]
     h = proposals[..., 3] - proposals[..., 1]
     ok = (w > min_bbox_size) & (h > min_bbox_size)

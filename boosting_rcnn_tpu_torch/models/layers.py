@@ -7,9 +7,9 @@ scales.  Every initialiser draws from an explicit ``torch.Generator``.
 
 The compute dtype is flax's policy, written out as explicit casts (no
 ``torch.autocast``, which decides per op): parameters stay float32; each
-``Conv2d`` and ``Linear`` casts its input, weight and bias to its
-``compute_dtype`` at the call (flax ``promote_dtype``), which
-``set_compute_dtype`` sets for a whole network; the other modules follow
+``Conv2d``, ``ConvTranspose2d`` and ``Linear`` casts its input, weight
+and bias to its ``compute_dtype`` at the call (flax ``promote_dtype``),
+which ``set_compute_dtype`` sets for a whole network; the other modules follow
 their input's dtype, with their float32 parameters or statistics cast to
 it (``FrozenBatchNorm``, ``Scale``) or their arithmetic done in float32 and
 cast back once (GroupNorm in ``ConvModule``).  In float32 every cast is a
@@ -26,6 +26,8 @@ from torch import nn
 
 __all__ = [
     "Conv2d",
+    "ConvTranspose2d",
+    "make_conv_transpose",
     "Linear",
     "set_compute_dtype",
     "FrozenBatchNorm",
@@ -70,6 +72,25 @@ class Conv2d(nn.Conv2d):
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with float32 parameters that computes in
+    ``compute_dtype``, cast and with the bias added as ``Conv2d`` does
+    (flax ``nn.ConvTranspose(dtype=...)``).  Its weight is ``(in, out, kh,
+    kw)``; flax's kernel ``(kh, kw, in, out)`` maps to it with the spatial
+    taps flipped (``weights.py``: flax's transpose without
+    ``transpose_kernel`` is a fractionally strided convolution, PyTorch's
+    the gradient of a convolution)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return F.conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` with float32 parameters that computes in
     ``compute_dtype``, cast as ``Conv2d`` casts, the bias added as
@@ -85,10 +106,10 @@ class Linear(nn.Linear):
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """Make every ``Conv2d`` and ``Linear`` inside ``module`` compute in
-    ``dtype``; the parameters keep their float32."""
+    """Make every ``Conv2d``, ``ConvTranspose2d`` and ``Linear`` inside
+    ``module`` compute in ``dtype``; the parameters keep their float32."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
             m.compute_dtype = dtype
 
 
@@ -98,6 +119,16 @@ def make_conv(cin: int, cout: int, k: int, stride: int, pad: int, bias: bool,
     lecun_normal_(conv.weight, cin * k * k, gen)
     if bias:
         nn.init.constant_(conv.bias, bias_value)
+    return conv
+
+
+def make_conv_transpose(cin: int, cout: int, k: int, stride: int,
+                        gen: torch.Generator) -> ConvTranspose2d:
+    """A ``k x k`` transposed convolution with a bias, LeCun-normal over
+    the fan-in ``cin * k * k`` (flax ``nn.ConvTranspose``'s default)."""
+    conv = ConvTranspose2d(cin, cout, k, stride)
+    lecun_normal_(conv.weight, cin * k * k, gen)
+    nn.init.zeros_(conv.bias)
     return conv
 
 

@@ -1,10 +1,13 @@
-"""PAFPN neck (PyTorch port of ``boosting_rcnn_tpu/models/necks/fpn.py``).
+"""FPN and PAFPN necks (PyTorch port of ``boosting_rcnn_tpu/models/necks/fpn.py``).
 
-FPN top-down merge (nearest upsample with half-pixel centres), then the
-PAFPN bottom-up path (``downsample_{i}`` stride-2 convs, ``pafpn_conv_{i}``),
-then extra levels by stride-2 convs on the last output
-(``add_extra_convs='on_output'``, ``FPN._add_extra_levels``).  No norm and
-no activation, as the flagship config has.  NCHW in and out.
+``FPN`` (Mask R-CNN's neck): lateral 1x1 convs, the top-down merge (nearest
+upsample with half-pixel centres), 3x3 output convs, and the extra levels
+as ``max_pool(outs[-1], 1, 2)`` (``add_extra_convs=False``,
+``FPN._add_extra_levels``).  ``PAFPN`` (the flagship's): the FPN top-down
+merge, then the bottom-up path (``downsample_{i}`` stride-2 convs,
+``pafpn_conv_{i}``), then extra levels by stride-2 convs on the last output
+(``add_extra_convs='on_output'``).  No norm and no activation, as both
+configs have.  NCHW in and out.
 """
 from __future__ import annotations
 
@@ -13,7 +16,38 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..layers import ConvModule, bilinear_resize
+from ..layers import ConvModule, bilinear_resize, max_pool
+
+
+def _top_down(neck: nn.Module, inputs, start_level: int, used: int):
+    """The lateral convs and the top-down merge: each lateral plus the
+    nearest upsample of the one above it."""
+    laterals = [getattr(neck, f"lateral_{i}")(inputs[start_level + i]) for i in range(used)]
+    for i in range(used - 1, 0, -1):
+        laterals[i - 1] = laterals[i - 1] + bilinear_resize(laterals[i],
+                                                            laterals[i - 1].shape[-2:])
+    return laterals
+
+
+class FPN(nn.Module):
+    """``FPN`` with ``add_extra_convs=False`` and ``start_level=0``: the
+    levels past the inputs are stride-2 subsamples of the last output."""
+
+    def __init__(self, gen: torch.Generator, in_channels: Sequence[int],
+                 out_channels: int = 256, num_outs: int = 5):
+        super().__init__()
+        self.used = len(in_channels)
+        self.num_outs = num_outs
+        for i, cin in enumerate(in_channels):
+            self.add_module(f"lateral_{i}", ConvModule(cin, out_channels, 1, gen))
+            self.add_module(f"fpn_conv_{i}", ConvModule(out_channels, out_channels, 3, gen))
+
+    def forward(self, inputs):
+        laterals = _top_down(self, inputs, 0, self.used)
+        outs = [getattr(self, f"fpn_conv_{i}")(laterals[i]) for i in range(self.used)]
+        for _ in range(self.used, self.num_outs):
+            outs.append(max_pool(outs[-1], 1, 2, 0))
+        return tuple(outs)
 
 
 class PAFPN(nn.Module):
@@ -38,11 +72,7 @@ class PAFPN(nn.Module):
 
     def forward(self, inputs):
         used = self.used
-        laterals = [getattr(self, f"lateral_{i}")(inputs[self.start_level + i])
-                    for i in range(used)]
-        for i in range(used - 1, 0, -1):
-            laterals[i - 1] = laterals[i - 1] + bilinear_resize(
-                laterals[i], laterals[i - 1].shape[-2:])
+        laterals = _top_down(self, inputs, self.start_level, used)
         inter = [getattr(self, f"fpn_conv_{i}")(laterals[i]) for i in range(used)]
         for i in range(used - 1):
             inter[i + 1] = inter[i + 1] + getattr(self, f"downsample_{i}")(inter[i])

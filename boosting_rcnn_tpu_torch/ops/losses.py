@@ -1,9 +1,10 @@
 """The losses of the flagship, in the mmdet reduction protocol (PyTorch port).
 
-Counterpart of ``boosting_rcnn_tpu/ops/losses.py``, only what the flagship
-calls: sigmoid focal loss (RPN objectness), IoU loss and MSE (RPN boxes),
-binary cross entropy on logits (RPN IoU branch), softmax cross entropy and
-L1 (R-CNN head).  Every loss goes through ``weight_reduce_loss``:
+Counterpart of ``boosting_rcnn_tpu/ops/losses.py``, only what the ported
+models call: sigmoid focal loss (RPN objectness), IoU loss and MSE (RPN
+boxes), binary cross entropy on logits (the ATSS RPN's IoU branch, the
+plain RPN's objectness, the mask head), smooth L1 (the plain RPN's boxes),
+softmax cross entropy and L1 (R-CNN head).  Every loss goes through ``weight_reduce_loss``:
 elementwise loss times an optional weight, then ``mean`` / ``sum`` /
 ``none``, or the sum divided by an explicit ``avg_factor``.  Each loss
 computes in its prediction's dtype, with the target cast to it, until a
@@ -23,6 +24,7 @@ __all__ = [
     "cross_entropy_loss",
     "binary_cross_entropy_loss",
     "l1_loss",
+    "smooth_l1_loss",
     "mse_loss",
     "iou_loss",
 ]
@@ -118,6 +120,15 @@ def binary_cross_entropy_loss(pred, target, weight=None, reduction: str = "mean"
 
 def l1_loss(pred, target, weight=None, reduction="mean", avg_factor=None):
     return weight_reduce_loss((pred - target).abs(), weight, reduction, avg_factor)
+
+
+def smooth_l1_loss(pred, target, weight=None, beta: float = 1.0, reduction="mean",
+                   avg_factor=None):
+    """``0.5 * d**2 / beta`` where ``d = |pred - target| < beta``, else
+    ``d - 0.5 * beta`` (mmdet ``smooth_l1_loss``)."""
+    diff = (pred - target).abs()
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
 
 
 def mse_loss(pred, target, weight=None, reduction="mean", avg_factor=None):

@@ -50,10 +50,17 @@ dtype; the levels must all have one dtype, the cotangent the levels', and
 bfloat16 levels a channel count that is a multiple of 8.  Nothing is cast
 on the way: a level of another dtype is a ``ValueError``.  The tile lists
 carry the dtype their weights were rounded for (``TileLists.dtype``).
+Each also comes at the two pooled sizes the JAX package calls its Pallas
+kernels with, 7 (the box branch) and 14 (the mask branch): the entry
+points without a size suffix pool to 7 x 7, the ``_o14`` ones (and
+``roi_tile_keys_o14``) to 14 x 14, chosen by ``out_size``.  Any other size
+is a ``ValueError``; nothing falls back to the plain version.
 
-``launches`` on each wrapper counts its float32 kernel's launches and
-``bf16_launches`` its bfloat16 kernel's; ``RoIAlignBackward.tile_launches``
-counts the tile-key kernel's, in either dtype.
+Each wrapper counts the launches of each of its entry points:
+``launches`` (float32, 7 x 7), ``bf16_launches``, ``o14_launches``
+(float32, 14 x 14) and ``bf16_o14_launches``; ``RoIAlignBackward``
+counts its tile-key kernel's in ``tile_launches`` (7 x 7, either dtype)
+and ``o14_tile_launches``.
 """
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ from .roi_align import multilevel_roi_align_fast, tile_grid
 
 __all__ = [
     "KERNEL_DTYPES",
+    "OUT_SIZES",
     "TileLists",
     "RoIAlignForward",
     "RoIAlignBackward",
@@ -79,10 +87,10 @@ __all__ = [
     "roi_align_bwd_plain",
 ]
 
-OUT_SIZE = 7
+OUT_SIZES = (7, 14)  # the pooled sizes of the kernels' instantiations
 SAMPLE_NUM = 2
 MAX_LEVELS = 5
-GEOM_BYTES = 1488  # sizeof(roi::Geom) in csrc/roi_geometry.cuh
+GEOM_BYTES = {7: 1488, 14: 2944}  # sizeof(roi::Geom<k>) in csrc/roi_geometry.cuh
 # the kernels' element types: the C entry points' suffix and the channel
 # multiple that 16-byte loads need
 KERNEL_DTYPES = {torch.float32: ("f32", 4), torch.bfloat16: ("bf16", 8)}
@@ -93,12 +101,33 @@ class TileLists(NamedTuple):
     ``bitmap`` ``(B * tiles_per_img, ceil(B*R / 32))`` int32, bit ``n`` of
     tile ``t``'s row set when valid RoI ``n`` meets tile ``t``
     (``roi_align.tile_bitmap`` is its plain mirror); ``geo`` ``(B*R,
-    GEOM_BYTES)`` uint8, each valid RoI's geometry, its weights rounded for
-    levels of ``dtype``."""
+    GEOM_BYTES[out_size])`` uint8, each valid RoI's geometry for the pooled
+    size ``out_size``, its weights rounded for levels of ``dtype``."""
 
     bitmap: torch.Tensor
     geo: torch.Tensor
     dtype: torch.dtype = torch.float32
+    out_size: int = 7
+
+
+def _check_out_size(out_size: int) -> str:
+    """The entry-point suffix of the pooled size: '' for 7, '_o14' for 14;
+    any other size raises."""
+    if out_size not in OUT_SIZES:
+        raise ValueError(f"the RoIAlign kernels pool to {' or '.join(map(str, OUT_SIZES))}, "
+                         f"not {out_size}")
+    return "" if out_size == 7 else f"_o{out_size}"
+
+
+def _count_name(dtype: torch.dtype, out_size: int, kernel: str = "") -> str:
+    """The launch-count attribute of an entry point: ``launches``,
+    ``bf16_launches``, ``o14_launches``, ``bf16_o14_launches``; with
+    ``kernel='tile'`` the tile-key kernel's (``tile_launches``,
+    ``o14_tile_launches``), which does not depend on the dtype."""
+    parts = [] if kernel else (["bf16"] if dtype == torch.bfloat16 else [])
+    parts += [] if out_size == 7 else [f"o{out_size}"]
+    parts += [kernel] if kernel else []
+    return "_".join(parts + ["launches"])
 
 
 _LEVEL_ARGTYPES = [
@@ -204,59 +233,74 @@ def _raise_on(err: int, name: str) -> None:
 
 
 class RoIAlignBackward:
-    """Callable wrapper of the RoIAlign gradient kernels with launch counts:
-    ``launches`` of the float32 gradient kernel, ``bf16_launches`` of the
-    bfloat16 one, ``tile_launches`` of the tile-key kernel."""
+    """Callable wrapper of the RoIAlign gradient kernels with launch counts
+    by entry point (``_count_name``): ``launches`` / ``bf16_launches`` of
+    the 7 x 7 gradient kernels, ``o14_launches`` / ``bf16_o14_launches`` of
+    the 14 x 14 ones, ``tile_launches`` / ``o14_tile_launches`` of the
+    tile-key kernels."""
 
     KERNEL = "roi_align_bwd"
 
     def __init__(self):
-        self.launches = 0
-        self.bf16_launches = 0
-        self.tile_launches = 0
+        for out_size in OUT_SIZES:
+            setattr(self, _count_name(None, out_size, "tile"), 0)
+            for dtype in KERNEL_DTYPES:
+                setattr(self, _count_name(dtype, out_size), 0)
         self._fns = None
 
     def _kernels(self):
-        """The tile-key entry point and the gradient entry points by suffix."""
+        """The tile-key entry points by pooled size and the gradient entry
+        points by (dtype suffix, pooled size)."""
         if self._fns is None:
             lib = cuda_build.load(self.KERNEL)
-            keys = lib.roi_tile_keys
-            keys.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
-            keys.restype = ctypes.c_int
-            bwd = {}
-            for suffix, _ in KERNEL_DTYPES.values():
-                fn = getattr(lib, f"roi_align_bwd_{suffix}")
-                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
+            lib.roi_geom_bytes.argtypes = [ctypes.c_int]
+            lib.roi_geom_bytes.restype = ctypes.c_int
+            keys, bwd = {}, {}
+            for out_size in OUT_SIZES:
+                o = _check_out_size(out_size)
+                fn = getattr(lib, f"roi_tile_keys{o}")
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
                 fn.restype = ctypes.c_int
-                bwd[suffix] = fn
-            if lib.roi_geom_bytes() != GEOM_BYTES:
-                raise RuntimeError(f"{self.KERNEL}: the kernels' Geom is {lib.roi_geom_bytes()} "
-                                   f"bytes, the wrapper allocates {GEOM_BYTES}")
+                keys[out_size] = fn
+                for suffix, _ in KERNEL_DTYPES.values():
+                    fn = getattr(lib, f"roi_align_bwd_{suffix}{o}")
+                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
+                    fn.restype = ctypes.c_int
+                    bwd[suffix, out_size] = fn
+                if lib.roi_geom_bytes(out_size) != GEOM_BYTES[out_size]:
+                    raise RuntimeError(
+                        f"{self.KERNEL}: the kernels' Geom<{out_size}> is "
+                        f"{lib.roi_geom_bytes(out_size)} bytes, the wrapper allocates "
+                        f"{GEOM_BYTES[out_size]}")
             self._fns = keys, bwd
         return self._fns
 
     def tile_lists(self, level_shapes: Sequence[Sequence[int]], rois: torch.Tensor,
                    valid: torch.Tensor, strides: Sequence[int],
-                   finest_scale: float = 56, dtype: torch.dtype = torch.float32) -> TileLists:
+                   finest_scale: float = 56, dtype: torch.dtype = torch.float32,
+                   out_size: int = 7) -> TileLists:
         """The tile lists of flat CUDA ``rois`` ``(B*R, 4)`` and ``valid``
         ``(B*R,)`` uint8 over route levels of ``level_shapes`` ``(B, H, W,
-        C)`` and ``dtype``: the tile-key kernel."""
+        C)`` and ``dtype``, for the pooled size ``out_size``: the tile-key
+        kernel."""
         if rois.device.type != "cuda":
             raise ValueError(f"the RoIAlign kernels run on CUDA tensors, not {rois.device}")
+        _check_out_size(out_size)
         b, _ = _check_shapes(level_shapes, dtype)
         r = _check_rois(rois, valid, b, rois.device)
         _, _, per_img = tile_grid([(s[1], s[2]) for s in level_shapes])
         words = -(-b * r // 32)
         bitmap = torch.empty((b * per_img, words), dtype=torch.int32, device=rois.device)
-        geo = torch.empty((b * r, GEOM_BYTES), dtype=torch.uint8, device=rois.device)
-        fn, _ = self._kernels()
+        geo = torch.empty((b * r, GEOM_BYTES[out_size]), dtype=torch.uint8, device=rois.device)
+        keys, _ = self._kernels()
         args, _desc = _level_args(level_shapes, strides, finest_scale)
         with _on(rois.device):
-            err = fn(rois.data_ptr(), valid.data_ptr(), geo.data_ptr(), bitmap.data_ptr(), b, r,
-                     int(dtype == torch.bfloat16), *args)
-        _raise_on(err, "roi_tile_keys")
-        self.tile_launches += 1
-        return TileLists(bitmap, geo, dtype)
+            err = keys[out_size](rois.data_ptr(), valid.data_ptr(), geo.data_ptr(),
+                                 bitmap.data_ptr(), b, r, int(dtype == torch.bfloat16), *args)
+        _raise_on(err, f"roi_tile_keys{_check_out_size(out_size)}")
+        name = _count_name(dtype, out_size, "tile")
+        setattr(self, name, getattr(self, name) + 1)
+        return TileLists(bitmap, geo, dtype, out_size)
 
     def launch(self, g: torch.Tensor, level_shapes: Sequence[Sequence[int]],
                rois: torch.Tensor, valid: torch.Tensor, strides: Sequence[int],
@@ -264,36 +308,39 @@ class RoIAlignBackward:
                dtype: torch.dtype | None = None) -> List[torch.Tensor]:
         """Gradients ``(B, H, W, C)`` of route levels of ``level_shapes``
         and ``dtype`` (float32 or bfloat16; ``g``'s when None) for the
-        cotangent ``g`` ``(B*R, 7, 7, C)`` of that dtype, of flat CUDA
-        ``rois`` ``(B*R, 4)`` and ``valid`` ``(B*R,)`` uint8.  Builds the
-        tile lists unless ``tiles`` (for the same dtype) are given."""
+        cotangent ``g`` ``(B*R, k, k, C)`` of that dtype, ``k`` 7 or 14, of
+        flat CUDA ``rois`` ``(B*R, 4)`` and ``valid`` ``(B*R,)`` uint8.
+        Builds the tile lists unless ``tiles`` (for the same dtype and
+        size) are given."""
         if g.device.type != "cuda":
             raise ValueError(f"the RoIAlign kernels run on CUDA tensors, not {g.device}")
         dtype = g.dtype if dtype is None else dtype
         suffix, _ = _kernel_dtype(dtype)
+        out_size = g.shape[1] if g.dim() == 4 else 0
+        o = _check_out_size(out_size)
         b, c = _check_shapes(level_shapes, dtype)
         r = _check_rois(rois, valid, b, g.device)
-        if (g.dtype != dtype or tuple(g.shape) != (b * r, OUT_SIZE, OUT_SIZE, c)
+        if (g.dtype != dtype or tuple(g.shape) != (b * r, out_size, out_size, c)
                 or not g.is_contiguous() or g.data_ptr() % 16):
-            raise ValueError(f"g: want contiguous {dtype} {(b * r, OUT_SIZE, OUT_SIZE, c)}, "
+            raise ValueError(f"g: want contiguous {dtype} {(b * r, out_size, out_size, c)}, "
                              f"got {g.dtype} {tuple(g.shape)}")
-        if tiles is not None and tiles.dtype != dtype:
-            raise ValueError(f"tile lists made for {tiles.dtype} levels, not {dtype}")
+        if tiles is not None and (tiles.dtype, tiles.out_size) != (dtype, out_size):
+            raise ValueError(f"tile lists made for {tiles.dtype} levels at {tiles.out_size}, "
+                             f"not {dtype} at {out_size}")
         if r == 0:
             return [torch.zeros(s, dtype=dtype, device=g.device) for s in level_shapes]
         if tiles is None:
-            tiles = self.tile_lists(level_shapes, rois, valid, strides, finest_scale, dtype)
+            tiles = self.tile_lists(level_shapes, rois, valid, strides, finest_scale, dtype,
+                                    out_size)
         grads = [torch.empty(s, dtype=dtype, device=g.device) for s in level_shapes]
         _, bwd = self._kernels()
         args, _desc = _level_args(grads, strides, finest_scale)
         with _on(g.device):
-            err = bwd[suffix](g.data_ptr(), tiles.geo.data_ptr(), tiles.bitmap.data_ptr(), b, r,
-                              c, *args)
-        _raise_on(err, f"{self.KERNEL}_{suffix}")
-        if dtype == torch.bfloat16:
-            self.bf16_launches += 1
-        else:
-            self.launches += 1
+            err = bwd[suffix, out_size](g.data_ptr(), tiles.geo.data_ptr(),
+                                        tiles.bitmap.data_ptr(), b, r, c, *args)
+        _raise_on(err, f"{self.KERNEL}_{suffix}{o}")
+        name = _count_name(dtype, out_size)
+        setattr(self, name, getattr(self, name) + 1)
         return grads
 
 
@@ -302,11 +349,11 @@ class _RoIAlignFunction(torch.autograd.Function):
     one gradient per level.  RoIs and the valid mask get none."""
 
     @staticmethod
-    def forward(ctx, rois, valid, wrapper, strides, finest_scale, *levels):
+    def forward(ctx, rois, valid, wrapper, strides, finest_scale, out_size, *levels):
         ctx.save_for_backward(rois, valid)
         ctx.meta = (wrapper, strides, finest_scale, [tuple(f.shape) for f in levels],
                     levels[0].dtype)
-        return wrapper.launch(levels, rois, valid, strides, finest_scale)
+        return wrapper.launch(levels, rois, valid, strides, finest_scale, out_size)
 
     @staticmethod
     def backward(ctx, g):
@@ -318,33 +365,35 @@ class _RoIAlignFunction(torch.autograd.Function):
             raise ValueError(f"RoIAlign cotangent is {g.dtype}, the levels are {dtype}")
         grads = wrapper.backward.launch(g.contiguous(), level_shapes, rois, valid, strides,
                                         finest_scale)
-        return (None, None, None, None, None, *grads)
+        return (None, None, None, None, None, None, *grads)
 
 
 class RoIAlignForward:
     """Callable wrapper of the RoIAlign forward kernels with launch counts
-    (``launches`` float32, ``bf16_launches`` bfloat16); ``backward`` is its
-    own wrapper of the gradient kernels, which autograd launches through
-    it."""
+    by entry point (``launches``, ``bf16_launches``, ``o14_launches``,
+    ``bf16_o14_launches``); ``backward`` is its own wrapper of the gradient
+    kernels, which autograd launches through it."""
 
     KERNEL = "roi_align_fwd"
 
     def __init__(self):
-        self.launches = 0
-        self.bf16_launches = 0
+        for out_size in OUT_SIZES:
+            for dtype in KERNEL_DTYPES:
+                setattr(self, _count_name(dtype, out_size), 0)
         self.backward = RoIAlignBackward()
         self._fns = None
 
-    def _kernel(self, suffix: str):
+    def _kernel(self, suffix: str, out_size: int):
         if self._fns is None:
             lib = cuda_build.load(self.KERNEL)
             self._fns = {}
-            for name, _ in KERNEL_DTYPES.values():
-                fn = getattr(lib, f"roi_align_fwd_{name}")
-                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
-                fn.restype = ctypes.c_int
-                self._fns[name] = fn
-        return self._fns[suffix]
+            for size in OUT_SIZES:
+                for name, _ in KERNEL_DTYPES.values():
+                    fn = getattr(lib, f"roi_align_fwd_{name}{_check_out_size(size)}")
+                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _LEVEL_ARGTYPES
+                    fn.restype = ctypes.c_int
+                    self._fns[name, size] = fn
+        return self._fns[suffix, out_size]
 
     def __call__(
         self,
@@ -352,7 +401,7 @@ class RoIAlignForward:
         rois: torch.Tensor,
         roi_valid: torch.Tensor,
         strides: Sequence[int],
-        out_size: int = OUT_SIZE,
+        out_size: int = 7,
         sample_num: int = SAMPLE_NUM,
         finest_scale: int = 56,
         num_route_levels: int | None = None,
@@ -368,10 +417,10 @@ class RoIAlignForward:
                 num_route_levels=num_route_levels)
         if device.type != "cuda":
             raise ValueError(f"RoIAlign runs on cpu or cuda tensors, not {device}")
-        if (out_size, sample_num) != (OUT_SIZE, SAMPLE_NUM):
-            raise NotImplementedError(
-                f"the kernels pool to {OUT_SIZE}x{OUT_SIZE} with {SAMPLE_NUM} samples per bin "
-                "axis only")
+        _check_out_size(out_size)
+        if sample_num != SAMPLE_NUM:
+            raise ValueError(f"the kernels take {SAMPLE_NUM} samples per bin axis, not "
+                             f"{sample_num}")
         nl = num_route_levels or len(feats)
         b, r = rois.shape[:2]
         if tuple(rois.shape) != (b, r, 4) or tuple(roi_valid.shape) != (b, r):
@@ -382,32 +431,33 @@ class RoIAlignForward:
         valid = roi_valid.detach().reshape(b * r).to(torch.uint8).contiguous()
         if torch.is_grad_enabled() and any(f.requires_grad for f in levels):
             out = _RoIAlignFunction.apply(rois_flat, valid, self, tuple(strides),
-                                          float(finest_scale), *levels)
+                                          float(finest_scale), out_size, *levels)
         else:
-            out = self.launch(levels, rois_flat, valid, strides, finest_scale)
+            out = self.launch(levels, rois_flat, valid, strides, finest_scale, out_size)
         return out.reshape(b, r, out_size, out_size, levels[0].shape[-1])
 
     def launch(self, levels: Sequence[torch.Tensor], rois: torch.Tensor, valid: torch.Tensor,
-               strides: Sequence[int], finest_scale: float = 56) -> torch.Tensor:
-        """Run the kernel of the levels' dtype on CUDA route ``levels``
-        ``(B, H, W, C)`` (float32 or bfloat16, one dtype, unit channel
-        stride), flat ``rois`` ``(B*R, 4)`` float32 and ``valid`` ``(B*R,)``
-        uint8 -> ``(B*R, 7, 7, C)`` in the levels' dtype."""
+               strides: Sequence[int], finest_scale: float = 56,
+               out_size: int = 7) -> torch.Tensor:
+        """Run the kernel of the levels' dtype and ``out_size`` (7 or 14) on
+        CUDA route ``levels`` ``(B, H, W, C)`` (float32 or bfloat16, one
+        dtype, unit channel stride), flat ``rois`` ``(B*R, 4)`` float32 and
+        ``valid`` ``(B*R,)`` uint8 -> ``(B*R, out, out, C)`` in the levels'
+        dtype."""
+        o = _check_out_size(out_size)
         b, c, dtype = _check_levels(levels, rois.device)
         r = _check_rois(rois, valid, b, rois.device)
-        out = torch.empty((b * r, OUT_SIZE, OUT_SIZE, c), dtype=dtype, device=rois.device)
+        out = torch.empty((b * r, out_size, out_size, c), dtype=dtype, device=rois.device)
         if r == 0:
             return out
         suffix, _ = _kernel_dtype(dtype)
-        fn = self._kernel(suffix)
+        fn = self._kernel(suffix, out_size)
         args, _desc = _level_args(levels, strides, finest_scale)
         with _on(rois.device):
             err = fn(rois.data_ptr(), valid.data_ptr(), out.data_ptr(), b, r, c, *args)
-        _raise_on(err, f"{self.KERNEL}_{suffix}")
-        if dtype == torch.bfloat16:
-            self.bf16_launches += 1
-        else:
-            self.launches += 1
+        _raise_on(err, f"{self.KERNEL}_{suffix}{o}")
+        name = _count_name(dtype, out_size)
+        setattr(self, name, getattr(self, name) + 1)
         return out
 
 
@@ -430,16 +480,18 @@ def roi_align_bwd_plain(g: torch.Tensor, levels: Sequence[torch.Tensor], rois: t
                         roi_valid: torch.Tensor, strides: Sequence[int],
                         finest_scale: int = 56) -> List[torch.Tensor]:
     """Plain gradient of the route ``levels`` L x ``(B, H, W, C)`` (their
-    shapes only) for the cotangent ``g`` ``(B*R, 7, 7, C)`` of ``rois``
-    ``(B, R, 4)`` or ``(B*R, 4)``: autograd of the plain forward,
-    ``multilevel_roi_align_fast``.  Invalid RoIs add nothing."""
+    shapes only) for the cotangent ``g`` ``(B*R, k, k, C)`` (``k`` the
+    pooled size) of ``rois`` ``(B, R, 4)`` or ``(B*R, 4)``: autograd of the
+    plain forward, ``multilevel_roi_align_fast``.  Invalid RoIs add
+    nothing."""
     b = levels[0].shape[0]
     rois = rois.detach().reshape(b, -1, 4)
     valid = roi_valid.detach().reshape(b, -1).bool()
     with torch.enable_grad():
         leaves = [torch.zeros(f.shape, dtype=g.dtype, device=g.device, requires_grad=True)
                   for f in levels]
-        out = multilevel_roi_align_fast(leaves, rois, valid, strides, finest_scale=finest_scale)
+        out = multilevel_roi_align_fast(leaves, rois, valid, strides, out_size=g.shape[1],
+                                        finest_scale=finest_scale)
         return list(torch.autograd.grad(out, leaves, g.reshape(out.shape)))
 
 

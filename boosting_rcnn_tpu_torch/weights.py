@@ -8,7 +8,12 @@ module names, so the mapping is by rule:
 
   * ``Conv_0`` / ``GroupNorm_0`` inside a ConvModule -> ``conv`` / ``norm``;
   * conv ``kernel`` (HWIO) -> ``weight`` (OIHW); dense ``kernel`` (in, out)
-    -> ``weight`` (out, in).  The first FC after the pool keeps its rows:
+    -> ``weight`` (out, in); the mask head's transposed conv ``upsample``
+    (flax ``nn.ConvTranspose``, HWIO) -> ``weight`` (in, out, H, W) with
+    both spatial axes flipped: flax's transposed convolution (no
+    ``transpose_kernel``) is the fractionally strided convolution with the
+    kernel as it is, PyTorch's ``conv_transpose2d`` the gradient of a
+    convolution, which applies the kernel mirrored.  The first FC after the pool keeps its rows:
     both packages flatten the pooled (7, 7, C) features in HWC order;
   * norm ``scale`` -> ``weight``; a scalar ``scale`` (the per-level RPN
     ``Scale``) stays ``scale``; ``mean`` / ``var`` -> ``running_mean`` /
@@ -46,7 +51,9 @@ def _convert(path: Tuple[str, ...], value: np.ndarray):
     *mods, leaf = path
     mods = [_MODULE_NAMES.get(m, m) for m in mods]
     if leaf == "kernel":
-        if value.ndim == 4:
+        if value.ndim == 4 and mods[-1:] == ["upsample"]:
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
         elif value.ndim == 2:
             value = value.T

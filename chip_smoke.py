@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's flagship inference and training on one NVIDIA GPU.
+"""Drive the PyTorch port's flagship and Mask R-CNN inference and training on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,30 @@ just before it and read just after:
     kernel and gradient kernel, once per step each);
   * per image: the batch-of-one RoIAlign entry forward and backward on
     each image of the train batch.
+
+It then builds Mask R-CNN R50-FPN at full width
+(``configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py``: FPN 256, RPN 256,
+Shared2FC 1024, 80 classes, a 4 x 256 conv FCN mask head with a 2x
+deconvolution, 28 x 28 masks; seeded random weights) in the same two
+dtypes and drives, again with the counts set to 0 before each path and
+read after:
+
+  * predict: three requests of two 800 x 1344 images (the box RoIAlign at
+    7 x 7 and the mask RoIAlign at 14 x 14, once a request each), masks
+    (2, 100, 28, 28) finite, in [0, 1] and repeatable;
+  * train: three SGD steps at the config's batch of 2 with its learning
+    rate (0.02), warmup and no gradient clip, on images with seeded gt
+    boxes and a different ellipse mask per gt (every 7 x 7 and 14 x 14
+    kernel and both tile-key kernels once a step), ``loss_mask`` positive,
+    the mask head and the FPN moved;
+  * per image: the batch-of-one entry at 14 x 14 on each train image;
+
+and holds the 14 x 14 kernels against their plain versions at the mask
+predict shapes (the detections), the train shapes (all sampled slots, the
+positive ones valid) and the odd case, with the 7 x 7 kernels' tolerances;
+it checks that the level past the four route levels (P6) gets no RoIAlign
+gradient.  A tiny Mask R-CNN predicts and takes a train step on the GPU as
+on the CPU in both dtypes, and takes part in the repeatability check.
 
 In each dtype it checks the outputs (detections finite and inside the
 image, repeatable; losses finite and positive, the frozen stages
@@ -44,7 +69,9 @@ deterministic form).  Timings, per dtype: each kernel alone by CUDA-graph
 replay and its whole call at the predict, train and per-image shapes,
 its plain version and its bound; ``predict`` and its stages; the train
 step and its parts, a step with and without the cuDNN pin; peak device
-memory; a ``torch.profiler`` view of one ``predict`` and one step.
+memory; a ``torch.profiler`` view of one ``predict`` and one step; for
+Mask R-CNN also its mask branch in ``predict`` and the mask branch's
+forward and backward over the train step's slots.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -84,6 +111,7 @@ from boosting_rcnn_tpu_torch.ops.roi_align_kernel import (  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs/boosting_rcnn/boosting_rcnn_r50_pafpn_1x_utdac.py")
+MASK_CONFIG = os.path.join(REPO, "configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py")
 CANVAS = (800, 1344)
 IMG_SHAPE = (800.0, 1333.0)
 BATCH = 2
@@ -91,6 +119,9 @@ REQUESTS = 3
 TRAIN_BATCH = 4  # the config's samples_per_gpu
 TRAIN_STEPS = 4  # step 0 warms up, steps 1-3 are timed
 GT_PER_IMAGE = 8
+MASK_TRAIN_BATCH = 2  # the Mask R-CNN config's samples_per_gpu
+MASK_TRAIN_STEPS = 3  # step 0 warms up, steps 1-2 are timed
+MASK_CROP = 28  # the loader's box-relative gt mask crop (data/loader.py mask_crop_size)
 STEPS_PER_EPOCH = 1000  # only places the decay epochs (8, 11), far beyond these steps
 ATOL = 1e-5  # forward: float32, kernel and plain version sum in different orders
 BWD_RTOL = 1e-5  # gradient: atol = BWD_RTOL * max|plain|; kernel and plain version sum in other orders
@@ -101,7 +132,7 @@ STRIDES = (8, 16, 32, 64, 128)
 BF16 = torch.bfloat16
 BF16_SHARE = 0.01  # most values a bfloat16 kernel may leave not bit-equal to its plain version
 # the bfloat16 stage tolerances of tests/test_torch_bf16.py, as fractions
-BF16_TOL = {"levels": 0.025, "loss": 0.015, "device_step": 0.35}
+BF16_TOL = {"levels": 0.025, "roi": 0.015, "loss": 0.015, "device_step": 0.35}
 
 
 def say(*parts) -> None:
@@ -110,8 +141,8 @@ def say(*parts) -> None:
 
 def ptxas_report(log: str):
     """Registers and spills of each kernel instantiation in an ``nvcc
-    -Xptxas=-v`` log, by kernel and element type (float32 or bfloat16
-    levels; the tile-key kernel by its weights' rounding)."""
+    -Xptxas=-v`` log, by kernel, element type (float32 or bfloat16 levels;
+    the tile-key kernel by its weights' rounding) and pooled size."""
     lines = log.splitlines()
     out = []
     for i, ln in enumerate(lines):
@@ -121,7 +152,8 @@ def ptxas_report(log: str):
         base = next((k for k in ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
                                  "roi_tile_keys_kernel") if k in name), name)
         kind = ("bf16" if "bfloat16" in name or "ILb1E" in name else
-                "f32" if "IfE" in name or "ILb0E" in name else "?")
+                "f32" if "IfL" in name or "ILb0E" in name else "?")
+        kind += " 14x14" if "Li14E" in name else " 7x7"
         regs = lines[i + 3].split("info    : ")[-1] if i + 3 < len(lines) else ""
         spill = lines[i + 2].strip() if i + 2 < len(lines) else ""
         out.append(f"{base.replace('_kernel', '')} {kind}: {regs}; {spill}")
@@ -167,21 +199,21 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def counters():
-    """Every kernel's launch count, by name: (wrapper, attribute)."""
-    per_image = multilevel_roi_align.batched
-    fwd, bwd = batched_multilevel_roi_align, batched_multilevel_roi_align.backward
-    return {
-        "roi_align_fwd": (fwd, "launches"),
-        "roi_align_bwd": (bwd, "launches"),
-        "roi_tile_keys": (bwd, "tile_launches"),
-        "roi_align_fwd_bf16": (fwd, "bf16_launches"),
-        "roi_align_bwd_bf16": (bwd, "bf16_launches"),
-        "roi_align_fwd_per_image": (per_image, "launches"),
-        "roi_align_bwd_per_image": (per_image.backward, "launches"),
-        "roi_tile_keys_per_image": (per_image.backward, "tile_launches"),
-        "roi_align_fwd_bf16_per_image": (per_image, "bf16_launches"),
-        "roi_align_bwd_bf16_per_image": (per_image.backward, "bf16_launches"),
-    }
+    """Every kernel entry point's launch count, by name: (wrapper,
+    attribute).  Names: ``roi_align_{fwd,bwd}[_bf16][_o14][_per_image]``
+    and ``roi_tile_keys[_o14][_per_image]`` (``_o14``: the 14 x 14
+    entries)."""
+    out = {}
+    for where, fwd in (("", batched_multilevel_roi_align),
+                       ("_per_image", multilevel_roi_align.batched)):
+        for o in ("", "_o14"):
+            pre = o[1:] + "_" if o else ""
+            out[f"roi_tile_keys{o}{where}"] = (fwd.backward, pre + "tile_launches")
+            for dt in ("", "_bf16"):
+                attr = (dt[1:] + "_" if dt else "") + pre + "launches"
+                out[f"roi_align_fwd{dt}{o}{where}"] = (fwd, attr)
+                out[f"roi_align_bwd{dt}{o}{where}"] = (fwd.backward, attr)
+    return out
 
 
 def reset_counts() -> None:
@@ -206,10 +238,11 @@ def requests(seed: int):
         }
 
 
-def train_batch(seed: int, b: int, canvas, img_shape, n_gt: int, sides=(16.0, 256.0)):
+def train_batch(seed: int, b: int, canvas, img_shape, n_gt: int, sides=(16.0, 256.0),
+                num_classes: int = 4):
     """Seeded synthetic train batch: image noise and, per image, between
     ``n_gt // 2`` and ``n_gt`` gt boxes of UTDAC-like sides (16-256 px at
-    the full canvas) inside the valid shape, labels in 0..3."""
+    the full canvas) inside the valid shape, labels in 0..num_classes-1."""
     rs = np.random.RandomState(seed)
     h, w = img_shape
     wh = rs.uniform(*sides, (b, n_gt, 2))
@@ -219,13 +252,13 @@ def train_batch(seed: int, b: int, canvas, img_shape, n_gt: int, sides=(16.0, 25
     return {
         "images": rs.randn(b, *canvas, 3).astype(np.float32),
         "gt_bboxes": np.where(gt_mask[..., None], gts, 0.0).astype(np.float32),
-        "gt_labels": rs.randint(0, 4, (b, n_gt)),
+        "gt_labels": rs.randint(0, num_classes, (b, n_gt)),
         "gt_mask": gt_mask,
         "img_shape": np.array([img_shape] * b, np.float32),
     }
 
 
-def check_dets(dets, labels, valid) -> int:
+def check_dets(dets, labels, valid, num_classes: int = 4) -> int:
     if not (torch.isfinite(dets).all() and dets.shape == (BATCH, 100, 5)):
         raise AssertionError(f"bad detections: shape {tuple(dets.shape)}")
     boxes = dets[valid][:, :4]
@@ -233,8 +266,8 @@ def check_dets(dets, labels, valid) -> int:
     inside = (boxes[:, 0] >= 0) & (boxes[:, 1] >= 0) & (boxes[:, 2] <= w) & (boxes[:, 3] <= h)
     if not inside.all():
         raise AssertionError("detections outside the image")
-    if not ((labels[valid] >= 0) & (labels[valid] < 4)).all():
-        raise AssertionError("labels outside the 4 classes")
+    if not ((labels[valid] >= 0) & (labels[valid] < num_classes)).all():
+        raise AssertionError(f"labels outside the {num_classes} classes")
     return int(valid.sum())
 
 
@@ -248,7 +281,8 @@ def _taps(feats, rois, valid, strides, out_size=7, sample_num=2):
     b = rois.shape[0]
     c = feats[0].shape[-1]
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
-    g = roi_align.batched_geometry(level_hw, rois.reshape(-1, 4), b, strides)
+    g = roi_align.batched_geometry(level_hw, rois.reshape(-1, 4), b, strides,
+                                   out_size=out_size, s=sample_num)
     stacked_rows = sum(h for h, _ in level_hw) + roi_align.WIN
     max_w = max(w for _, w in level_hw)
     v = valid.reshape(-1)
@@ -348,7 +382,8 @@ def close(got, ref, what: str, atol: float):
 def kernels_vs_plain(feats, rois, valid, strides, g, dtype, what: str):
     """Both kernels in ``dtype`` against their plain versions: the forward
     through the entry point, the gradient through its wrapper on the
-    cotangent ``g`` ``(B*R, 7, 7, C)``.  float32: the forward within
+    cotangent ``g`` ``(B*R, k, k, C)``, at its pooled size ``k`` (7 or
+    14).  float32: the forward within
     ``ATOL``, the gradient within ``BWD_RTOL`` of the largest plain value
     (the plain versions sum in other orders).  bfloat16, on levels and a
     cotangent scaled by ``c + 1`` along the channels: within 1 ulp (the
@@ -360,9 +395,10 @@ def kernels_vs_plain(feats, rois, valid, strides, g, dtype, what: str):
         levels, g = [channel_scaled(f) for f in feats], channel_scaled(g)
     else:
         levels = list(feats)
+    out = g.shape[1]
     with torch.no_grad():
-        got = batched_multilevel_roi_align(levels, rois, valid, strides)
-        ref = roi_align.multilevel_roi_align_fast(levels, rois, valid, strides)
+        got = batched_multilevel_roi_align(levels, rois, valid, strides, out_size=out)
+        ref = roi_align.multilevel_roi_align_fast(levels, rois, valid, strides, out_size=out)
     fwd = close(got, ref, f"roi_align_fwd ({dtype}, {what})", ATOL if dtype != BF16 else 0.0)
     shapes = [tuple(f.shape) for f in levels]
     rf, vf = flat(rois, valid)
@@ -384,14 +420,16 @@ def kernels_vs_plain(feats, rois, valid, strides, g, dtype, what: str):
     return {"fwd": fwd, "bwd": (max(e for e, _ in res), max(sh for _, sh in res), scale)}
 
 
-def tiles_vs_plain(feats, rois, valid, strides) -> str:
-    """The tile-key kernel's bitmap against the plain mirror's, equal;
-    returns how many (tile, RoI) pairs it marks, and the most on one tile."""
+def tiles_vs_plain(feats, rois, valid, strides, out_size: int = 7) -> str:
+    """The tile-key kernel's bitmap at ``out_size`` against the plain
+    mirror's, equal; returns how many (tile, RoI) pairs it marks, and the
+    most on one tile."""
     shapes = [tuple(f.shape) for f in feats]
     level_hw = [s[1:3] for s in shapes]
     rf, vf = flat(rois, valid)
-    got = batched_multilevel_roi_align.backward.tile_lists(shapes, rf, vf, strides)
-    keys = roi_align.tile_keys(rf, vf, level_hw, rois.shape[1], strides)
+    got = batched_multilevel_roi_align.backward.tile_lists(shapes, rf, vf, strides,
+                                                          out_size=out_size)
+    keys = roi_align.tile_keys(rf, vf, level_hw, rois.shape[1], strides, out_size=out_size)
     ref = roi_align.tile_bitmap(keys, shapes[0][0] * roi_align.tile_grid(level_hw)[2])
     if not torch.equal(got.bitmap.long() & 0xFFFFFFFF, ref):
         raise AssertionError("the tile-key kernel's bitmap differs from the plain mirror's")
@@ -439,6 +477,93 @@ def tiny_config():
     return mc
 
 
+def tiny_mask_config():
+    """Mask R-CNN at the CPU tests' size (tests/test_torch_mask_rcnn.py):
+    R18 at width 8, FPN 32, RPN 32, FC 16, mask convs 16, 4 classes."""
+    mc = load_config(MASK_CONFIG).model.to_dict()
+    mc["backbone"].update(depth=18, base_channels=8)
+    mc["neck"].update(in_channels=[8, 16, 32, 64], out_channels=32)
+    mc["rpn_head"].update(in_channels=32, feat_channels=32)
+    roi = mc["roi_head"]
+    roi["bbox_roi_extractor"]["out_channels"] = 32
+    roi["mask_roi_extractor"]["out_channels"] = 32
+    roi["bbox_head"].update(in_channels=32, fc_out_channels=16, num_classes=4)
+    roi["mask_head"].update(in_channels=32, conv_out_channels=16, num_classes=4)
+    mc["train_cfg"]["rpn_proposal"].update(nms_pre=200, max_per_img=64)
+    mc["train_cfg"]["rcnn"]["sampler"]["num"] = 32
+    mc["test_cfg"]["rpn"].update(nms_pre=100, max_per_img=32)
+    return mc
+
+
+def tiny_train_inputs(seed: int, mc, anchors):
+    """The tiny models' train batch (with gt mask crops for a mask head) and
+    the step's keyword arguments: for the plain RPN, its anchor sampler's
+    uniforms made with numpy, so that every device and run samples alike."""
+    masks = bool(mc["roi_head"].get("mask_head"))
+    batch = (mask_train_batch if masks else train_batch)(
+        seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0), **(
+            {"num_classes": 4} if masks else {}))
+    kw = {}
+    if mc["rpn_head"]["type"] == "RPNHead":
+        kw["rpn_uniforms"] = np.random.RandomState(seed).rand(2, 2, anchors.shape[0]).astype(
+            np.float32)
+    return batch, kw
+
+
+def tiny_mask_gpu_matches_cpu(seed: int, dtype=torch.float32):
+    """The tiny Mask R-CNN predicts on the GPU (CUDA kernels at 7 and 14)
+    what it predicts on the CPU (the plain versions, held against the JAX
+    package by tests/test_torch_mask_rcnn.py).  float32: labels and
+    validity equal, detections within 1e-3, masks within 1e-4.  bfloat16,
+    at tests/test_torch_bf16.py's tolerances: the neck's levels within 2.5%
+    of each level's largest value; on the CPU's levels and proposals, at
+    least 90% of the kept detections matched (boxes within 0.5 px, scores
+    within 0.01); on the CPU's levels and detections, the mask logits
+    within 1.5% of the largest (the RoI-head tolerance).  Returns the
+    errors."""
+    mc = tiny_mask_config()
+    rs = np.random.RandomState(seed)
+    batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
+             "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
+             "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32)}
+    dets = {d: build_detector(mc, device=d, seed=seed, dtype=dtype) for d in ("cpu", "cuda")}
+    anchors, nla = dets["cpu"].anchors_for((128, 160))
+    if dtype == torch.float32:
+        outs = {d: [x.cpu() for x in det.predict(batch, anchors, nla)] for d, det in dets.items()}
+        (d0, l0, v0, m0), (d1, l1, v1, m1) = outs["cpu"], outs["cuda"]
+        if not (torch.equal(v0, v1) and torch.equal(l0, l1) and v0.any()):
+            raise AssertionError("tiny Mask R-CNN: GPU and CPU detections differ")
+        errs = ((d0 - d1).abs().max().item(), (m0 - m1).abs().max().item())
+        if errs[0] > 1e-3 or errs[1] > 1e-4:
+            raise AssertionError(f"tiny Mask R-CNN: GPU and CPU boxes, masks differ by {errs}")
+        return {"detections": int(v0.sum()), "box_err": errs[0], "mask_err": errs[1]}
+    levels = {}
+    for d, det in dets.items():
+        with torch.inference_mode():
+            levels[d] = list(det.net.features(torch.from_numpy(batch["images"]).to(d)))
+    level_errs = [rel_err(g, r) for g, r in zip(levels["cuda"], levels["cpu"])]
+    if max(level_errs) > BF16_TOL["levels"]:
+        raise AssertionError(f"tiny bfloat16 Mask R-CNN levels: GPU against CPU {level_errs}")
+    img_shape = torch.from_numpy(batch["img_shape"])
+    scale = torch.from_numpy(batch["scale_factor"])
+    feats, boxes, scores, valid = dets["cpu"].proposals(batch["images"], img_shape, anchors, nla)
+    outs, logits = {}, {}
+    for d, det in dets.items():
+        fd = [f.to(d) for f in feats]
+        outs[d] = det.roi_predict(fd, boxes.to(d), scores.to(d), valid.to(d), img_shape.to(d),
+                                  scale.to(d))
+        dd, _, vd = (x.to(d) for x in outs["cpu"])
+        with torch.inference_mode():
+            logits[d] = det.net.mask_out(fd, dd[..., :4] * scale.to(d)[:, None, :], vd)
+    match = matched_dets(*outs["cuda"], outs["cpu"])
+    if not (match[0] >= 0.9 * match[1] > 0 and match[2] <= 0.5 and match[3] <= 0.01):
+        raise AssertionError(f"tiny bfloat16 Mask R-CNN roi_predict: GPU against CPU {match}")
+    mask_err = rel_err(logits["cuda"], logits["cpu"])
+    if mask_err > BF16_TOL["roi"]:
+        raise AssertionError(f"tiny bfloat16 Mask R-CNN mask logits: GPU against CPU {mask_err}")
+    return {"level_errs": level_errs, "match": match, "mask_logit_err": mask_err}
+
+
 def tiny_gpu_matches_cpu(seed: int) -> int:
     """The tiny flagship predicts on the GPU (CUDA kernel) what it predicts
     on the CPU (the plain version, held against the JAX package by the CPU
@@ -462,8 +587,10 @@ def tiny_gpu_matches_cpu(seed: int) -> int:
     return int(v0.sum())
 
 
-def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32):
-    """One train step of the tiny flagship on the GPU (CUDA kernels) and on
+def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32, config=tiny_config):
+    """One train step of the tiny flagship (or the tiny model of
+    ``config``; Mask R-CNN's with its gt masks and its RPN's draws given)
+    on the GPU (CUDA kernels) and on
     the CPU (plain versions, held against the JAX package by the CPU
     tests), on the same weights, batch and ``RoISample`` (drawn on the
     CPU), at a constant learning rate of 0.01.  float32: the losses and the
@@ -484,10 +611,10 @@ def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32):
     same bits, and the median error as a share of the update."""
     rtol, step_tol = (1e-4, 1e-3) if dtype == torch.float32 else (BF16_TOL["loss"],
                                                                     BF16_TOL["device_step"])
-    mc = tiny_config()
-    batch = train_batch(seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0))
+    mc = config()
     dets = {d: build_detector(mc, device=d, seed=seed, dtype=dtype) for d in ("cpu", "cuda")}
     anchors, nla = dets["cpu"].anchors_for((128, 160))
+    batch, kw = tiny_train_inputs(seed, mc, anchors)
     sample = dets["cpu"].train_sample(batch, anchors, nla,
                                       generator=torch.Generator().manual_seed(seed))
     dets["cuda again"] = build_detector(mc, device="cuda", seed=seed, dtype=dtype)
@@ -500,7 +627,7 @@ def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32):
         torch.set_num_threads(1 if device.startswith("cpu") else threads)
         a, n = det.anchors_for((128, 160))
         step = make_train_step(det, a, n, make_optimizer(det.net.parameters(), lambda s: 0.01))
-        metrics[device] = {k: float(v) for k, v in step(batch, sample).items()}
+        metrics[device] = {k: float(v) for k, v in step(batch, sample, **kw).items()}
         params[device] = {k: v.detach().cpu() for k, v in det.net.named_parameters()}
     torch.set_num_threads(threads)
     for k, ref in metrics["cpu"].items():
@@ -599,16 +726,18 @@ def tiny_bf16_gpu_matches_cpu(seed: int):
     return errs, match
 
 
-def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool = False):
-    """Two tiny train steps on the GPU from one saved state, on the same
-    batch and ``RoISample``: whether the metrics, every gradient and every
-    parameter are bit-identical, and how many tensors differ.  With
-    ``flagged`` the steps run under ``torch.use_deterministic_algorithms``,
-    which raises on an op that has no deterministic form."""
-    mc = tiny_config()
-    batch = train_batch(seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0))
+def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool = False,
+                    config=tiny_config):
+    """Two tiny train steps (of the model of ``config``) on the GPU from one
+    saved state, on the same batch, ``RoISample`` and RPN draws: whether
+    the metrics, every gradient and every parameter are bit-identical, and
+    how many tensors differ.  With ``flagged`` the steps run under
+    ``torch.use_deterministic_algorithms``, which raises on an op that has
+    no deterministic form."""
+    mc = config()
     det = build_detector(mc, device="cuda", seed=seed, dtype=dtype)
     anchors, nla = det.anchors_for((128, 160))
+    batch, kw = tiny_train_inputs(seed, mc, anchors)
     sample = det.train_sample(batch, anchors, nla,
                               generator=torch.Generator(device="cuda").manual_seed(seed))
     state = {k: v.clone() for k, v in det.net.state_dict().items()}
@@ -619,7 +748,7 @@ def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool 
             det.net.load_state_dict(state)
             opt = make_optimizer(det.net.parameters(), lambda s: 0.01)
             metrics = make_train_step(det, anchors, nla, opt, deterministic=deterministic)(
-                batch, sample)
+                batch, sample, **kw)
             runs.append({**{f"metric {k}": v for k, v in metrics.items()},
                          **{f"grad {k}": p.grad.clone() for k, p in det.net.named_parameters()
                             if p.grad is not None},
@@ -679,35 +808,37 @@ def profile(fn, what: str) -> str:
             + "; largest: " + "; ".join(f"{k[:70]} x{n} {ms:.3f} ms" for ms, n, k in top))
 
 
-def train_setup(det, anchors, nla):
-    """The config's optimizer and schedule on ``det``, its train step (cuDNN
-    pinned), the seeded train batch on the card and the RoIs that step 0
+def train_setup(det, anchors, nla, config: str = CONFIG, tb=None):
+    """The config's optimizer and schedule on ``det`` (its gradient clip,
+    or none), its train step (cuDNN pinned), the seeded train batch on the
+    card (the flagship's unless ``tb`` is given) and the RoIs that step 0
     samples (the same weights and sampler seed)."""
-    cfg = load_config(CONFIG)
+    cfg = load_config(config)
     opt_cfg, lr_cfg = cfg.get("optimizer"), cfg.get("lr_config")
     schedule = step_lr_schedule(opt_cfg["lr"], STEPS_PER_EPOCH, lr_cfg["step"],
                                 warmup_iters=lr_cfg["warmup_iters"],
                                 warmup_ratio=lr_cfg["warmup_ratio"])
+    clip = (cfg.get("optimizer_config") or {}).get("grad_clip")
     optimizer = make_optimizer(det.net.parameters(), schedule, opt_cfg["momentum"],
-                               opt_cfg["weight_decay"],
-                               cfg.get("optimizer_config")["grad_clip"]["max_norm"])
+                               opt_cfg["weight_decay"], clip["max_norm"] if clip else None)
     step = make_train_step(det, anchors, nla, optimizer)
-    tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
+    if tb is None:
+        tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
     tb = {k: torch.as_tensor(v).cuda() for k, v in tb.items()}
     sample0 = det.train_sample(tb, anchors, nla,
                                generator=torch.Generator(device="cuda").manual_seed(5))
     return step, tb, sample0
 
 
-def run_steps(step, tb, what: str):
-    """``TRAIN_STEPS`` steps with the sampler seeded, counts reset before and
+def run_steps(step, tb, what: str, steps: int = TRAIN_STEPS):
+    """``steps`` steps with the samplers seeded, counts reset before and
     read after; returns (metrics, ms per step, launch counts, peak GiB)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     metrics, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         m = step(tb, generator=gen)
         torch.cuda.synchronize()
@@ -725,15 +856,16 @@ def run_steps(step, tb, what: str):
     return metrics, step_ms, counts, peak
 
 
-def check_moved(before, det, what: str) -> dict:
-    """The frozen stem and layer1 bit-identical, every other part moved."""
+def check_moved(before, det, what: str, heads=("bbox_head.",)) -> dict:
+    """The frozen stem and layer1 bit-identical, every other part (the
+    unfrozen stages, the neck, the RPN and ``heads``) moved."""
     after = dict(det.net.named_parameters())
     frozen = [k for k in before if k.startswith(("backbone.conv1.", "backbone.bn1.",
                                                  "backbone.layer1_"))]
     if not frozen or not all(torch.equal(before[k], after[k]) for k in frozen):
         raise AssertionError(f"{what}: a frozen parameter (stem or layer1) moved")
     parts = ("backbone.layer2_", "backbone.layer3_", "backbone.layer4_", "neck.", "rpn.",
-             "bbox_head.")
+             *heads)
     moved = {p: sum(not torch.equal(before[k], after[k]) for k in before if k.startswith(p))
              for p in parts}
     if not all(moved.values()):
@@ -743,33 +875,47 @@ def check_moved(before, det, what: str) -> dict:
     return moved
 
 
+def host_ms(fn, iters: int = 3) -> float:
+    """Milliseconds of ``fn`` on the host's clock, synchronised, mean of
+    ``iters`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def timed_kernels(fwd, call, feats, rois, valid, strides, g, dtype) -> dict:
     """Each kernel alone by CUDA-graph replay and its whole call eagerly
     (``call()`` for the forward: checks, NHWC copies; the gradient with its
     tile lists), the plain versions, and the bounds, on these inputs in
-    ``dtype``; ``fwd`` is the forward wrapper, its ``backward`` the
-    gradient's."""
+    ``dtype`` at the cotangent ``g``'s pooled size; ``fwd`` is the forward
+    wrapper, its ``backward`` the gradient's."""
     bwd = fwd.backward
+    out = g.shape[1]
     levels = [f.contiguous() for f in feats]
     shapes = [tuple(f.shape) for f in levels]
     rf, vf = flat(rois, valid)
     g = g.to(dtype).contiguous()
-    tiles = bwd.tile_lists(shapes, rf, vf, strides, dtype=dtype)
+    tiles = bwd.tile_lists(shapes, rf, vf, strides, dtype=dtype, out_size=out)
     no_rois = tiles._replace(bitmap=torch.zeros_like(tiles.bitmap))
     with torch.inference_mode():
         t_fwd = {
-            "kernel": graph_ms(lambda: fwd.launch(levels, rf, vf, strides), 50),
+            "kernel": graph_ms(lambda: fwd.launch(levels, rf, vf, strides, out_size=out), 50),
             "call": cuda_ms(call, 20),
             "plain": cuda_ms(lambda: roi_align.multilevel_roi_align_fast(
-                feats, rois, valid, strides), 5),
-            "bound": roi_bound(feats, rois, valid, strides)}
+                feats, rois, valid, strides, out_size=out), 5),
+            "bound": roi_bound(feats, rois, valid, strides, out)}
     t_bwd = {
         "kernel": graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=tiles), 50),
-        "tile_keys": graph_ms(lambda: bwd.tile_lists(shapes, rf, vf, strides, dtype=dtype), 50),
+        "tile_keys": graph_ms(lambda: bwd.tile_lists(shapes, rf, vf, strides, dtype=dtype,
+                                                     out_size=out), 50),
         "empty": graph_ms(lambda: bwd.launch(g, shapes, rf, vf, strides, tiles=no_rois), 50),
         "call": cuda_ms(lambda: bwd.launch(g, shapes, rf, vf, strides), 20),
         "plain": cuda_ms(lambda: roi_align_bwd_plain(g, feats, rois, valid, strides), 5),
-        "bound": roi_bwd_bound(feats, rois, valid, strides)}
+        "bound": roi_bwd_bound(feats, rois, valid, strides, out)}
     return {"fwd": t_fwd, "bwd": t_bwd}
 
 
@@ -813,8 +959,9 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
     r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
     n_dets = [check_dets(*x) for x in results]
     say(f"{tag} predict: {REQUESTS} requests of {BATCH} images at {CANVAS[0]}x{CANVAS[1]}: "
-        f"{n_dets} valid detections, launches {counts}")
-    if counts["roi_align_fwd" + sfx] < 1 or counts["roi_align_fwd" + other]:
+        f"{n_dets} valid detections, launches {ran(counts)}")
+    if counts["roi_align_fwd" + sfx] < 1 or any(v for k, v in counts.items()
+                                                 if k != "roi_align_fwd" + sfx):
         raise AssertionError(f"the {tag} predict path did not run roi_align_fwd{sfx} alone")
     again = det.predict(batches[0], anchors, nla)
     if not all(torch.equal(a, b) for a, b in zip(again, results[0])):
@@ -873,13 +1020,15 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
     before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
     metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train")
     r["train_counts"] = counts
-    say(f"{tag} train: launches {counts}")
+    say(f"{tag} train: launches {ran(counts)}")
     for name in ("roi_align_fwd" + sfx, "roi_align_bwd" + sfx, "roi_tile_keys"):
         if counts[name] != TRAIN_STEPS:
             raise AssertionError(f"kernel {name} launched {counts[name]} times in "
                                  f"{TRAIN_STEPS} {tag} train steps, not once per step")
-    if counts["roi_align_fwd" + other] or counts["roi_align_bwd" + other]:
-        raise AssertionError(f"a RoIAlign kernel of the other dtype ran on the {tag} train path")
+    if counts["roi_align_fwd" + other] or counts["roi_align_bwd" + other] or any(
+            v for k, v in counts.items() if "_o14" in k):
+        raise AssertionError(f"a RoIAlign kernel of the other dtype or size ran on the {tag} "
+                             "train path")
     check_moved(before, det, f"{tag} train")
     del before
     r["train_ms"] = float(np.mean(step_ms[1:]))
@@ -890,15 +1039,6 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
     # where the step's time goes: the forward without gradient, the
     # proposals with sampling, a step on a given sample with and without
     # the cuDNN pin
-    def host_ms(fn, iters=3):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / iters
-
     @torch.no_grad()
     def rpn_forward():
         return det._rpn_flat(det.net.features(tb["images"]))
@@ -953,7 +1093,7 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
         multilevel_roi_align([f[i] for f in lv], rois[i], rvalid[i], strides).backward(g_img[i])
     torch.cuda.synchronize()
     r["image_counts"] = counts = read_counts()
-    say(f"{tag} per-image path: launches {counts}")
+    say(f"{tag} per-image path: launches {ran(counts)}")
     for name in ("roi_align_fwd" + sfx + "_per_image", "roi_align_bwd" + sfx + "_per_image",
                  "roi_tile_keys_per_image"):
         if counts[name] != TRAIN_BATCH:
@@ -984,10 +1124,268 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
     return r
 
 
-def kernel_records(r: dict, dtype) -> list:
-    """The ``{"kernels": [...]}`` records of one dtype's kernels: K1, K4 and
-    their batch-of-one forms K2, K3."""
+def ellipses(rs, b: int, g: int, s: int = MASK_CROP) -> np.ndarray:
+    """``(b, g, s, s)`` uint8 box-relative gt masks: each an ellipse of its
+    own centre and radii, so that a wrong gt index changes the mask loss."""
+    cy, cx = (rs.uniform(0.3, 0.7, (b, g, 1, 1)) * s for _ in range(2))
+    ry, rx = (rs.uniform(0.15, 0.5, (b, g, 1, 1)) * s for _ in range(2))
+    y, x = np.mgrid[:s, :s] + 0.5
+    return ((((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2) <= 1.0).astype(np.uint8)
+
+
+def mask_train_batch(seed: int, b: int, canvas, img_shape, n_gt: int, num_classes: int,
+                     sides=(16.0, 256.0)):
+    """``train_batch`` with ``num_classes`` labels and, per gt, its
+    ``MASK_CROP`` x ``MASK_CROP`` mask relative to its box (``ellipses``)."""
+    tb = train_batch(seed, b, canvas, img_shape, n_gt, sides, num_classes)
+    tb["gt_mask_crops"] = ellipses(np.random.RandomState(seed + 1), b, n_gt)
+    return tb
+
+
+def check_masks(masks, n: int = 100) -> None:
+    if not (masks.dtype == torch.float32 and tuple(masks.shape) == (BATCH, n, 28, 28)
+            and torch.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1):
+        raise AssertionError(f"bad masks: {masks.dtype} {tuple(masks.shape)}")
+
+
+def ran(counts) -> dict:
+    """The entry points that launched, with their counts."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
+    """The full-width Mask R-CNN R50-FPN in ``dtype`` through its predict,
+    train and per-image paths, each with the launch counts set to 0 just
+    before it and read just after: predict runs the 7 x 7 (box) and the
+    14 x 14 (mask) forward kernels once a request; a train step those and
+    both gradient kernels with their tile keys once each.  The 14 x 14
+    kernels against their plain versions at the predict, train and odd
+    shapes; the timings.  Returns what the kernel records and the summary
+    need, for the 14 x 14 kernels."""
+    tag = ("f32" if dtype == torch.float32 else "bf16") + " mask_rcnn"
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    r = {}
+    t0 = time.perf_counter()
+    det = build_detector(mc, seed=0, dtype=dtype)
+    n_params = sum(p.numel() for p in det.net.parameters())
+    say(f"{tag} built in {time.perf_counter() - t0:.1f} s: {n_params} float32 parameters on "
+        f"{det.device}, computing in {dtype}; RPN {det.rpn_type}, neck "
+        f"{type(det.net.neck).__name__}, mask RoIAlign {det.net.mask_roi_out_size} x "
+        f"{det.net.mask_roi_out_size}")
+    anchors, nla = det.anchors_for(CANVAS)
+    strides = det.net.roi_strides
+    nl = len(strides)
+    num_classes = det.bbox_cfg.num_classes
+
+    # ------------------------------------------------------------ predict path
+    batches = list(requests(seed=21))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results = [det.predict(b, anchors, nla) for b in batches]
+    torch.cuda.synchronize()
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    n_dets = [check_dets(*x[:3], num_classes=num_classes) for x in results]
+    for x in results:
+        check_masks(x[3])
+    path = {f"roi_align_fwd{sfx}": REQUESTS, f"roi_align_fwd{sfx}_o14": REQUESTS}
+    say(f"{tag} predict: {REQUESTS} requests of {BATCH} images at {CANVAS[0]}x{CANVAS[1]}: "
+        f"{n_dets} valid detections, masks (2, 100, 28, 28) float32 in [0, 1]; launches "
+        f"{ran(counts)}")
+    if ran(counts) != path:
+        raise AssertionError(f"the {tag} predict path ran {ran(counts)}, not {path}")
+    again = det.predict(batches[0], anchors, nla)
+    if not all(torch.equal(a, b) for a, b in zip(again, results[0])):
+        raise AssertionError(f"{tag}: the same request gave different detections or masks")
+    say(f"{tag} repeat of request 0: identical detections and masks")
+    x = batches[0]
+    feats, boxes, scores, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
+    dets, labels, dvalid = det.roi_predict(feats, boxes, scores, valid, x["img_shape"],
+                                           x["scale_factor"])
+    mrois = (dets[..., :4] * x["scale_factor"][:, None, :]).contiguous()
+    route = list(feats[:nl])
+    c = feats[0].shape[-1]
+    rs = np.random.RandomState(18)
+    gp = torch.from_numpy(rs.randn(mrois.shape[0] * mrois.shape[1], 14, 14, c)
+                          .astype(np.float32)).cuda()
+    r["check_predict"] = kernels_vs_plain(route, mrois, dvalid, strides, gp, dtype,
+                                          "mask predict shapes")
+    ofeats, orois, ovalid, _ = odd
+    og = torch.from_numpy(rs.randn(orois.shape[0] * orois.shape[1], 14, 14, ofeats[0].shape[-1])
+                          .astype(np.float32)).cuda()
+    r["check_odd"] = kernels_vs_plain(ofeats, orois, ovalid, STRIDES, og, dtype,
+                                      "odd case at 14")
+    pairs = (tiles_vs_plain(route, mrois, dvalid, strides, 14), tiles_vs_plain(*odd, 14))
+    say(f"{tag} 14 x 14 kernels vs plain{' (levels and cotangent x (c + 1))' if sfx else ''}: "
+        f"predict shapes ({mrois.shape[0] * mrois.shape[1]} detections, "
+        f"{int(dvalid.sum())} valid, {nl} route levels, C={c}) {r['check_predict']}, odd case "
+        f"{r['check_odd']}; gradient bitwise equal across two launches, invalid RoIs add "
+        f"nothing; tile bitmaps equal the plain mirror's ({pairs[0]}; {pairs[1]})")
+    r["predict_shapes"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(route, mrois, dvalid, strides, out_size=14),
+        route, mrois, dvalid, strides, gp, dtype)
+    say_timed(r["predict_shapes"], f"{tag} 14 x 14 at the predict shapes", gpu)
+    del gp, og
+    r["predict_ms"] = cuda_ms(lambda: det.predict(batches[1], anchors, nla), 5, warmup=1)
+    stage = {}
+    with torch.inference_mode():
+        x = batches[1]
+        stage["features"] = cuda_ms(lambda: det.net.features(x["images"]), 5, 1)
+        fts = det.net.features(x["images"])
+        stage["rpn_head"] = cuda_ms(lambda: det.net.rpn_out(fts), 5, 1)
+        stage["features+rpn+proposals"] = cuda_ms(
+            lambda: det.proposals(x["images"], x["img_shape"], anchors, nla), 5, 1)
+        _, pb, ps, pv = det.proposals(x["images"], x["img_shape"], anchors, nla)
+        stage["roi_stage"] = cuda_ms(lambda: det.roi_predict(
+            fts, pb, ps, pv, x["img_shape"], x["scale_factor"]), 5, 1)
+        out = det.roi_predict(fts, pb, ps, pv, x["img_shape"], x["scale_factor"])
+        stage["mask_branch"] = cuda_ms(lambda: det.mask_predict(fts, *out, x["scale_factor"]),
+                                       5, 1)
+    r["predict_stages"] = stage
+    say(f"{tag} predict ({gpu}): {r['predict_ms']:.2f} ms per batch of {BATCH}, "
+        f"{BATCH * 1e3 / r['predict_ms']:.2f} images/s; stages (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+        + f"; peak device memory over the {REQUESTS} requests {r['predict_peak']:.2f} GiB")
+    say(profile(lambda: det.predict(batches[1], anchors, nla), f"{tag} predict profile ({gpu})"))
+    del feats, boxes, scores, valid, fts, pb, ps, pv, out, results, again, dets, labels
+
+    # -------------------------------------------------------------- train path
+    tb = mask_train_batch(4, MASK_TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE, num_classes)
+    step, tb, sample0 = train_setup(det, anchors, nla, MASK_CONFIG, tb)
+    before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
+    metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train",
+                                                          MASK_TRAIN_STEPS)
+    r["train_counts"] = counts
+    path = {k: MASK_TRAIN_STEPS for k in (
+        f"roi_align_fwd{sfx}", f"roi_align_fwd{sfx}_o14", f"roi_align_bwd{sfx}",
+        f"roi_align_bwd{sfx}_o14", "roi_tile_keys", "roi_tile_keys_o14")}
+    say(f"{tag} train: launches {ran(counts)}")
+    if ran(counts) != path:
+        raise AssertionError(f"the {tag} train path ran {ran(counts)}, not {path}")
+    if not all(m["loss_mask"] > 0 for m in metrics):
+        raise AssertionError(f"{tag}: loss_mask not positive: {[m['loss_mask'] for m in metrics]}")
+    check_moved(before, det, f"{tag} train", ("bbox_head.", "mask_head."))
+    del before
+    r["train_ms"] = float(np.mean(step_ms[1:]))
+    say(f"{tag} train ({gpu}): {r['train_ms']:.1f} ms per step of {MASK_TRAIN_BATCH} images "
+        f"(mean of steps 1-{MASK_TRAIN_STEPS - 1}), "
+        f"{MASK_TRAIN_BATCH * 1e3 / r['train_ms']:.2f} images/s; peak device memory "
+        f"{r['train_peak']:.2f} GiB")
+
+    with torch.no_grad():
+        feats = det.net.features(tb["images"])
+        rpn_outs = det._rpn_flat(feats)
+    rois = sample0.boxes
+    mvalid = sample0.valid & sample0.is_pos
+    b, n_slots = rois.shape[0], rois.shape[0] * rois.shape[1]
+    lv = [f.detach().requires_grad_() for f in feats]
+    cot = torch.from_numpy(np.random.RandomState(7).randn(n_slots, 28, 28, num_classes)
+                           .astype(np.float32)).cuda()
+
+    @torch.no_grad()
+    def mask_forward():
+        return det.net.mask_out(feats, rois, mvalid)
+
+    def mask_forward_backward():
+        det.net.mask_out(lv, rois, mvalid).backward(cot)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r["train_parts"] = {
+        "forward (features + RPN), no gradient": host_ms(
+            torch.no_grad()(lambda: det._rpn_flat(det.net.features(tb["images"])))),
+        "train proposals + sampling": host_ms(
+            lambda: det.sample_from_rpn_outs(rpn_outs, tb, anchors, nla, generator=gen)),
+        "step on a given sample, cuDNN pinned": step_timing(det, anchors, nla, tb, sample0, True),
+        f"mask branch forward ({n_slots} slots), no gradient": host_ms(mask_forward),
+        "mask branch forward + backward": host_ms(mask_forward_backward),
+    }
+    det.net.zero_grad(set_to_none=True)
+    say(f"{tag} train step parts ({gpu}, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r["train_parts"].items()))
+    say(profile(lambda: step(tb, sample0), f"{tag} train step profile ({gpu})"))
+    del rpn_outs, cot, lv
+
+    # the 14 x 14 kernels against their plain versions at the train shapes
+    route = list(feats[:nl])
+    g = torch.from_numpy(np.random.RandomState(6).randn(n_slots, 14, 14, c)
+                         .astype(np.float32)).cuda()
+    r["check_train"] = kernels_vs_plain(route, rois, mvalid, strides, g, dtype,
+                                        "mask train shapes")
+    pairs = tiles_vs_plain(route, rois, mvalid, strides, 14)
+    repeat = []
+    for _ in range(2):  # through autograd, on all five levels: P6 is no route level
+        lv = [f.detach().requires_grad_() for f in feats]
+        batched_multilevel_roi_align(lv, rois, mvalid, strides, out_size=14,
+                                     num_route_levels=nl).backward(
+            g.to(dtype).reshape(b, -1, 14, 14, c))
+        if any(f.grad is not None for f in lv[nl:]):
+            raise AssertionError(f"{tag}: a level past the route levels got a RoIAlign gradient")
+        repeat.append([f.grad for f in lv[:nl]])
+    torch.cuda.synchronize()
+    if not all(a.dtype == dtype and torch.equal(a, b_) for a, b_ in zip(*repeat)):
+        raise AssertionError(f"two {tag} backward passes of the mask RoIAlign differ")
+    del repeat, lv
+    say(f"{tag} 14 x 14 kernels vs plain at the train shapes ({n_slots} slots, "
+        f"{int(mvalid.sum())} positive and valid): {r['check_train']}; tile lists equal the "
+        f"plain mirror's ({pairs}); two backward passes through autograd bitwise equal, "
+        f"{dtype} gradients of the {nl} route levels and none of P6")
+    r["train_shapes"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(route, rois, mvalid, strides, out_size=14),
+        route, rois, mvalid, strides, g, dtype)
+    say_timed(r["train_shapes"], f"{tag} 14 x 14 at the train shapes", gpu)
+
+    # ---------------------------------------------------- per-image path at 14
+    lv = [f.detach().requires_grad_() for f in route]
+    g_img = g.to(dtype).reshape(b, -1, 14, 14, c)
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(b):
+        multilevel_roi_align([f[i] for f in lv], rois[i], mvalid[i], strides,
+                             out_size=14).backward(g_img[i])
+    torch.cuda.synchronize()
+    r["image_counts"] = counts = read_counts()
+    path = {k + "_per_image": b for k in (f"roi_align_fwd{sfx}_o14", f"roi_align_bwd{sfx}_o14",
+                                          "roi_tile_keys_o14")}
+    say(f"{tag} per-image path at 14: launches {ran(counts)}")
+    if ran(counts) != path:
+        raise AssertionError(f"the {tag} per-image path ran {ran(counts)}, not {path}")
+    one = [(channel_scaled(f[:1]) if sfx else f[:1]).contiguous() for f in route]
+    g0 = channel_scaled(g[:rois.shape[1]]) if sfx else g[:rois.shape[1]].contiguous()
+    entry = multilevel_roi_align.batched
+    with torch.no_grad():
+        got = multilevel_roi_align([f[0] for f in one], rois[0], mvalid[0], strides, out_size=14)
+        ref = roi_align.multilevel_roi_align_fast(one, rois[:1], mvalid[:1], strides,
+                                                  out_size=14)[0]
+    r["check_image_fwd"] = close(got, ref, f"per-image forward at 14 ({tag})",
+                                 ATOL if not sfx else 0.0)
+    rf1, vf1 = flat(rois[:1], mvalid[:1])
+    d_got = entry.backward.launch(g0, [tuple(f.shape) for f in one], rf1, vf1, strides)
+    d_ref = roi_align_bwd_plain(g0, one, rois[:1], mvalid[:1], strides)
+    scale = max(v.float().abs().max().item() for v in d_ref)
+    res = [close(a, v, f"per-image gradient at 14 ({tag})", BWD_RTOL * scale)
+           for a, v in zip(d_got, d_ref)]
+    r["check_image_bwd"] = (max(e for e, _ in res), max(sh for _, sh in res), scale)
+    r["image"] = timed_kernels(
+        entry, lambda: multilevel_roi_align([f[0] for f in one], rois[0], mvalid[0], strides,
+                                            out_size=14),
+        one, rois[:1], mvalid[:1], strides, g0, dtype)
+    say(f"{tag} per-image entry at 14 vs plain: forward {r['check_image_fwd']}, gradient "
+        f"{r['check_image_bwd']}")
+    say_timed(r["image"], f"{tag} 14 x 14 per image (one train image)", gpu)
+    del det, lv, feats, route, g, g_img, one, g0
+    torch.cuda.empty_cache()
+    return r
+
+
+def kernel_records(r: dict, dtype, o: str = "") -> list:
+    """The ``{"kernels": [...]}`` records of one dtype's kernels at one
+    pooled size (``o``: '' for 7 x 7, '_o14' for 14 x 14): K1, K4 and their
+    batch-of-one forms K2, K3."""
     sfx, note = ("", "") if dtype == torch.float32 else ("_bf16", ", bfloat16")
+    note += ", 14 x 14" if o else ""
     src = "boosting_rcnn_tpu_torch/csrc/"
     tpu = "boosting_rcnn_tpu/ops/pallas_roi_align.py"
     pc, tc, ic = r["predict_counts"], r["train_counts"], r["image_counts"]
@@ -1004,7 +1402,7 @@ def kernel_records(r: dict, dtype) -> list:
         return {"call_ms": t["call"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
                 "bound_ms": t["bound"][0]}
 
-    fwd, bwd = "roi_align_fwd" + sfx, "roi_align_bwd" + sfx
+    fwd, bwd, keys = "roi_align_fwd" + sfx + o, "roi_align_bwd" + sfx + o, "roi_tile_keys" + o
     return [
         {"name": fwd, "route": "cuda", "source": src + "roi_align_fwd.cu",
          "replaces": f"{tpu}:586", "tpu_kernel": f"pallas_roi_align.py:586 _kernel_flat (K1){note}",
@@ -1016,7 +1414,7 @@ def kernel_records(r: dict, dtype) -> list:
          "replaces": f"{tpu}:244",
          "tpu_kernel": f"pallas_roi_align.py:244 _bwd_kernel via :828 (K4){note}",
          "launches": tc[bwd], "launches_by_path": {"predict": pc[bwd], "train": tc[bwd]},
-         "tile_key_launches": tc["roi_tile_keys"],
+         "tile_key_launches": tc[keys],
          "max_abs_err": max(x["bwd"][0] for x in checks),
          "share_not_bit_equal": max(x["bwd"][1] for x in checks),
          "max_abs_plain": max(x["bwd"][2] for x in checks), "bitwise_repeatable": True,
@@ -1030,7 +1428,7 @@ def kernel_records(r: dict, dtype) -> list:
         {"name": bwd + "_per_image", "route": "cuda", "source": src + "roi_align_bwd.cu",
          "replaces": f"{tpu}:244",
          "tpu_kernel": f"pallas_roi_align.py:244 _bwd_kernel via :405 (K3), B=1 of K4{note}",
-         "launches": ic[bwd + "_per_image"], "tile_key_launches": ic["roi_tile_keys_per_image"],
+         "launches": ic[bwd + "_per_image"], "tile_key_launches": ic[keys + "_per_image"],
          "max_abs_err": r["check_image_bwd"][0], "share_not_bit_equal": r["check_image_bwd"][1],
          **times(bi)},
     ]
@@ -1056,10 +1454,13 @@ def main() -> int:
     say(f"nvcc builds, in parallel: {time.perf_counter() - t0:.1f} s wall")
 
     mc = load_config(CONFIG).model.to_dict()
+    mask_mc = load_config(MASK_CONFIG).model.to_dict()
     odd = odd_case(seed=2)
-    runs = {}
+    runs, mask_runs = {}, {}
     for dtype in (torch.float32, BF16):
         runs[dtype] = run_paths(mc, dtype, gpu, odd)
+        say(f"wall {time.perf_counter() - t_start:.1f} s")
+        mask_runs[dtype] = run_mask_paths(mask_mc, dtype, gpu, odd)
         say(f"wall {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------ tiny flagship, GPU vs CPU
@@ -1080,20 +1481,35 @@ def main() -> int:
         f"{b16_metrics['loss']:.6g}, worst parameter error {b16_worst:.3g} of its tolerance, "
         f"median tensor {b16_median:.3g} of its update)")
 
-    # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
-    repeat_report = {}
+    # ---------------------------------------------- tiny Mask R-CNN, GPU vs CPU
     for dtype in (torch.float32, BF16):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        unpinned, differ, n_tensors = repeatable_step(11, dtype, deterministic=False)
+        say(f"tiny {tag} Mask R-CNN: GPU predict matches CPU predict: "
+            f"{tiny_mask_gpu_matches_cpu(seed=3, dtype=dtype)}")
+        m, worst, repeat, median = tiny_train_gpu_matches_cpu(seed=7, dtype=dtype,
+                                                              config=tiny_mask_config)
+        say(f"tiny {tag} Mask R-CNN: a GPU train step matches the CPU one (loss {m['loss']:.6g}, "
+            f"loss_mask {m['loss_mask']:.6g}, worst parameter error {worst:.3g} of its "
+            f"tolerance, median tensor {median:.3g} of its update); two GPU steps from the "
+            f"same state give the same bits: {repeat}")
+
+    # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
+    repeat_report = {}
+    for dtype, (name, config) in [(d, c) for c in (("flagship", tiny_config),
+                                                   ("mask_rcnn", tiny_mask_config))
+                                  for d in (torch.float32, BF16)]:
+        tag = ("f32" if dtype == torch.float32 else "bf16") + " " + name
+        unpinned, differ, n_tensors = repeatable_step(11, dtype, deterministic=False,
+                                                      config=config)
         say(f"C.2 {tag}: two tiny steps from one state without the cuDNN pin: bit-identical "
             f"{unpinned} ({len(differ)} of {n_tensors} metrics, gradients and parameters "
             f"differ{': ' + ', '.join(differ[:4]) if differ else ''})")
-        same, differ, _ = repeatable_step(11, dtype)
+        same, differ, _ = repeatable_step(11, dtype, config=config)
         if not same:
             raise AssertionError(f"C.2 {tag}: two pinned train steps from one state differ in "
                                  f"{len(differ)} tensors: {differ[:6]}")
         try:
-            flagged, differ, _ = repeatable_step(11, dtype, flagged=True)
+            flagged, differ, _ = repeatable_step(11, dtype, flagged=True, config=config)
         except RuntimeError as exc:
             raise AssertionError(f"C.2 {tag}: an op of the train path has no deterministic "
                                  f"form: {exc}") from exc
@@ -1106,7 +1522,19 @@ def main() -> int:
             f"raised and the steps are bit-identical")
 
     r32, r16 = runs[torch.float32], runs[BF16]
+    m32, m16 = mask_runs[torch.float32], mask_runs[BF16]
     say("summary (" + gpu + "): " + json.dumps({
+        "mask_rcnn": {
+            "predict_ms": {"f32": m32["predict_ms"], "bf16": m16["predict_ms"]},
+            "predict_images_per_s": {"f32": BATCH * 1e3 / m32["predict_ms"],
+                                     "bf16": BATCH * 1e3 / m16["predict_ms"]},
+            "train_step_ms": {"f32": m32["train_ms"], "bf16": m16["train_ms"]},
+            "train_images_per_s": {"f32": MASK_TRAIN_BATCH * 1e3 / m32["train_ms"],
+                                   "bf16": MASK_TRAIN_BATCH * 1e3 / m16["train_ms"]},
+            "peak_gib": {"predict_f32": m32["predict_peak"], "predict_bf16": m16["predict_peak"],
+                         "train_f32": m32["train_peak"], "train_bf16": m16["train_peak"]},
+            "train_parts_ms": {"f32": m32["train_parts"], "bf16": m16["train_parts"]},
+            "predict_stages_ms": {"f32": m32["predict_stages"], "bf16": m16["predict_stages"]}},
         "predict_ms": {"f32": r32["predict_ms"], "bf16": r16["predict_ms"]},
         "predict_images_per_s": {"f32": BATCH * 1e3 / r32["predict_ms"],
                                  "bf16": BATCH * 1e3 / r16["predict_ms"]},
@@ -1119,7 +1547,8 @@ def main() -> int:
         "predict_stages_ms": {"f32": r32["predict_stages"], "bf16": r16["predict_stages"]},
         "repeatable_step": repeat_report,
         "wall_s": time.perf_counter() - t_start}))
-    records = kernel_records(r32, torch.float32) + kernel_records(r16, BF16)
+    records = (kernel_records(r32, torch.float32) + kernel_records(r16, BF16)
+               + kernel_records(m32, torch.float32, "_o14") + kernel_records(m16, BF16, "_o14"))
     for record in records:
         timings = [v for part in (record, record.get("train_shapes", {}),
                                   record.get("predict_shapes", {}))

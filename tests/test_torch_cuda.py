@@ -16,7 +16,8 @@ within 1 bfloat16 ulp of the plain value (the gradient plus 1e-5 of the
 largest plain value), and at most 1% of the values not bit-equal (both
 round the same float32 sums once; weights rounded in another place move
 about a quarter of the values by an ulp); the gradient against itself bit
-for bit.
+for bit.  The same hold at the mask branch's 14 x 14 pooled size, through
+the ``_o14`` entry points.
 """
 import os
 import sys
@@ -291,3 +292,103 @@ def test_cuda_wrappers_reject_mixed_dtypes(cuda):
         fn.backward.launch(g.to(torch.bfloat16), shapes, rf, vf, STRIDES, tiles=tiles)
     assert (fn.launches, fn.bf16_launches, fn.backward.launches,
             fn.backward.bf16_launches) == (0, 0, 0, 0)
+
+
+def _levels(dev, feats, dtype):
+    if dtype == torch.bfloat16:
+        return [f.to(dtype) for f in _on(dev, *(_channel_scaled(f) for f in feats))]
+    return _on(dev, *feats)
+
+
+def _held(got, ref, dtype, atol):
+    if dtype == torch.bfloat16:
+        _within_bf16_ulp(got, ref, atol=atol)
+    else:
+        assert _max_err(got, ref) <= max(atol, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_14_kernels_match_plain_version(cuda, dtype):
+    """The 14 x 14 forward and gradient kernels (the mask branch's) against
+    their plain versions: RoIs of every size, invalid ones among them; the
+    tile bitmap equals the plain mirror's at 14; the gradient repeats bit
+    for bit and a cotangent on the invalid RoIs adds nothing; only the
+    ``_o14`` entries of the dtype launch."""
+    rs = np.random.RandomState(25)
+    feats, rois, valid = _case(rs, 2, 40, 96)
+    feats = _levels(cuda, feats, dtype)
+    rois, valid = _on(cuda, rois, valid)
+    rf, vf = _flat(rois, valid)
+    shapes = [tuple(f.shape) for f in feats]
+    g = torch.from_numpy(_channel_scaled(rs.randn(80, 14, 14, 96).astype(np.float32)))
+    g = g.to(cuda).to(dtype)
+    fn = kern.RoIAlignForward()
+    out = fn(feats, rois, valid, STRIDES, out_size=14)
+    ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, STRIDES, out_size=14)
+    tiles = fn.backward.tile_lists(shapes, rf, vf, STRIDES, dtype=dtype, out_size=14)
+    level_hw = [s[1:3] for s in shapes]
+    ref_bitmap = roi_align.tile_bitmap(
+        roi_align.tile_keys(rf, vf, level_hw, 40, STRIDES, out_size=14),
+        2 * roi_align.tile_grid(level_hw)[2])
+    d_got = fn.backward.launch(g, shapes, rf, vf, STRIDES, tiles=tiles)
+    d_again = fn.backward.launch(g, shapes, rf, vf, STRIDES)
+    leaked = fn.backward.launch(g * (vf == 0)[:, None, None, None], shapes, rf, vf, STRIDES)
+    d_ref = kern.roi_align_bwd_plain(g, feats, rois, valid, STRIDES)
+    torch.cuda.synchronize()
+    bf = dtype == torch.bfloat16
+    counts = {k: getattr(fn, k) for k in ("launches", "bf16_launches", "o14_launches",
+                                          "bf16_o14_launches")}
+    assert counts == {"launches": 0, "bf16_launches": 0, "o14_launches": 0 if bf else 1,
+                      "bf16_o14_launches": 1 if bf else 0}
+    assert (fn.backward.o14_launches, fn.backward.bf16_o14_launches) == ((0, 3) if bf else (3, 0))
+    assert (fn.backward.tile_launches, fn.backward.o14_tile_launches) == (0, 3)
+    assert out.dtype == dtype and tuple(out.shape) == (2, 40, 14, 14, 96)
+    assert not out[~valid].any()
+    _held(out, ref, dtype, 0.0)
+    assert torch.equal(tiles.bitmap.long() & 0xFFFFFFFF, ref_bitmap)
+    assert all(torch.equal(a, b) for a, b in zip(d_got, d_again))
+    assert all(torch.count_nonzero(d).item() == 0 for d in leaked)
+    scale = max(b.float().abs().max().item() for b in d_ref)
+    for a, b in zip(d_got, d_ref):
+        assert a.dtype == dtype
+        _held(a, b, dtype, 1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_14_autograd_and_per_image_paths(cuda, dtype):
+    """At 14 x 14, batched through autograd and per image (K2/K3 at 14):
+    one launch of each ``_o14`` kernel a call, against autograd of the
+    plain version."""
+    rs = np.random.RandomState(26)
+    feats, rois, valid = _case(rs, 2, 24, 64)
+    g = torch.from_numpy(rs.randn(2, 24, 14, 14, 64).astype(np.float32)).to(cuda).to(dtype)
+    rois, valid = _on(cuda, rois, valid)
+    batched, per_image = kern.RoIAlignForward(), kern.PerImageRoIAlign()
+    impls = {
+        "batched": lambda lv: batched(lv, rois, valid, STRIDES, out_size=14),
+        "per image": lambda lv: torch.stack([per_image([f[i] for f in lv], rois[i], valid[i],
+                                                       STRIDES, out_size=14)
+                                             for i in range(2)]),
+        "plain": lambda lv: roi_align.multilevel_roi_align_fast(lv, rois, valid, STRIDES,
+                                                                out_size=14),
+    }
+    results = {}
+    for name, impl in impls.items():
+        levels = [f.requires_grad_() for f in _levels(cuda, feats, dtype)]
+        out = impl(levels)
+        out.backward(g)
+        results[name] = (out.detach(), [f.grad for f in levels])
+    torch.cuda.synchronize()
+    name = "bf16_o14_launches" if dtype == torch.bfloat16 else "o14_launches"
+    assert (getattr(batched, name), getattr(batched.backward, name)) == (1, 1)
+    assert (getattr(per_image.batched, name), getattr(per_image.batched.backward, name)) == (2, 2)
+    out_p, d_p = results["plain"]
+    scale = max(b.float().abs().max().item() for b in d_p)
+    for key in ("batched", "per image"):
+        out_k, d_k = results[key]
+        _held(out_k, out_p, dtype, 0.0)
+        for a, b in zip(d_k, d_p):
+            assert a.dtype == dtype
+            _held(a, b, dtype, 1e-5 * scale)

@@ -545,7 +545,7 @@ def test_autograd_function_wiring_with_plain_launches(monkeypatch):
     wrapper = t_kern.RoIAlignForward()
     r = rois.shape[1]
 
-    def fwd_launch(levels, rois_flat, valid_u8, strides_, finest_scale=56):
+    def fwd_launch(levels, rois_flat, valid_u8, strides_, finest_scale=56, out_size=7):
         wrapper.launches += 1
         out = t_roi.multilevel_roi_align_fast(
             [f.detach() for f in levels], rois_flat.reshape(2, r, 4),
@@ -564,7 +564,7 @@ def test_autograd_function_wiring_with_plain_launches(monkeypatch):
     leaves = [_t(f, grad=True) for f in feats]
     rf = _t(rois).reshape(-1, 4).contiguous()
     vf = _t(valid).reshape(-1).to(torch.uint8)
-    out = t_kern._RoIAlignFunction.apply(rf, vf, wrapper, strides, 56.0, *leaves)
+    out = t_kern._RoIAlignFunction.apply(rf, vf, wrapper, strides, 56.0, 7, *leaves)
     out.backward(_t(g).reshape(out.shape))
     ref_out, ref = _port_grad(lambda lv: t_roi.multilevel_roi_align_fast(
         lv, _t(rois), _t(valid), strides), feats, g)
@@ -575,7 +575,7 @@ def test_autograd_function_wiring_with_plain_launches(monkeypatch):
     assert (wrapper.launches, wrapper.backward.launches, wrapper.backward.tile_launches) == (
         1, 1, 1)
     with torch.inference_mode():  # no graph: the forward alone
-        t_kern._RoIAlignFunction.apply(rf, vf, wrapper, strides, 56.0,
+        t_kern._RoIAlignFunction.apply(rf, vf, wrapper, strides, 56.0, 7,
                                        *[f.detach() for f in leaves])
     assert (wrapper.launches, wrapper.backward.launches) == (2, 1)
 
