@@ -29,21 +29,69 @@
 // writes set the bound.  Its operations, on the nonzero taps only, take a
 // few microseconds at the float32 peak.
 //
-// Design: one block per RoI, 256 threads: along the channels, threads that
-// each load 16 bytes (4 float or 8 bfloat16 channels; 64 or 32 threads,
-// one coalesced row of 256 channels per cell), times 4 or 8 groups that
-// share the kOut^2 bins (49 or 196).  Warp 0 computes the RoI's geometry into shared
-// memory first.  Each bin then reads only the cells of its nonzero taps
-// (2 x 2 samples, 2 x 2 taps each, on 2-4 distinct rows and columns) and
-// accumulates in float32 registers, a column's rows first; the
-// bins of one RoI share cells, which L1 serves.  The levels are read in
-// place (NHWC, unit channel stride; the wrapper passes their strides), so
-// there is no stacked copy of the pyramid and no geometry pass before the
-// kernel.  No tensor cores: their float32 path is TF32, which would change
-// the numbers, and each bin is a handful of products.
+// Design at 7 x 7 (the box branch): one block per RoI, 256 threads: along
+// the channels, threads that each load 16 bytes (4 float or 8 bfloat16
+// channels; 64 or 32 threads, one coalesced row of 256 channels per cell),
+// times 4 or 8 groups that share the 49 bins.  Warp 0 computes the RoI's
+// geometry into shared memory first.  Each bin then reads only the cells
+// of its nonzero taps (2 x 2 samples, 2 x 2 taps each, on 2-4 distinct
+// rows and columns) and accumulates in float32 registers, a column's rows
+// first; the bins of one RoI share cells, which L1 serves.  The 14 x 14
+// body below, launched at 7 in one chip_smoke.py run (H100, 700 W), gave
+// the same bits but was slower at the flagship's train shapes (f32 0.141
+// against 0.121 ms) and in bfloat16 at every timed shape (predict 0.0247
+// against 0.0234 ms, train 0.105 against 0.076); it was faster only in
+// float32 at the predict and per-image shapes (0.0359 against 0.0446 ms).
+// So 7 keeps this body (PERF.md, K1 rows).
+//
+// Design at 14 x 14 (the mask branch; roi_align_fwd_rows_kernel).  One
+// block per RoI left the card idle there: Mask R-CNN's 200 detections made
+// 200 blocks on 132 SMs, each walking 196 bins with about one load in
+// flight a thread (15% of the bound), and in training 1008 of the 1024
+// slots are invalid, whose zeros went out block by block before the 16
+// valid RoIs' bins ran as a tail.  So the 14 x 14 body cuts the work by bin
+// row: a work item is (valid RoI, bin row py, 256 channels), and a grid of
+// as many blocks as the card holds at once (the occupancy times the SMs, 4
+// blocks of 64 registers) takes the items in contiguous runs, so that a
+// block walks consecutive rows of one RoI (L1 keeps the level rows that
+// rows py and py + 1 share).  The blocks find the valid RoIs themselves:
+// each counts the valid flags of its threads' slots and scans the counts,
+// so that item ranks map to RoIs without a pass before the kernel.  The
+// geometry of a run's next two RoIs is computed at once, one warp each
+// (roi_geometry, then each bin row's and column's nonzero taps), in the
+// block rather than in a pass of its own: the entry point has no scratch
+// memory for it, and the batch costs one warp's latency a run.  A row is
+// two phases over shared memory.  First the column sums of the bin row:
+// for every window column m that some bin weights, t[m, c] = sum_k wy[py,
+// k] * level[wy0 + k, wx0 + m, c] over the row's nonzero taps k (at most
+// 4), each thread issuing all of its cell's tap loads before the FMAs, into
+// a 24 x 256 float32 band (24 KB).  Then each bin sums its nonzero column
+// taps of the band, m ascending: acc = fmaf(wx[px, m], t[m, c], acc), and
+// stores once.  The operations and their order per output element are
+// those of the 7 x 7 body (t over the rows, then the columns), so the
+// numbers are the same bits; the band only stops each bin from reloading
+// the columns that its neighbours share.  Each cell of the band is loaded
+// by one thread per row; staging the level rows in shared memory first
+// (TMA) would move the same bytes twice with no reuse inside the row, and
+// the 96 KB band of 4 float32 rows would hold an SM to 2 blocks.  Then
+// every block zeroes the invalid slots of its stride (slot blockIdx.x,
+// blockIdx.x + gridDim.x, ...), 16-byte stores over each slot's contiguous
+// bytes, as a memset would: each output byte is written once, and an
+// invalid RoI reads nothing but its flag.  What holds it now (PERF.md): not
+// its bytes but its latency chains; chip_smoke.py times this kernel on one
+// 16-byte vector of channels (the scan, the geometry, the barriers of each
+// row, next to no loads), and that run takes most of the full kernel's time.
+//
+// Both: the levels are read in place (NHWC, unit channel stride; the
+// wrapper passes their strides), so there is no stacked copy of the pyramid
+// and no geometry pass before the kernel.  No tensor cores: their float32
+// path is TF32, which would change the numbers, and each bin is a handful
+// of products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "roi_geometry.cuh"
 
@@ -109,6 +157,239 @@ roi_align_fwd_kernel(const float* __restrict__ rois, const uint8_t* __restrict__
   }
 }
 
+// --- 14 x 14: work items by bin row ---------------------------------------
+
+// nonzero taps of one bin along one axis: each of its kSamples samples has
+// two (roi_geometry.cuh), so no bin weights more cells than this
+constexpr int kMaxTaps = 2 * kSamples;
+
+// One RoI's nonzero taps per bin row and per bin column, ascending, in
+// shared memory beside its geometry, and the window columns that some bin
+// weights.
+template <int kOut>
+struct RowTaps {
+  int ny[kOut], ky[kOut][kMaxTaps];
+  float ay[kOut][kMaxTaps];
+  int nx[kOut], kx[kOut][kMaxTaps];
+  float ax[kOut][kMaxTaps];
+  int ncols, cols[kWin];
+};
+
+// Fills *t from *g (warp 0): lanes 0..kOut-1 list the rows of bin row
+// lane, lanes kOut..2kOut-1 the columns of bin column lane - kOut; then
+// lane m < kWin marks window column m when a bin weights it.
+template <int kOut>
+__device__ inline void row_taps(const Geom<kOut>& g, RowTaps<kOut>* t) {
+  const int lane = threadIdx.x & 31;
+  if (lane < 2 * kOut) {
+    const bool along_y = lane < kOut;
+    const int o = along_y ? lane : lane - kOut;
+    const float* w = along_y ? g.wy[o] : g.wx[o];
+    const int lo = along_y ? g.ylo[o] : g.xlo[o];
+    const int hi = along_y ? g.yhi[o] : g.xhi[o];
+    int* ks = along_y ? t->ky[o] : t->kx[o];
+    float* as = along_y ? t->ay[o] : t->ax[o];
+    int n = 0;
+    for (int k = lo; k <= hi && n < kMaxTaps; ++k) {
+      if (w[k] != 0.0f) {
+        ks[n] = k;
+        as[n] = w[k];
+        ++n;
+      }
+    }
+    (along_y ? t->ny : t->nx)[o] = n;
+  }
+  bool used = false;
+  if (lane < kWin) {
+    for (int o = 0; o < kOut; ++o) used |= g.wx[o][lane] != 0.0f;
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, used);
+  if (used) t->cols[__popc(mask & ((1u << lane) - 1u))] = lane;
+  if (lane == 0) t->ncols = __popc(mask);
+  __syncwarp();
+}
+
+constexpr int kGeomSlots = 2;  // RoIs whose geometry a block computes at once
+static_assert(sizeof(RowTaps<14>) == 1108, "RowTaps<14> (ops/roi_align_kernel.py)");
+
+template <typename T, int kOut>
+__global__ void __launch_bounds__(kThreads, 4)
+roi_align_fwd_rows_kernel(const float* __restrict__ rois, const uint8_t* __restrict__ valid,
+                          const Levels L, int n_rois, int rois_per_img, int channels,
+                          T* __restrict__ out) {
+  constexpr int kW = Pack<T>::kWidth;
+  constexpr int kVecs = kRowChannels / kW;  // 16-byte vectors of 256 channels
+  constexpr int kPlanes = kW / 4;           // float4s of one vector's column sums
+  constexpr int kWarps = kThreads / 32;
+  __shared__ Geom<kOut> geoms[kGeomSlots];
+  __shared__ RowTaps<kOut> row_lists[kGeomSlots];
+  // the bin row's column sums: band[(m * kPlanes + p) * kVecs + v] holds
+  // channels kW * v + 4p .. +3 of window column m
+  __shared__ float4 band[kWin * kPlanes * kVecs];
+  __shared__ int warp_valid[kWarps];
+  __shared__ int slots[kGeomSlots];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+
+  // the valid RoIs: thread i counts those of its slots s0..s1-1, and the
+  // block scans the counts, so that rank r is found in one thread's slots
+  const int per = (n_rois + kThreads - 1) / kThreads;
+  const int s0 = min(static_cast<int>(threadIdx.x) * per, n_rois);
+  const int s1 = min(s0 + per, n_rois);
+  int cnt = 0;
+  for (int s = s0; s < s1; ++s) cnt += valid[s] != 0;
+  int incl = cnt;
+  for (int d = 1; d < 32; d *= 2) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) warp_valid[warp] = incl;
+  __syncthreads();
+  int first = incl - cnt;  // valid RoIs before slot s0
+  int n_valid = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    first += w < warp ? warp_valid[w] : 0;
+    n_valid += warp_valid[w];
+  }
+
+  const int chunks = (channels + kRowChannels - 1) / kRowChannels;
+  const int parts = kOut * chunks;  // items of one RoI: (256 channels, bin row)
+  const int n_items = n_valid * parts;
+  const int run = (n_items + gridDim.x - 1) / gridDim.x;
+  const int i0 = min(static_cast<int>(blockIdx.x) * run, n_items);
+  const int i1 = min(i0 + run, n_items);
+  int r0 = -kGeomSlots;  // the rank of geometry slot 0
+  for (int item = i0; item < i1; ++item) {
+    const int rank = item / parts;
+    if (rank >= r0 + kGeomSlots) {  // the next RoIs of the run: one warp each
+      r0 = rank;
+      const int r1 = min((i1 - 1) / parts + 1, r0 + kGeomSlots);
+      for (int r = max(r0, first); r < min(r1, first + cnt); ++r) {
+        int left = r - first;
+        for (int s = s0; s < s1; ++s) {
+          if (valid[s] && left-- == 0) slots[r - r0] = s;
+        }
+      }
+      __syncthreads();
+      if (warp < r1 - r0) {
+        roi_geometry<sizeof(T) == 2, kOut>(rois, slots[warp], rois_per_img, L, &geoms[warp]);
+        row_taps<kOut>(geoms[warp], &row_lists[warp]);
+      }
+      __syncthreads();
+    }
+    const Geom<kOut>& g = geoms[rank - r0];
+    const RowTaps<kOut>& taps = row_lists[rank - r0];
+    const int part = item - rank * parts;
+    const int py = part % kOut;
+    const int cbase = (part / kOut) * kRowChannels;
+    const int vecs = min(kRowChannels, channels - cbase) / kW;
+    const Level lv = L.lv[g.level];
+    const T* win = static_cast<const T*>(lv.base) + g.img * lv.s_img + g.wy0 * lv.s_row +
+                   g.wx0 * lv.s_col + cbase;
+    const int ny = taps.ny[py];
+    // phase 1: the column sums of bin row py, each cell's tap loads in
+    // flight together, then the rows summed in ascending order
+    for (int u = threadIdx.x; u < taps.ncols * kVecs; u += kThreads) {
+      const int j = u / kVecs;
+      const int v = u - j * kVecs;
+      if (v >= vecs) continue;
+      const int m = taps.cols[j];
+      const T* cell = win + m * lv.s_col + kW * v;
+      float x[kMaxTaps][kW];
+#pragma unroll
+      for (int i = 0; i < kMaxTaps; ++i) {
+        if (i < ny) Pack<T>::load(cell + taps.ky[py][i] * lv.s_row, x[i]);
+      }
+      float t[kW] = {};
+#pragma unroll
+      for (int i = 0; i < kMaxTaps; ++i) {
+        if (i < ny) {
+          const float a = taps.ay[py][i];
+#pragma unroll
+          for (int e = 0; e < kW; ++e) t[e] = fmaf(a, x[i][e], t[e]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        band[(m * kPlanes + p) * kVecs + v] =
+            make_float4(t[4 * p], t[4 * p + 1], t[4 * p + 2], t[4 * p + 3]);
+      }
+    }
+    __syncthreads();
+    // phase 2: each bin of the row over its nonzero columns, m ascending
+    T* dst = out + (static_cast<size_t>(slots[rank - r0]) * kOut * kOut + py * kOut) * channels +
+             cbase;
+    for (int u = threadIdx.x; u < kOut * kVecs; u += kThreads) {
+      const int px = u / kVecs;
+      const int v = u - px * kVecs;
+      if (v >= vecs) continue;
+      const int nx = taps.nx[px];
+      float acc[kW] = {};
+#pragma unroll
+      for (int i = 0; i < kMaxTaps; ++i) {
+        if (i < nx) {
+          const float c = taps.ax[px][i];
+          const int m = taps.kx[px][i];
+#pragma unroll
+          for (int p = 0; p < kPlanes; ++p) {
+            const float4 b = band[(m * kPlanes + p) * kVecs + v];
+            acc[4 * p] = fmaf(c, b.x, acc[4 * p]);
+            acc[4 * p + 1] = fmaf(c, b.y, acc[4 * p + 1]);
+            acc[4 * p + 2] = fmaf(c, b.z, acc[4 * p + 2]);
+            acc[4 * p + 3] = fmaf(c, b.w, acc[4 * p + 3]);
+          }
+        }
+      }
+      Pack<T>::store(dst + px * channels + kW * v, acc);
+    }
+    __syncthreads();  // the band, the geometry and the slots are rewritten next
+  }
+
+  // the invalid slots of this block's stride, zeroed with 16-byte stores
+  const int slot_vecs = kOut * kOut * channels / kW;
+  for (int s = blockIdx.x; s < n_rois; s += gridDim.x) {
+    if (valid[s]) continue;
+    uint4* z = reinterpret_cast<uint4*>(out + static_cast<size_t>(s) * kOut * kOut * channels);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < slot_vecs; i += kThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The launch of the 14 x 14 body: one block per work item up to as many as
+// the card holds at once.  plan[0..3]: grid, block, dynamic shared memory
+// (bytes), blocks an SM holds.
+// The occupancy and the SM count are asked once per instantiation, on the
+// device current at its first launch, and kept in atomics (callers on
+// several threads store the same answer); the grid only sizes the runs,
+// so the result does not depend on it.
+template <typename T, int kOut>
+cudaError_t rows_plan(int n_rois, int channels, int* plan) {
+  static std::atomic<int> cached_per_sm{0};
+  static std::atomic<int> cached_sms{0};
+  int per_sm = cached_per_sm.load();
+  int sms = cached_sms.load();
+  if (per_sm == 0 || sms == 0) {
+    int device = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, roi_align_fwd_rows_kernel<T, kOut>, kThreads, 0);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err != cudaSuccess) return err;
+    cached_per_sm.store(per_sm);
+    cached_sms.store(sms);
+  }
+  const long long items =
+      static_cast<long long>(n_rois) * kOut * ((channels + kRowChannels - 1) / kRowChannels);
+  plan[0] = static_cast<int>(items < static_cast<long long>(sms) * per_sm
+                                 ? items : static_cast<long long>(sms) * per_sm);
+  plan[1] = kThreads;
+  plan[2] = 0;
+  plan[3] = per_sm;
+  return cudaSuccess;
+}
+
 template <typename T, int kOut>
 int launch(const void* rois, const void* valid, void* out, int batch, int rois_per_img,
            int channels, float finest_scale, int num_levels, const long long* levels,
@@ -120,10 +401,20 @@ int launch(const void* rois, const void* valid, void* out, int batch, int rois_p
       !fill_levels(&L, num_levels, levels, finest_scale, sizeof(T))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  roi_align_fwd_kernel<T, kOut><<<batch * rois_per_img, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rois), static_cast<const uint8_t*>(valid), L, rois_per_img,
-      channels, static_cast<T*>(out));
+  const int n = batch * rois_per_img;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  if constexpr (kOut == 14) {
+    int plan[4];
+    const cudaError_t err = rows_plan<T, kOut>(n, channels, plan);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    roi_align_fwd_rows_kernel<T, kOut><<<plan[0], plan[1], plan[2], s>>>(
+        r, v, L, n, rois_per_img, channels, static_cast<T*>(out));
+  } else {
+    roi_align_fwd_kernel<T, kOut><<<n, kThreads, 0, s>>>(r, v, L, rois_per_img, channels,
+                                                        static_cast<T*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,3 +441,20 @@ ROI_ALIGN_FWD_ENTRY(roi_align_fwd_f32, float, 7)
 ROI_ALIGN_FWD_ENTRY(roi_align_fwd_bf16, __nv_bfloat16, 7)
 ROI_ALIGN_FWD_ENTRY(roi_align_fwd_f32_o14, float, 14)
 ROI_ALIGN_FWD_ENTRY(roi_align_fwd_bf16_o14, __nv_bfloat16, 14)
+
+// The launch an entry point makes for batch * rois_per_img RoIs of
+// `channels`: plan[0..3] = grid, block, dynamic shared memory (bytes),
+// blocks an SM holds (0 where the grid does not depend on it).  out_size 7
+// or 14, bf16 0 or 1; returns a CUDA error code, 0 on success.
+extern "C" int roi_align_fwd_plan(int out_size, int bf16, int n_rois, int channels, int* plan) {
+  if (out_size == 14) {
+    return static_cast<int>(bf16 ? rows_plan<__nv_bfloat16, 14>(n_rois, channels, plan)
+                                 : rows_plan<float, 14>(n_rois, channels, plan));
+  }
+  if (out_size != 7) return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = n_rois;
+  plan[1] = kThreads;
+  plan[2] = 0;
+  plan[3] = 0;
+  return 0;
+}

@@ -27,7 +27,8 @@ gradient once (``:894``, ``:919``).  ``sample_taps`` is the plain
 mirror of the kernels' per-RoI geometry (``csrc/roi_geometry.cuh``),
 ``tile_keys`` and ``tile_bitmap`` of the gradient kernel's tile lists
 (``csrc/roi_align_bwd.cu``), and ``tile_lists`` spells out the per-tile
-lists, in the kernel's order.
+lists, in the kernel's order; ``tile_counts`` and ``tile_spread`` read
+the lists' lengths off a bitmap, per level.
 """
 from __future__ import annotations
 
@@ -52,6 +53,8 @@ __all__ = [
     "tile_keys",
     "tile_lists",
     "tile_bitmap",
+    "tile_counts",
+    "tile_spread",
 ]
 
 WIN = 24
@@ -381,3 +384,33 @@ def tile_bitmap(keys: torch.Tensor, num_tiles: int) -> torch.Tensor:
     bitmap = torch.zeros((num_tiles, -(-n // 32)), dtype=torch.int64, device=keys.device)
     bitmap.index_put_((tile, roi // 32), torch.ones_like(roi) << (roi % 32), accumulate=True)
     return bitmap
+
+
+def tile_counts(bitmap: torch.Tensor) -> torch.Tensor:
+    """The length of each tile's RoI list: the set bits of each row of a
+    tile bitmap (the kernel's int32 words or the mirror's int64 ones),
+    ``(num_tiles,)`` int64."""
+    w = bitmap.long() & 0xFFFFFFFF
+    w = w - ((w >> 1) & 0x55555555)
+    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
+    w = (w + (w >> 4)) & 0x0F0F0F0F
+    w = ((w * 0x01010101) & 0xFFFFFFFF) >> 24
+    return w.sum(1)
+
+
+def tile_spread(counts: torch.Tensor, level_hw: Sequence[Tuple[int, int]]):
+    """How the RoIs spread over the gradient kernel's tiles, per level:
+    ``counts`` ``(B * tiles_per_img,)`` list lengths (``tile_counts``) ->
+    one dict a level with its ``tiles`` (over the batch), the tiles with
+    any RoI (``with_rois``), their ``mean`` list length (0.0 when none)
+    and the ``max``."""
+    base, per_row, per_img = tile_grid(level_hw)
+    by_img = counts.reshape(-1, per_img)
+    out = []
+    for (h, _), first, tx in zip(level_hw, base, per_row):
+        c = by_img[:, first:first + tx * -(-h // TILE)].reshape(-1)
+        hit = c[c > 0]
+        out.append({"tiles": int(c.numel()), "with_rois": int(hit.numel()),
+                    "mean": float(hit.float().mean()) if hit.numel() else 0.0,
+                    "max": int(c.max()) if c.numel() else 0})
+    return out

@@ -56,6 +56,12 @@ points without a size suffix pool to 7 x 7, the ``_o14`` ones (and
 ``roi_tile_keys_o14``) to 14 x 14, chosen by ``out_size``.  Any other size
 is a ``ValueError``; nothing falls back to the plain version.
 
+How the forward cuts its work (grid, block, dynamic shared memory) is its
+launch plan, which ``RoIAlignForward.plan`` asks of the built library
+(``roi_align_fwd_plan``).  The 14 x 14 forward takes work items of one
+valid RoI, one bin row and 256 channels, in contiguous runs a block, on as
+many blocks as the card holds at once.
+
 Each wrapper counts the launches of each of its entry points:
 ``launches`` (float32, 7 x 7), ``bf16_launches``, ``o14_launches``
 (float32, 14 x 14) and ``bf16_o14_launches``; ``RoIAlignBackward``
@@ -394,6 +400,23 @@ class RoIAlignForward:
                     fn.restype = ctypes.c_int
                     self._fns[name, size] = fn
         return self._fns[suffix, out_size]
+
+    def plan(self, dtype: torch.dtype, out_size: int, n_rois: int,
+             channels: int) -> Tuple[int, int, int, int]:
+        """The launch the built forward entry point of ``dtype`` and
+        ``out_size`` makes for ``n_rois`` RoIs of ``channels`` on the
+        current card: (grid, block, dynamic shared memory bytes, blocks an
+        SM holds; 0 where the grid does not depend on it)."""
+        _kernel_dtype(dtype)
+        _check_out_size(out_size)
+        self._kernel(KERNEL_DTYPES[dtype][0], out_size)
+        fn = cuda_build.load(self.KERNEL).roi_align_fwd_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        plan = (ctypes.c_int * 4)()
+        _raise_on(fn(out_size, int(dtype == torch.bfloat16), n_rois, channels, plan),
+                  "roi_align_fwd_plan")
+        return tuple(plan)
 
     def __call__(
         self,

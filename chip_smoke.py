@@ -71,7 +71,13 @@ its plain version and its bound; ``predict`` and its stages; the train
 step and its parts, a step with and without the cuDNN pin; peak device
 memory; a ``torch.profiler`` view of one ``predict`` and one step; for
 Mask R-CNN also its mask branch in ``predict`` and the mask branch's
-forward and backward over the train step's slots.
+forward and backward over the train step's slots.  It prints each
+kernel's registers, spills and shared memory (``ptxas -v``), the 14 x 14
+forward's launch (the built library's plan, its grid held within the
+blocks the card holds at once) at the mask predict and train shapes, that
+kernel on one 16-byte vector of channels beside the tile-key kernel (its
+geometry against a pass of its own), and at the train shapes the
+gradient's RoIs per tile, per level.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -83,6 +89,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,8 +147,10 @@ def say(*parts) -> None:
 
 
 def ptxas_report(log: str):
-    """Registers and spills of each kernel instantiation in an ``nvcc
-    -Xptxas=-v`` log, by kernel, element type (float32 or bfloat16 levels;
+    """Registers, spills and static shared memory of each kernel
+    instantiation in an ``nvcc -Xptxas=-v`` log, by kernel (any
+    ``roi_*_kernel``: the 7 x 7 forward, the 14 x 14 row-item forward, the
+    gradient, the tile keys), element type (float32 or bfloat16 levels;
     the tile-key kernel by its weights' rounding) and pooled size."""
     lines = log.splitlines()
     out = []
@@ -149,8 +158,8 @@ def ptxas_report(log: str):
         if "Compiling entry function" not in ln:
             continue
         name = ln.split("'")[1]
-        base = next((k for k in ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
-                                 "roi_tile_keys_kernel") if k in name), name)
+        found = re.search(r"(roi_[a-z_]*?_kernel)", name)
+        base = found.group(1) if found else name
         kind = ("bf16" if "bfloat16" in name or "ILb1E" in name else
                 "f32" if "IfL" in name or "ILb0E" in name else "?")
         kind += " 14x14" if "Li14E" in name else " 7x7"
@@ -435,6 +444,37 @@ def tiles_vs_plain(feats, rois, valid, strides, out_size: int = 7) -> str:
         raise AssertionError("the tile-key kernel's bitmap differs from the plain mirror's")
     per_tile = torch.bincount(keys[keys != roi_align.NO_TILE].long())
     return f"{int(per_tile.sum())} (tile, RoI) pairs, at most {int(per_tile.max())} on one tile"
+
+
+def tile_spread(feats, rois, valid, strides, out_size: int = 7) -> list:
+    """The RoIs on each gradient tile, per level, read off the tile-key
+    kernel's bitmap: the tiles, those with any RoI, their mean and the
+    largest list length (``roi_align.tile_spread``)."""
+    shapes = [tuple(f.shape) for f in feats]
+    rf, vf = flat(rois, valid)
+    tiles = batched_multilevel_roi_align.backward.tile_lists(
+        shapes, rf, vf, strides, out_size=out_size, dtype=feats[0].dtype)
+    return roi_align.tile_spread(roi_align.tile_counts(tiles.bitmap),
+                                 [s[1:3] for s in shapes])
+
+
+def say_spread(spread: list, what: str) -> None:
+    say(f"{what}: RoIs per gradient tile by level (tiles, with RoIs, mean list, largest): "
+        + "; ".join(f"L{i} {x['tiles']}, {x['with_rois']}, {x['mean']:.1f}, {x['max']}"
+                    for i, x in enumerate(spread)))
+
+
+def fwd_launch(dtype, out_size: int, n_rois: int, c: int, what: str) -> dict:
+    """The 14 x 14 forward entry point's launch for these RoIs (the built
+    library's plan), its grid held within the blocks the card holds at
+    once, and printed."""
+    grid, block, smem, per_sm = batched_multilevel_roi_align.plan(dtype, out_size, n_rois, c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if not 1 <= grid <= sms * per_sm:
+        raise AssertionError(f"forward grid {grid} outside 1..{sms} SMs x {per_sm} blocks")
+    say(f"{what}: forward launch grid {grid}, block {block}, dynamic shared memory {smem} B "
+        f"({per_sm} blocks an SM, {sms} SMs; {n_rois} RoI slots, C={c})")
+    return {"grid": grid, "block": block, "dynamic_smem": smem, "blocks_per_sm": per_sm}
 
 
 def odd_case(seed: int):
@@ -1083,6 +1123,8 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
         lambda: batched_multilevel_roi_align(feats, rois, rvalid, strides),
         feats, rois, rvalid, strides, g, dtype)
     say_timed(r["train_shapes"], f"{tag} at the train shapes", gpu)
+    r["train_spread"] = tile_spread(feats, rois, rvalid, strides)
+    say_spread(r["train_spread"], f"{tag} train shapes (B*R={n})")
 
     # ---------------------------------------------------------- per-image path
     lv = [f.detach().requires_grad_() for f in feats]
@@ -1227,7 +1269,20 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
         lambda: batched_multilevel_roi_align(route, mrois, dvalid, strides, out_size=14),
         route, mrois, dvalid, strides, gp, dtype)
     say_timed(r["predict_shapes"], f"{tag} 14 x 14 at the predict shapes", gpu)
-    del gp, og
+    r["fwd_launch"] = fwd_launch(dtype, 14, mrois.shape[0] * mrois.shape[1], c,
+                                 f"{tag} 14 x 14 predict shapes")
+    # the geometry in the kernel against a pass of its own: the kernel on one
+    # 16-byte vector of channels (the valid scan, each run's geometry and
+    # the launch, next to no loads or stores) beside the tile-key kernel
+    narrow = [f[..., :16 // f.element_size()] for f in route]
+    rf, vf = flat(mrois, dvalid)
+    r["geometry_ms"] = graph_ms(lambda: batched_multilevel_roi_align.launch(
+        narrow, rf, vf, strides, out_size=14), 50)
+    say(f"{tag} 14 x 14 geometry ({gpu}): the forward kernel on {narrow[0].shape[-1]} channels "
+        f"{r['geometry_ms']:.4f} ms; a geometry pass, the tile-key kernel at 14 (which also "
+        f"stores each Geom<14> and marks the bitmap) {r['predict_shapes']['bwd']['tile_keys']:.4f}"
+        " ms")
+    del gp, og, narrow
     r["predict_ms"] = cuda_ms(lambda: det.predict(batches[1], anchors, nla), 5, warmup=1)
     stage = {}
     with torch.inference_mode():
@@ -1336,6 +1391,9 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
         lambda: batched_multilevel_roi_align(route, rois, mvalid, strides, out_size=14),
         route, rois, mvalid, strides, g, dtype)
     say_timed(r["train_shapes"], f"{tag} 14 x 14 at the train shapes", gpu)
+    r["train_spread"] = tile_spread(route, rois, mvalid, strides, 14)
+    say_spread(r["train_spread"], f"{tag} 14 x 14 train shapes ({n_slots} slots)")
+    r["train_fwd_launch"] = fwd_launch(dtype, 14, n_slots, c, f"{tag} 14 x 14 train shapes")
 
     # ---------------------------------------------------- per-image path at 14
     lv = [f.detach().requires_grad_() for f in route]
@@ -1409,12 +1467,14 @@ def kernel_records(r: dict, dtype, o: str = "") -> list:
          "launches": pc[fwd] + tc[fwd], "launches_by_path": {"predict": pc[fwd], "train": tc[fwd]},
          "max_abs_err": max(x["fwd"][0] for x in checks),
          "share_not_bit_equal": max(x["fwd"][1] for x in checks),
-         **times(fp), "train_shapes": shapes(ft)},
+         **times(fp), "train_shapes": shapes(ft),
+         **({"launch": {"predict": r["fwd_launch"], "train": r["train_fwd_launch"]},
+             "geometry_only_kernel_ms": r["geometry_ms"]} if o else {})},
         {"name": bwd, "route": "cuda", "source": src + "roi_align_bwd.cu",
          "replaces": f"{tpu}:244",
          "tpu_kernel": f"pallas_roi_align.py:244 _bwd_kernel via :828 (K4){note}",
          "launches": tc[bwd], "launches_by_path": {"predict": pc[bwd], "train": tc[bwd]},
-         "tile_key_launches": tc[keys],
+         "tile_key_launches": tc[keys], "tile_spread_train": r["train_spread"],
          "max_abs_err": max(x["bwd"][0] for x in checks),
          "share_not_bit_equal": max(x["bwd"][1] for x in checks),
          "max_abs_plain": max(x["bwd"][2] for x in checks), "bitwise_repeatable": True,

@@ -392,3 +392,98 @@ def test_cuda_14_autograd_and_per_image_paths(cuda, dtype):
         for a, b in zip(d_k, d_p):
             assert a.dtype == dtype
             _held(a, b, dtype, 1e-5 * scale)
+
+
+MASK_STRIDES = (4, 8, 16, 32)  # Mask R-CNN's route levels, P2-P5
+
+
+def _mask_case(rs, kind, c):
+    """Inputs of the 14 x 14 forward's work split: ``single`` one valid RoI;
+    ``all valid`` 200 detections of two images, every one valid (the mask
+    predict shapes); ``few valid`` 1024 slots with 16 valid (the mask train
+    shapes); ``edges`` RoIs on the right and bottom edges of the levels and
+    wider than the 24-cell window, some invalid."""
+    h, w = (200, 264) if kind != "all valid" else (320, 480)
+    b, r = {"single": (1, 1), "all valid": (2, 100), "few valid": (2, 512), "edges": (2, 12)}[kind]
+    feats = [rs.randn(b, -(-h // s), -(-w // s), c).astype(np.float32) for s in MASK_STRIDES]
+    xy = rs.uniform(0, [w - 10, h - 10], (b, r, 2))
+    wh = rs.uniform(4, [w / 2, h / 2], (b, r, 2))
+    rois = np.concatenate([xy, np.minimum(xy + wh, [w, h])], -1).astype(np.float32)
+    valid = np.ones((b, r), bool)
+    if kind == "few valid":
+        valid[:] = False
+        valid.reshape(-1)[rs.choice(b * r, 16, replace=False)] = True
+    if kind == "edges":
+        rois[:, :6] = [[w - 30, h - 20, w, h], [0, 0, w, h], [w - 200, 0, w, h],
+                       [0, h - 120, w, h], [w - 8, h - 8, w, h], [2, 10, w - 2, 30]]
+        valid[:, -2:] = False
+    return feats, rois, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,c", [("single", 256), ("all valid", 256), ("few valid", 256),
+                                    ("edges", 256), ("edges", 40)])
+def test_cuda_14_forward_work_split(cuda, dtype, kind, c):
+    """The 14 x 14 forward (work items of one valid RoI, bin row and 256
+    channels; the invalid slots zeroed by the same blocks) against its plain
+    version on the cases that cut its work differently: bfloat16 bit for
+    bit, float32 within 1e-5; the invalid slots zero; one launch."""
+    rs = np.random.RandomState(30 + len(kind) + c)
+    feats, rois, valid = _mask_case(rs, kind, c)
+    feats = _levels(cuda, feats, dtype)
+    rois, valid = _on(cuda, rois, valid)
+    fn = kern.RoIAlignForward()
+    got = fn(feats, rois, valid, MASK_STRIDES, out_size=14)
+    ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, MASK_STRIDES, out_size=14)
+    torch.cuda.synchronize()
+    name = "bf16_o14_launches" if dtype == torch.bfloat16 else "o14_launches"
+    assert getattr(fn, name) == 1
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert not got[~valid].any()
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ref)
+    else:
+        assert _max_err(got, ref) <= 1e-5
+
+
+def _hot_case(rs, b, r, c, spread):
+    """RoIs of 20-60 px around (64, 64) +- ``spread`` px on a 128 x 160
+    canvas, so that one gradient tile of P3 lists most of them."""
+    h, w = 128, 160
+    feats = [rs.randn(b, -(-h // s), -(-w // s), c).astype(np.float32) for s in STRIDES]
+    ctr = 64 + rs.uniform(-spread, spread, (b, r, 2))
+    half = rs.uniform(10, 30, (b, r, 2))
+    rois = np.concatenate([ctr - half, ctr + half], -1).clip(0, [w, h, w, h]).astype(np.float32)
+    valid = rs.rand(b, r) < 0.97
+    return feats, rois, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,c,spread", [(2, 120, 256, 6.0), (1, 2200, 64, 40.0)])
+def test_cuda_bf16_backward_hot_tiles(cuda, b, r, c, spread):
+    """The bfloat16 gradient at 7 x 7 where a tile's RoIs come in many
+    chunks: a tile that lists ~100 RoIs, and 2200 RoIs in one image (past
+    the 2048-entry list window); within 1 ulp (+1e-5 x max) of the plain
+    version with at most 1% of the values not bit-equal, and bitwise equal
+    across two launches."""
+    rs = np.random.RandomState(40 + b)
+    feats, rois, valid = _hot_case(rs, b, r, c, spread)
+    feats = _levels(cuda, feats, torch.bfloat16)
+    rois, valid = _on(cuda, rois, valid)
+    rf, vf = _flat(rois, valid)
+    shapes = [tuple(f.shape) for f in feats]
+    g = torch.from_numpy(_channel_scaled(rs.randn(b * r, 7, 7, c).astype(np.float32)))
+    g = g.to(cuda).to(torch.bfloat16)
+    wrapper = kern.RoIAlignBackward()
+    tiles = wrapper.tile_lists(shapes, rf, vf, STRIDES, dtype=torch.bfloat16)
+    got = wrapper.launch(g, shapes, rf, vf, STRIDES, tiles=tiles)
+    again = wrapper.launch(g, shapes, rf, vf, STRIDES, tiles=tiles)
+    ref = kern.roi_align_bwd_plain(g, feats, rois, valid, STRIDES)
+    torch.cuda.synchronize()
+    assert int(roi_align.tile_counts(tiles.bitmap).max()) > 2 * 16
+    assert wrapper.bf16_launches == 2
+    assert all(torch.equal(a, x) for a, x in zip(got, again))
+    scale = max(x.float().abs().max().item() for x in ref)
+    for a, x in zip(got, ref):
+        _within_bf16_ulp(a, x, atol=1e-5 * scale)
