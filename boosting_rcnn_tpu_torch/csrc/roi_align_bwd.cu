@@ -54,6 +54,19 @@
 // SM): what bounds it in practice is the latency of the cotangent loads at
 // that occupancy, and each bin's cotangent is read once per tile row that
 // its taps reach (2-3 times), from L1 after the first.
+//
+// Kept against a design that builds each tile's RoI list, with the y bins
+// that meet each tile row and the x bins that meet the tile, in a pass
+// before this kernel (a count per tile from the key kernel, a scan, a warp a
+// tile), and walks it without the bitmap scan, the bin-range step or a block
+// barrier, each warp staging its next RoI's Geom itself.  In bfloat16 at the
+// flagship's train shapes (chip_smoke.py on a copy, NVIDIA H100 80GB HBM3,
+// 700.00 W) that walk took 0.1080 ms and its list pass 0.0101 ms, against
+// 0.0964-0.0968 ms for this kernel alone; it was slower at every timed
+// shape, and so were its forms reading the weights through L1 and with 4
+// cells or 4 channels a warp.  The chain it removes is a small part of a
+// block; the walk, held by its cotangent loads at 16 warps an SM, is not
+// changed by it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

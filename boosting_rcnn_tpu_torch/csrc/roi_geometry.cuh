@@ -129,10 +129,14 @@ __device__ inline Window roi_window(const float* roi, const Levels& L) {
 // Sample j (0..2 * kOut - 1) along one axis: position start + frac_j * bin, frac_j =
 // j / 2 + (j % 2 + 0.5) / 2, relative to the window origin, clamped to
 // [0, hi].
+// Halving rounds the same real number as dividing by kSamples = 2 does, so
+// it gives the same bits, without the division's slow-path call.
+constexpr float kHalf = 1.0f / kSamples;
+static_assert(kSamples == 2, "kHalf is exact");
+
 __device__ inline Tap sample_tap(float start, float bin, float origin, float hi, int j) {
   const float frac = __fadd_rn(static_cast<float>(j / kSamples),
-                               __fdiv_rn(__fadd_rn(static_cast<float>(j % kSamples), 0.5f),
-                                         static_cast<float>(kSamples)));
+                               __fmul_rn(__fadd_rn(static_cast<float>(j % kSamples), 0.5f), kHalf));
   const float pos = __fadd_rn(start, __fmul_rn(frac, bin));
   const float rel = fminf(fmaxf(__fsub_rn(pos, origin), 0.0f), hi);
   Tap t;

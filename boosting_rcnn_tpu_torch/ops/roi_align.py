@@ -25,7 +25,9 @@ widened window, one rounding of the output; its autograd widens the
 cotangent, sums in float32 with the same weights and rounds each level's
 gradient once (``:894``, ``:919``).  ``sample_taps`` is the plain
 mirror of the kernels' per-RoI geometry (``csrc/roi_geometry.cuh``),
-``tile_keys`` and ``tile_bitmap`` of the gradient kernel's tile lists
+``bin_taps`` of the bfloat16 7 x 7 forward's per-bin tap lists (the pool
+fold written out per cell, ``csrc/roi_align_fwd.cu``), ``tile_keys`` and
+``tile_bitmap`` of the gradient kernel's tile lists
 (``csrc/roi_align_bwd.cu``), and ``tile_lists`` spells out the per-tile
 lists, in the kernel's order; ``tile_counts`` and ``tile_spread`` read
 the lists' lengths off a bitmap, per level.
@@ -44,6 +46,7 @@ __all__ = [
     "roi_window",
     "sample_taps",
     "taps_to_dense",
+    "bin_taps",
     "batched_stack",
     "batched_geometry",
     "fold_pool",
@@ -201,6 +204,64 @@ def taps_to_dense(k: torch.Tensor, w: torch.Tensor, width: int) -> torch.Tensor:
     dense = torch.zeros((*k.shape, width + 1), dtype=w.dtype, device=w.device)
     dense.scatter_(-1, torch.stack([k, k + 1], -1), w)
     return dense[..., :width]
+
+
+def bin_taps(
+    rois_flat: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    finest_scale: int = 56,
+    out_size: int = 7,
+    dtype: torch.dtype = torch.bfloat16,
+):
+    """Plain mirror of the bfloat16 7 x 7 forward's tap lists
+    (``bin_taps``/``fold_taps`` in ``csrc/roi_align_fwd.cu``): per RoI, bin
+    and axis, the window cells that the bin's two samples weight, ascending,
+    and their pool-folded weights, the fold written out per cell rather than
+    over the dense window: each cell's weights from the sample of the lower
+    cell first, each rounded to ``dtype``, halved and added to zero, the sum
+    rounded to ``dtype`` again (``fold_pool_rounded`` gives the same values
+    densely).  Returns ``(cells_y, w_y, cells_x, w_x)``: cells ``(n, out,
+    4)`` int64, -1 past a bin's list, and weights ``(n, out, 4)`` float32, 0
+    past it; zero weights are left out."""
+    t = sample_taps(rois_flat, level_hw, strides, finest_scale, out_size, 2)
+
+    def rounded(w):
+        return w.to(dtype).to(torch.float32)
+
+    def axis(k, w):
+        k = k.reshape(k.shape[0], out_size, 2)
+        w = w.reshape(w.shape[0], out_size, 2, 2)
+        swap = k[..., 1] < k[..., 0]
+        ka = torch.where(swap, k[..., 1], k[..., 0])
+        kb = torch.where(swap, k[..., 0], k[..., 1])
+        wa = torch.where(swap[..., None], w[:, :, 1], w[:, :, 0])
+        wb = torch.where(swap[..., None], w[:, :, 0], w[:, :, 1])
+        a0, a1 = rounded(wa[..., 0]) * 0.5, rounded(wa[..., 1]) * 0.5
+        b0, b1 = rounded(wb[..., 0]) * 0.5, rounded(wb[..., 1]) * 0.5
+        has_a1, has_b1 = wa[..., 1] > 0, wb[..., 1] > 0
+        zero = torch.zeros_like(a0)
+        same, next_ = kb == ka, kb == ka + 1
+        # cells ka, ka + 1, then b's when they are not ka's
+        s0 = torch.where(same, a0 + b0, a0)
+        s1 = torch.where(has_a1, a1, zero)
+        s1 = torch.where(same & has_b1, s1 + b1, s1)
+        s1 = torch.where(next_, s1 + b0, s1)
+        used1 = has_a1 | (same & has_b1) | next_
+        c2 = torch.where(next_, kb + 1, kb)
+        s2 = torch.where(next_, torch.where(has_b1, b1, zero), b0)
+        used2 = ~same & (has_b1 | ~next_)
+        s3 = torch.where(has_b1, b1, zero)
+        used3 = ~same & ~next_ & has_b1
+        cells = torch.stack([ka, ka + 1, c2, kb + 1], -1)
+        ws = rounded(torch.stack([s0, s1, s2, s3], -1))
+        keep = torch.stack([torch.ones_like(used1), used1, used2, used3], -1) & (ws != 0)
+        order = torch.sort((~keep).to(torch.int8), dim=-1, stable=True).indices
+        cells = torch.where(keep, cells, -1).gather(-1, order)
+        ws = torch.where(keep, ws, 0.0).gather(-1, order)
+        return cells, ws
+
+    return (*axis(t.ky, t.wy), *axis(t.kx, t.wx))
 
 
 class RoIGeometry(NamedTuple):

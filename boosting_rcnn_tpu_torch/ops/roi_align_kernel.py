@@ -60,7 +60,9 @@ How the forward cuts its work (grid, block, dynamic shared memory) is its
 launch plan, which ``RoIAlignForward.plan`` asks of the built library
 (``roi_align_fwd_plan``).  The 14 x 14 forward takes work items of one
 valid RoI, one bin row and 256 channels, in contiguous runs a block, on as
-many blocks as the card holds at once.
+many blocks as the card holds at once; the bfloat16 7 x 7 forward takes
+contiguous runs of RoIs a block on as many blocks as the card holds at
+once; the float32 7 x 7 forward one block per RoI.
 
 Each wrapper counts the launches of each of its entry points:
 ``launches`` (float32, 7 x 7), ``bf16_launches``, ``o14_launches``

@@ -39,11 +39,13 @@ read after:
   * per image: the batch-of-one entry at 14 x 14 on each train image;
 
 and holds the 14 x 14 kernels against their plain versions at the mask
-predict shapes (the detections), the train shapes (all sampled slots, the
-positive ones valid) and the odd case, with the 7 x 7 kernels' tolerances;
-it checks that the level past the four route levels (P6) gets no RoIAlign
-gradient.  A tiny Mask R-CNN predicts and takes a train step on the GPU as
-on the CPU in both dtypes, and takes part in the repeatability check.
+predict shapes (the detections), the train shapes (all sampled slots,
+the positive ones valid) and the odd case, with the 7 x 7 kernels'
+tolerances, and the 7 x 7 kernels at the box branch's shapes (the 2000
+proposals of a request, the 1024 sampled slots of a step); it checks
+that the level past the four route levels (P6) gets no RoIAlign
+gradient.  A tiny Mask R-CNN predicts and takes a train step on the GPU
+as on the CPU in both dtypes, and takes part in the repeatability check.
 
 In each dtype it checks the outputs (detections finite and inside the
 image, repeatable; losses finite and positive, the frozen stages
@@ -56,9 +58,10 @@ the gradient), and that the gradient is bitwise repeatable (two launches,
 and two backward passes of the train path's RoIAlign).  float32 kernels
 are held within an absolute tolerance of their plain versions; bfloat16
 ones (against the Pallas kernels' arithmetic), on levels and cotangents
-scaled by ``c + 1`` along the channels, within 1 ulp of every plain value
-(the gradient plus 1e-5 of the largest) with at most 1% of the values not
-bit-equal.  Then the tiny flagship predicts and takes a train step on the
+scaled by ``c + 1`` along the channels: the forward bit-equal, the
+gradient within 1 ulp of every plain value plus 1e-5 of the largest, with
+at most 1% of the values not bit-equal.  Then the tiny flagship predicts
+and takes a train step on the
 GPU as on the CPU, in both dtypes, and the repeatability check (ROADMAP
 C.2) takes two tiny train steps from one saved state on the same batch
 and sample in each dtype and asserts that the losses, every gradient and
@@ -67,14 +70,17 @@ same steps without the pin are reported, and two more run under
 ``torch.use_deterministic_algorithms``, which raises on an op that has no
 deterministic form).  Timings, per dtype: each kernel alone by CUDA-graph
 replay and its whole call at the predict, train and per-image shapes,
-its plain version and its bound; ``predict`` and its stages; the train
+its plain version and its bound (for the gradient also its tile-key
+kernel and the kernel on an empty bitmap, the stores alone), the 7 x 7
+kernels also at Mask R-CNN's box shapes; ``predict`` and its stages; the
+train
 step and its parts, a step with and without the cuDNN pin; peak device
 memory; a ``torch.profiler`` view of one ``predict`` and one step; for
 Mask R-CNN also its mask branch in ``predict`` and the mask branch's
 forward and backward over the train step's slots.  It prints each
-kernel's registers, spills and shared memory (``ptxas -v``), the 14 x 14
-forward's launch (the built library's plan, its grid held within the
-blocks the card holds at once) at the mask predict and train shapes, that
+kernel's registers, spills and shared memory (``ptxas -v``), the forward's
+launch (the built library's plan, its grid held within the blocks the card
+holds at once) at the predict and train shapes of both sizes, the 14 x 14
 kernel on one 16-byte vector of channels beside the tile-key kernel (its
 geometry against a pass of its own), and at the train shapes the
 gradient's RoIs per tile, per level.
@@ -149,9 +155,10 @@ def say(*parts) -> None:
 def ptxas_report(log: str):
     """Registers, spills and static shared memory of each kernel
     instantiation in an ``nvcc -Xptxas=-v`` log, by kernel (any
-    ``roi_*_kernel``: the 7 x 7 forward, the 14 x 14 row-item forward, the
-    gradient, the tile keys), element type (float32 or bfloat16 levels;
-    the tile-key kernel by its weights' rounding) and pooled size."""
+    ``roi_*_kernel``: the 7 x 7 forwards (the bfloat16 one
+    ``roi_align_fwd_bins``), the 14 x 14 row-item forward, the gradient,
+    the tile keys), element type (float32 or bfloat16 levels; the tile-key
+    kernel by its weights' rounding) and pooled size."""
     lines = log.splitlines()
     out = []
     for i, ln in enumerate(lines):
@@ -392,13 +399,13 @@ def kernels_vs_plain(feats, rois, valid, strides, g, dtype, what: str):
     """Both kernels in ``dtype`` against their plain versions: the forward
     through the entry point, the gradient through its wrapper on the
     cotangent ``g`` ``(B*R, k, k, C)``, at its pooled size ``k`` (7 or
-    14).  float32: the forward within
-    ``ATOL``, the gradient within ``BWD_RTOL`` of the largest plain value
-    (the plain versions sum in other orders).  bfloat16, on levels and a
-    cotangent scaled by ``c + 1`` along the channels: within 1 ulp (the
-    gradient plus ``BWD_RTOL`` of the largest plain value).  In both, a
-    second launch of the gradient gives the same bits and a cotangent on
-    the invalid RoIs only adds nothing.  Returns {"fwd": (err, share),
+    14).  float32: the forward within ``ATOL``, the gradient within
+    ``BWD_RTOL`` of the largest plain value (the plain versions sum in other
+    orders).  bfloat16, on levels and a cotangent scaled by ``c + 1`` along
+    the channels: the forward bit-equal, the gradient within 1 ulp plus
+    ``BWD_RTOL`` of the largest plain value.  In both, a second launch of
+    the gradient gives the same bits and a cotangent on the invalid RoIs
+    only adds nothing.  Returns {"fwd": (err, share),
     "bwd": (err, share, max|plain|)}."""
     if dtype == BF16:
         levels, g = [channel_scaled(f) for f in feats], channel_scaled(g)
@@ -409,6 +416,9 @@ def kernels_vs_plain(feats, rois, valid, strides, g, dtype, what: str):
         got = batched_multilevel_roi_align(levels, rois, valid, strides, out_size=out)
         ref = roi_align.multilevel_roi_align_fast(levels, rois, valid, strides, out_size=out)
     fwd = close(got, ref, f"roi_align_fwd ({dtype}, {what})", ATOL if dtype != BF16 else 0.0)
+    if dtype == BF16 and not torch.equal(got, ref):
+        raise AssertionError(f"roi_align_fwd ({dtype}, {what}) is not bit-equal to its plain "
+                             f"version ({fwd[1]:.4%} of the values differ)")
     shapes = [tuple(f.shape) for f in levels]
     rf, vf = flat(rois, valid)
     bwd = batched_multilevel_roi_align.backward
@@ -465,12 +475,13 @@ def say_spread(spread: list, what: str) -> None:
 
 
 def fwd_launch(dtype, out_size: int, n_rois: int, c: int, what: str) -> dict:
-    """The 14 x 14 forward entry point's launch for these RoIs (the built
+    """The forward entry point's launch for these RoIs (the built
     library's plan), its grid held within the blocks the card holds at
-    once, and printed."""
+    once (one block per RoI where the plan names no such bound), and
+    printed."""
     grid, block, smem, per_sm = batched_multilevel_roi_align.plan(dtype, out_size, n_rois, c)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if not 1 <= grid <= sms * per_sm:
+    if not (1 <= grid <= sms * per_sm if per_sm else grid == n_rois):
         raise AssertionError(f"forward grid {grid} outside 1..{sms} SMs x {per_sm} blocks")
     say(f"{what}: forward launch grid {grid}, block {block}, dynamic shared memory {smem} B "
         f"({per_sm} blocks an SM, {sms} SMs; {n_rois} RoI slots, C={c})")
@@ -1034,6 +1045,8 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
         lambda: batched_multilevel_roi_align(feats, boxes, valid, strides),
         feats, boxes, valid, strides, gp, dtype)
     say_timed(r["predict_shapes"], f"{tag} at the predict shapes", gpu)
+    r["fwd_launch"] = fwd_launch(dtype, 7, boxes.shape[0] * boxes.shape[1], c,
+                                 f"{tag} predict shapes")
     del gp, og
     r["predict_ms"] = cuda_ms(lambda: det.predict(batches[1], anchors, nla), 5, warmup=1)
     stage = {}
@@ -1125,6 +1138,7 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
     say_timed(r["train_shapes"], f"{tag} at the train shapes", gpu)
     r["train_spread"] = tile_spread(feats, rois, rvalid, strides)
     say_spread(r["train_spread"], f"{tag} train shapes (B*R={n})")
+    r["train_fwd_launch"] = fwd_launch(dtype, 7, n, c, f"{tag} train shapes")
 
     # ---------------------------------------------------------- per-image path
     lv = [f.detach().requires_grad_() for f in feats]
@@ -1148,6 +1162,8 @@ def run_paths(mc, dtype, gpu: str, odd) -> dict:
         got = multilevel_roi_align([f[0] for f in one], rois[0], rvalid[0], strides)
         ref = roi_align.multilevel_roi_align_fast(one, rois[:1], rvalid[:1], strides)[0]
     r["check_image_fwd"] = close(got, ref, f"per-image forward ({tag})", ATOL if not sfx else 0.0)
+    if sfx and not torch.equal(got, ref):
+        raise AssertionError(f"per-image forward ({tag}) is not bit-equal to its plain version")
     rf1, vf1 = flat(rois[:1], rvalid[:1])
     d_got = entry.backward.launch(g0, [tuple(f.shape) for f in one], rf1, vf1, strides)
     d_ref = roi_align_bwd_plain(g0, one, rois[:1], rvalid[:1], strides)
@@ -1268,6 +1284,20 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
         batched_multilevel_roi_align,
         lambda: batched_multilevel_roi_align(route, mrois, dvalid, strides, out_size=14),
         route, mrois, dvalid, strides, gp, dtype)
+    # the box branch's 7 x 7 kernels at its predict shapes: the proposals
+    g7 = torch.from_numpy(np.random.RandomState(28).randn(
+        boxes.shape[0] * boxes.shape[1], 7, 7, c).astype(np.float32)).cuda()
+    r["check_box_predict"] = kernels_vs_plain(route, boxes, valid, strides, g7, dtype,
+                                              "box predict shapes")
+    r["box_predict"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(route, boxes, valid, strides),
+        route, boxes, valid, strides, g7, dtype)
+    say(f"{tag} 7 x 7 kernels vs plain at the box predict shapes "
+        f"({boxes.shape[0] * boxes.shape[1]} proposals, {int(valid.sum())} valid): "
+        f"{r['check_box_predict']}")
+    say_timed(r["box_predict"], f"{tag} 7 x 7 at the box predict shapes", gpu)
+    del g7
     say_timed(r["predict_shapes"], f"{tag} 14 x 14 at the predict shapes", gpu)
     r["fwd_launch"] = fwd_launch(dtype, 14, mrois.shape[0] * mrois.shape[1], c,
                                  f"{tag} 14 x 14 predict shapes")
@@ -1394,6 +1424,19 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
     r["train_spread"] = tile_spread(route, rois, mvalid, strides, 14)
     say_spread(r["train_spread"], f"{tag} 14 x 14 train shapes ({n_slots} slots)")
     r["train_fwd_launch"] = fwd_launch(dtype, 14, n_slots, c, f"{tag} 14 x 14 train shapes")
+    # the box branch's 7 x 7 kernels at its train shapes: every sampled slot
+    g7 = torch.from_numpy(np.random.RandomState(29).randn(n_slots, 7, 7, c)
+                          .astype(np.float32)).cuda()
+    r["check_box_train"] = kernels_vs_plain(route, rois, sample0.valid, strides, g7, dtype,
+                                            "box train shapes")
+    r["box_train"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(route, rois, sample0.valid, strides),
+        route, rois, sample0.valid, strides, g7, dtype)
+    say(f"{tag} 7 x 7 kernels vs plain at the box train shapes ({n_slots} slots, "
+        f"{int(sample0.valid.sum())} valid): {r['check_box_train']}")
+    say_timed(r["box_train"], f"{tag} 7 x 7 at the box train shapes", gpu)
+    del g7
 
     # ---------------------------------------------------- per-image path at 14
     lv = [f.detach().requires_grad_() for f in route]
@@ -1419,6 +1462,9 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
                                                   out_size=14)[0]
     r["check_image_fwd"] = close(got, ref, f"per-image forward at 14 ({tag})",
                                  ATOL if not sfx else 0.0)
+    if sfx and not torch.equal(got, ref):
+        raise AssertionError(f"per-image forward at 14 ({tag}) is not bit-equal to its plain "
+                             "version")
     rf1, vf1 = flat(rois[:1], mvalid[:1])
     d_got = entry.backward.launch(g0, [tuple(f.shape) for f in one], rf1, vf1, strides)
     d_ref = roi_align_bwd_plain(g0, one, rois[:1], mvalid[:1], strides)
@@ -1438,16 +1484,19 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
     return r
 
 
-def kernel_records(r: dict, dtype, o: str = "") -> list:
+def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list:
     """The ``{"kernels": [...]}`` records of one dtype's kernels at one
     pooled size (``o``: '' for 7 x 7, '_o14' for 14 x 14): K1, K4 and their
-    batch-of-one forms K2, K3."""
+    batch-of-one forms K2, K3; ``box``, Mask R-CNN's run of the same dtype,
+    adds the 7 x 7 kernels at its box shapes."""
     sfx, note = ("", "") if dtype == torch.float32 else ("_bf16", ", bfloat16")
     note += ", 14 x 14" if o else ""
     src = "boosting_rcnn_tpu_torch/csrc/"
     tpu = "boosting_rcnn_tpu/ops/pallas_roi_align.py"
     pc, tc, ic = r["predict_counts"], r["train_counts"], r["image_counts"]
     checks = [r["check_predict"], r["check_odd"], r["check_train"]]
+    if box:
+        checks += [box["check_box_predict"], box["check_box_train"]]
     fp, bp = r["predict_shapes"]["fwd"], r["predict_shapes"]["bwd"]
     ft, bt = r["train_shapes"]["fwd"], r["train_shapes"]["bwd"]
     fi, bi = r["image"]["fwd"], r["image"]["bwd"]
@@ -1457,8 +1506,15 @@ def kernel_records(r: dict, dtype, o: str = "") -> list:
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None}
 
     def shapes(t):
-        return {"call_ms": t["call"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
-                "bound_ms": t["bound"][0]}
+        out = {"call_ms": t["call"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+               "bound_ms": t["bound"][0]}
+        if "tile_keys" in t:  # the gradient's parts
+            out.update({"tile_key_kernel_ms": t["tile_keys"], "empty_bitmap_kernel_ms": t["empty"]})
+        return out
+
+    def at_box(part):
+        return ({"box_shapes": {"predict": shapes(box["box_predict"][part]),
+                                "train": shapes(box["box_train"][part])}} if box else {})
 
     fwd, bwd, keys = "roi_align_fwd" + sfx + o, "roi_align_bwd" + sfx + o, "roi_tile_keys" + o
     return [
@@ -1467,9 +1523,9 @@ def kernel_records(r: dict, dtype, o: str = "") -> list:
          "launches": pc[fwd] + tc[fwd], "launches_by_path": {"predict": pc[fwd], "train": tc[fwd]},
          "max_abs_err": max(x["fwd"][0] for x in checks),
          "share_not_bit_equal": max(x["fwd"][1] for x in checks),
-         **times(fp), "train_shapes": shapes(ft),
-         **({"launch": {"predict": r["fwd_launch"], "train": r["train_fwd_launch"]},
-             "geometry_only_kernel_ms": r["geometry_ms"]} if o else {})},
+         **times(fp), "train_shapes": shapes(ft), **at_box("fwd"),
+         "launch": {"predict": r["fwd_launch"], "train": r["train_fwd_launch"]},
+         **({"geometry_only_kernel_ms": r["geometry_ms"]} if o else {})},
         {"name": bwd, "route": "cuda", "source": src + "roi_align_bwd.cu",
          "replaces": f"{tpu}:244",
          "tpu_kernel": f"pallas_roi_align.py:244 _bwd_kernel via :828 (K4){note}",
@@ -1479,7 +1535,7 @@ def kernel_records(r: dict, dtype, o: str = "") -> list:
          "share_not_bit_equal": max(x["bwd"][1] for x in checks),
          "max_abs_plain": max(x["bwd"][2] for x in checks), "bitwise_repeatable": True,
          **times(bt), "tile_key_kernel_ms": bt["tile_keys"], "empty_bitmap_kernel_ms": bt["empty"],
-         "predict_shapes": shapes(bp)},
+         "predict_shapes": shapes(bp), **at_box("bwd")},
         {"name": fwd + "_per_image", "route": "cuda", "source": src + "roi_align_fwd.cu",
          "replaces": f"{tpu}:52",
          "tpu_kernel": f"pallas_roi_align.py:52 _kernel via :121 (K2), B=1 of K1{note}",
@@ -1607,11 +1663,12 @@ def main() -> int:
         "predict_stages_ms": {"f32": r32["predict_stages"], "bf16": r16["predict_stages"]},
         "repeatable_step": repeat_report,
         "wall_s": time.perf_counter() - t_start}))
-    records = (kernel_records(r32, torch.float32) + kernel_records(r16, BF16)
+    records = (kernel_records(r32, torch.float32, box=m32) + kernel_records(r16, BF16, box=m16)
                + kernel_records(m32, torch.float32, "_o14") + kernel_records(m16, BF16, "_o14"))
     for record in records:
         timings = [v for part in (record, record.get("train_shapes", {}),
-                                  record.get("predict_shapes", {}))
+                                  record.get("predict_shapes", {}),
+                                  *record.get("box_shapes", {}).values())
                    for k, v in part.items() if k.endswith("_ms") and v is not None]
         if not all(math.isfinite(v) and v > 0 for v in timings):
             raise AssertionError(f"non-finite timing in {record}")

@@ -487,3 +487,73 @@ def test_cuda_bf16_backward_hot_tiles(cuda, b, r, c, spread):
     scale = max(x.float().abs().max().item() for x in ref)
     for a, x in zip(got, ref):
         _within_bf16_ulp(a, x, atol=1e-5 * scale)
+
+
+def _box_case(rs, kind, c):
+    """Inputs of the 7 x 7 forward's runs of RoIs: ``single`` one valid
+    RoI; ``predict`` 512 RoIs of two images, all valid (the flagship's
+    predict shapes); ``train`` 2048 of four images, all valid (its train
+    shapes); ``few valid`` 1024 slots with 16 valid; ``edges`` RoIs on the
+    right and bottom edges of the levels, wider than the 24-cell window and
+    reversed, some invalid."""
+    h, w = (320, 480)
+    b, r = {"single": (1, 1), "predict": (2, 256), "train": (4, 512), "few valid": (2, 512),
+            "edges": (2, 12)}[kind]
+    feats = [rs.randn(b, -(-h // s), -(-w // s), c).astype(np.float32) for s in STRIDES]
+    xy = rs.uniform(0, [w - 10, h - 10], (b, r, 2))
+    wh = rs.uniform(4, [w / 2, h / 2], (b, r, 2))
+    rois = np.concatenate([xy, np.minimum(xy + wh, [w, h])], -1).astype(np.float32)
+    valid = np.ones((b, r), bool)
+    if kind == "few valid":
+        valid[:] = False
+        valid.reshape(-1)[rs.choice(b * r, 16, replace=False)] = True
+    if kind == "edges":
+        rois[:, :6] = [[w - 30, h - 20, w, h], [0, 0, w, h], [w - 200, 0, w, h],
+                       [0, h - 120, w, h], [w - 8, h - 8, w, h], [2, 10, w - 2, 30]]
+        # reversed (x2 < x1, y2 < y1): each bin's samples descend
+        rois[:, 6:9] = [[60, 40, 31, 75], [200, 130, 150, 90], [w - 5, h - 5, w - 97, h - 61]]
+        valid[:, -2:] = False
+    return feats, rois, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 40])
+@pytest.mark.parametrize("kind", ["single", "predict", "train", "few valid", "edges"])
+def test_cuda_bf16_forward_7_bit_equal(cuda, kind, c):
+    """The bfloat16 forward at 7 x 7 (runs of RoIs a block, each bin's taps
+    in fixed-count lists) bit for bit against its plain version on the
+    cases that cut its runs differently; the invalid slots zero; one
+    launch."""
+    rs = np.random.RandomState(60 + len(kind) + c)
+    feats, rois, valid = _box_case(rs, kind, c)
+    feats = _levels(cuda, feats, torch.bfloat16)
+    rois, valid = _on(cuda, rois, valid)
+    fn = kern.RoIAlignForward()
+    got = fn(feats, rois, valid, STRIDES)
+    ref = roi_align.multilevel_roi_align_fast(feats, rois, valid, STRIDES)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.bf16_launches) == (0, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert not got[~valid].any()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_on_an_empty_bitmap(cuda):
+    """The bfloat16 gradient at 7 x 7 on tile lists with no RoI (an empty
+    bitmap) stores every cell of every level, zeros (the kernel's stores
+    alone), whatever the cotangent."""
+    rs = np.random.RandomState(52)
+    feats, rois, valid = _case(rs, 2, 30, 64)
+    shapes = [tuple(f.shape) for f in feats]
+    rf, vf = _flat(*_on(cuda, rois, valid))
+    g = torch.from_numpy(rs.randn(60, 7, 7, 64).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    wrapper = kern.RoIAlignBackward()
+    tiles = wrapper.tile_lists(shapes, rf, vf, STRIDES, dtype=torch.bfloat16)
+    empty = tiles._replace(bitmap=torch.zeros_like(tiles.bitmap))
+    poison = [torch.full(s, float("nan"), dtype=torch.bfloat16, device=cuda) for s in shapes]
+    del poison  # the allocator hands the gradients memory that held NaNs
+    got = wrapper.launch(g, shapes, rf, vf, STRIDES, tiles=empty)
+    torch.cuda.synchronize()
+    assert all(d.dtype == torch.bfloat16 and tuple(d.shape) == s for d, s in zip(got, shapes))
+    assert all(int(torch.count_nonzero(d)) == 0 for d in got)

@@ -1,10 +1,11 @@
-"""Host-side logic that reads the RoIAlign gradient kernel's tile lists, on
-the CPU: the list lengths of a tile bitmap (``roi_align.tile_counts``) and
-their spread over the pyramid levels (``roi_align.tile_spread``), which
-``chip_smoke.py`` prints from the tile-key kernel's bitmap on the card.
-The launch plan of the 14 x 14 forward lives in the CUDA library
-(``roi_align_fwd_plan``) and is read and checked on the card.  No JAX, no
-card.
+"""Host-side logic of the RoIAlign kernels, on the CPU: the list lengths of
+the gradient kernel's tile bitmap (``roi_align.tile_counts``) and their
+spread over the pyramid levels (``roi_align.tile_spread``), which
+``chip_smoke.py`` prints from the tile-key kernel's bitmap on the card; and
+the bfloat16 7 x 7 forward's per-bin tap lists, the pool fold written out
+per cell (``roi_align.bin_taps``), against the dense fold.  The forward's
+launch plans live in the CUDA library (``roi_align_fwd_plan``) and are read
+and checked on the card.  No JAX, no card.
 """
 import os
 import sys
@@ -78,3 +79,61 @@ def test_tile_spread_of_a_bitmap_matches_its_keys(batch, out_size):
         assert x["with_rois"] == int((per_tile > 0).sum())
         assert round(x["mean"] * x["with_rois"]) == mine.numel()
         assert x["max"] == int(per_tile.max())
+
+
+def _fold_rois(seed: int, n: int = 90):
+    """Seeded flat RoIs of every kind the forward meets: random ones on
+    every level, reversed ones (x2 < x1, y2 < y1: each bin's samples
+    descend), wide and thin ones (bins of several cells), degenerate ones,
+    ones past the levels' edges, and ones whose sqrt(w*h) sits on the level
+    boundaries (112, 224 px) or one float32 ulp either side."""
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(0, 240, (n, 2))
+    rand = np.concatenate([xy, xy + rs.uniform(2, 300, (n, 2))], -1)
+    rev = np.concatenate([xy[:20] + 60, xy[:20] + 60 - rs.uniform(1, 60, (20, 2))], -1)
+    thin = np.stack([rs.uniform(0, 40, 10), rs.uniform(0, 140, 10), rs.uniform(120, 256, 10),
+                     np.zeros(10)], -1)
+    thin[:, 3] = thin[:, 1] + rs.uniform(2, 20, 10)
+    edge = [[200, 120, 256, 160], [0, 0, 256, 160], [5, 5, 5, 5], [250, 150, 400, 300],
+            [-50, -20, -5, -1]]
+    for side in (112, 224):
+        for v in (np.nextafter(np.float32(side), np.float32(0)), np.float32(side),
+                  np.nextafter(np.float32(side), np.float32(1e9))):
+            edge.append([8, 4, np.float32(8) + v, np.float32(4) + v])
+    rois = np.concatenate([rand, rev, thin, np.array(edge)], 0).astype(np.float32)
+    return torch.from_numpy(rois)
+
+
+def _nonzero_lists(dense: torch.Tensor):
+    """The nonzero cells of each row of ``dense`` ``(n, out, width)``,
+    ascending, and their values: ``(n, out, 4)`` each, -1 and 0 past the
+    row's nonzeros (at most 4 a row, asserted)."""
+    width = dense.shape[-1]
+    nz = dense != 0
+    assert int(nz.sum(-1).max()) <= 4
+    cells = torch.where(nz, torch.arange(width), width).sort(-1).values[..., :4]
+    vals = torch.where(cells < width, dense.gather(-1, cells.clamp(max=width - 1)), 0.0)
+    return torch.where(cells < width, cells, -1), vals
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("seed,out_size", [(10, 7), (11, 7), (12, 14), (13, 14)])
+def test_bin_taps_match_the_dense_fold(seed, out_size, dtype):
+    """The per-bin tap lists written out per cell (the bfloat16 forward's
+    ``fold_taps``, mirrored by ``roi_align.bin_taps``) hold exactly the
+    nonzero cells, ascending, and the weights of the dense pool fold
+    (``fold_pool_rounded`` over ``taps_to_dense``), bit for bit, along both
+    axes: the kernel's sums are the plain version's."""
+    rois = _fold_rois(seed)
+    cy, wy, cx, wx = roi_align.bin_taps(rois, LEVEL_HW, STRIDES, out_size=out_size, dtype=dtype)
+    t = roi_align.sample_taps(rois, LEVEL_HW, STRIDES, out_size=out_size)
+    win_w = min(roi_align.WIN, max(w for _, w in LEVEL_HW))
+    for cells, ws, k, w, width in ((cy, wy, t.ky, t.wy, roi_align.WIN), (cx, wx, t.kx, t.wx, win_w)):
+        dense = roi_align.fold_pool_rounded(roi_align.taps_to_dense(k, w, width), out_size, 2,
+                                            dtype)
+        want_cells, want_ws = _nonzero_lists(dense)
+        assert torch.equal(cells, want_cells)
+        assert torch.equal(ws, want_ws)
+    # the cases the kernel specialises on all occur: 1 to 4 taps a bin
+    counts = torch.cat([(cy >= 0).sum(-1).reshape(-1), (cx >= 0).sum(-1).reshape(-1)])
+    assert set(counts.tolist()) >= {1, 2, 3}
