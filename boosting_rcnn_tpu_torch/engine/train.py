@@ -82,6 +82,14 @@ class Optimizer:
         self.sgd = torch.optim.SGD(self.params, lr=lr_schedule(0), momentum=momentum,
                                    weight_decay=weight_decay)
 
+    def state_dict(self) -> dict:
+        """The step count and the SGD state (its momentum buffers)."""
+        return {"step_count": self.step_count, "sgd": self.sgd.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step_count = int(state["step_count"])
+        self.sgd.load_state_dict(state["sgd"])
+
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
 

@@ -25,15 +25,28 @@ the ``state_dict`` names of the port's parameters, where their ``.grad``
 can be held against it.
 
 Nothing here imports JAX: callers turn the flax tree into numpy first.
+
+``from_torchvision_resnet`` and ``from_mmdet_state_dict`` read PyTorch
+state dicts straight into the port's names (the port's own copies of the
+mappings of ``tools/convert_torch_weights.py``).  Convolutions keep their
+OIHW weights and linear layers their ``(out, in)`` ones; the one reorder
+is the first FC after the RoI pool, whose input mmdet flattens from
+``(C, 7, 7)`` and the port from ``(7, 7, C)``; the mask head's transposed
+conv is PyTorch's on both sides and stays as it is.  ``load_pretrained``
+applies a backbone ``init_cfg=dict(type="Pretrained", checkpoint=...)``
+from a local file; nothing is fetched.
 """
 from __future__ import annotations
 
+import os
+import re
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "from_torchvision_resnet", "from_mmdet_state_dict",
+           "read_state_dict", "load_pretrained"]
 
 _MODULE_NAMES = {"Conv_0": "conv", "GroupNorm_0": "norm"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -78,3 +91,136 @@ def from_jax_params(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             key, tensor = _convert(path, value.astype(np.float32))
             state[key] = tensor
     return state
+
+
+_SKIP = re.compile(r"(^fc\.|num_batches_tracked$)")
+
+
+def _port_tensor(v) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(v.detach().cpu() if torch.is_tensor(v) else v),
+                           dtype=torch.float32).contiguous()
+
+
+def from_torchvision_resnet(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``backbone.*`` entries of the port's ``state_dict`` from a
+    torchvision (or mmdet backbone) ResNet state dict: ``layer{s}.{b}`` ->
+    ``layer{s}_{b}``, ``downsample.0`` / ``.1`` -> ``downsample_conv`` /
+    ``downsample_bn``; the classifier ``fc`` and BN counters are skipped,
+    any other key raises."""
+    out = {}
+    for key, value in state_dict.items():
+        if _SKIP.search(key):
+            continue
+        m = re.fullmatch(r"layer(\d+)\.(\d+)\.(.+)", key)
+        if m:
+            rest = m.group(3).replace("downsample.0.", "downsample_conv.").replace(
+                "downsample.1.", "downsample_bn.")
+            name = f"layer{m.group(1)}_{m.group(2)}.{rest}"
+        elif re.fullmatch(r"(conv1\.weight|bn1\.(weight|bias|running_mean|running_var))", key):
+            name = key
+        else:
+            raise ValueError(f"ResNet state dict key {key!r} has no counterpart in the port")
+        out["backbone." + name] = _port_tensor(value)
+    return out
+
+
+_NECK = {"lateral_convs": "lateral_{}", "fpn_convs": "fpn_conv_{}",
+         "downsample_convs": "downsample_{}", "pafpn_convs": "pafpn_conv_{}"}
+
+
+def _fc_after_pool(w: torch.Tensor, roi_feat_size: int) -> torch.Tensor:
+    """``(out, C*S*S)`` with the input flattened ``(C, S, S)`` -> flattened
+    ``(S, S, C)``, as the port flattens its NHWC pool."""
+    s = roi_feat_size
+    out_dim, in_dim = w.shape
+    c = in_dim // (s * s)
+    if c * s * s != in_dim:
+        raise ValueError(f"first FC has {in_dim} inputs, not C x {s} x {s}")
+    return w.reshape(out_dim, c, s, s).permute(0, 2, 3, 1).reshape(out_dim, in_dim).contiguous()
+
+
+def from_mmdet_state_dict(state_dict: Dict[str, Any],
+                          roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (``TwoStageNet``) from an mmdet two-stage
+    state dict (the flagship Boosting R-CNN or Faster / Mask R-CNN R50-FPN):
+
+      backbone.*                              -> backbone.* (``from_torchvision_resnet``)
+      neck.{lateral,fpn,downsample,pafpn}_convs.N.conv -> neck.{lateral_N,fpn_conv_N,...}.conv
+      rpn_head.rpn_convs.N.{conv,gn}          -> rpn.rpn_conv_N.{conv,norm}
+      rpn_head.rpn_conv (plain RPN)           -> rpn.rpn_conv
+      rpn_head.{rpn_cls,rpn_reg,rpn_iou}      -> rpn.{rpn_cls,rpn_reg,rpn_iou}
+      rpn_head.scales.N.scale                 -> rpn.scale_N.scale (a scalar)
+      roi_head.bbox_head.shared_fcs.N         -> bbox_head.shared_fc_N (N = 0 reordered)
+      roi_head.bbox_head.{fc_cls,fc_reg}      -> bbox_head.{fc_cls,fc_reg}
+      roi_head.mask_head.convs.N.conv         -> mask_head.conv_N
+      roi_head.mask_head.{upsample,conv_logits} -> mask_head.{upsample,conv_logits}
+
+    A key of any other module raises (the port has no such module)."""
+    backbone = {k[len("backbone."):]: v for k, v in state_dict.items()
+                if k.startswith("backbone.")}
+    out = from_torchvision_resnet(backbone)
+    rules = [
+        (r"neck\.(\w+_convs)\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"neck.{_NECK[m[1]].format(m[2])}.conv.{m[3]}" if m[1] in _NECK else None),
+        (r"rpn_head\.rpn_convs\.(\d+)\.(conv|gn)\.(weight|bias)",
+         lambda m: f"rpn.rpn_conv_{m[1]}.{'conv' if m[2] == 'conv' else 'norm'}.{m[3]}"),
+        (r"rpn_head\.(rpn_conv|rpn_cls|rpn_reg|rpn_iou)\.(weight|bias)",
+         lambda m: f"rpn.{m[1]}.{m[2]}"),
+        (r"rpn_head\.scales\.(\d+)\.scale", lambda m: f"rpn.scale_{m[1]}.scale"),
+        (r"roi_head\.bbox_head\.shared_fcs\.(\d+)\.(weight|bias)",
+         lambda m: f"bbox_head.shared_fc_{m[1]}.{m[2]}"),
+        (r"roi_head\.bbox_head\.(fc_cls|fc_reg)\.(weight|bias)",
+         lambda m: f"bbox_head.{m[1]}.{m[2]}"),
+        (r"roi_head\.mask_head\.convs\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"mask_head.conv_{m[1]}.{m[2]}"),
+        (r"roi_head\.mask_head\.(upsample|conv_logits)\.(weight|bias)",
+         lambda m: f"mask_head.{m[1]}.{m[2]}"),
+    ]
+    for key, value in state_dict.items():
+        if key.startswith("backbone.") or _SKIP.search(key):
+            continue
+        name = None
+        for pattern, rename in rules:
+            m = re.fullmatch(pattern, key)
+            if m:
+                name = rename(m)
+                break
+        if name is None:
+            raise ValueError(f"mmdet state dict key {key!r} has no counterpart in the port")
+        tensor = _port_tensor(value)
+        if name.endswith(".scale"):
+            tensor = tensor.reshape(())
+        elif name == "bbox_head.shared_fc_0.weight":
+            tensor = _fc_after_pool(tensor, roi_feat_size)
+        out[name] = tensor
+    return out
+
+
+def read_state_dict(path: str) -> Dict[str, Any]:
+    """The ``state_dict`` of a PyTorch checkpoint file (mmdet and mmcv nest
+    it under ``"state_dict"``), read on the CPU."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd.get("state_dict", sd)
+
+
+def load_pretrained(net: torch.nn.Module, init_cfg: Dict[str, Any]) -> str:
+    """Load a backbone ``init_cfg=dict(type="Pretrained", checkpoint=path)``
+    into ``net`` from a local torchvision or mmdet ResNet file; returns the
+    path.  Model-zoo and web addresses raise: nothing is fetched."""
+    path = init_cfg.get("checkpoint") or ""
+    if "://" in path:
+        raise ValueError(
+            f"backbone init_cfg checkpoint {path!r} is an address; the port fetches nothing: "
+            f"give a local .pth file, or set model.backbone.init_cfg=None for random weights")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"backbone init_cfg checkpoint {path!r}")
+    sd = read_state_dict(path)
+    if any(k.startswith("backbone.") for k in sd):
+        sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
+    weights = from_torchvision_resnet(sd)
+    own = {k for k in net.state_dict() if k.startswith("backbone.")}
+    missing = sorted(own - set(weights))
+    if missing:
+        raise ValueError(f"{path} lacks backbone weights: {missing[:4]}")
+    net.load_state_dict(weights, strict=False)
+    return path

@@ -85,6 +85,31 @@ kernel on one 16-byte vector of channels beside the tile-key kernel (its
 geometry against a pass of its own), and at the train shapes the
 gradient's RoIs per tile, per level.
 
+Then the user's entry points, in float32 and again in bfloat16, on
+synthetic COCO-format sets written to a temporary directory
+(``data/synthetic.py``, PPM images): 24 train and 9 val images at UTDAC's
+frame sizes (1920 x 1080, 720 x 405, 586 x 480; 2 portrait frames each),
+and the 200 + 50 image shapes set of ``scripts/make_synthetic_coco.py``.
+At full width, from ``apis.init_detector`` with seeded random weights,
+``train_detector`` takes 8 steps at batch 4 (counts set to 0 before, read
+after: the 7 x 7 forward and gradient kernels of the dtype ran); a run
+stopped after 6 steps, inside epoch 0, writes a checkpoint that, restored
+into a fresh model, gives every tensor of the model's and optimizer's
+``state_dict`` and the generator's state ``torch.equal``, and
+``train_detector(resume_from=)`` from it (the portrait batch on its own
+canvas and anchors, then epoch 1's first) ends bit-equal to the
+uninterrupted run; the test CLI's function evaluates each of the 9 val
+images once (counts again: the forward kernel ran), every bbox stat
+finite.  Then ``scripts/e2e_ap_check.py``'s recipe through the port's
+train and test CLIs: the tiny flagship from scratch on the shapes set, 24
+epochs (the epochs of the JAX script's recorded passes) at batch 8 with
+the script's batch-2 learning rate and warmup scaled linearly (lr 0.01,
+warmup 50), step decay at epochs 16 and 22, no validation, then the test
+CLI: bbox mAP at least 0.8 (the JAX
+script's threshold).  It prints train
+images/s (loading included), the loader-wait share, eval images/s, peak
+memory, the kernels' launches and the mAP with its wall time.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
 code is not 0; without a CUDA device it exits with code 2 and prints no
@@ -92,12 +117,15 @@ result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,13 +136,19 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
 from boosting_rcnn_tpu_torch import cuda_build  # noqa: E402
+from boosting_rcnn_tpu_torch.apis import init_detector, train_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.data.synthetic import generate  # noqa: E402
+from boosting_rcnn_tpu_torch.engine.checkpoint import restore_checkpoint  # noqa: E402
+from boosting_rcnn_tpu_torch.engine.runner import build_trainer  # noqa: E402
 from boosting_rcnn_tpu_torch.engine.train import (  # noqa: E402
     make_optimizer,
     make_train_step,
     step_lr_schedule,
 )
+from boosting_rcnn_tpu_torch.tools.test import main as test_cli  # noqa: E402
+from boosting_rcnn_tpu_torch.tools.train import main as train_cli  # noqa: E402
 from boosting_rcnn_tpu_torch.ops import roi_align  # noqa: E402
 from boosting_rcnn_tpu_torch.ops.roi_align_kernel import (  # noqa: E402
     batched_multilevel_roi_align,
@@ -1484,6 +1518,184 @@ def run_mask_paths(mc, dtype, gpu: str, odd) -> dict:
     return r
 
 
+# ------------------------------------------------------------ entry points
+UTDAC_FRAMES = ((1920, 1080), (720, 405), (586, 480))  # UTDAC2020's frame sizes
+# full-width train_detector steps before the checkpoint: one short of the
+# epoch's 7 batches (6 landscape, then the portrait one), so that the resumed
+# run takes the portrait batch, then epoch 1's first
+ENTRY_STEPS = 6
+# scripts/e2e_ap_check.py's recipe at the epochs of its recorded passes
+# (docs/TRAIN_PERF.md: 24, decay at 16 and 22; at its default of 8 the JAX
+# package itself ends below the threshold on the CPU), at batch 8 with its
+# learning rate and warmup scaled linearly from batch 2 (lr 0.0025, 200
+# iterations): a quarter of the host-bound steps
+E2E_EPOCHS = 24
+E2E_BATCH = 8
+E2E_LR = 0.0025 * E2E_BATCH / 2
+E2E_WARMUP = 200 * 2 // E2E_BATCH
+E2E_MIN_MAP = 0.8  # scripts/e2e_ap_check.py's threshold
+
+
+def data_options(root: str, dtype, **more) -> dict:
+    """``--cfg-options`` pointing the flagship config's splits at the
+    synthetic set under ``root`` (val doubles as test), random backbone
+    weights, the compute dtype."""
+    opts = {f"data.{split}.{key}": f"{root}/{name}{ext}"
+            for split, name in (("train", "train"), ("val", "val"), ("test", "val"))
+            for key, ext in (("ann_file", ".json"), ("img_prefix", ""))}
+    opts.update({"model.backbone.init_cfg": "None",
+                 "compute_dtype": "float32" if dtype == torch.float32 else "bfloat16"})
+    opts.update({k: str(v) for k, v in more.items()})
+    return opts
+
+
+def cli_options(opts: dict) -> list:
+    return ["--cfg-options", *[f"{k}={v}" for k, v in opts.items()]]
+
+
+def trainer_state(trainer) -> dict:
+    """A copy of what a checkpoint holds: the model's and the optimizer's
+    ``state_dict`` and the sampler generator's state."""
+    return copy.deepcopy({"model": trainer.detector.net.state_dict(),
+                          "optimizer": trainer.optimizer.state_dict(),
+                          "generator": trainer.generator.get_state()})
+
+
+def differing(a, b, path: str = "") -> list:
+    """Where two nested states differ (tensors by ``torch.equal``)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path} keys"]
+        return [d for k in a for d in differing(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in differing(x, y, f"{path}/{i}")]
+    if torch.is_tensor(a):
+        return [] if torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def entry_points(dtype, gpu: str, utdac: str, work: str) -> dict:
+    """The user's entry points at full width in ``dtype``, from
+    ``init_detector`` with seeded random weights at the config's batch of 4
+    on the UTDAC-sized set: ``train_detector`` for ENTRY_STEPS + 2 steps (the
+    counts set to 0 before, read after); the same for ENTRY_STEPS steps,
+    stopped inside epoch 0, its checkpoint restored into a fresh model
+    (every tensor of the state ``torch.equal``) and resumed through
+    ``train_detector(resume_from=)`` for the 2 steps left (the portrait
+    batch on its own canvas and anchors, then epoch 1's first): it ends
+    bit-equal to the uninterrupted run; then the test CLI's function over
+    the 9 val images (counts again)."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    cfg = load_config(CONFIG)
+    cfg.merge_from_options(data_options(utdac, dtype))
+    steps = ENTRY_STEPS + 2
+    handle = init_detector(cfg, device="cuda", seed=21)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    summary = train_detector(handle, os.path.join(work, f"whole_{tag}"), max_iters=steps,
+                             validate=False)
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if summary["steps"] != steps or summary["images"] != steps * TRAIN_BATCH:
+        raise AssertionError(f"{tag} entry train: {summary['steps']} steps, "
+                             f"{summary['images']} images")
+    loss = summary["last_metrics"]["loss"]
+    if not math.isfinite(loss):
+        raise AssertionError(f"{tag} entry train: loss {loss}")
+    end, ckpt_end = trainer_state(summary["trainer"]), summary["checkpoints"][-1]
+    del handle, summary["trainer"]
+
+    first = train_detector(init_detector(cfg, device="cuda", seed=21),
+                           os.path.join(work, f"first_{tag}"), max_iters=ENTRY_STEPS,
+                           validate=False)
+    ckpt = first["checkpoints"][-1]
+    saved = trainer_state(first["trainer"])
+    del first["trainer"]
+    fresh = init_detector(cfg, device="cuda", seed=22)
+    restored = build_trainer(cfg, fresh.detector, ENTRY_STEPS + 1, seed=0)
+    meta = restore_checkpoint(ckpt, fresh.detector.net, restored.optimizer, restored.generator)
+    bad = differing(trainer_state(restored), saved)
+    if (meta["step"], meta["epoch"], meta["iter"]) != (ENTRY_STEPS, 0, ENTRY_STEPS) or bad:
+        raise AssertionError(f"{tag}: restored checkpoint differs in {bad[:6]} (meta {meta})")
+    del restored, fresh
+    rest = train_detector(init_detector(cfg, device="cuda", seed=22),
+                          os.path.join(work, f"rest_{tag}"), resume_from=ckpt, max_iters=steps,
+                          validate=False)
+    names = [os.path.basename(c) for c in rest["checkpoints"]]
+    bad = differing(trainer_state(rest["trainer"]), end)
+    if rest["steps"] != 2 or names != ["epoch_1", f"iter_{steps}"] or bad:
+        raise AssertionError(f"{tag}: the run resumed from {ckpt} ({rest['steps']} steps, "
+                             f"checkpoints {names}) differs from the uninterrupted run in "
+                             f"{len(bad)} tensors: {bad[:6]}")
+    say(f"{tag} entry points: train_detector {steps} steps at batch {TRAIN_BATCH} on "
+        f"UTDAC-sized frames, loss {loss:.5g}; a run stopped after {ENTRY_STEPS} steps: its "
+        f"checkpoint restored into a fresh model is torch.equal in every tensor, and "
+        f"train_detector resumed from it (the portrait batch, then epoch 1's first) ends "
+        f"bit-equal to the uninterrupted run (every tensor of the model's and optimizer's "
+        f"state_dict and the generator's state)")
+    del rest["trainer"]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    metrics = test_cli([CONFIG, ckpt_end, "--device", "cuda", "--classwise",
+                        *cli_options(data_options(utdac, dtype))])
+    eval_counts = read_counts()
+    stats = [v for k, v in metrics.items() if k.startswith("bbox_")]
+    stats += list(metrics["classwise"].values())
+    if metrics["num_results"] != 9 or len(stats) != 10 or not all(map(math.isfinite, stats)):
+        raise AssertionError(f"{tag} test CLI: {metrics['num_results']} results, stats "
+                             f"{stats}")
+    fwd, bwd = "roi_align_fwd" + ("" if tag == "f32" else "_bf16"), "roi_align_bwd" + (
+        "" if tag == "f32" else "_bf16")
+    if not (train_counts[fwd] and train_counts[bwd] and eval_counts[fwd]):
+        raise AssertionError(f"{tag} entry points: kernels not launched: train "
+                             f"{ran(train_counts)}, eval {ran(eval_counts)}")
+    out = {"train_images_per_s": summary["images_per_s"],
+           "loader_wait_share": summary["loader_wait_share"],
+           "eval_images_per_s": metrics["eval_stats"]["images_per_s"],
+           "train_peak_gib": peak, "train_counts": ran(train_counts),
+           "eval_counts": ran(eval_counts), "val_results": metrics["num_results"],
+           "bbox_stats": {k: v for k, v in metrics.items() if k.startswith("bbox_")}}
+    say(f"{tag} entry points ({gpu}): " + json.dumps(out))
+    return out
+
+
+def e2e_trains(dtype, gpu: str, synth: str, work: str) -> dict:
+    """``scripts/e2e_ap_check.py``'s recipe through the port's CLIs: the tiny
+    flagship from scratch on the 200-image shapes set, E2E_EPOCHS epochs at
+    batch E2E_BATCH, lr E2E_LR, warmup E2E_WARMUP, decay at 2/3 of the
+    epochs and 2 before the end, no validation; then the test CLI on the 50
+    val images: bbox mAP at least E2E_MIN_MAP."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    opts = cli_options(data_options(
+        synth, dtype, **{"data.samples_per_gpu": E2E_BATCH, "runner.max_epochs": E2E_EPOCHS,
+                         "optimizer.lr": E2E_LR, "lr_config.warmup_iters": E2E_WARMUP,
+                         "lr_config.step": f"[{2 * E2E_EPOCHS // 3},{E2E_EPOCHS - 2}]",
+                         "model.backbone.frozen_stages": -1}))
+    wd = os.path.join(work, f"e2e_{tag}")
+    t0 = time.perf_counter()
+    reset_counts()
+    summary = train_cli([CONFIG, "--device", "cuda", "--tiny", "--no-validate", "--seed", "0",
+                         "--work-dir", wd, *opts])
+    counts = read_counts()
+    train_s = time.perf_counter() - t0
+    metrics = test_cli([CONFIG, os.path.join(wd, f"epoch_{E2E_EPOCHS}"), "--device", "cuda",
+                        "--tiny", *opts])
+    wall = time.perf_counter() - t0
+    out = {"bbox_mAP": metrics["bbox_mAP"], "bbox_mAP_50": metrics["bbox_mAP_50"],
+           "steps": summary["steps"], "train_images_per_s": summary["images_per_s"],
+           "loader_wait_share": summary["loader_wait_share"], "train_s": train_s,
+           "eval_images_per_s": metrics["eval_stats"]["images_per_s"], "wall_s": wall,
+           "counts": ran(counts)}
+    say(f"{tag} e2e shapes set ({gpu}): " + json.dumps(out))
+    if not metrics["bbox_mAP"] >= E2E_MIN_MAP:
+        raise AssertionError(f"{tag} e2e: bbox mAP {metrics['bbox_mAP']} < {E2E_MIN_MAP}")
+    return out
+
+
 def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list:
     """The ``{"kernels": [...]}`` records of one dtype's kernels at one
     pooled size (``o``: '' for 7 x 7, '_o14' for 14 x 14): K1, K4 and their
@@ -1637,9 +1849,31 @@ def main() -> int:
             f"steps are bit-identical; under torch.use_deterministic_algorithms(True) no op "
             f"raised and the steps are bit-identical")
 
+    # ------------------ entry points: COCO-format data, train / test CLIs, e2e
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        utdac, synth = os.path.join(work, "utdac_like"), os.path.join(work, "shapes")
+        generate(utdac, n_train=24, n_val=9, seed=0, frame_sizes=UTDAC_FRAMES, n_portrait=2,
+                 object_scale=0.3)
+        generate(synth, n_train=200, n_val=50, seed=0)
+        say(f"synthetic COCO sets written in {time.perf_counter() - t0:.1f} s: 24 + 9 "
+            f"UTDAC-sized frames {UTDAC_FRAMES} (2 portrait each), 200 + 50 shapes images")
+        entry, e2e = {}, {}
+        for dtype in (torch.float32, BF16):
+            entry[dtype] = entry_points(dtype, gpu, utdac, work)
+            say(f"wall {time.perf_counter() - t_start:.1f} s")
+        for dtype in (torch.float32, BF16):
+            e2e[dtype] = e2e_trains(dtype, gpu, synth, work)
+            say(f"wall {time.perf_counter() - t_start:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     r32, r16 = runs[torch.float32], runs[BF16]
     m32, m16 = mask_runs[torch.float32], mask_runs[BF16]
     say("summary (" + gpu + "): " + json.dumps({
+        "entry_points": {("f32" if d == torch.float32 else "bf16"): {**entry[d], "e2e": e2e[d]}
+                         for d in (torch.float32, BF16)},
         "mask_rcnn": {
             "predict_ms": {"f32": m32["predict_ms"], "bf16": m16["predict_ms"]},
             "predict_images_per_s": {"f32": BATCH * 1e3 / m32["predict_ms"],
@@ -1665,6 +1899,14 @@ def main() -> int:
         "wall_s": time.perf_counter() - t_start}))
     records = (kernel_records(r32, torch.float32, box=m32) + kernel_records(r16, BF16, box=m16)
                + kernel_records(m32, torch.float32, "_o14") + kernel_records(m16, BF16, "_o14"))
+    for record in records:  # the entry points' paths launch the 7 x 7 kernels too
+        for dtype in (torch.float32, BF16):
+            for path, counts in (("entry_train", entry[dtype]["train_counts"]),
+                                 ("entry_eval", entry[dtype]["eval_counts"]),
+                                 ("e2e_train", e2e[dtype]["counts"])):
+                n = counts.get(record["name"], 0)
+                if n:
+                    record.setdefault("launches_by_path", {})[path] = n
     for record in records:
         timings = [v for part in (record, record.get("train_shapes", {}),
                                   record.get("predict_shapes", {}),

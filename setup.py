@@ -10,7 +10,7 @@ setup(
     ),
     # "boosting_rcnn_tpu*" also takes in the PyTorch port, boosting_rcnn_tpu_torch
     packages=find_packages(include=["boosting_rcnn_tpu*", "native*"]),
-    package_data={"boosting_rcnn_tpu_torch": ["csrc/*.cu"]},
+    package_data={"boosting_rcnn_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     extras_require={"data": ["opencv-python"]},
