@@ -1,15 +1,20 @@
 """Build a two-stage detector from a model config (PyTorch port of the
 two-stage branch of ``boosting_rcnn_tpu/builder.py::build_detector``).
 
-Ported types: ``FasterRCNN`` and ``MaskRCNN`` with ``ResNet`` (depth 18 or
-50, pytorch style, frozen BN, ``frozen_stages``); the neck ``PAFPN``
-(extra convs on output) or ``FPN`` (extra levels by max pool); the RPN
-``ATSSRPNHead`` (max-IoU assignment, focal / IoU / MSE / BCE losses) or
-``RPNHead`` (one 3x3 conv, BCE and smooth L1, a random anchor sampler);
-the RoI head ``ProbRoIHead`` (boosting loss, prior fusion) or
+Ported types: ``FasterRCNN`` and ``MaskRCNN`` with the backbone ``ResNet``
+(depths 18, 34, 50, 101, 152, pytorch style, frozen BN, ``frozen_stages``,
+DCN / DCNv2 stages), ``ResNeXt`` (grouped 3x3s) or ``Res2Net`` (deep stem,
+hierarchical splits, DCN / DCNv2 stages); the neck ``PAFPN`` (extra convs
+on output) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
+pool or by convs on the input, lateral or output); the RPN
+``ATSSRPNHead`` (max-IoU assignment, focal / IoU / CIoU / MSE / BCE
+losses, on decoded boxes or on encoded deltas) or ``RPNHead`` (one 3x3
+conv, BCE and smooth L1, a random anchor sampler); the RoI head
+``ProbRoIHead`` (boosting loss, prior fusion, ``reg_norm``) or
 ``StandardRoIHead`` (plain cross entropy, softmax scores), each with a
-random sampler and a Shared2FC box head with cross entropy and L1; and an
-``FCNMaskHead`` on a 14 x 14 ``RoIAlign`` (Mask R-CNN).  The ``train_cfg``
+random sampler and a Shared2FC box head with cross entropy and L1, and
+hard or soft NMS at test; and an ``FCNMaskHead`` on a 14 x 14
+``RoIAlign`` (Mask R-CNN).  The ``train_cfg``
 is read as the JAX builder reads it.  Any type or value the port does not
 implement raises ``NotImplementedError`` naming it.
 
@@ -25,6 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .models.backbones.res2net import Res2Net
 from .models.backbones.resnet import ResNet
 from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
@@ -67,9 +73,25 @@ def _check(cfg: Dict[str, Any], key: str, allowed, default=None) -> None:
         raise _unported(key, value)
 
 
-def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator) -> ResNet:
-    _check(cfg, "type", ("ResNet",))
-    for key in ("dcn", "plugins", "conv_cfg", "norm_cfg"):
+def _dcn(cfg: Dict[str, Any]):
+    """The backbone's ``dcn`` dict and ``stage_with_dcn`` (JAX ``Bottleneck``
+    and ``Bottle2neck`` read ``type`` and ``deform_groups``)."""
+    dcn = cfg.get("dcn")
+    stages = tuple(cfg.get("stage_with_dcn", (False,) * 4))
+    if dcn is None:
+        return None, stages
+    _only(dcn, "backbone.dcn", ("type", "deform_groups", "fallback_on_stride"))
+    _check(dcn, "type", ("DCN", "DCNv2"))
+    _check(dcn, "fallback_on_stride", (False,), False)
+    return dcn, stages
+
+
+def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
+    """``ResNet``, ``ResNeXt`` (JAX ``build_resnext``'s defaults: depth 101,
+    32 groups of base width 4) or ``Res2Net`` (depth 101, 4 scales of base
+    width 26)."""
+    _check(cfg, "type", ("ResNet", "ResNeXt", "Res2Net"))
+    for key in ("plugins", "conv_cfg", "norm_cfg"):
         _check(cfg, key, (None,))
     _check(cfg, "style", ("pytorch",), "pytorch")
     _check(cfg, "deep_stem", (False,), False)
@@ -78,22 +100,35 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator) -> ResNet:
     for key, value in (("dilations", (1, 1, 1, 1)), ("strides", (1, 2, 2, 2)),
                        ("out_indices", (0, 1, 2, 3))):
         _check({key: tuple(cfg.get(key, value))}, key, (value,))
-    return ResNet(gen, depth=cfg.get("depth", 50),
-                  base_channels=cfg.get("base_channels", 64),
-                  frozen_stages=cfg.get("frozen_stages", -1))
+    dcn, stage_with_dcn = _dcn(cfg)
+    common = dict(base_channels=cfg.get("base_channels", 64),
+                  frozen_stages=cfg.get("frozen_stages", -1), dcn=dcn,
+                  stage_with_dcn=stage_with_dcn)
+    if cfg["type"] == "Res2Net":
+        return Res2Net(gen, depth=cfg.get("depth", 101), scales=cfg.get("scales", 4),
+                       base_width=cfg.get("base_width", 26), **common)
+    if cfg["type"] == "ResNeXt":
+        return ResNet(gen, depth=cfg.get("depth", 101), groups=cfg.get("groups", 32),
+                      base_width=cfg.get("base_width", 4), **common)
+    for key in ("groups", "base_width", "scales"):  # the JAX build_resnet reads none
+        _check(cfg, key, (None,))
+    return ResNet(gen, depth=cfg.get("depth", 50), **common)
 
 
 def _build_neck(cfg: Dict[str, Any], gen: torch.Generator):
     _check(cfg, "type", ("PAFPN", "FPN"))
     if cfg["type"] == "FPN":
-        # the one FPN of the ported configs (Mask R-CNN's): no norm, extra
-        # levels by max pool, every backbone stage used
-        for key, value in (("add_extra_convs", False), ("norm_cfg", None), ("conv_cfg", None),
-                           ("act", None), ("start_level", 0), ("end_level", -1)):
+        # no norm and no activation, as every ported config's FPN
+        for key, value in (("norm_cfg", None), ("conv_cfg", None), ("act", None)):
             if cfg.get(key, value) != value:
                 raise _unported(f"FPN {key}", cfg[key])
+        _check(cfg, "add_extra_convs", (False, True, "on_input", "on_lateral", "on_output"),
+               False)
         return FPN(gen, in_channels=cfg["in_channels"],
-                   out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5))
+                   out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5),
+                   start_level=cfg.get("start_level", 0), end_level=cfg.get("end_level", -1),
+                   add_extra_convs=cfg.get("add_extra_convs", False),
+                   relu_before_extra_convs=cfg.get("relu_before_extra_convs", False))
     _check(cfg, "norm_cfg", (None,))
     _check(cfg, "no_norm_on_lateral", (False,), False)
     _check(cfg, "add_extra_convs", ("on_output",), False)
@@ -124,6 +159,7 @@ def _only(cfg: Dict[str, Any], what: str, keys) -> None:
 _LOSS_KEYS = {
     "FocalLoss": ("type", "use_sigmoid", "gamma", "alpha", "loss_weight"),
     "IoULoss": ("type", "linear", "mode", "loss_weight"),
+    "CIoULoss": ("type", "eps", "loss_weight"),
     "CrossEntropyLoss": ("type", "use_sigmoid", "use_mask", "class_weight", "loss_weight"),
     "MSELoss": ("type", "loss_weight"),
     "L1Loss": ("type", "loss_weight"),
@@ -157,19 +193,26 @@ def _max_iou_assigner(cfg: Dict[str, Any], defaults) -> Dict[str, Any]:
                 match_low_quality=cfg.get("match_low_quality", low))
 
 
+# the ATSS RPN's box losses by config type (JAX builder.py:53-64)
+_RPN_BOX_LOSSES = {"IoULoss": "iou", "CIoULoss": "ciou"}
+
+
 def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
     """The ATSS RPN's coder, losses and train assigner (JAX
     ``build_rpn``)."""
     _check(rpn, "atss", (False,), False)
-    _check(rpn, "reg_decoded_bbox", (True,), True)
+    _check(rpn, "reg_decoded_bbox", (True, False), True)
     loss_cls = _loss(rpn, "loss_cls", ("FocalLoss",), {"type": "FocalLoss"})
     _check(loss_cls, "use_sigmoid", (True,), True)
-    loss_bbox = _loss(rpn, "loss_bbox", ("IoULoss",), {"type": "IoULoss"})
+    loss_bbox = _loss(rpn, "loss_bbox", tuple(_RPN_BOX_LOSSES), {"type": "IoULoss"})
     _check(loss_bbox, "linear", (False,), False)
     _check(loss_bbox, "mode", ("log",), "log")
+    _check(loss_bbox, "eps", (1e-7,), 1e-7)  # the JAX RPN calls ciou_loss at its default
     loss_iou = _loss(rpn, "loss_centerness", ("CrossEntropyLoss",),
                      {"type": "CrossEntropyLoss", "use_sigmoid": True})
     _check(loss_iou, "use_sigmoid", (True,), False)
+    # read on both branches; the encoded-delta one adds no MSE term (JAX
+    # atss_rpn_head.py:348-372)
     aug = _loss(rpn, "aug_reg_loss", ("MSELoss",))
     _only(train_rpn, "train_cfg.rpn", ("assigner", "sampler", "allowed_border", "pos_weight",
                                        "debug"))
@@ -179,7 +222,9 @@ def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
     _check(train_rpn, "debug", (False,), False)
     means, stds = _coder(rpn, (1.0,) * 4)
     return ATSSRPNCfg(
-        gamma=rpn.get("gamma", 1.0), atss=False, reg_decoded_bbox=True,
+        gamma=rpn.get("gamma", 1.0), atss=False,
+        reg_decoded_bbox=rpn.get("reg_decoded_bbox", True),
+        loss_bbox_type=_RPN_BOX_LOSSES[loss_bbox["type"]],
         target_means=means, target_stds=stds,
         focal_gamma=loss_cls.get("gamma", 2.0), focal_alpha=loss_cls.get("alpha", 0.25),
         loss_cls_weight=loss_cls.get("loss_weight", 1.0),
@@ -315,7 +360,7 @@ def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
     ``build_detector``, two-stage branch)."""
     _check(roi, "quality", (False,), False)
     _check(roi, "alpha", (0,), 0)
-    _check(roi, "reg_norm", ("bbox_num",), "bbox_num")
+    _check(roi, "reg_norm", ("bbox_num", "mean"), "bbox_num")
     _only(train_rcnn, "train_cfg.rcnn", ("assigner", "sampler", "pos_weight", "debug",
                                          "mask_size"))
     sampler = train_rcnn.get("sampler", {})
@@ -328,7 +373,7 @@ def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
     prob_head = roi["type"] == "ProbRoIHead"
     return ProbRoICfg(
         gamma=roi.get("gamma", 0.1), boost=roi.get("boost", prob_head),
-        prob=roi.get("prob", prob_head),
+        prob=roi.get("prob", prob_head), reg_norm=roi.get("reg_norm", "bbox_num"),
         num_samples=sampler.get("num", 512), pos_fraction=sampler.get("pos_fraction", 0.25),
         neg_pos_ub=sampler.get("neg_pos_ub", -1),
         **_max_iou_assigner(train_rcnn.get("assigner", {}), (0.5, 0.5, 0.5, False)),
@@ -343,6 +388,27 @@ def _proposal_cfg(cfg: Dict[str, Any], nms_pre: int, max_per_img: int) -> Propos
         nms_pre=cfg.get("nms_pre", nms_pre), max_per_img=cfg.get("max_per_img", max_per_img),
         nms_iou_thr=cfg.get("nms", {}).get("iou_threshold", 0.7),
         min_bbox_size=cfg.get("min_bbox_size", 0),
+    )
+
+
+def _rcnn_test_cfg(rcnn_test: Dict[str, Any]) -> RCNNTestCfg:
+    """``test_cfg.rcnn``: the score threshold, the detections kept and the
+    NMS, hard (``type``, ``iou_threshold``) or soft (also ``min_score``,
+    ``sigma`` and ``method``, mmcv ``soft_nms``'s defaults 1e-3, 0.5 and
+    ``"linear"``)."""
+    nms = rcnn_test.get("nms", {})
+    _check(nms, "type", ("nms", "soft_nms"), "nms")
+    soft = nms.get("type") == "soft_nms"
+    _only(nms, "test_cfg.rcnn.nms", ("type", "iou_threshold")
+          + (("min_score", "sigma", "method") if soft else ()))
+    _check(nms, "method", ("linear", "gaussian"), "linear")
+    return RCNNTestCfg(
+        score_thr=rcnn_test.get("score_thr", 0.05),
+        nms_iou_thr=nms.get("iou_threshold", 0.5),
+        max_per_img=rcnn_test.get("max_per_img", 100),
+        pre_nms_top_k=rcnn_test.get("pre_nms_top_k", 2048),
+        nms_type=nms.get("type", "nms"), soft_sigma=nms.get("sigma", 0.5),
+        soft_min_score=nms.get("min_score", 1e-3), soft_method=nms.get("method", "linear"),
     )
 
 
@@ -405,16 +471,10 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
     )
     set_compute_dtype(net, dtype)
     rcnn_test = test_cfg.get("rcnn", {})
-    _check(rcnn_test.get("nms", {}), "type", ("nms",), "nms")
     return TwoStageDetector(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
         train_proposal_cfg=_proposal_cfg(train_cfg.get("rpn_proposal") or {}, 4000, 2000),
         test_proposal_cfg=_proposal_cfg(test_cfg.get("rpn") or {}, 1000, 256),
-        rcnn_test_cfg=RCNNTestCfg(
-            score_thr=rcnn_test.get("score_thr", 0.05),
-            nms_iou_thr=rcnn_test.get("nms", {}).get("iou_threshold", 0.5),
-            max_per_img=rcnn_test.get("max_per_img", 100),
-            pre_nms_top_k=rcnn_test.get("pre_nms_top_k", 2048),
-        ),
+        rcnn_test_cfg=_rcnn_test_cfg(rcnn_test),
         rpn_type=rpn_type,
     )

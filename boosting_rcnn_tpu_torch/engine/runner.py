@@ -1,8 +1,9 @@
 """The train loop (the epoch loop of the JAX package's ``tools/train.py``,
 as a function): ``train_detector(cfg, work_dir, ...)``.
 
-From the config: the model (``--tiny`` shrinks the flagship to ResNet-18
-at width 8 on a 128 x 160 canvas), its compute dtype (``compute_dtype``),
+From the config: the model (``--tiny`` shrinks a Boosting R-CNN config
+to ResNet-18 at width 8 on a 128 x 160 canvas), its compute dtype
+(``compute_dtype``),
 the train dataset and loader (``data.train``, batch ``samples_per_gpu``),
 SGD with momentum, weight decay and the gradient clip
 (``optimizer``, ``optimizer_config``), the step schedule with linear
@@ -54,12 +55,20 @@ _UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "lsj_range", "
                       "albu", "instaboost", "domain_file", "jigsaw", "dgaug")
 
 
+# the keys of a ResNeXt or Res2Net backbone that ResNet-18 has no use for
+# (the JAX build_resnet ignores the first three, its BasicBlock the dcn)
+_BIG_BLOCK_KEYS = ("groups", "base_width", "scales", "dcn", "stage_with_dcn")
+
+
 def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
-    """The flagship branch of the JAX ``tools/train.py::shrink_model``:
-    ResNet-18 at width 8, neck 32, RPN 32 x 2, FC 64, fewer proposals and
-    RoIs.  Other model types raise."""
+    """The Boosting R-CNN branch of the JAX ``tools/train.py::shrink_model``:
+    the backbone (ResNet, ResNeXt or Res2Net) becomes ResNet-18 at width 8,
+    neck 32, RPN 32 x 2, FC 64, fewer proposals and RoIs.  Other model
+    types raise."""
     if mc.get("rpn_head", {}).get("type") != "ATSSRPNHead" or "roi_head" not in mc:
-        raise NotImplementedError("--tiny shrinks the flagship (ATSS RPN) configs only")
+        raise NotImplementedError("--tiny shrinks the Boosting R-CNN (ATSS RPN) configs only")
+    for key in _BIG_BLOCK_KEYS:
+        mc["backbone"].pop(key, None)
     mc["backbone"].update(type="ResNet", depth=18, base_channels=8)
     mc["neck"].update(in_channels=[8, 16, 32, 64], out_channels=32)
     mc["rpn_head"].update(feat_channels=32, stacked_convs=2)

@@ -29,7 +29,9 @@ The step is bitwise repeatable on the GPU, as the JAX step is on the TPU:
 it pins cuDNN to deterministic algorithms (``cudnn.deterministic`` on,
 ``cudnn.benchmark`` off) for its own duration, and the port's train path
 uses no other nondeterministic op (its gathers with a gradient are one-hot
-products, the RoIAlign gradient adds in a fixed order).
+products or, in the deformable convolution, advanced indexing, whose
+gradient sums in sorted order; the RoIAlign gradient adds in a fixed
+order).
 """
 from __future__ import annotations
 

@@ -1,7 +1,12 @@
 """ResNet backbone (PyTorch port of ``boosting_rcnn_tpu/models/backbones/resnet.py``).
 
-Depths 18 (``BasicBlock``) and 50 (``Bottleneck``), ``style='pytorch'``
-(stride on the 3x3), frozen BN.  The JAX package computes the 7x7/s2 stem
+Depths 18 and 34 (``BasicBlock``), 50, 101 and 152 (``Bottleneck``),
+``style='pytorch'`` (stride on the 3x3), frozen BN; ResNeXt's grouped 3x3
+(``groups``, ``base_width``: its width is ``int(planes * base_width /
+base_channels) * groups``, JAX ``resnet.py:194-199``), and a deformable
+3x3 (``dcn``, DCN or DCNv2; dense, as the JAX package's, whatever
+``groups``) in the stages of ``stage_with_dcn``.  The JAX package
+computes the 7x7/s2 stem
 as a space-to-depth 4x4 conv (``_S2DStemConv``), a TPU-only exact rewrite;
 here it is the plain 7x7/s2 conv over the same (7, 7, 3, F) weights.  In
 bfloat16 the JAX stem contracts with ``preferred_element_type=bfloat16``
@@ -24,12 +29,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import FrozenBatchNorm, make_conv, max_pool
+from ..layers import DeformConv, FrozenBatchNorm, make_conv, max_pool
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
     50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
 }
+
+
+def make_dcn(cin: int, cout: int, stride: int, dcn: dict, gen: torch.Generator) -> DeformConv:
+    """The deformable 3x3 of a ``dcn=dict(type='DCN' | 'DCNv2',
+    deform_groups=...)`` block (JAX ``Bottleneck``, ``Bottle2neck``)."""
+    return DeformConv(cin, cout, 3, stride, gen, deform_groups=dcn.get("deform_groups", 1),
+                      modulated=dcn.get("type", "DCNv2") == "DCNv2")
 
 
 class BasicBlock(nn.Module):
@@ -61,14 +76,19 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
-                 gen: torch.Generator):
+                 gen: torch.Generator, groups: int = 1, base_width: int = 4,
+                 base_channels: int = 64, dcn: dict | None = None):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = make_conv(cin, planes, 1, 1, 0, False, gen)
-        self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = make_conv(planes, planes, 3, stride, 1, False, gen)
-        self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = make_conv(planes, out, 1, 1, 0, False, gen)
+        width = planes if groups == 1 else int(planes * (base_width / base_channels)) * groups
+        self.conv1 = make_conv(cin, width, 1, 1, 0, False, gen)
+        self.bn1 = FrozenBatchNorm(width)
+        if dcn is not None:
+            self.conv2 = make_dcn(width, width, stride, dcn, gen)
+        else:
+            self.conv2 = make_conv(width, width, 3, stride, 1, False, gen, groups=groups)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = make_conv(width, out, 1, 1, 0, False, gen)
         self.bn3 = FrozenBatchNorm(out)
         if downsample:
             self.downsample_conv = make_conv(cin, out, 1, stride, 0, False, gen)
@@ -91,13 +111,17 @@ class ResNet(nn.Module):
     strides (1, 2, 2, 2)."""
 
     def __init__(self, gen: torch.Generator, depth: int = 50, base_channels: int = 64,
-                 frozen_stages: int = -1):
+                 frozen_stages: int = -1, groups: int = 1, base_width: int = 4,
+                 dcn: dict | None = None, stage_with_dcn=(False, False, False, False)):
         super().__init__()
         self.frozen_stages = frozen_stages
         if depth not in ARCH_SETTINGS:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
         kind, blocks = ARCH_SETTINGS[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
+        if kind == "basic" and (groups != 1 or dcn is not None):
+            # the JAX package's BasicBlock reads neither (resnet.py:115-148)
+            raise NotImplementedError(f"ResNet depth {depth} has no grouped or deformable 3x3")
         self.conv1 = make_conv(3, base_channels, 7, 2, 3, False, gen)
         self.bn1 = FrozenBatchNorm(base_channels)
         self.stage_names = []
@@ -109,7 +133,10 @@ class ResNet(nn.Module):
                 out = planes * block.expansion
                 down = b == 0 and (stride != 1 or cin != out)
                 name = f"layer{stage + 1}_{b}"
-                self.add_module(name, block(cin, planes, stride, down, gen))
+                extra = {} if kind == "basic" else dict(
+                    groups=groups, base_width=base_width, base_channels=base_channels,
+                    dcn=dcn if stage_with_dcn[stage] else None)
+                self.add_module(name, block(cin, planes, stride, down, gen, **extra))
                 names.append(name)
                 cin = out
             self.stage_names.append(names)

@@ -8,15 +8,26 @@ per-level learnable ``Scale``) and ``rpn_iou`` (A IoU logits).
 per-level exact top-``nms_pre``, decode, level-aware NMS, keep
 ``max_per_img``.
 
-Training (``atss_rpn_targets``, ``atss_rpn_loss``), the flagship's branch:
-max-IoU assignment (``atss=False``), sigmoid focal loss on objectness, and
-the regression on decoded boxes (``reg_decoded_bbox=True``): IoU loss plus
-the MSE on deltas, weighted by ``max(iou_target**gamma, EPS)``, halved and
-divided by ``max(sum iou_target, 1)``; BCE of the IoU branch against the
-IoU target, averaged over the positives.  The JAX package's ``lax.pmean``
-normalisers become plain sums over the batch on one card.  ATSS
-assignment, the encoded-delta branch and varifocal loss raise
-``NotImplementedError``.
+Training (``atss_rpn_targets``, ``atss_rpn_loss``): max-IoU assignment
+(``atss=False``), sigmoid focal loss on objectness, and one of two box
+regressions, each with the IoU or the CIoU loss (``loss_bbox_type``):
+
+  * on decoded boxes (``reg_decoded_bbox=True``, the flagship's): the box
+    loss plus the MSE on deltas, weighted by ``max(iou_target**gamma,
+    EPS)``, halved;
+  * on the encoded deltas (``reg_decoded_bbox=False``, the COCO configs'):
+    the IoU target still comes from the decoded prediction against the
+    decoded target, but the box loss is applied to the raw delta vectors,
+    read as boxes, against the encoded targets, with ``(N, 4)`` weights
+    ``max(iou_target**gamma, EPS)`` on the positives (the reference's
+    ``loss_single`` else-branch, CIoU on deltas included, copied as the
+    JAX package copies it); no MSE term.
+
+Either is divided by ``max(sum iou_target, 1)``; the IoU branch's BCE
+against the IoU target is averaged over the positives.  The JAX package's
+``lax.pmean`` normalisers become plain sums over the batch on one card.
+ATSS assignment, varifocal loss and the other box losses (GIoU, DIoU,
+EIoU, L1) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -103,12 +114,14 @@ class ATSSRPNCfg:
     match_low_quality: bool = True
 
 
+_BOX_LOSSES = {"iou": L.iou_loss, "ciou": L.ciou_loss}
+
+
 def _check_train_cfg(cfg: ATSSRPNCfg) -> None:
-    for what, value, ported in (("atss", cfg.atss, False),
-                                ("reg_decoded_bbox", cfg.reg_decoded_bbox, True),
-                                ("loss_cls_type", cfg.loss_cls_type, "focal"),
-                                ("loss_bbox_type", cfg.loss_bbox_type, "iou")):
-        if value != ported:
+    for what, value, ported in (("atss", cfg.atss, (False,)),
+                                ("loss_cls_type", cfg.loss_cls_type, ("focal",)),
+                                ("loss_bbox_type", cfg.loss_bbox_type, tuple(_BOX_LOSSES))):
+        if value not in ported:
             raise NotImplementedError(f"ATSS RPN {what}={value!r} is not ported")
 
 
@@ -189,8 +202,9 @@ def atss_rpn_targets(cfg: ATSSRPNCfg, anchors: torch.Tensor, valid: torch.Tensor
                      gt_bboxes: torch.Tensor, gt_mask: torch.Tensor):
     """Targets of one image: ``anchors`` ``(A, 4)``, ``valid`` ``(A,)``,
     padded ``gt_bboxes`` ``(G, 4)`` and ``gt_mask`` ``(G,)`` -> (positive
-    mask, label weights, decoded box targets ``(A, 4)``, zero off the
-    positives)."""
+    mask, label weights, box targets ``(A, 4)``: the matched gt boxes, or
+    with ``reg_decoded_bbox=False`` their deltas from the anchors; zero off
+    the positives)."""
     _check_train_cfg(cfg)
     assign = max_iou_assign(anchors, valid, gt_bboxes, gt_mask,
                             pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
@@ -200,6 +214,8 @@ def atss_rpn_targets(cfg: ATSSRPNCfg, anchors: torch.Tensor, valid: torch.Tensor
     label_weights = (pos | (assign.gt_inds == 0)).float()
     safe_gt = torch.clamp(assign.gt_inds - 1, 0, gt_bboxes.shape[0] - 1)
     matched = box_ops.take_small_table(gt_bboxes, safe_gt)
+    if not cfg.reg_decoded_bbox:
+        matched = _encode(cfg, anchors, matched)
     bbox_targets = torch.where(pos[:, None], matched, torch.zeros_like(matched))
     return pos, label_weights, bbox_targets
 
@@ -226,19 +242,31 @@ def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.T
     posf = pos.reshape(-1).float()
     pos_flat = posf[:, None] > 0
     decoded = _decode(cfg, anchors_b, bbox_preds).reshape(-1, 4)
-    # the regression target of a non-positive is the prediction itself,
-    # with zero weight (so that its IoU and deltas stay finite)
-    safe_t = torch.where(pos_flat, bbox_targets.reshape(-1, 4), decoded)
+    box_loss = _BOX_LOSSES[cfg.loss_bbox_type]
+    if cfg.reg_decoded_bbox:
+        # the regression target of a non-positive is the prediction itself,
+        # with zero weight (so that its IoU and deltas stay finite)
+        safe_t = torch.where(pos_flat, bbox_targets.reshape(-1, 4), decoded)
+    else:
+        dec_t = _decode(cfg, anchors_b, bbox_targets).reshape(-1, 4)
+        safe_t = torch.where(pos_flat, dec_t, decoded)
     with torch.no_grad():
         iou_target = torch.where(pos_flat[:, 0], box_ops.bbox_overlaps_aligned(decoded, safe_t),
                                  torch.zeros_like(posf))
         w = torch.clamp(iou_target ** cfg.gamma, min=EPS) * posf
-    loss_iou = L.iou_loss(decoded, safe_t, weight=w, avg_factor=1.0)
-    enc_t = _encode(cfg, anchors_b.reshape(-1, 4), safe_t)
-    loss_aug = L.mse_loss(bbox_preds.reshape(-1, 4), enc_t, weight=w[:, None].expand_as(enc_t),
-                          avg_factor=1.0) * cfg.aug_loss_weight
-    loss_bbox = ((loss_iou + loss_aug) * 0.5 * cfg.loss_bbox_weight
-                 / torch.clamp(iou_target.sum(), min=1.0))
+    if cfg.reg_decoded_bbox:
+        loss_box = box_loss(decoded, safe_t, weight=w, avg_factor=1.0)
+        enc_t = _encode(cfg, anchors_b.reshape(-1, 4), safe_t)
+        loss_aug = L.mse_loss(bbox_preds.reshape(-1, 4), enc_t,
+                              weight=w[:, None].expand_as(enc_t),
+                              avg_factor=1.0) * cfg.aug_loss_weight
+        loss_box = (loss_box + loss_aug) * 0.5
+    else:
+        # the deltas read as boxes (JAX atss_rpn_head.py:348-372)
+        flat_pred = bbox_preds.reshape(-1, 4)
+        flat_t = torch.where(pos_flat, bbox_targets.reshape(-1, 4), flat_pred)
+        loss_box = box_loss(flat_pred, flat_t, weight=w[:, None].expand(-1, 4), avg_factor=1.0)
+    loss_bbox = loss_box * cfg.loss_bbox_weight / torch.clamp(iou_target.sum(), min=1.0)
 
     loss_rpn_iou = L.binary_cross_entropy_loss(
         iou_logits.reshape(-1), iou_target, weight=posf, avg_factor=num_total,

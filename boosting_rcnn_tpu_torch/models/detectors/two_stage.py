@@ -6,8 +6,9 @@ the configs and the device, and runs ``predict`` (``FasterRCNN.simple_test``
 + ``ProbRoIHead.simple_test``): features, RPN proposals, multi-level
 RoIAlign (the CUDA kernel on the GPU), the Shared2FC head, prior fusion
 (or the plain softmax of ``StandardRoIHead``) and per-image multiclass
-NMS; with a mask head, the 14 x 14 RoIAlign of the detections and the FCN
-head give each detection's 28 x 28 mask of its class.  ``loss`` is the
+NMS, hard or soft (``RCNNTestCfg.nms_type``); with a mask head, the
+14 x 14 RoIAlign of the detections and the FCN head give each
+detection's 28 x 28 mask of its class.  ``loss`` is the
 train forward (``forward_train``): the RPN runs once, its outputs give the
 RPN losses and, detached, the train-config proposals, which are assigned
 and sampled without gradient; the sampled RoIs go through RoIAlign
@@ -77,6 +78,12 @@ class RCNNTestCfg:
     # static cap on score-passing candidates entering NMS (a documented
     # deviation of the JAX package, kept by the port)
     pre_nms_top_k: int = 2048
+    # "nms" or "soft_nms" (test_cfg.rcnn.nms.type), with soft-NMS's decay
+    # ("linear" or "gaussian"), its sigma and the score a pick must pass
+    nms_type: str = "nms"
+    soft_sigma: float = 0.5
+    soft_min_score: float = 1e-3
+    soft_method: str = "linear"
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -373,7 +380,8 @@ class TwoStageDetector:
                 self.bbox_cfg, prop_boxes[i], fused[i], reg_s[i], img_shape[i],
                 scale_factor[i], rescale, tc.score_thr, tc.nms_iou_thr,
                 tc.max_per_img, roi_valid=prop_valid[i],
-                pre_nms_top_k=tc.pre_nms_top_k,
+                pre_nms_top_k=tc.pre_nms_top_k, nms_type=tc.nms_type, soft_sigma=tc.soft_sigma,
+                soft_min_score=tc.soft_min_score, soft_method=tc.soft_method,
             )
             for i in range(b)
         ]

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.deform_conv import deform_conv2d, split_modulated_offset
+
 __all__ = [
     "Conv2d",
     "ConvTranspose2d",
@@ -33,6 +35,7 @@ __all__ = [
     "FrozenBatchNorm",
     "ConvModule",
     "Scale",
+    "DeformConv",
     "lecun_normal_",
     "make_conv",
     "make_linear",
@@ -106,17 +109,20 @@ class Linear(nn.Linear):
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """Make every ``Conv2d``, ``ConvTranspose2d`` and ``Linear`` inside
-    ``module`` compute in ``dtype``; the parameters keep their float32."""
+    """Make every ``Conv2d``, ``ConvTranspose2d``, ``Linear`` and
+    ``DeformConv`` inside ``module`` compute in ``dtype``; the parameters
+    keep their float32."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear, DeformConv)):
             m.compute_dtype = dtype
 
 
 def make_conv(cin: int, cout: int, k: int, stride: int, pad: int, bias: bool,
-              gen: torch.Generator, bias_value: float = 0.0) -> Conv2d:
-    conv = Conv2d(cin, cout, k, stride, pad, bias=bias)
-    lecun_normal_(conv.weight, cin * k * k, gen)
+              gen: torch.Generator, bias_value: float = 0.0, groups: int = 1) -> Conv2d:
+    """A ``k x k`` convolution, LeCun-normal over its fan-in ``cin / groups
+    * k * k`` (flax ``nn.Conv(feature_group_count=groups)``)."""
+    conv = Conv2d(cin, cout, k, stride, pad, bias=bias, groups=groups)
+    lecun_normal_(conv.weight, cin // groups * k * k, gen)
     if bias:
         nn.init.constant_(conv.bias, bias_value)
     return conv
@@ -186,6 +192,45 @@ class ConvModule(nn.Module):
         if self.act == "relu":
             x = F.relu(x)
         return x
+
+
+class DeformConv(nn.Module):
+    """Deformable convolution v1 / v2, undilated and without bias (mmcv
+    ``DeformConv2dPack`` / ``ModulatedDeformConv2dPack``; JAX
+    ``layers.py:194-262``): a
+    zero-initialised ``conv_offset`` (a ``k x k`` conv with a bias, in the
+    compute dtype) predicts the per-tap offsets, interleaved (dy, dx) per
+    tap, and for v2 the modulation logits, passed through the sigmoid; then
+    ``ops.deform_conv.deform_conv2d`` samples and contracts.  Zero offsets
+    make it the plain convolution.  ``weight`` is ``(Cout, Cin, k, k)``,
+    LeCun-normal over ``Cin * k * k``; ``compute_dtype`` is the dtype of
+    the sampling and of the contraction's one rounding, the parameters stay
+    float32."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int, gen: torch.Generator,
+                 deform_groups: int = 1, modulated: bool = False):
+        super().__init__()
+        self.k, self.stride, self.pad = k, stride, (k - 1) // 2
+        self.deform_groups, self.modulated = deform_groups, modulated
+        off_ch = deform_groups * (3 if modulated else 2) * k * k
+        self.conv_offset = Conv2d(cin, off_ch, k, stride, self.pad)
+        nn.init.zeros_(self.conv_offset.weight)
+        nn.init.zeros_(self.conv_offset.bias)
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        lecun_normal_(self.weight, cin * k * k, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = x.to(dt)
+        raw = self.conv_offset(x)
+        if self.modulated:
+            offset, mask = split_modulated_offset(raw, self.deform_groups, self.k * self.k)
+        else:
+            offset, mask = raw, None
+        return deform_conv2d(x, offset, self.weight.to(dt), mask=mask, stride=self.stride,
+                             padding=self.pad, deform_groups=self.deform_groups)
 
 
 class Scale(nn.Module):

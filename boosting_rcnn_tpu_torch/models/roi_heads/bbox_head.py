@@ -131,10 +131,12 @@ def bbox_head_decode(
     max_per_img: int,
     roi_valid: torch.Tensor,
     pre_nms_top_k: int = 2048,
+    **nms_kw,
 ):
     """Decode + multiclass NMS for one image: ``rois`` ``(R, 4)``, ``scores``
     ``(R, K+1)`` already fused, ``bbox_pred`` ``(R, 4K)`` -> ``(dets
-    (max, 5), labels (max,), valid (max,))``."""
+    (max, 5), labels (max,), valid (max,))``; ``nms_kw`` (``nms_type`` and
+    the ``soft_*`` options) go to ``multiclass_nms_padded``."""
     r = rois.shape[0]
     c = cfg.num_classes
     boxes = box_ops.delta2bbox(
@@ -144,5 +146,5 @@ def bbox_head_decode(
         boxes = boxes / scale_factor.reshape(1, 1, 4)
     return multiclass_nms_padded(
         boxes, scores[:, :c], score_thr=score_thr, iou_threshold=nms_iou_thr,
-        max_per_img=max_per_img, valid=roi_valid, pre_nms_top_k=pre_nms_top_k,
+        max_per_img=max_per_img, valid=roi_valid, pre_nms_top_k=pre_nms_top_k, **nms_kw,
     )

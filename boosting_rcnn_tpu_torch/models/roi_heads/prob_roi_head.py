@@ -12,9 +12,10 @@ negative ``1 - score``, a gt-added box 0.  The boosting loss weighs the
 cross entropy by ``(1 - prior)**gamma``, rescaled (with the scale
 detached) so that the weighted sum equals the unweighted one, and
 averages over the valid slots; the box loss is summed and averaged over
-the valid slots too.  The builder rejects what is not ported: the
-``quality``, ISR and CARL variants, ``alpha``, ``reg_norm='mean'`` and
-sampling without the gt boxes.
+the valid slots too, or with ``reg_norm='mean'`` divided by four times the
+positives (at least one).  The builder rejects what is not ported: the
+``quality``, ISR and CARL variants, ``alpha`` and sampling without the gt
+boxes.
 """
 from __future__ import annotations
 
@@ -35,6 +36,9 @@ class ProbRoICfg:
     gamma: float = 0.1
     boost: bool = False
     prob: bool = True
+    # the box loss's normaliser: the valid slots ("bbox_num") or four times
+    # the positives ("mean")
+    reg_norm: str = "bbox_num"
     # rcnn train cfg (the gt boxes are always added as candidates)
     num_samples: int = 512
     pos_fraction: float = 0.25
@@ -129,8 +133,10 @@ def norm_loss(loss: torch.Tensor, weights: torch.Tensor, avg_factor) -> torch.Te
 def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tensor,
                   bbox_pred: torch.Tensor, sample: RoISample):
     """Boosting-reweighted R-CNN loss on a flattened ``(B*R, ...)`` sample
-    (``_bbox_forward_train_boost:107``).  Both losses are averaged over the
-    valid slots, not over the slot count."""
+    (``_bbox_forward_train_boost:107``).  The cross entropy is averaged over
+    the valid slots, not over the slot count; the box loss too, or with
+    ``reg_norm='mean'`` over four times the positives (JAX
+    ``prob_roi_head.py:308-311``)."""
     labels, label_w, bbox_t, bbox_w = bbox_targets(
         head_cfg, sample.boxes, sample.is_pos, sample.valid, sample.matched_gt,
         torch.where(sample.is_pos, sample.matched_label,
@@ -144,7 +150,12 @@ def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tenso
         loss_cls = norm_loss(raw["loss_cls"] * validf, lw * validf, n_valid)
     else:
         loss_cls = (raw["loss_cls"] * validf).sum() / n_valid
-    return {"loss_cls": loss_cls, "loss_bbox": raw["loss_bbox"].sum() / n_valid}
+    if cfg.reg_norm == "mean":
+        loss_bbox = raw["loss_bbox"].sum() / (
+            torch.clamp(sample.is_pos.float().sum(), min=1.0) * 4.0)
+    else:
+        loss_bbox = raw["loss_bbox"].sum() / n_valid
+    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox}
 
 
 def prob_fuse_scores(cls_score: torch.Tensor, prior: torch.Tensor) -> torch.Tensor:

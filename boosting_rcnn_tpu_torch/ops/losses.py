@@ -1,8 +1,8 @@
 """The losses of the flagship, in the mmdet reduction protocol (PyTorch port).
 
 Counterpart of ``boosting_rcnn_tpu/ops/losses.py``, only what the ported
-models call: sigmoid focal loss (RPN objectness), IoU loss and MSE (RPN
-boxes), binary cross entropy on logits (the ATSS RPN's IoU branch, the
+models call: sigmoid focal loss (RPN objectness), IoU loss, CIoU loss and
+MSE (RPN boxes), binary cross entropy on logits (the ATSS RPN's IoU branch, the
 plain RPN's objectness, the mask head), smooth L1 (the plain RPN's boxes),
 softmax cross entropy and L1 (R-CNN head).  Every loss goes through ``weight_reduce_loss``:
 elementwise loss times an optional weight, then ``mean`` / ``sum`` /
@@ -16,7 +16,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .box_ops import bbox_overlaps_aligned
+import math
+
+from .box_ops import bbox_center_wh, bbox_overlaps_aligned
 
 __all__ = [
     "weight_reduce_loss",
@@ -27,6 +29,7 @@ __all__ = [
     "smooth_l1_loss",
     "mse_loss",
     "iou_loss",
+    "ciou_loss",
 ]
 
 
@@ -139,6 +142,37 @@ def iou_loss(pred, target, weight=None, eps=1e-6, reduction="mean", avg_factor=N
     """``-log(max(iou, eps))`` of aligned ``(N, 4)`` boxes; ``(N, 4)``
     weights are averaged over the last axis, as mmdet does."""
     loss = -torch.log(torch.clamp(bbox_overlaps_aligned(pred, target, eps=eps), min=eps))
+    if weight is not None and weight.ndim == loss.ndim + 1:
+        weight = weight.mean(dim=-1)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def _diou_term(pred, target, eps):
+    """The IoU, the DIoU distance term (squared centre distance over the
+    squared diagonal of the enclosing box, ``+ eps``) and the widths and
+    heights of both (JAX ``losses.py:272-281``)."""
+    ious = bbox_overlaps_aligned(pred, target, eps=eps)
+    px, py, pw, ph = bbox_center_wh(pred)
+    tx, ty, tw, th = bbox_center_wh(target)
+    center_dist = (px - tx) ** 2 + (py - ty) ** 2
+    enc_lt = torch.minimum(pred[..., :2], target[..., :2])
+    enc_rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    enc_wh = torch.clamp(enc_rb - enc_lt, min=0.0)
+    diag = enc_wh[..., 0] ** 2 + enc_wh[..., 1] ** 2 + eps
+    return ious, center_dist / diag, (pw, ph, tw, th)
+
+
+def ciou_loss(pred, target, weight=None, eps=1e-7, reduction="mean", avg_factor=None):
+    """CIoU loss ``1 - iou + dist + alpha * v`` of aligned ``(N, 4)`` boxes,
+    ``v = 4 / pi**2 * (atan(tw / (th + eps)) - atan(pw / (ph + eps)))**2``
+    with ``alpha = v / (1 - iou + v + eps)`` detached (JAX ``ciou_loss``,
+    its ``stop_gradient``).  Widths and heights are not clamped: the
+    encoded-delta RPN feeds it deltas read as boxes.  ``(N, 4)`` weights
+    are averaged over the last axis."""
+    ious, dist_term, (pw, ph, tw, th) = _diou_term(pred, target, eps)
+    v = (4.0 / math.pi ** 2) * (torch.atan(tw / (th + eps)) - torch.atan(pw / (ph + eps))) ** 2
+    alpha = (v / (1.0 - ious + v + eps)).detach()
+    loss = 1.0 - ious + dist_term + alpha * v
     if weight is not None and weight.ndim == loss.ndim + 1:
         weight = weight.mean(dim=-1)
     return weight_reduce_loss(loss, weight, reduction, avg_factor)

@@ -1,8 +1,9 @@
 """Exact greedy NMS on fixed-shape padded tensors (PyTorch port).
 
 Counterpart of ``boosting_rcnn_tpu/ops/nms.py`` (``nms_padded``,
-``batched_nms_padded``, ``multiclass_nms_padded``), hard NMS only.  The
-survivors and their order equal the JAX package's, padding included:
+``batched_nms_padded``, ``multiclass_nms_padded``, ``soft_nms_padded``).
+The hard NMS's survivors and their order equal the JAX package's, padding
+included:
 
   * candidates are sorted by score with a stable sort (``jnp.argsort`` is
     stable), invalid rows carrying ``NEG_INF``;
@@ -10,6 +11,9 @@ survivors and their order equal the JAX package's, padding included:
     suppressed by every earlier survivor, then a fix-point iteration inside
     the tile resolves the greedy order exactly;
   * the loop stops once ``max_out`` boxes survive.
+
+Soft-NMS runs exactly ``max_out`` argmax-and-decay steps, each a
+fixed-shape vector op with no read back to the host.
 
 All functions take one image; the callers loop over the batch.
 """
@@ -21,7 +25,8 @@ import torch
 
 from .box_ops import bbox_overlaps
 
-__all__ = ["nms_padded", "batched_nms_padded", "multiclass_nms_padded", "NEG_INF"]
+__all__ = ["nms_padded", "batched_nms_padded", "multiclass_nms_padded", "soft_nms_padded",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -137,13 +142,21 @@ def multiclass_nms_padded(
     valid: Optional[torch.Tensor] = None,
     pre_nms_top_k: int = 2048,
     tile: int = 256,
+    nms_type: str = "nms",
+    soft_sigma: float = 0.5,
+    soft_min_score: float = 1e-3,
+    soft_method: str = "linear",
 ):
     """Per-class NMS over ``(N, C)`` foreground scores.
 
     ``bboxes``: ``(N, C, 4)``, one box per class.  Candidates
     above ``score_thr`` are cut to the top ``pre_nms_top_k`` (ties to the
     lower flat index, as ``lax.top_k``), then class-offset NMS keeps
-    ``max_per_img``.  Returns ``(dets (max_per_img, 5), labels, valid)``.
+    ``max_per_img``: hard (``nms_type="nms"``) or soft (``"soft_nms"``,
+    ``soft_nms_padded`` with the ``soft_*`` options; the boxes shifted by
+    the class times one more than the largest coordinate of the valid
+    ones, so that no decay crosses classes, JAX ``nms.py:239-252``).
+    Returns ``(dets (max_per_img, 5), labels, valid)``.
     """
     n, c = scores.shape
     flat_boxes = bboxes.reshape(n * c, 4)
@@ -161,11 +174,63 @@ def multiclass_nms_padded(
     top_labels = flat_labels[order]
     top_valid = top_scores > NEG_INF / 2
 
-    ob, os_, ov, oi = batched_nms_padded(
-        top_boxes, top_scores, top_labels, iou_threshold, max_per_img,
-        top_valid, tile,
-    )
+    if nms_type == "soft_nms":
+        max_coord = torch.where(top_valid[:, None], top_boxes, torch.zeros_like(top_boxes)).max()
+        shifted = top_boxes + (top_labels.to(top_boxes.dtype) * (max_coord + 1.0))[:, None]
+        _, os_, ov, oi = soft_nms_padded(
+            shifted, top_scores, max_per_img, iou_threshold=iou_threshold, sigma=soft_sigma,
+            min_score=soft_min_score, method=soft_method, valid=top_valid)
+        ob = torch.where(ov[:, None], top_boxes[oi], torch.zeros_like(top_boxes[oi]))
+    elif nms_type == "nms":
+        ob, os_, ov, oi = batched_nms_padded(
+            top_boxes, top_scores, top_labels, iou_threshold, max_per_img,
+            top_valid, tile,
+        )
+    else:
+        raise NotImplementedError(f"nms type {nms_type!r} is not ported")
     out_labels = torch.where(ov, top_labels[oi], torch.zeros_like(top_labels[oi]))
     dets = torch.cat(
         [ob, torch.where(ov, os_, torch.zeros_like(os_))[:, None]], dim=-1)
     return dets, out_labels, ov
+
+
+def soft_nms_padded(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    max_out: int,
+    iou_threshold: float = 0.3,
+    sigma: float = 0.5,
+    min_score: float = 1e-3,
+    method: str = "linear",
+    valid: Optional[torch.Tensor] = None,
+):
+    """Soft-NMS over ``(N, 4)`` boxes (mmcv ``soft_nms``; JAX
+    ``nms.py:263-305``), truncated to its first ``max_out`` picks: exactly
+    ``max_out`` steps, each picking the highest current score (the first
+    on ties, as ``jnp.argmax``), taking it out of the pool and multiplying
+    every score by the decay of its IoU with the pick: ``1 - iou`` above
+    ``iou_threshold`` (``"linear"``) or ``exp(-iou**2 / sigma)``
+    (``"gaussian"``).  A pick is kept when its decayed score is above
+    ``max(min_score, 0)``.  Returns ``(boxes (max_out, 4), scores
+    (max_out,) decayed, NEG_INF where not kept, valid, idx)``, the index 0
+    where not kept."""
+    if method not in ("linear", "gaussian"):
+        raise NotImplementedError(f"soft-NMS method {method!r} is not ported")
+    n = boxes.shape[0]
+    idx = torch.arange(n, device=boxes.device)
+    s = scores if valid is None else torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    picks, picked = [], []
+    for _ in range(max_out):
+        i = torch.argmax(s).reshape(1)
+        picks.append(i)
+        picked.append(s.index_select(0, i))
+        ious = bbox_overlaps(boxes.index_select(0, i), boxes)[0]
+        if method == "gaussian":
+            decay = torch.exp(-(ious ** 2) / sigma)
+        else:
+            decay = torch.where(ious > iou_threshold, 1.0 - ious, torch.ones_like(ious))
+        s = torch.where(idx == i, torch.full_like(s, NEG_INF), s * decay)
+    oi, os_ = torch.cat(picks), torch.cat(picked)
+    ov = os_ > max(min_score, 0.0)
+    return (boxes[oi], torch.where(ov, os_, torch.full_like(os_, NEG_INF)), ov,
+            torch.where(ov, oi, torch.zeros_like(oi)))

@@ -19,6 +19,13 @@ module names, so the mapping is by rule:
     ``Scale``) stays ``scale``; ``mean`` / ``var`` -> ``running_mean`` /
     ``running_var``.
 
+The same rules carry the rest of the Boosting R-CNN family: ResNeXt's
+grouped 3x3 kernels (HWIO with I = Cin / groups, to OIHW), Res2Net's
+``stem_conv{i}`` / ``stem_bn{i}`` and per-split ``conv2_{i}`` / ``bn2_{i}``,
+a deformable 3x3's ``conv_offset`` (a conv with a bias) and its ``kernel``
+(to the ``DeformConv``'s OIHW ``weight``), and the FPN's extra convs
+``fpn_conv_{i}``.
+
 Every rule is linear (a transpose or a rename), so the same mapping
 carries a flax *gradient* tree (the ``params`` tree of ``jax.grad``) onto
 the ``state_dict`` names of the port's parameters, where their ``.grad``
@@ -28,7 +35,10 @@ Nothing here imports JAX: callers turn the flax tree into numpy first.
 
 ``from_torchvision_resnet`` and ``from_mmdet_state_dict`` read PyTorch
 state dicts straight into the port's names (the port's own copies of the
-mappings of ``tools/convert_torch_weights.py``).  Convolutions keep their
+mappings of ``tools/convert_torch_weights.py``): ResNet and ResNeXt of
+any depth, a DCN's ``conv2.conv_offset`` and ``conv2.weight`` included,
+the FPN's extra convs by their index (``on_input``'s first over C5's
+channels); an mmdet Res2Net raises.  Convolutions keep their
 OIHW weights and linear layers their ``(out, in)`` ones; the one reorder
 is the first FC after the RoI pool, whose input mmdet flattens from
 ``(C, 7, 7)`` and the port from ``(7, 7, C)``; the mask head's transposed
@@ -107,6 +117,12 @@ def from_torchvision_resnet(state_dict: Dict[str, Any]) -> Dict[str, torch.Tenso
     ``layer{s}_{b}``, ``downsample.0`` / ``.1`` -> ``downsample_conv`` /
     ``downsample_bn``; the classifier ``fc`` and BN counters are skipped,
     any other key raises."""
+    res2net = [k for k in state_dict if re.match(r"(stem\.|layer\d+\.\d+\.(convs|bns)\.)", k)]
+    if res2net:
+        raise NotImplementedError(
+            f"{res2net[0]!r} is a key of mmdet's Res2Net, whose shortcut pools first "
+            "(avg_down) and whose stage-mode blocks pool at stride 1 too; the port's Res2Net is "
+            "the JAX package's, which does neither, so mmdet's Res2Net weights do not load")
     out = {}
     for key, value in state_dict.items():
         if _SKIP.search(key):

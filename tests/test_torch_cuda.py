@@ -17,7 +17,9 @@ largest plain value), and at most 1% of the values not bit-equal (both
 round the same float32 sums once; weights rounded in another place move
 about a quarter of the values by an ulp); the gradient against itself bit
 for bit.  The same hold at the mask branch's 14 x 14 pooled size, through
-the ``_o14`` entry points.
+the ``_o14`` entry points.  A Res2Net stage-mode block (its last split
+average-pooled) on a channels-last input: the gradients of the input and
+of every parameter within 1e-4 of their largest CPU value.
 """
 import os
 import sys
@@ -557,3 +559,34 @@ def test_cuda_bf16_backward_on_an_empty_bitmap(cuda):
     torch.cuda.synchronize()
     assert all(d.dtype == torch.bfloat16 and tuple(d.shape) == s for d, s in zip(got, shapes))
     assert all(int(torch.count_nonzero(d)) == 0 for d in got)
+
+
+@pytest.mark.cuda
+def test_cuda_res2net_block_gradient_matches_cpu(cuda):
+    """A stride-2 ``Bottle2neck`` on a channels-last map (as the port's
+    features get it from NHWC images): the split it average-pools is a
+    channel slice, whose CUDA ``avg_pool2d`` backward in PyTorch 2.11 gave
+    wrong gradients when it was not made contiguous first.  In float32
+    with TF32 off, as the port's float32 checks run: cuDNN's default TF32
+    rounds the convolutions' inputs far past this bound."""
+    from boosting_rcnn_tpu_torch.models.backbones.res2net import Bottle2neck
+
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(2, 32, 20, 24).astype(np.float32))
+    g = torch.from_numpy(rs.randn(2, 64, 10, 12).astype(np.float32))
+    grads = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            block = Bottle2neck(32, 16, 2, True, torch.Generator().manual_seed(0), base_width=8,
+                                base_channels=16).to(dev)
+            xi = x.to(dev).contiguous(memory_format=torch.channels_last).requires_grad_()
+            (block(xi) * g.to(dev)).sum().backward()
+            grads[str(dev)] = {"input": xi.grad.cpu(),
+                               **{k: p.grad.cpu() for k, p in block.named_parameters()}}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for k, ref in grads["cpu"].items():
+        got = grads[str(cuda)][k]
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item(), k

@@ -507,8 +507,8 @@ def test_builder_builds_full_width_mask_rcnn(dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("neck.add_extra_convs", "on_input"),
-    ("neck.start_level", 1),
+    ("neck.act", "relu"),
+    ("neck.conv_cfg", {"type": "ConvWS"}),
     ("neck.norm_cfg", {"type": "GN", "num_groups": 32}),
     ("rpn_head.num_convs", 2),
     ("rpn_head.loss_cls.type", "FocalLoss"),

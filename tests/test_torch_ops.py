@@ -438,5 +438,7 @@ def test_build_detector_needs_gpu_unless_cpu_given(monkeypatch):
     assert det.device.type == "cpu"
     assert all(p.device.type == "cpu" for p in det.net.parameters())
     mc["neck"].update(type="FPN", add_extra_convs="on_input")  # FPN itself is ported
+    assert build_detector(mc, device="cpu").net.neck.add_extra_convs == "on_input"
+    mc["neck"].update(act="relu")  # an FPN option that is not
     with pytest.raises(NotImplementedError, match="FPN"):
         build_detector(mc, device="cpu")

@@ -338,7 +338,7 @@ def test_atss_rpn_loss_and_gradients_match_jax(gamma):
 
 def test_atss_rpn_loss_rejects_unported_branches():
     z = torch.zeros((1, 4))
-    for cfg in (t_rpn.ATSSRPNCfg(atss=True), t_rpn.ATSSRPNCfg(reg_decoded_bbox=False),
+    for cfg in (t_rpn.ATSSRPNCfg(atss=True), t_rpn.ATSSRPNCfg(loss_bbox_type="giou"),
                 t_rpn.ATSSRPNCfg(loss_cls_type="varifocal")):
         with pytest.raises(NotImplementedError):
             t_rpn.atss_rpn_loss(cfg, z, z[..., None].expand(1, 4, 4), z, z.reshape(4, 1)
@@ -734,14 +734,14 @@ def test_builder_reads_the_flagship_train_cfg():
 
 @pytest.mark.parametrize("path,value", [
     ("rpn_head.atss", True),
-    ("rpn_head.reg_decoded_bbox", False),
+    ("rpn_head.loss_bbox.type", "DIoULoss"),
     ("rpn_head.loss_cls.type", "VarifocalLoss"),
     ("rpn_head.loss_bbox.type", "GIoULoss"),
     ("rpn_head.aug_reg_loss.type", "L1Loss"),
     ("rpn_head.aug_reg_loss", None),
     ("roi_head.quality", True),
     ("roi_head.alpha", 0.5),
-    ("roi_head.reg_norm", "mean"),
+    ("roi_head.reg_norm", "sum"),
     ("train_cfg.rcnn.sampler.add_gt_as_proposals", False),
     ("roi_head.bbox_head.loss_bbox.type", "SmoothL1Loss"),
     ("roi_head.bbox_head.loss_cls.use_sigmoid", True),
