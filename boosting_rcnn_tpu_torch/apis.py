@@ -56,7 +56,7 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     ``checkpoint`` (a directory of ``engine.checkpoint.save_checkpoint`` or
     an mmdet ``.pth``) when given.  ``dtype`` defaults to the config's
     ``compute_dtype``; the canvas and resize scale are the test pipeline's;
-    ``tiny`` shrinks the flagship as ``--tiny`` does (on its 128 x 160
+    ``tiny`` shrinks the model as ``--tiny`` does (on its 128 x 160
     canvas)."""
     cfg = load_config(config) if isinstance(config, str) else config
     det = build_detector(runner.model_config(cfg, tiny), device=device, seed=seed,

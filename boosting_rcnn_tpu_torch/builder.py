@@ -12,11 +12,14 @@ losses, on decoded boxes or on encoded deltas) or ``RPNHead`` (one 3x3
 conv, BCE and smooth L1, a random anchor sampler); the RoI head
 ``ProbRoIHead`` (boosting loss, prior fusion, ``reg_norm``) or
 ``StandardRoIHead`` (plain cross entropy, softmax scores), each with a
-random sampler and a Shared2FC box head with cross entropy and L1, and
-hard or soft NMS at test; and an ``FCNMaskHead`` on a 14 x 14
-``RoIAlign`` (Mask R-CNN).  The ``train_cfg``
-is read as the JAX builder reads it.  Any type or value the port does not
-implement raises ``NotImplementedError`` naming it.
+random sampler and a Shared2FC box head (class-wise or class-agnostic
+deltas) with cross entropy and L1 or smooth L1, and hard or soft NMS at
+test; and an ``FCNMaskHead`` on a 14 x 14 ``RoIAlign`` (Mask R-CNN).
+``CascadeRCNN`` (box only) builds its ``CascadeRoIHead`` or the fork's
+``ProbCascadeRoIHead`` as the JAX ``build_cascade`` does, one Shared2FC
+head per stage.  The ``train_cfg`` is read as the JAX builder reads it.
+Any type or value the port does not implement raises
+``NotImplementedError`` naming it.
 
 Weights are seeded random (flax-default initialisers drawn from a
 ``torch.Generator``); ``weights.from_jax_params`` loads the JAX package's.
@@ -26,6 +29,7 @@ them at each call), so one state dict serves both.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -34,6 +38,7 @@ from .models.backbones.res2net import Res2Net
 from .models.backbones.resnet import ResNet
 from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
+from .models.detectors.cascade import CascadeDetector, CascadeNet
 from .models.detectors.two_stage import (
     ProposalCfg,
     RCNNTestCfg,
@@ -43,6 +48,7 @@ from .models.detectors.two_stage import (
 from .models.layers import set_compute_dtype
 from .models.necks.fpn import FPN, PAFPN
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
+from .models.roi_heads.cascade_roi_head import CascadeCfg
 from .models.roi_heads.mask_head import FCNMaskHead
 from .models.roi_heads.prob_roi_head import ProbRoICfg
 from .ops.anchors import AnchorGenerator
@@ -255,7 +261,8 @@ def _plain_rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> RPNCfg:
     _check(sampler, "type", ("RandomSampler",), "RandomSampler")
     _check(sampler, "neg_pos_ub", (-1,), -1)
     _check(sampler, "add_gt_as_proposals", (False,), False)
-    _check(train_rpn, "allowed_border", (-1,), -1)
+    # the JAX package reads no allowed_border: every anchor counts, as at -1
+    _check(train_rpn, "allowed_border", (-1, 0), -1)
     _check(train_rpn, "pos_weight", (-1,), -1)
     _check(train_rpn, "debug", (False,), False)
     assigner = _max_iou_assigner(train_rpn.get("assigner", {}), (0.7, 0.3, 0.3, True))
@@ -337,6 +344,25 @@ def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: i
     return module, out_size
 
 
+# the R-CNN head's box losses by config type (JAX builder.py:55-66)
+_BOX_LOSSES = {"L1Loss": "l1", "SmoothL1Loss": "smooth_l1"}
+
+
+def _bbox_head(head: Dict[str, Any], channels: int, out_size: int, gen: torch.Generator,
+               types=("ProbConvFCBBoxHead", "Shared2FCBBoxHead", "ConvFCBBoxHead")):
+    """A Shared2FC box head module of ``types`` (JAX ``_std_convfc_head``)
+    and its coder and losses (``build_bbox_head``)."""
+    _check(head, "type", types)
+    _check(head, "num_shared_convs", (0, None))
+    module = ConvFCBBoxHead(
+        gen, num_classes=head.get("num_classes", 80), in_channels=channels,
+        num_shared_fcs=head.get("num_shared_fcs", 2),
+        fc_out_channels=head.get("fc_out_channels", 1024), roi_feat_size=out_size,
+        reg_class_agnostic=head.get("reg_class_agnostic", False),
+    )
+    return module, _bbox_cfg(head)
+
+
 def _bbox_cfg(head: Dict[str, Any]) -> BBoxHeadCfg:
     """The Shared2FC head's coder and losses (JAX ``build_bbox_head``)."""
     _check(head, "reg_decoded_bbox", (False,), False)
@@ -345,12 +371,15 @@ def _bbox_cfg(head: Dict[str, Any]) -> BBoxHeadCfg:
     for key in ("use_sigmoid", "use_mask"):
         _check(loss_cls, key, (False,), False)
     _check(loss_cls, "class_weight", (None,))
-    loss_bbox = _loss(head, "loss_bbox", ("L1Loss",), {"type": "L1Loss"})
+    loss_bbox = _loss(head, "loss_bbox", tuple(_BOX_LOSSES), {"type": "L1Loss"})
     means, stds = _coder(head, (1.0,) * 4)
     return BBoxHeadCfg(
         num_classes=head.get("num_classes", 80), target_means=means, target_stds=stds,
+        reg_class_agnostic=head.get("reg_class_agnostic", False),
         loss_cls_weight=loss_cls.get("loss_weight", 1.0),
         loss_bbox_weight=loss_bbox.get("loss_weight", 1.0),
+        loss_bbox_type=_BOX_LOSSES[loss_bbox["type"]],
+        smooth_l1_beta=loss_bbox.get("beta", 1.0),
     )
 
 
@@ -412,6 +441,17 @@ def _rcnn_test_cfg(rcnn_test: Dict[str, Any]) -> RCNNTestCfg:
     )
 
 
+def _extractor(roi: Dict[str, Any]):
+    """The box RoIAlign's pooled size, route strides and finest scale."""
+    extractor = roi.get("bbox_roi_extractor", {})
+    _check(extractor, "type", ("SingleRoIExtractor", None))
+    roi_layer = extractor.get("roi_layer", {})
+    _check(roi_layer, "type", ("RoIAlign",), "RoIAlign")
+    return (roi_layer.get("output_size", 7),
+            tuple(extractor.get("featmap_strides", (8, 16, 32, 64, 128))),
+            extractor.get("finest_scale", 56))
+
+
 def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
                    dtype: torch.dtype = torch.float32) -> TwoStageDetector:
     """Two-stage detector with seeded random float32 weights on ``device``
@@ -421,7 +461,13 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
         raise ValueError(f"compute dtype {dtype} is not supported; the port computes in "
                          f"{' or '.join(map(str, COMPUTE_DTYPES))}")
     device = resolve_device(device)
-    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN"))
+    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "CascadeRCNN"))
+    cascade = model_cfg["type"] == "CascadeRCNN"
+    roi = model_cfg["roi_head"]
+    if cascade and roi.get("mask_head"):
+        raise NotImplementedError(
+            "Cascade Mask R-CNN (a CascadeRCNN roi_head with a mask_head, the JAX package's "
+            "HTC machinery, build_htc) is not ported to PyTorch yet")
     gen = torch.Generator().manual_seed(seed)
     train_cfg = model_cfg.get("train_cfg") or {}
     _only(train_cfg, "train_cfg", ("rpn", "rpn_proposal", "rcnn"))
@@ -429,52 +475,133 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
 
     backbone = _build_backbone(model_cfg["backbone"], gen)
     neck_cfg = model_cfg["neck"]
+    if isinstance(neck_cfg, list):
+        raise _unported("neck (stacked necks)", [n.get("type") for n in neck_cfg])
     neck = _build_neck(neck_cfg, gen)
     channels = neck_cfg.get("out_channels", 256)
     rpn_module, rpn_cfg, rpn_type, ag = _build_rpn(model_cfg["rpn_head"],
                                                    train_cfg.get("rpn") or {}, channels, gen)
+    out_size, strides, finest_scale = _extractor(roi)
+    roi_kw = dict(roi_strides=strides, roi_out_size=out_size, roi_finest_scale=finest_scale)
+    rcnn_test = _rcnn_test_cfg(test_cfg.get("rcnn", {}))
+    if cascade:
+        heads, bbox_cfg, roi_cfg, cascade_cfg, train_pc, test_pc = _cascade_parts(
+            model_cfg, channels, out_size, gen)
+        net = CascadeNet(backbone, neck, rpn_module, heads, **roi_kw)
+        set_compute_dtype(net, dtype)
+        return CascadeDetector(
+            net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
+            train_proposal_cfg=train_pc, test_proposal_cfg=test_pc, rcnn_test_cfg=rcnn_test,
+            rpn_type=rpn_type, cascade_cfg=cascade_cfg)
 
-    roi = model_cfg["roi_head"]
     _check(roi, "type", ("ProbRoIHead", "StandardRoIHead"))
     _check(roi, "shared_head", (None,))
-    head = roi["bbox_head"]
-    _check(head, "type", ("ProbConvFCBBoxHead", "Shared2FCBBoxHead", "ConvFCBBoxHead"))
-    _check(head, "num_shared_convs", (0, None))
-    _check(head, "reg_class_agnostic", (False,), False)
-    extractor = roi.get("bbox_roi_extractor", {})
-    _check(extractor, "type", ("SingleRoIExtractor", None))
-    roi_layer = extractor.get("roi_layer", {})
-    _check(roi_layer, "type", ("RoIAlign",), "RoIAlign")
-    out_size = roi_layer.get("output_size", 7)
-    strides = tuple(extractor.get("featmap_strides", (8, 16, 32, 64, 128)))
-    num_classes = head.get("num_classes", 80)
-    bbox_module = ConvFCBBoxHead(
-        gen, num_classes=num_classes, in_channels=channels,
-        num_shared_fcs=head.get("num_shared_fcs", 2),
-        fc_out_channels=head.get("fc_out_channels", 1024),
-        roi_feat_size=out_size,
-    )
-    bbox_cfg = _bbox_cfg(head)
+    bbox_module, bbox_cfg = _bbox_head(roi["bbox_head"], channels, out_size, gen)
     train_rcnn = train_cfg.get("rcnn") or {}
     roi_cfg = _roi_cfg(roi, train_rcnn)
     mask_module, mask_out_size = None, 14
     if roi.get("mask_head"):
-        mask_module, mask_out_size = _build_mask_head(roi, strides, channels, num_classes,
-                                                      train_rcnn, gen)
+        mask_module, mask_out_size = _build_mask_head(roi, strides, channels,
+                                                      bbox_cfg.num_classes, train_rcnn, gen)
     else:
         _check(train_rcnn, "mask_size", (None,))
 
-    net = TwoStageNet(
-        backbone, neck, rpn_module, bbox_module, roi_strides=strides,
-        roi_out_size=out_size, roi_finest_scale=extractor.get("finest_scale", 56),
-        mask_head=mask_module, mask_roi_out_size=mask_out_size,
-    )
+    net = TwoStageNet(backbone, neck, rpn_module, bbox_module, mask_head=mask_module,
+                      mask_roi_out_size=mask_out_size, **roi_kw)
     set_compute_dtype(net, dtype)
-    rcnn_test = test_cfg.get("rcnn", {})
     return TwoStageDetector(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
         train_proposal_cfg=_proposal_cfg(train_cfg.get("rpn_proposal") or {}, 4000, 2000),
         test_proposal_cfg=_proposal_cfg(test_cfg.get("rpn") or {}, 1000, 256),
-        rcnn_test_cfg=_rcnn_test_cfg(rcnn_test),
+        rcnn_test_cfg=rcnn_test,
         rpn_type=rpn_type,
     )
+
+
+# the stage heads' types: the JAX builder gives any type but its SABL and
+# Double heads the Shared2FC preset (``_std_convfc_head``); a stage given
+# as only ``{"num_classes": K}`` (a merged config's list) has no type
+_CASCADE_HEADS = (None, "Shared2FCBBoxHead", "ProbShared2FCBBoxHead", "ConvFCBBoxHead",
+                  "ProbConvFCBBoxHead")
+
+
+def _cascade_rcnn_cfgs(train_cfg: Dict[str, Any], num_stages: int):
+    """Each stage's ``train_cfg.rcnn`` entry and IoU threshold: the
+    ``pos_iou_thr`` of its assigner, default ``min(0.5 + 0.1 i, 0.9)``; the
+    JAX cascade assigns at that one threshold (as ``neg_iou_thr`` and
+    ``min_pos_iou`` too) and samples every stage with stage 0's sampler, so
+    other values raise."""
+    rcnn = train_cfg.get("rcnn") or []
+    rcnn = [rcnn] if isinstance(rcnn, dict) else list(rcnn)
+    thrs = []
+    for i in range(num_stages):
+        rc = rcnn[i] if i < len(rcnn) else {}
+        where = f"train_cfg.rcnn[{i}]"
+        _only(rc, where, ("assigner", "sampler", "pos_weight", "debug"))
+        _check(rc, "pos_weight", (-1,), -1)
+        _check(rc, "debug", (False,), False)
+        thr = min(0.5 + 0.1 * i, 0.9)
+        a = _max_iou_assigner(rc.get("assigner", {}), (thr, thr, thr, False))
+        thr = a["pos_iou_thr"]
+        for key in ("neg_iou_thr", "min_pos_iou"):
+            if a[key] != thr:
+                raise _unported(f"{where}.assigner.{key} (the JAX cascade's is pos_iou_thr)",
+                                a[key])
+        _check(a, "match_low_quality", (False,))
+        if i and rc.get("sampler", {}) != rcnn[0].get("sampler", {}):
+            raise _unported(f"{where}.sampler (the JAX cascade samples with stage 0's)",
+                            rc.get("sampler"))
+        thrs.append(thr)
+    return (rcnn[0] if rcnn else {}), tuple(thrs)
+
+
+def _cascade_parts(model_cfg: Dict[str, Any], channels: int, out_size: int,
+                   gen: torch.Generator):
+    """``CascadeRCNN``'s stage heads, their ``BBoxHeadCfg`` (stage 0's),
+    RoI and cascade configs and train and test proposal configs (JAX
+    ``build_cascade``): ``bbox_head`` a list of the stages' heads or one
+    dict repeated ``num_stages`` times; ``boost`` (off by default) and
+    ``gamma`` (0.1) of the RoI head; the sampler of ``train_cfg.rcnn[0]``."""
+    roi = model_cfg["roi_head"]
+    _only(roi, "roi_head", ("type", "num_stages", "stage_loss_weights", "bbox_roi_extractor",
+                            "bbox_head", "boost", "gamma"))
+    _check(roi, "type", ("CascadeRoIHead", "ProbCascadeRoIHead"))
+    num_stages = roi.get("num_stages", 3)
+    heads = roi["bbox_head"]
+    heads = [heads] * num_stages if isinstance(heads, dict) else list(heads)
+    if len(heads) != num_stages:
+        raise ValueError(f"roi_head.bbox_head has {len(heads)} heads for {num_stages} stages")
+    weights = tuple(float(w) for w in roi.get("stage_loss_weights", (1.0, 0.5, 0.25)))
+    if len(weights) < num_stages:
+        raise ValueError(f"roi_head.stage_loss_weights has {len(weights)} weights for "
+                         f"{num_stages} stages")
+    modules, cfgs = zip(*(_bbox_head(h, channels, out_size, gen, _CASCADE_HEADS)
+                          for h in heads))
+    for i, c in enumerate(cfgs[1:], 1):
+        if dataclasses.replace(c, target_stds=cfgs[0].target_stds) != cfgs[0]:
+            raise _unported(f"roi_head.bbox_head[{i}] unlike stage 0's (the JAX cascade "
+                            "decodes and takes every stage's loss with stage 0's)", heads[i])
+    train_cfg = model_cfg.get("train_cfg") or {}
+    rcnn0, stage_pos = _cascade_rcnn_cfgs(train_cfg, num_stages)
+    sampler = rcnn0.get("sampler", {})
+    _only(sampler, "train_cfg.rcnn[0].sampler", ("type", "num", "pos_fraction", "neg_pos_ub",
+                                                 "add_gt_as_proposals"))
+    _check(sampler, "type", ("RandomSampler",), "RandomSampler")
+    _check(sampler, "neg_pos_ub", (-1,), -1)
+    _check(sampler, "add_gt_as_proposals", (True,), True)
+    prob = roi["type"] == "ProbCascadeRoIHead"
+    boost, gamma = roi.get("boost", False), roi.get("gamma", 0.1)
+    roi_cfg = ProbRoICfg(gamma=gamma, boost=boost, prob=prob,
+                         num_samples=sampler.get("num", 512),
+                         pos_fraction=sampler.get("pos_fraction", 0.25))
+    cascade_cfg = CascadeCfg(num_stages=num_stages, stage_loss_weights=weights,
+                             stage_pos_iou=stage_pos, prob=prob, boost=boost, gamma=gamma)
+    test_cfg = model_cfg.get("test_cfg") or {}
+    proposal_cfgs = []
+    for key, cfg, nms_pre in (("train_cfg.rpn_proposal", train_cfg.get("rpn_proposal") or {},
+                               2000), ("test_cfg.rpn", test_cfg.get("rpn") or {}, 1000)):
+        # the JAX cascade reads no min_bbox_size (its proposals keep every size)
+        _check({f"{key}.min_bbox_size": cfg.get("min_bbox_size", 0)}, f"{key}.min_bbox_size",
+               (0,))
+        proposal_cfgs.append(_proposal_cfg(cfg, nms_pre, 1000))
+    return modules, cfgs[0], roi_cfg, cascade_cfg, *proposal_cfgs

@@ -1,7 +1,7 @@
 """The train loop (the epoch loop of the JAX package's ``tools/train.py``,
 as a function): ``train_detector(cfg, work_dir, ...)``.
 
-From the config: the model (``--tiny`` shrinks a Boosting R-CNN config
+From the config: the model (``--tiny`` shrinks a box-only two-stage config
 to ResNet-18 at width 8 on a 128 x 160 canvas), its compute dtype
 (``compute_dtype``),
 the train dataset and loader (``data.train``, batch ``samples_per_gpu``),
@@ -60,21 +60,34 @@ _UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "lsj_range", "
 _BIG_BLOCK_KEYS = ("groups", "base_width", "scales", "dcn", "stage_with_dcn")
 
 
+def _each(x):
+    """A config's list of stage dicts (a cascade's), or its one dict."""
+    return x if isinstance(x, list) else [x]
+
+
 def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
-    """The Boosting R-CNN branch of the JAX ``tools/train.py::shrink_model``:
-    the backbone (ResNet, ResNeXt or Res2Net) becomes ResNet-18 at width 8,
-    neck 32, RPN 32 x 2, FC 64, fewer proposals and RoIs.  Other model
-    types raise."""
-    if mc.get("rpn_head", {}).get("type") != "ATSSRPNHead" or "roi_head" not in mc:
-        raise NotImplementedError("--tiny shrinks the Boosting R-CNN (ATSS RPN) configs only")
+    """The two-stage branch of the JAX ``tools/train.py::shrink_model``, for
+    box-only configs (the Boosting R-CNN family, Faster R-CNN, Cascade
+    R-CNN and ProbCascade): the backbone (ResNet, ResNeXt or Res2Net)
+    becomes ResNet-18 at width 8, neck 32, RPN 32 (the ATSS RPN's 2 convs
+    deep), FC 64 (every cascade stage's), fewer proposals and RoIs (every
+    stage's sampler).  Other model types raise."""
+    rpn = mc.get("rpn_head", {}).get("type")
+    if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc or \
+            mc["roi_head"].get("mask_head"):
+        raise NotImplementedError("--tiny shrinks the box-only two-stage configs only")
     for key in _BIG_BLOCK_KEYS:
         mc["backbone"].pop(key, None)
     mc["backbone"].update(type="ResNet", depth=18, base_channels=8)
     mc["neck"].update(in_channels=[8, 16, 32, 64], out_channels=32)
-    mc["rpn_head"].update(feat_channels=32, stacked_convs=2)
-    mc["roi_head"]["bbox_head"]["fc_out_channels"] = 64
+    # the JAX shrink sets stacked_convs on the plain RPN too, where it is unread
+    mc["rpn_head"].update(feat_channels=32, **({"stacked_convs": 2} if rpn == "ATSSRPNHead"
+                                               else {}))
+    for head in _each(mc["roi_head"]["bbox_head"]):
+        head["fc_out_channels"] = 64
     mc["train_cfg"]["rpn_proposal"].update(nms_pre=200, max_per_img=64)
-    mc["train_cfg"]["rcnn"]["sampler"]["num"] = 32
+    for rcnn in _each(mc["train_cfg"]["rcnn"]):
+        rcnn["sampler"]["num"] = 32
     mc["test_cfg"]["rpn"].update(nms_pre=100, max_per_img=32)
     return mc
 
@@ -99,7 +112,7 @@ def _load(cfg) -> Config:
 
 
 def _num_classes(mc: Dict[str, Any]) -> int:
-    return mc["roi_head"]["bbox_head"]["num_classes"]
+    return _each(mc["roi_head"]["bbox_head"])[0].get("num_classes", 80)
 
 
 def _pipeline(data_cfg: Dict[str, Any], split: str, tiny: bool):

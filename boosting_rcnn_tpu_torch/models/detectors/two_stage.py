@@ -216,12 +216,18 @@ class TwoStageDetector:
                 self._tensor(batch["gt_labels"], torch.int64))
 
     def _vmap_sample(self, prop_boxes, prop_scores, prop_valid, batch,
-                     generator: Optional[torch.Generator] = None) -> RoISample:
-        """Assign and sample each image's RoIs; fields ``(B, R, ...)``."""
+                     generator: Optional[torch.Generator] = None,
+                     roi_cfg: Optional[ProbRoICfg] = None, uniforms=None) -> RoISample:
+        """Assign and sample each image's RoIs (by ``roi_cfg``, the
+        detector's when None); fields ``(B, R, ...)``.  Given ``uniforms``
+        ``(B, 2, G + P)`` rank the candidates instead of draws."""
         gt_bboxes, gt_mask, gt_labels = self._gt(batch)
+        if uniforms is not None:
+            uniforms = self._tensor(uniforms)
         per_image = [
-            sample_rois(self.roi_cfg, prop_boxes[i], prop_scores[i], prop_valid[i],
-                        gt_bboxes[i], gt_mask[i], gt_labels[i], generator=generator)
+            sample_rois(roi_cfg or self.roi_cfg, prop_boxes[i], prop_scores[i], prop_valid[i],
+                        gt_bboxes[i], gt_mask[i], gt_labels[i], generator=generator,
+                        uniforms=None if uniforms is None else tuple(uniforms[i]))
             for i in range(prop_boxes.shape[0])
         ]
         return RoISample(*(torch.stack(x) for x in zip(*per_image)))
@@ -246,6 +252,25 @@ class TwoStageDetector:
         return self.sample_from_rpn_outs(self._rpn_flat(feats), batch, anchors,
                                          num_level_anchors, generator)
 
+    def _rpn_losses(self, batch, anchors, generator: Optional[torch.Generator] = None,
+                    rpn_uniforms=None):
+        """The features, the flat RPN outputs ``(cls, reg, iou)`` and the RPN
+        losses of a batch (``loss``'s first part)."""
+        gt_bboxes, gt_mask, _ = self._gt(batch)
+        anchors = self._tensor(anchors)
+        feats = self.net.features(self._tensor(batch["images"]))
+        cls, reg, iou = self._rpn_flat(feats)
+        valid = torch.ones(cls.shape, dtype=torch.bool, device=self.device)
+        if self.rpn_type == "rpn":
+            losses = rpn_loss(self.rpn_cfg, cls, reg, anchors, valid, gt_bboxes, gt_mask,
+                              generator=generator,
+                              uniforms=None if rpn_uniforms is None
+                              else self._tensor(rpn_uniforms))
+        else:
+            losses = atss_rpn_loss(self.rpn_cfg, cls, reg, iou, anchors, valid,
+                                   gt_bboxes, gt_mask)
+        return feats, (cls, reg, iou), losses
+
     def loss(self, batch, anchors, num_level_anchors,
              generator: Optional[torch.Generator] = None,
              sample: Optional[RoISample] = None,
@@ -264,20 +289,9 @@ class TwoStageDetector:
         Returns the five losses (ATSS RPN: ``loss_rpn_cls``,
         ``loss_rpn_bbox``, ``loss_rpn_iou``, ``loss_cls``, ``loss_bbox``;
         plain RPN: the first two, the R-CNN's two and ``loss_mask``)."""
-        images = self._tensor(batch["images"])
-        gt_bboxes, gt_mask, _ = self._gt(batch)
-        anchors = self._tensor(anchors)
-        feats = self.net.features(images)
-        cls, reg, iou = self._rpn_flat(feats)
-        valid = torch.ones(cls.shape, dtype=torch.bool, device=self.device)
-        if self.rpn_type == "rpn":
-            losses = rpn_loss(self.rpn_cfg, cls, reg, anchors, valid, gt_bboxes, gt_mask,
-                              generator=generator,
-                              uniforms=None if rpn_uniforms is None
-                              else self._tensor(rpn_uniforms))
-        else:
-            losses = atss_rpn_loss(self.rpn_cfg, cls, reg, iou, anchors, valid,
-                                   gt_bboxes, gt_mask)
+        feats, (cls, reg, iou), losses = self._rpn_losses(batch, anchors, generator,
+                                                          rpn_uniforms)
+        gt_bboxes = self._tensor(batch["gt_bboxes"])
         if sample is None:
             sample = self.sample_from_rpn_outs((cls, reg, iou), batch, anchors,
                                                num_level_anchors, generator)

@@ -4,10 +4,12 @@
 ``ConvFCBBoxHead`` with the flagship's Shared2FC layout: the pooled
 ``(N, 7, 7, C)`` RoI features are flattened in (H, W, C) order, as in the
 JAX package, so the first FC takes the JAX kernel with no column
-permutation.  ``bbox_head_decode`` decodes the class-wise deltas and runs
+permutation.  The box deltas are class-wise, ``(N, 4K)``, or with
+``reg_class_agnostic`` one set for every class, ``(N, 4)`` (Cascade
+R-CNN's stage heads).  ``bbox_head_decode`` decodes the deltas and runs
 multiclass NMS for one image.  ``bbox_targets`` and ``bbox_head_loss`` are
-the train side with the flagship's losses, softmax cross entropy and L1 on
-encoded class-wise deltas; other loss types raise ``NotImplementedError``.
+the train side: softmax cross entropy, and L1 or smooth L1 on the encoded
+deltas; other loss types raise ``NotImplementedError``.
 The head computes in the compute dtype of its ``Linear`` layers, and cls
 and reg come out in it (JAX ``roi_heads/bbox_head.py:143-157``); the
 losses compute in the predictions' dtype until a float32 weight promotes
@@ -29,12 +31,12 @@ from ..layers import make_linear
 
 
 class ConvFCBBoxHead(nn.Module):
-    """``(N, 7, 7, C)`` pooled features -> (cls logits ``(N, K+1)``, class-wise
-    deltas ``(N, 4K)``)."""
+    """``(N, 7, 7, C)`` pooled features -> (cls logits ``(N, K+1)``, deltas
+    ``(N, 4K)``, or ``(N, 4)`` with ``reg_class_agnostic``)."""
 
     def __init__(self, gen: torch.Generator, num_classes: int, in_channels: int = 256,
                  num_shared_fcs: int = 2, fc_out_channels: int = 1024,
-                 roi_feat_size: int = 7):
+                 roi_feat_size: int = 7, reg_class_agnostic: bool = False):
         super().__init__()
         self.num_shared_fcs = num_shared_fcs
         cin = in_channels * roi_feat_size * roi_feat_size
@@ -42,7 +44,7 @@ class ConvFCBBoxHead(nn.Module):
             self.add_module(f"shared_fc_{i}", make_linear(cin, fc_out_channels, gen))
             cin = fc_out_channels
         self.fc_cls = make_linear(cin, num_classes + 1, gen)
-        self.fc_reg = make_linear(cin, 4 * num_classes, gen)
+        self.fc_reg = make_linear(cin, 4 if reg_class_agnostic else 4 * num_classes, gen)
 
     def forward(self, x: torch.Tensor):
         x = x.reshape(x.shape[0], -1)
@@ -53,7 +55,7 @@ class ConvFCBBoxHead(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class BBoxHeadCfg:
-    """The JAX ``BBoxHeadCfg``, as far as the flagship sets it."""
+    """The JAX ``BBoxHeadCfg``, as far as the ported configs set it."""
 
     num_classes: int = 4
     target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
@@ -62,16 +64,16 @@ class BBoxHeadCfg:
     reg_decoded_bbox: bool = False
     loss_cls_weight: float = 2.0
     loss_bbox_weight: float = 2.0
-    loss_bbox_type: str = "l1"
+    loss_bbox_type: str = "l1"  # "l1" or "smooth_l1"
+    smooth_l1_beta: float = 1.0
     loss_cls_type: str = "ce"
 
 
 def _check_train_cfg(cfg: BBoxHeadCfg) -> None:
-    for what, value, ported in (("reg_class_agnostic", cfg.reg_class_agnostic, False),
-                                ("reg_decoded_bbox", cfg.reg_decoded_bbox, False),
-                                ("loss_bbox_type", cfg.loss_bbox_type, "l1"),
-                                ("loss_cls_type", cfg.loss_cls_type, "ce")):
-        if value != ported:
+    for what, value, ported in (("reg_decoded_bbox", cfg.reg_decoded_bbox, (False,)),
+                                ("loss_bbox_type", cfg.loss_bbox_type, ("l1", "smooth_l1")),
+                                ("loss_cls_type", cfg.loss_cls_type, ("ce",))):
+        if value not in ported:
             raise NotImplementedError(f"bbox head {what}={value!r} is not ported")
 
 
@@ -96,20 +98,28 @@ def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.T
                    rois: torch.Tensor, labels: torch.Tensor, label_weights: torch.Tensor,
                    bbox_t: torch.Tensor, bbox_w: torch.Tensor,
                    reduction_override: Optional[str] = None):
-    """The head loss on ``(R, K+1)`` logits and ``(R, 4K)`` deltas.  With
-    ``reduction_override='none'`` the elementwise losses come back, for the
-    boosting renormalisation; else cls is averaged over the weighted slots
-    and the box loss over all ``R``."""
+    """The head loss on ``(R, K+1)`` logits and ``(R, 4K)`` deltas (``(R,
+    4)`` class-agnostic).  With ``reduction_override='none'`` the
+    elementwise losses come back, for the boosting renormalisation; else
+    cls is averaged over the weighted slots and the box loss over all
+    ``R``."""
     _check_train_cfg(cfg)
     r = cls_score.shape[0]
     c = cfg.num_classes
     pos = (labels >= 0) & (labels < c)
-    safe_lab = torch.clamp(labels, 0, c - 1)
-    # the label's deltas by a one-hot product, exact, with an elementwise
-    # gradient (a gather's is a scatter-add with float atomics on the GPU)
-    onehot = F.one_hot(safe_lab.long(), c).to(bbox_pred.dtype)
-    pred4 = (bbox_pred.reshape(r, c, 4) * onehot[:, :, None]).sum(1)
-    elem = (pred4 - bbox_t).abs() * bbox_w * pos.float()[:, None] * cfg.loss_bbox_weight
+    if cfg.reg_class_agnostic:
+        pred4 = bbox_pred.reshape(r, 4)
+    else:
+        safe_lab = torch.clamp(labels, 0, c - 1)
+        # the label's deltas by a one-hot product, exact, with an elementwise
+        # gradient (a gather's is a scatter-add with float atomics on the GPU)
+        onehot = F.one_hot(safe_lab.long(), c).to(bbox_pred.dtype)
+        pred4 = (bbox_pred.reshape(r, c, 4) * onehot[:, :, None]).sum(1)
+    d = (pred4 - bbox_t).abs()
+    if cfg.loss_bbox_type == "smooth_l1":
+        b = cfg.smooth_l1_beta
+        d = torch.where(d < b, 0.5 * d * d / b, d - 0.5 * b)
+    elem = d * bbox_w * pos.float()[:, None] * cfg.loss_bbox_weight
     ce = L.cross_entropy_loss(cls_score, labels, reduction="none")
     ce = ce * label_weights * cfg.loss_cls_weight
     if reduction_override == "none":
@@ -134,14 +144,15 @@ def bbox_head_decode(
     **nms_kw,
 ):
     """Decode + multiclass NMS for one image: ``rois`` ``(R, 4)``, ``scores``
-    ``(R, K+1)`` already fused, ``bbox_pred`` ``(R, 4K)`` -> ``(dets
-    (max, 5), labels (max,), valid (max,))``; ``nms_kw`` (``nms_type`` and
-    the ``soft_*`` options) go to ``multiclass_nms_padded``."""
+    ``(R, K+1)`` already fused, ``bbox_pred`` ``(R, 4K)`` (or ``(R, 4)``,
+    one box for every class) -> ``(dets (max, 5), labels (max,), valid
+    (max,))``; ``nms_kw`` (``nms_type`` and the ``soft_*`` options) go to
+    ``multiclass_nms_padded``."""
     r = rois.shape[0]
     c = cfg.num_classes
     boxes = box_ops.delta2bbox(
         rois, bbox_pred, cfg.target_means, cfg.target_stds, max_shape=img_shape
-    ).reshape(r, c, 4)
+    ).reshape(r, -1, 4).expand(r, c, 4)
     if rescale:
         boxes = boxes / scale_factor.reshape(1, 1, 4)
     return multiclass_nms_padded(

@@ -6,8 +6,8 @@
         [--iters N] [--tiny] [--no-validate] [--fake-data] [--device DEV]
 
 ``--device`` defaults to the GPU; without one the command raises unless
-``--device cpu`` is given.  ``--tiny`` trains the flagship at ResNet-18
-width 8 on a 128 x 160 canvas; ``--fake-data`` trains on seeded noise
+``--device cpu`` is given.  ``--tiny`` trains a box-only two-stage config
+(the flagship, a cascade, ...) at ResNet-18 width 8 on a 128 x 160 canvas; ``--fake-data`` trains on seeded noise
 batches; ``--iters`` caps the steps.  Checkpoints go to
 ``<work-dir>/epoch_<n>``, or ``<work-dir>/iter_<step>`` where ``--iters``
 stops the run inside an epoch (default work dir ``work_dirs/<config

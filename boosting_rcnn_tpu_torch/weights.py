@@ -7,6 +7,7 @@ nested dicts of numpy arrays, named as flax names them, and returns a
 module names, so the mapping is by rule:
 
   * ``Conv_0`` / ``GroupNorm_0`` inside a ConvModule -> ``conv`` / ``norm``;
+    a cascade's stage heads ``bbox_heads_N`` -> ``bbox_heads.N``;
   * conv ``kernel`` (HWIO) -> ``weight`` (OIHW); dense ``kernel`` (in, out)
     -> ``weight`` (out, in); the mask head's transposed conv ``upsample``
     (flax ``nn.ConvTranspose``, HWIO) -> ``weight`` (in, out, H, W) with
@@ -70,9 +71,17 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (key,), np.asarray(value)
 
 
+def _module_name(m: str) -> str:
+    """A flax module name as the port names it: ``Conv_0`` -> ``conv``, a
+    cascade's stage head ``bbox_heads_N`` (flax's name for a tuple's
+    submodule) -> ``bbox_heads.N`` (an ``nn.ModuleList``)."""
+    stage = re.fullmatch(r"bbox_heads_(\d+)", m)
+    return f"bbox_heads.{stage[1]}" if stage else _MODULE_NAMES.get(m, m)
+
+
 def _convert(path: Tuple[str, ...], value: np.ndarray):
     *mods, leaf = path
-    mods = [_MODULE_NAMES.get(m, m) for m in mods]
+    mods = [_module_name(m) for m in mods]
     if leaf == "kernel":
         if value.ndim == 4 and mods[-1:] == ["upsample"]:
             value = value[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -158,7 +167,8 @@ def _fc_after_pool(w: torch.Tensor, roi_feat_size: int) -> torch.Tensor:
 def from_mmdet_state_dict(state_dict: Dict[str, Any],
                           roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (``TwoStageNet``) from an mmdet two-stage
-    state dict (the flagship Boosting R-CNN or Faster / Mask R-CNN R50-FPN):
+    state dict (the flagship Boosting R-CNN, Faster / Mask R-CNN R50-FPN or
+    Cascade R-CNN):
 
       backbone.*                              -> backbone.* (``from_torchvision_resnet``)
       neck.{lateral,fpn,downsample,pafpn}_convs.N.conv -> neck.{lateral_N,fpn_conv_N,...}.conv
@@ -168,6 +178,8 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
       rpn_head.scales.N.scale                 -> rpn.scale_N.scale (a scalar)
       roi_head.bbox_head.shared_fcs.N         -> bbox_head.shared_fc_N (N = 0 reordered)
       roi_head.bbox_head.{fc_cls,fc_reg}      -> bbox_head.{fc_cls,fc_reg}
+      roi_head.bbox_head.S.shared_fcs.N       -> bbox_heads.S.shared_fc_N (a cascade's stage S)
+      roi_head.bbox_head.S.{fc_cls,fc_reg}    -> bbox_heads.S.{fc_cls,fc_reg}
       roi_head.mask_head.convs.N.conv         -> mask_head.conv_N
       roi_head.mask_head.{upsample,conv_logits} -> mask_head.{upsample,conv_logits}
 
@@ -187,6 +199,10 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
          lambda m: f"bbox_head.shared_fc_{m[1]}.{m[2]}"),
         (r"roi_head\.bbox_head\.(fc_cls|fc_reg)\.(weight|bias)",
          lambda m: f"bbox_head.{m[1]}.{m[2]}"),
+        (r"roi_head\.bbox_head\.(\d+)\.shared_fcs\.(\d+)\.(weight|bias)",
+         lambda m: f"bbox_heads.{m[1]}.shared_fc_{m[2]}.{m[3]}"),
+        (r"roi_head\.bbox_head\.(\d+)\.(fc_cls|fc_reg)\.(weight|bias)",
+         lambda m: f"bbox_heads.{m[1]}.{m[2]}.{m[3]}"),
         (r"roi_head\.mask_head\.convs\.(\d+)\.conv\.(weight|bias)",
          lambda m: f"mask_head.conv_{m[1]}.{m[2]}"),
         (r"roi_head\.mask_head\.(upsample|conv_logits)\.(weight|bias)",
@@ -206,7 +222,7 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
         tensor = _port_tensor(value)
         if name.endswith(".scale"):
             tensor = tensor.reshape(())
-        elif name == "bbox_head.shared_fc_0.weight":
+        elif re.fullmatch(r"bbox_head(s\.\d+)?\.shared_fc_0\.weight", name):
             tensor = _fc_after_pool(tensor, roi_feat_size)
         out[name] = tensor
     return out

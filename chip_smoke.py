@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's flagship, Mask R-CNN and Boosting R-CNN family
-inference and training on one NVIDIA GPU.
+"""Drive the PyTorch port's flagship, Mask R-CNN, Boosting R-CNN family and
+Cascade R-CNN inference and training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -102,10 +102,38 @@ non-increasing and at most the pre-NMS ones; finite losses, the frozen
 stages bit-identical, every other part moved); and a tiny ResNeXt, a
 tiny Res2Net-DCN (soft-NMS, ``reg_norm='mean'``) and a tiny Res2Net-DCN
 with CIoU on the RPN's encoded deltas predict on the GPU as on the CPU,
-and take a train step on the GPU as on the CPU in both dtypes (in
-bfloat16 held by ``FAMILY_BF16_RATIO``; the third's RPN box loss is
-ill-conditioned, ``CIOU_BF16_UNHELD``), and all three join the
-repeatability check.
+and take a train step on the GPU as on the CPU in both dtypes (the third's
+RPN box loss is ill-conditioned, ``CIOU_BF16_UNHELD``), and all three join
+the repeatability check.  Every tiny bfloat16 GPU step, the flagship's
+and Mask R-CNN's too, is held by one rule set from readings over seeds
+7-16 (``bf16_step_rule``: the losses, every moved tensor moved, and the
+GPU error over the float32 step's distance, its median at most
+``FAMILY_BF16_RATIO`` and its 90th percentile at most
+``BF16_RATIO_P90``); the run checks that the rule breaks on a
+deliberately wrong step (level 0's K4 gradient dropped) of the flagship,
+Mask R-CNN and the ProbCascade.
+
+Then the phase "cascade": the fork's ProbCascade UTDAC
+(``configs/ensemble/prob_cascade_rcnn_r50_pafpn_1x_utdac.py``: the
+flagship's R50, PAFPN 256 and ATSS RPN, three class-agnostic Shared2FC
+1024 stages at IoU 0.5 / 0.6 / 0.7, boosting with gamma 0.5, prior
+fusion) at full width with seeded random weights in float32 and in
+bfloat16: three requests of two 800 x 1344 images (256 proposals an
+image, 512 RoIs a stage; K1 of the dtype once a stage and request, no
+other kernel), then three train steps at batch 4 with the config's
+schedule (512 slots an image a stage; K1, the tile keys and K4 once a
+stage and step), counts set to 0 before each path and read after;
+detections finite, inside the image and repeatable, losses finite, every
+stage head and every unfrozen part moved, the frozen stages
+bit-identical; K1 and K4 against their plain versions at stage 2's RoIs
+(refined twice, some clamped to the image) of a request and of a step,
+and timed there.  Cascade R-CNN R50-FPN COCO
+(``configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py``: the plain
+RPN, 80 classes, 1000 proposals an image) in bfloat16: one ``predict`` of
+two images (2000 RoIs a stage) and one train step at batch 2, K1 and K4
+at its stage 2's predict RoIs.  The tiny ProbCascade predicts and takes a
+train step on the GPU as on the CPU in both dtypes (its stages sampled
+from the same numpy uniforms) and joins the repeatability check.
 
 Then the user's entry points, in float32 and again in bfloat16, on
 synthetic COCO-format sets written to a temporary directory
@@ -139,10 +167,12 @@ last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
 code is not 0; without a CUDA device it exits with code 2 and prints no
 result.  ``python3 chip_smoke.py --step-readings`` builds the kernels and
 only prints the tiny models' GPU-against-CPU train steps over ten seeds
-(``step_readings``), the readings behind FAMILY_BF16_RATIO.
+(``step_readings``), the readings behind FAMILY_BF16_RATIO, and the rule
+on deliberately wrong steps; ``--cascade`` runs only the phase "cascade".
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -167,8 +197,13 @@ from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.data.synthetic import generate  # noqa: E402
 from boosting_rcnn_tpu_torch.engine.checkpoint import restore_checkpoint  # noqa: E402
-from boosting_rcnn_tpu_torch.engine.runner import build_trainer  # noqa: E402
+from boosting_rcnn_tpu_torch.engine.runner import build_trainer, shrink_model  # noqa: E402
+from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.layers import DeformConv  # noqa: E402
+from boosting_rcnn_tpu_torch.models.roi_heads.cascade_roi_head import (  # noqa: E402
+    refine_boxes,
+    stage_head_cfg,
+)
 from boosting_rcnn_tpu_torch.models.roi_heads.prob_roi_head import (  # noqa: E402
     prob_fuse_scores,
 )
@@ -209,7 +244,7 @@ STRIDES = (8, 16, 32, 64, 128)
 BF16 = torch.bfloat16
 BF16_SHARE = 0.01  # most values a bfloat16 kernel may leave not bit-equal to its plain version
 # the bfloat16 stage tolerances of tests/test_torch_bf16.py, as fractions
-BF16_TOL = {"levels": 0.025, "roi": 0.015, "loss": 0.015, "device_step": 0.35}
+BF16_TOL = {"levels": 0.025, "roi": 0.015, "loss": 0.015}
 
 
 def say(*parts) -> None:
@@ -610,18 +645,30 @@ def tiny_mask_config():
     return mc
 
 
+def is_cascade(mc) -> bool:
+    return mc["type"] == "CascadeRCNN"
+
+
 def tiny_train_inputs(seed: int, mc, anchors):
     """The tiny models' train batch (with gt mask crops for a mask head) and
-    the step's keyword arguments: for the plain RPN, its anchor sampler's
-    uniforms made with numpy, so that every device and run samples alike."""
+    the step's keyword arguments, made with numpy so that every device and
+    run samples alike: for the plain RPN its anchor sampler's uniforms, for
+    a cascade each stage's RoI sampler's (over the gt boxes and the train
+    proposals, then the gt boxes and the slots sampled before)."""
     masks = bool(mc["roi_head"].get("mask_head"))
     batch = (mask_train_batch if masks else train_batch)(
         seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0), **(
             {"num_classes": 4} if masks else {}))
     kw = {}
+    rs = np.random.RandomState(seed)
     if mc["rpn_head"]["type"] == "RPNHead":
-        kw["rpn_uniforms"] = np.random.RandomState(seed).rand(2, 2, anchors.shape[0]).astype(
-            np.float32)
+        kw["rpn_uniforms"] = rs.rand(2, 2, anchors.shape[0]).astype(np.float32)
+    if is_cascade(mc):
+        g = batch["gt_bboxes"].shape[1]
+        rcnn = mc["train_cfg"]["rcnn"]
+        sizes = [g + mc["train_cfg"]["rpn_proposal"]["max_per_img"]] + [
+            g + rcnn[0]["sampler"]["num"]] * (mc["roi_head"]["num_stages"] - 1)
+        kw["roi_uniforms"] = [rs.rand(2, 2, n).astype(np.float32) for n in sizes]
     return batch, kw
 
 
@@ -709,7 +756,8 @@ def step_report(seed: int, dtype, config) -> dict:
     on the CPU (one thread: torch's threaded CPU convolution backward was
     seen to be non-repeatable), twice on the GPU and, for bfloat16, on the
     CPU in float32, from the same seeded weights, batch and ``RoISample``
-    (drawn on the CPU), at a constant learning rate of 0.01.  Returns each
+    (drawn on the CPU; a cascade samples its stages in the step, from the
+    same uniforms), at a constant learning rate of 0.01.  Returns each
     run's metrics, and per parameter tensor the GPU's error against the
     CPU's step, the CPU's update, the CPU's largest value, the float32
     step's distance from the CPU's and the GPU's update; whether the two
@@ -721,8 +769,8 @@ def step_report(seed: int, dtype, config) -> dict:
     dets = {k: build(mc, device=d, seed=seed, dtype=t) for k, (d, t) in devices.items()}
     anchors, nla = dets["cpu"].anchors_for((128, 160))
     batch, kw = tiny_train_inputs(seed, mc, anchors)
-    sample = dets["cpu"].train_sample(batch, anchors, nla,
-                                      generator=torch.Generator().manual_seed(seed))
+    sample = None if is_cascade(mc) else dets["cpu"].train_sample(
+        batch, anchors, nla, generator=torch.Generator().manual_seed(seed))
     p0 = {k: v.detach().clone() for k, v in dets["cpu"].net.named_parameters()}
     metrics, params = {}, {}
     threads = torch.get_num_threads()
@@ -775,72 +823,144 @@ def step_summary(rep: dict) -> dict:
     return out
 
 
+# the deliberately wrong bfloat16 gradients ``step_readings`` holds the
+# rule to: level 0's K4 gradient 5% too large, half again, and dropped;
+# the run checks that the rule breaks on the last (``wrong_step_broken``)
+WRONG_K4_SCALES = (1.05, 1.5, 0.0)
+WRONG_K4_CAUGHT = 0.0
+
+
+@contextlib.contextmanager
+def wrong_k4(scale: float = 1.05, level: int = 0):
+    """A deliberately wrong bfloat16 gradient kernel inside the block: the
+    gradient of route level ``level`` times ``scale`` (the rule's teeth in
+    ``step_readings``)."""
+    bwd = batched_multilevel_roi_align.backward
+    right = bwd.launch
+
+    def launch(g, *args, **kw):
+        grads = right(g, *args, **kw)
+        if g.dtype == BF16:
+            grads[level] = grads[level] * scale
+        return grads
+
+    bwd.launch = launch
+    try:
+        yield
+    finally:
+        del bwd.launch
+
+
 def step_readings(gpu: str, seeds=tuple(range(7, 17))) -> None:
-    """``step_summary`` of the tiny flagship's and the tiny family models'
-    steps in both dtypes over ``seeds``, printed and not held: the readings
-    that FAMILY_BF16_RATIO and CIOU_BF16_UNHELD are set from (``python3
-    chip_smoke.py --step-readings``)."""
-    for name, config in (("flagship", tiny_config), *TINY_FAMILY):
+    """``step_summary`` of the tiny models' steps (the flagship, the family's
+    three, Mask R-CNN, the ProbCascade) in both dtypes over ``seeds``,
+    printed and not held: the readings that ``bf16_step_rule``'s bounds
+    and unheld losses are set from (``python3 chip_smoke.py
+    --step-readings``); then the rule on a deliberately wrong bfloat16 step
+    of each but the CIoU one (``wrong_k4``: level 0's gradient times each
+    of ``WRONG_K4_SCALES``), reporting where it breaks."""
+    models = (("flagship", tiny_config), *TINY_FAMILY, ("mask_rcnn", tiny_mask_config),
+              ("prob_cascade", tiny_cascade_config))
+    for name, config in models:
         for dtype in (torch.float32, BF16):
             for seed in seeds:
                 say(f"step readings ({gpu}) {name} {'f32' if dtype == torch.float32 else 'bf16'}"
                     f" seed {seed}: " + json.dumps(step_summary(step_report(seed, dtype, config))))
+    for scale in WRONG_K4_SCALES:
+        caught = []
+        for name, config in models:
+            if config is tiny_r2dcn_ciou_config:
+                continue
+            with wrong_k4(scale):
+                rep = step_report(seeds[0], BF16, config)
+            summary = step_summary(rep)
+            broken = bf16_step_rule(summary, rep["metrics"], config)
+            if broken:
+                caught.append(name)
+            say(f"step readings ({gpu}) {name} bf16 seed {seeds[0]}, level 0's K4 gradient x "
+                f"{scale}: " + json.dumps(summary) + " -> the rule "
+                + ("breaks: " + "; ".join(broken) if broken else "holds"))
+        say(f"the bf16 step rule caught the steps with level 0's K4 gradient x {scale} of: "
+            + (", ".join(caught) or "none"))
+
+
+def bf16_step_rule(summary: dict, metrics: dict, config) -> list:
+    """What a tiny bfloat16 GPU step of the model of ``config`` breaks of
+    the rule its readings back (PERF.md §6): the losses within
+    ``BF16_TOL["loss"]`` of the CPU's (not the gradient norm, nor the
+    CIoU-on-deltas model's ``CIOU_BF16_UNHELD`` or the ProbCascade's
+    ``CASCADE_BF16_UNHELD``), every tensor the CPU's step moved moved, and
+    the GPU's distance from the CPU's step over the CPU float32 step's, over
+    the moved tensors, with a median at most ``FAMILY_BF16_RATIO`` and a
+    90th percentile at most ``BF16_RATIO_P90`` (not for the CIoU model).
+    An empty list where it holds."""
+    ciou = config is tiny_r2dcn_ciou_config
+    unheld = (CIOU_BF16_UNHELD if ciou else
+              CASCADE_BF16_UNHELD if config is tiny_cascade_config else ())
+    broken = []
+    for k, ref in metrics["cpu"].items():
+        got = metrics["cuda"][k]
+        if not (math.isfinite(ref) and math.isfinite(got)):
+            broken.append(f"{k} not finite: GPU {got} CPU {ref}")
+        elif (k != "grad_norm" and k not in unheld
+              and abs(got - ref) > BF16_TOL["loss"] * abs(ref)):
+            broken.append(f"{k}: GPU {got} CPU {ref}")
+    if summary["moved"] < 50 or summary["gpu_moved"] < summary["moved"]:
+        broken.append(f"the CPU's step moved {summary['moved']} tensors, the GPU's "
+                      f"{summary['gpu_moved']} of them")
+    for key, bound in (("ratio_median", FAMILY_BF16_RATIO), ("ratio_p90", BF16_RATIO_P90)):
+        if not ciou and summary[key] > bound:
+            broken.append(f"the GPU's error over the float32 step's distance, {key} "
+                          f"{summary[key]:.4g} > {bound}")
+    return broken
+
+
+def wrong_step_broken(config, scale: float, seed: int = 7) -> list:
+    """``bf16_step_rule`` on the bfloat16 step of ``config`` with a wrong
+    K4 (``wrong_k4(scale)``): what it breaks."""
+    with wrong_k4(scale):
+        rep = step_report(seed, BF16, config)
+    return bf16_step_rule(step_summary(rep), rep["metrics"], config)
 
 
 def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32, config=tiny_config):
     """``step_report``'s GPU step (CUDA kernels) against its CPU step (plain
-    versions, held against the JAX package by the CPU tests); the metrics
-    finite, at least 50 tensors moved by the CPU's step, and each of them
-    by the GPU's.  float32: the losses and the gradient norm within rtol
-    1e-4, every updated parameter within ``1e-3 * max|p - p0| + 1e-7 *
-    max|p|`` of the tensor plus ``1e-6`` of the largest update in the
-    network (float32 sums in other orders; the last term covers tensors
-    whose update is a near-cancelling sum, such as the P6 and P7 convs'
-    biases).  bfloat16, the flagship and Mask R-CNN held as
-    tests/test_torch_bf16.py holds the port against JAX: the metrics
-    within 1.5%; (a) each parameter within 35% of its update (a rounding
-    that lands one ulp apart, cuDNN's sums against the CPU's, grows
-    through the backward: on an H100 a frozen-BN scale, whose gradient
-    sums the whole map, was seen 24% of its update apart); (b) for at
-    least 90% of the moved tensors, closer to the CPU's bfloat16 step than
-    the CPU's float32 step is.  bfloat16, the tiny family models: the
-    losses within 1.5% (but ``CIOU_BF16_UNHELD``) and, but for the
-    CIoU-on-deltas model, ``FAMILY_BF16_RATIO``.  Returns the GPU's
-    metrics, the worst error as a share of its tolerance under (a) or the
-    float32 bound (0 where neither is held), whether a second GPU run gave
-    the same bits, and ``step_summary``."""
+    versions, held against the JAX package by the CPU tests).  float32: the
+    metrics finite, the losses and the gradient norm within rtol 1e-4,
+    every updated parameter within ``1e-3 * max|p - p0| + 1e-7 * max|p|``
+    of the tensor plus ``1e-6`` of the largest update in the network
+    (float32 sums in other orders; the last term covers tensors whose
+    update is a near-cancelling sum, such as the P6 and P7 convs' biases),
+    at least 50 tensors moved by the CPU's step and each of them by the
+    GPU's.  bfloat16, every model: ``bf16_step_rule``, set from readings
+    over seeds 7-16 (``--step-readings``): at the tiny size a bfloat16
+    step's rounding noise is as large as its update, so no per-tensor
+    bound holds across seeds.  Returns the GPU's metrics, the worst
+    float32 error as a share of its tolerance (0 in bfloat16), whether a
+    second GPU run gave the same bits, and ``step_summary``."""
     rep = step_report(seed, dtype, config)
     summary = step_summary(rep)
     metrics = rep["metrics"]
-    family = dtype != torch.float32 and any(config is c for _, c in TINY_FAMILY)
-    ciou = family and config is tiny_r2dcn_ciou_config
-    rtol, step_tol = ((1e-4, 1e-3) if dtype == torch.float32 else
-                      (BF16_TOL["loss"], None if family else BF16_TOL["device_step"]))
+    if dtype != torch.float32:
+        broken = bf16_step_rule(summary, metrics, config)
+        if broken:
+            raise AssertionError(f"tiny bf16 train step ({config.__name__}): "
+                                 + "; ".join(broken))
+        return metrics["cuda"], 0.0, rep["repeat"], summary
     for k, ref in metrics["cpu"].items():
         got = metrics["cuda"][k]
-        held = not (family and (k == "grad_norm" or (ciou and k in CIOU_BF16_UNHELD)))
-        if not (math.isfinite(ref) and math.isfinite(got)) or (
-                held and abs(got - ref) > rtol * abs(ref)):
+        if not (math.isfinite(ref) and math.isfinite(got)) or abs(got - ref) > 1e-4 * abs(ref):
             raise AssertionError(f"tiny train step: {k} GPU {got} CPU {ref}")
     worst = 0.0
     delta_max = max(t[1] for t in rep["tensors"].values())
     for name, (err, delta, top, _, _) in rep["tensors"].items():
-        if step_tol is None:
-            break
-        tol = step_tol * delta + 1e-7 * top + 1e-6 * delta_max
+        tol = 1e-3 * delta + 1e-7 * top + 1e-6 * delta_max
         if err > tol:
             raise AssertionError(f"tiny train step: {name} GPU and CPU differ by {err} > {tol}")
         worst = max(worst, err / max(tol, 1e-30))
     if summary["moved"] < 50 or summary["gpu_moved"] < summary["moved"]:
         raise AssertionError(f"tiny train step: the CPU's moved {summary['moved']} tensors, "
                              f"the GPU's {summary['gpu_moved']} of them")
-    if dtype != torch.float32 and not family and summary["closer"] < 0.9 * summary["moved"]:
-        raise AssertionError(f"tiny bf16 train step: only {summary['closer']} of "
-                             f"{summary['moved']} tensors closer to the CPU's bfloat16 step "
-                             "than its float32 step is")
-    if family and not ciou and summary["ratio_median"] > FAMILY_BF16_RATIO:
-        raise AssertionError(f"tiny bf16 train step: the GPU's error over the float32 step's "
-                             f"distance, median {summary['ratio_median']} > {FAMILY_BF16_RATIO}")
     return metrics["cuda"], worst, rep["repeat"], summary
 
 
@@ -874,7 +994,7 @@ def matched_dets(dets, labels, valid, ref):
     return n_match, n_min, box_err, score_err
 
 
-def tiny_bf16_gpu_matches_cpu(seed: int):
+def tiny_bf16_gpu_matches_cpu(seed: int, config=tiny_config):
     """The tiny flagship in bfloat16 on the GPU (cuDNN, cuBLAS, the bfloat16
     kernels) against the same on the CPU (the plain versions, held against
     the JAX package's bfloat16 build by tests/test_torch_bf16.py), at that
@@ -883,8 +1003,9 @@ def tiny_bf16_gpu_matches_cpu(seed: int):
     CPU's, which equals the JAX package's space-to-depth stem bit for bit
     there); ``roi_predict`` on the CPU's levels and proposals: at least 90%
     of the kept detections matched, boxes within 0.5 px, scores within
-    0.01.  Returns the levels' errors and the match."""
-    mc = tiny_config()
+    0.01.  The same for the tiny model of ``config``.  Returns the levels'
+    errors and the match."""
+    mc = config()
     rs = np.random.RandomState(seed)
     batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
              "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
@@ -926,8 +1047,8 @@ def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool 
     det = build(mc, device="cuda", seed=seed, dtype=dtype)
     anchors, nla = det.anchors_for((128, 160))
     batch, kw = tiny_train_inputs(seed, mc, anchors)
-    sample = det.train_sample(batch, anchors, nla,
-                              generator=torch.Generator(device="cuda").manual_seed(seed))
+    sample = None if is_cascade(mc) else det.train_sample(
+        batch, anchors, nla, generator=torch.Generator(device="cuda").manual_seed(seed))
     state = {k: v.clone() for k, v in det.net.state_dict().items()}
     runs = []
     torch.use_deterministic_algorithms(flagged)
@@ -1000,7 +1121,8 @@ def train_setup(det, anchors, nla, config: str = CONFIG, tb=None):
     """The config's optimizer and schedule on ``det`` (its gradient clip,
     or none), its train step (cuDNN pinned), the seeded train batch on the
     card (the flagship's unless ``tb`` is given) and the RoIs that step 0
-    samples (the same weights and sampler seed)."""
+    samples (the same weights and sampler seed; None for a cascade, which
+    samples its stages inside the step)."""
     cfg = load_config(config)
     opt_cfg, lr_cfg = cfg.get("optimizer"), cfg.get("lr_config")
     schedule = step_lr_schedule(opt_cfg["lr"], STEPS_PER_EPOCH, lr_cfg["step"],
@@ -1013,8 +1135,8 @@ def train_setup(det, anchors, nla, config: str = CONFIG, tb=None):
     if tb is None:
         tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
     tb = {k: torch.as_tensor(v).cuda() for k, v in tb.items()}
-    sample0 = det.train_sample(tb, anchors, nla,
-                               generator=torch.Generator(device="cuda").manual_seed(5))
+    sample0 = None if isinstance(det, CascadeDetector) else det.train_sample(
+        tb, anchors, nla, generator=torch.Generator(device="cuda").manual_seed(5))
     return step, tb, sample0
 
 
@@ -1634,22 +1756,30 @@ FAMILY_OTHERS = ("boosting_rcnn_r50_fpn_1x_coco.py", "boosting_rcnn_r50_pafpn_ms
 FAMILY_STEPS = 3  # X101's train steps: step 0 warms up, steps 1-2 are timed
 FAMILY_BATCH = 2  # the other configs' one step and predict
 OFFSET_SCALE = 0.1  # seeded offset-conv weights: 0.1 of LeCun's scale
-# a tiny family model's bfloat16 step on the GPU is another bfloat16
-# rounding of the CPU's: over seeds 7-16 on an H100 (``--step-readings``,
-# PERF.md) its distance from the CPU's step, over the CPU's float32 step's
-# distance, had a median over the tensors of 0.04-1.27 (the flagship's
-# 0.04-1.0), while a per-tensor share of the update needed up to 1.54 (the
-# flagship's 1.51) and the "closer than float32" count fell to 23%: bounds
-# that held at seed 7 and not across seeds.  Held: the losses within
-# BF16_TOL["loss"] (largest reading 0.74%, the flagship's 0.79%; not the
-# gradient norm: the GPU's read up to 8.1% apart and the CPU's float32
-# step's 6.4%) and that median at most this
+# a tiny model's bfloat16 step on the GPU is another bfloat16 rounding of
+# the CPU's: over seeds 7-16 on an H100 (``--step-readings``, PERF.md §6)
+# a per-tensor share of the update needed up to 1.61 and the "closer than
+# float32" count fell to 23%: bounds that held at one seed and not across
+# seeds.  Held instead (``bf16_step_rule``): the losses within
+# BF16_TOL["loss"] (largest reading 0.79%, the flagship's; not the
+# gradient norm, up to 38% apart), and over the moved tensors the GPU's
+# distance from the CPU's step over the CPU's float32 step's: its median
+# at most FAMILY_BF16_RATIO (readings 0.04-1.27 over the flagship, the
+# family's ResNeXt and Res2Net-DCN, Mask R-CNN and the ProbCascade) and
+# its 90th percentile at most BF16_RATIO_P90 (readings 0.09-2.61).  A
+# wrong K4 with level 0's gradient dropped breaks the latter for the
+# flagship, Mask R-CNN, Res2Net-DCN and the ProbCascade (7.6, 50.4, 17.9,
+# 5.5), not for ResNeXt (2.78); one 5% too large breaks neither: the
+# kernels' own gates (1 ulp) hold that
 FAMILY_BF16_RATIO = 2.0
-# what the tiny CIoU-on-deltas model's bfloat16 step does not hold: the
-# RPN's CIoU on its deltas, whose enclosing box can degenerate to eps, and
-# the total it dominates (up to 67% apart over seeds 7-16, the CPU's
-# float32 step up to 460 times), and so no ratio (up to 5.2: that loss's
-# gradient reaches every tensor); its other four losses read within 0.17%
+BF16_RATIO_P90 = 3.0
+# what the tiny ProbCascade's bfloat16 step does not hold: each device
+# samples its stages 1 and 2 on its own refined boxes, and a box that
+# rounds across a stage's IoU threshold changes the sample; its stage
+# losses read up to 19.1% apart over seeds 7-16, the total up to 1.52%
+# (its RPN losses within 0.79%)
+CASCADE_BF16_UNHELD = ("loss",) + tuple(f"s{i}.loss_{k}" for i in range(3)
+                                        for k in ("cls", "bbox"))
 CIOU_BF16_UNHELD = ("loss", "loss_rpn_bbox")
 
 
@@ -1908,6 +2038,262 @@ def run_family_config(name: str, gpu: str, seed: int = 0) -> dict:
     del det, step, tb, before
     torch.cuda.empty_cache()
     return r
+
+
+def c2_check(name: str, config, dtype) -> dict:
+    """ROADMAP C.2 for the tiny model of ``config`` in ``dtype``: two tiny
+    steps from one state without the cuDNN pin (reported), with it
+    (bit-identical, or the run fails) and under
+    ``torch.use_deterministic_algorithms`` (no op raises, bit-identical)."""
+    tag = ("f32" if dtype == torch.float32 else "bf16") + " " + name
+    unpinned, differ, n_tensors = repeatable_step(11, dtype, deterministic=False, config=config)
+    say(f"C.2 {tag}: two tiny steps from one state without the cuDNN pin: bit-identical "
+        f"{unpinned} ({len(differ)} of {n_tensors} metrics, gradients and parameters "
+        f"differ{': ' + ', '.join(differ[:4]) if differ else ''})")
+    same, differ, _ = repeatable_step(11, dtype, config=config)
+    if not same:
+        raise AssertionError(f"C.2 {tag}: two pinned train steps from one state differ in "
+                             f"{len(differ)} tensors: {differ[:6]}")
+    try:
+        flagged, differ, _ = repeatable_step(11, dtype, flagged=True, config=config)
+    except RuntimeError as exc:
+        raise AssertionError(f"C.2 {tag}: an op of the train path has no deterministic "
+                             f"form: {exc}") from exc
+    if not flagged:
+        raise AssertionError(f"C.2 {tag}: steps under use_deterministic_algorithms differ "
+                             f"in {differ[:6]}")
+    say(f"C.2 {tag}: with the pin, the losses, every gradient and every parameter of two "
+        f"steps are bit-identical; under torch.use_deterministic_algorithms(True) no op "
+        f"raised and the steps are bit-identical")
+    return {tag: {"unpinned_identical": unpinned, "pinned_identical": True}}
+
+
+# ------------------------------------------------------------------ cascade
+CASCADE_CONFIG = os.path.join(REPO, "configs/ensemble/prob_cascade_rcnn_r50_pafpn_1x_utdac.py")
+CASCADE_COCO_CONFIG = os.path.join(REPO, "configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py")
+CASCADE_STEPS = 3  # the ProbCascade's train steps: step 0 warms up, steps 1-2 are timed
+
+
+def tiny_cascade_config():
+    """The ProbCascade as ``--tiny`` shrinks it (``engine.runner.
+    shrink_model``): ResNet-18 at width 8, PAFPN 32, ATSS RPN 32 x 2, FC 64
+    in each stage, 32 RoIs a stage."""
+    return shrink_model(load_config(CASCADE_CONFIG).model.to_dict())
+
+
+def cascade_stage_rois(det, feats, boxes, valid, img_shape, stage: int):
+    """The RoIs that stage ``stage`` of ``predict`` pools: the proposals
+    refined by each stage before it (boxes clamped to the image, some
+    degenerate)."""
+    b, r = boxes.shape[:2]
+    rois = boxes
+    with torch.inference_mode():
+        for s in range(stage):
+            cls_s, reg_s = det.net.roi_out(feats, rois, valid, s)
+            rois = refine_boxes(stage_head_cfg(det.bbox_cfg, s), rois,
+                                cls_s.reshape(b, r, -1).float(), reg_s.reshape(b, r, -1).float(),
+                                img_shape)
+    return rois
+
+
+def edge_rois(rois, valid) -> str:
+    """How many valid RoIs are degenerate (no width or height) and how many
+    touch the image's border, of how many."""
+    v = rois[valid]
+    flat_ = ((v[:, 2] <= v[:, 0]) | (v[:, 3] <= v[:, 1])).sum().item()
+    h, w = IMG_SHAPE
+    border = ((v[:, 0] <= 0) | (v[:, 1] <= 0) | (v[:, 2] >= w) | (v[:, 3] >= h)).sum().item()
+    return f"{len(v)} valid RoIs, {flat_} degenerate, {border} on the image's border"
+
+
+def run_cascade(dtype, gpu: str) -> dict:
+    """The ProbCascade UTDAC at full width in ``dtype``: three requests of
+    two 800 x 1344 images through ``predict`` (K1 of the dtype once a stage
+    and request), then ``CASCADE_STEPS`` train steps at the config's batch
+    of 4 and its schedule (K1, the tile keys and K4 once a stage and step),
+    each path with the launch counts set to 0 just before it and read just
+    after; K1 and K4 against their plain versions at stage 2's RoIs (twice
+    refined) of a request and of a step, and timed there; times, stages and
+    peak memory."""
+    tag = ("f32" if dtype == torch.float32 else "bf16") + " ProbCascade"
+    r = {}
+    mc = load_config(CASCADE_CONFIG).model.to_dict()
+    t0 = time.perf_counter()
+    det = build(mc, seed=0, dtype=dtype)
+    n = det.cascade_cfg.num_stages
+    say(f"{tag} built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in det.net.parameters())} float32 parameters, {n} stages")
+    anchors, nla = det.anchors_for(CANVAS)
+    strides = det.net.roi_strides
+    batches = list(requests(seed=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    results = [det.predict(b, anchors, nla) for b in batches]
+    torch.cuda.synchronize()
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    kernel_launches(counts, dtype, f"{tag} predict", n * REQUESTS)
+    n_dets = [check_dets(*x) for x in results]
+    again = det.predict(batches[0], anchors, nla)
+    if not all(torch.equal(a, b) for a, b in zip(again, results[0])):
+        raise AssertionError(f"{tag}: the same request gave different detections")
+    x = batches[0]
+    feats, boxes, _, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
+    rois2 = cascade_stage_rois(det, feats, boxes, valid, x["img_shape"], 2)
+    c = feats[0].shape[-1]
+    m = rois2.shape[0] * rois2.shape[1]
+    gp = torch.from_numpy(np.random.RandomState(8).randn(m, 7, 7, c).astype(np.float32)).cuda()
+    route = list(feats[:len(strides)])
+    r["check_predict"] = kernels_vs_plain(route, rois2, valid, strides, gp, dtype,
+                                          f"{tag} stage-2 predict shapes")
+    r["predict_shapes"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(route, rois2, valid, strides),
+        route, rois2, valid, strides, gp, dtype)
+    say(f"{tag} predict: {REQUESTS} requests of {BATCH} images: {n_dets} valid detections, "
+        f"launches {ran(counts)}; the repeat of request 0 identical; stage 2's RoIs "
+        f"(B*R={m}: {edge_rois(rois2, valid)}) kernels vs plain {r['check_predict']}")
+    say_timed(r["predict_shapes"], f"{tag} at stage 2's predict shapes", gpu)
+    del feats, route, boxes, valid, rois2, gp, results, again
+    x = batches[1]
+    r["predict_ms"] = cuda_ms(lambda: det.predict(x, anchors, nla), 5, warmup=1)
+    stage = {}
+    with torch.inference_mode():
+        stage["features+rpn+proposals"] = cuda_ms(
+            lambda: det.proposals(x["images"], x["img_shape"], anchors, nla), 5, 1)
+        fts, pb, ps, pv = det.proposals(x["images"], x["img_shape"], anchors, nla)
+        stage["roi_stages"] = cuda_ms(lambda: det.roi_predict(
+            fts, pb, ps, pv, x["img_shape"], x["scale_factor"]), 5, 1)
+    r["predict_stages"] = stage
+    del fts, pb, ps, pv
+    say(f"{tag} predict ({gpu}): {r['predict_ms']:.2f} ms per batch of {BATCH}; stages (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+        + f"; peak device memory over the requests {r['predict_peak']:.2f} GiB")
+
+    step, tb, _ = train_setup(det, anchors, nla, CASCADE_CONFIG)
+    before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
+    metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train",
+                                                          CASCADE_STEPS)
+    r["train_counts"] = counts
+    kernel_launches(counts, dtype, f"{tag} train", n * CASCADE_STEPS, n * CASCADE_STEPS)
+    r["moved"] = check_moved(before, det, f"{tag} train",
+                             heads=tuple(f"bbox_heads.{i}." for i in range(n)))
+    del before
+    r["train_ms"] = float(np.mean(step_ms[1:]))
+    samples = det.stage_samples(tb, anchors, nla,
+                                generator=torch.Generator(device="cuda").manual_seed(5))
+    with torch.no_grad():
+        feats = list(det.net.features(tb["images"])[:len(strides)])
+    s2 = samples[2]
+    m = s2.boxes.shape[0] * s2.boxes.shape[1]
+    g = torch.from_numpy(np.random.RandomState(6).randn(m, 7, 7, c).astype(np.float32)).cuda()
+    r["check_train"] = kernels_vs_plain(feats, s2.boxes, s2.valid, strides, g, dtype,
+                                        f"{tag} stage-2 train shapes")
+    r["train_shapes"] = timed_kernels(
+        batched_multilevel_roi_align,
+        lambda: batched_multilevel_roi_align(feats, s2.boxes, s2.valid, strides),
+        feats, s2.boxes, s2.valid, strides, g, dtype)
+    say(f"{tag} train ({gpu}): {r['train_ms']:.1f} ms per step of {TRAIN_BATCH} images (mean "
+        f"of steps 1-{CASCADE_STEPS - 1}), {TRAIN_BATCH * 1e3 / r['train_ms']:.2f} images/s; "
+        f"peak device memory {r['train_peak']:.2f} GiB; stage 2's sampled slots (B*R={m}: "
+        f"{edge_rois(s2.boxes, s2.valid)}, {int(s2.is_pos.sum())} positive) kernels vs "
+        f"plain {r['check_train']}")
+    say_timed(r["train_shapes"], f"{tag} at stage 2's train shapes", gpu)
+    del det, feats, g, step, tb, samples, s2
+    torch.cuda.empty_cache()
+    return r
+
+
+def run_cascade_coco(gpu: str, seed: int = 0) -> dict:
+    """Cascade R-CNN R50-FPN COCO at full width in bfloat16: one ``predict``
+    of ``FAMILY_BATCH`` 800 x 1344 images (1000 proposals an image, so 2000
+    RoIs a stage) and one train step at that batch with the config's
+    schedule, each with the counts set to 0 before and read after; K1 and
+    K4 against their plain versions at stage 2's predict RoIs."""
+    tag = "bf16 Cascade R-CNN COCO"
+    mc = load_config(CASCADE_COCO_CONFIG).model.to_dict()
+    t0 = time.perf_counter()
+    det = build(mc, seed=seed, dtype=BF16)
+    n = det.cascade_cfg.num_stages
+    r = {"build_s": time.perf_counter() - t0}
+    anchors, nla = det.anchors_for(CANVAS)
+    batch = next(requests(seed=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    dets, labels, valid = det.predict(batch, anchors, nla)
+    torch.cuda.synchronize()
+    r["predict_first_ms"] = (time.perf_counter() - t0) * 1e3
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    kernel_launches(counts, BF16, f"{tag} predict", n)
+    r["detections"] = check_dets(dets, labels, valid, 80, det.rcnn_test_cfg.max_per_img)
+    r["predict_ms"] = cuda_ms(lambda: det.predict(batch, anchors, nla), 2, warmup=0)
+    feats, boxes, _, pvalid = det.proposals(batch["images"], batch["img_shape"], anchors, nla)
+    rois2 = cascade_stage_rois(det, feats, boxes, pvalid, batch["img_shape"], 2)
+    m = rois2.shape[0] * rois2.shape[1]
+    gp = torch.from_numpy(np.random.RandomState(8).randn(m, 7, 7, feats[0].shape[-1])
+                          .astype(np.float32)).cuda()
+    strides = det.net.roi_strides
+    r["check_predict"] = kernels_vs_plain(list(feats[:len(strides)]), rois2, pvalid, strides, gp,
+                                          BF16, f"{tag} stage-2 predict shapes")
+    edges = edge_rois(rois2, pvalid)
+    del feats, boxes, pvalid, gp, rois2
+    tb = train_batch(9, FAMILY_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE, num_classes=80)
+    step, tb, _ = train_setup(det, anchors, nla, CASCADE_COCO_CONFIG, tb)
+    before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
+    metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train", 1)
+    r["train_counts"] = counts
+    kernel_launches(counts, BF16, f"{tag} train", n, n)
+    r["moved"] = check_moved(before, det, f"{tag} train",
+                             heads=tuple(f"bbox_heads.{i}." for i in range(n)))
+    r["train_first_ms"] = step_ms[0]
+    r["losses"] = metrics[0]
+    say(f"{tag} ({gpu}): built in {r['build_s']:.1f} s; predict of {BATCH} images "
+        f"{r['predict_first_ms']:.0f} ms first call, {r['predict_ms']:.1f} ms after, "
+        f"{r['detections']} valid detections, peak {r['predict_peak']:.2f} GiB; stage 2's "
+        f"RoIs (B*R={m}: {edges}) kernels vs plain {r['check_predict']}; one train step at "
+        f"batch {FAMILY_BATCH} {step_ms[0]:.0f} ms (first call), peak {r['train_peak']:.2f} GiB")
+    del det, step, tb, before
+    torch.cuda.empty_cache()
+    return r
+
+
+def cascade_phase(gpu: str) -> dict:
+    """The phase "cascade": the ProbCascade UTDAC at full width in float32
+    and bfloat16 (``run_cascade``), Cascade R-CNN COCO in bfloat16
+    (``run_cascade_coco``), then the tiny ProbCascade's ``predict`` and
+    train step on the GPU against the CPU in both dtypes and its C.2
+    check."""
+    t0 = time.perf_counter()
+    out = {"utdac": {d: run_cascade(d, gpu) for d in (torch.float32, BF16)},
+           "coco": run_cascade_coco(gpu)}
+    tiny = {"predict_detections": tiny_gpu_matches_cpu(3, tiny_cascade_config)}
+    errs, match = tiny_bf16_gpu_matches_cpu(3, tiny_cascade_config)
+    tiny["bf16_predict"] = {"level_errs": errs, "match": match}
+    for dtype in (torch.float32, BF16):
+        m, worst, repeat, summary = tiny_train_gpu_matches_cpu(7, dtype, tiny_cascade_config)
+        tiny["f32" if dtype == torch.float32 else "bf16"] = {
+            "loss": m["loss"], "worst_of_tolerance": worst, **summary,
+            "repeat_identical": repeat}
+    tiny["wrong_step_breaks"] = wrong_step_broken(tiny_cascade_config, WRONG_K4_CAUGHT)
+    if not tiny["wrong_step_breaks"]:
+        raise AssertionError(f"the bf16 step rule holds for the tiny ProbCascade's step with "
+                             f"level 0's K4 gradient x {WRONG_K4_CAUGHT}")
+    say(f"tiny ProbCascade: GPU predict matches CPU predict ({tiny['predict_detections']} "
+        f"detections); bf16 levels and roi_predict on the CPU's: {tiny['bf16_predict']}; one "
+        f"train step on the GPU against the CPU: f32 {tiny['f32']}, bf16 {tiny['bf16']}; with "
+        f"level 0's K4 gradient x {WRONG_K4_CAUGHT} the bf16 step rule breaks: "
+        f"{tiny['wrong_step_breaks']}")
+    out["tiny"] = tiny
+    out["repeat"] = {}
+    for dtype in (torch.float32, BF16):
+        out["repeat"].update(c2_check("prob_cascade", tiny_cascade_config, dtype))
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase cascade: {out['wall_s']:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------ entry points
@@ -2173,8 +2559,8 @@ def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--step-readings"]):
-        print("usage: python3 chip_smoke.py [--step-readings]", file=sys.stderr)
+    if argv not in ([], ["--step-readings"], ["--cascade"]):
+        print("usage: python3 chip_smoke.py [--step-readings | --cascade]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2195,6 +2581,9 @@ def main(argv) -> int:
     say(f"nvcc builds, in parallel: {time.perf_counter() - t0:.1f} s wall")
     if argv == ["--step-readings"]:
         step_readings(gpu)
+        return 0
+    if argv == ["--cascade"]:
+        cascade_phase(gpu)
         return 0
 
     mc = load_config(CONFIG).model.to_dict()
@@ -2217,6 +2606,10 @@ def main(argv) -> int:
         family[name] = run_family_config(name, gpu)
     say(f"wall {time.perf_counter() - t_start:.1f} s")
 
+    # ----------------------------------------------------------------- cascade
+    cascade = cascade_phase(gpu)
+    say(f"wall {time.perf_counter() - t_start:.1f} s")
+
     # ------------------------------------------------ tiny flagship, GPU vs CPU
     n_tiny = tiny_gpu_matches_cpu(seed=3)
     say(f"tiny flagship: GPU predict matches CPU predict ({n_tiny} detections)")
@@ -2230,10 +2623,11 @@ def main(argv) -> int:
         + f" (tolerance {BF16_TOL['levels']}); roi_predict on the CPU's levels and proposals: "
         f"{match[0]} of {match[1]} detections matched, boxes within {match[2]:.3g} px, scores "
         f"within {match[3]:.3g}")
-    b16_metrics, b16_worst, _, b16_summary = tiny_train_gpu_matches_cpu(seed=7, dtype=BF16)
-    say(f"tiny bf16 flagship: a GPU train step matches the CPU one (loss "
-        f"{b16_metrics['loss']:.6g}, worst parameter error {b16_worst:.3g} of its tolerance, "
-        f"median tensor {b16_summary['median_of_update']:.3g} of its update)")
+    b16_metrics, _, _, b16_summary = tiny_train_gpu_matches_cpu(seed=7, dtype=BF16)
+    say(f"tiny bf16 flagship: a GPU train step holds the bf16 step rule (loss "
+        f"{b16_metrics['loss']:.6g}, median GPU error over the float32 step's distance "
+        f"{b16_summary['ratio_median']:.3g}, median tensor {b16_summary['median_of_update']:.3g} "
+        f"of its update)")
 
     # ---------------------------------------------- tiny Mask R-CNN, GPU vs CPU
     for dtype in (torch.float32, BF16):
@@ -2243,9 +2637,21 @@ def main(argv) -> int:
         m, worst, repeat, summary = tiny_train_gpu_matches_cpu(seed=7, dtype=dtype,
                                                                config=tiny_mask_config)
         say(f"tiny {tag} Mask R-CNN: a GPU train step matches the CPU one (loss {m['loss']:.6g}, "
-            f"loss_mask {m['loss_mask']:.6g}, worst parameter error {worst:.3g} of its "
-            f"tolerance, median tensor {summary['median_of_update']:.3g} of its update); two "
-            f"GPU steps from the same state give the same bits: {repeat}")
+            f"loss_mask {m['loss_mask']:.6g}, worst f32 parameter error {worst:.3g} of its "
+            f"tolerance, median tensor {summary['median_of_update']:.3g} of its update"
+            + (f", median GPU error over the float32 step's distance "
+               f"{summary['ratio_median']:.3g}" if "ratio_median" in summary else "")
+            + f"); two GPU steps from the same state give the same bits: {repeat}")
+
+    # ------------- the bf16 step rule's teeth: a deliberately wrong gradient
+    teeth = {}
+    for name, config in (("flagship", tiny_config), ("mask_rcnn", tiny_mask_config)):
+        teeth[name] = wrong_step_broken(config, WRONG_K4_CAUGHT)
+        if not teeth[name]:
+            raise AssertionError(f"the bf16 step rule holds for the tiny {name}'s step with "
+                                 f"level 0's K4 gradient x {WRONG_K4_CAUGHT}")
+        say(f"tiny bf16 {name}, level 0's K4 gradient x {WRONG_K4_CAUGHT}: the bf16 step rule "
+            f"breaks: {'; '.join(teeth[name])}")
 
     # ------------------------------- tiny ResNeXt and Res2Net-DCN, GPU vs CPU
     tiny_family = {}
@@ -2262,32 +2668,11 @@ def main(argv) -> int:
 
     # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
     repeat_report = {}
-    for dtype, (name, config) in [(d, c) for c in (("flagship", tiny_config),
-                                                   ("mask_rcnn", tiny_mask_config),
-                                                   *TINY_FAMILY)
-                                  for d in (torch.float32, BF16)]:
-        tag = ("f32" if dtype == torch.float32 else "bf16") + " " + name
-        unpinned, differ, n_tensors = repeatable_step(11, dtype, deterministic=False,
-                                                      config=config)
-        say(f"C.2 {tag}: two tiny steps from one state without the cuDNN pin: bit-identical "
-            f"{unpinned} ({len(differ)} of {n_tensors} metrics, gradients and parameters "
-            f"differ{': ' + ', '.join(differ[:4]) if differ else ''})")
-        same, differ, _ = repeatable_step(11, dtype, config=config)
-        if not same:
-            raise AssertionError(f"C.2 {tag}: two pinned train steps from one state differ in "
-                                 f"{len(differ)} tensors: {differ[:6]}")
-        try:
-            flagged, differ, _ = repeatable_step(11, dtype, flagged=True, config=config)
-        except RuntimeError as exc:
-            raise AssertionError(f"C.2 {tag}: an op of the train path has no deterministic "
-                                 f"form: {exc}") from exc
-        if not flagged:
-            raise AssertionError(f"C.2 {tag}: steps under use_deterministic_algorithms differ "
-                                 f"in {differ[:6]}")
-        repeat_report[tag] = {"unpinned_identical": unpinned, "pinned_identical": True}
-        say(f"C.2 {tag}: with the pin, the losses, every gradient and every parameter of two "
-            f"steps are bit-identical; under torch.use_deterministic_algorithms(True) no op "
-            f"raised and the steps are bit-identical")
+    for name, config in (("flagship", tiny_config), ("mask_rcnn", tiny_mask_config),
+                         *TINY_FAMILY):
+        for dtype in (torch.float32, BF16):
+            repeat_report.update(c2_check(name, config, dtype))
+    repeat_report.update(cascade["repeat"])
 
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2346,34 +2731,62 @@ def main(argv) -> int:
                 k: v for k, v in r.items() if not k.endswith("_counts")}
                 for n, r in family.items()},
             "tiny": tiny_family},
+        "cascade": {
+            "prob_cascade_utdac": {
+                ("f32" if d == torch.float32 else "bf16"): {
+                    k: cascade["utdac"][d][k] for k in ("predict_ms", "predict_stages",
+                                                        "predict_peak", "train_ms",
+                                                        "train_peak")}
+                for d in (torch.float32, BF16)},
+            "cascade_rcnn_coco_bf16": {k: v for k, v in cascade["coco"].items()
+                                       if not k.endswith("_counts")},
+            "tiny": cascade["tiny"], "wall_s": cascade["wall_s"]},
         "wall_s": time.perf_counter() - t_start}))
     records = (kernel_records(r32, torch.float32, box=m32) + kernel_records(r16, BF16, box=m16)
                + kernel_records(m32, torch.float32, "_o14") + kernel_records(m16, BF16, "_o14"))
     # the family's, the entry points' and the e2e paths launch the 7 x 7
     # kernels too (counted under ``launches_by_path``; ``launches`` is the
     # flagship's), and the X101 paths held them to their plain versions
+    utdac = cascade["utdac"]
     paths = [("x101_predict", x101[d]["predict_counts"]) for d in x101] + [
         ("x101_train", x101[d]["train_counts"]) for d in x101] + [
+        ("cascade_predict", utdac[d]["predict_counts"]) for d in utdac] + [
+        ("cascade_train", utdac[d]["train_counts"]) for d in utdac] + [
+        ("cascade_coco_predict", cascade["coco"]["predict_counts"]),
+        ("cascade_coco_train", cascade["coco"]["train_counts"])] + [
         (f"family_{part}", {k: sum(f[f"{part}_counts"][k] for f in family.values())
                             for k in counters()}) for part in ("predict", "train")] + [
         (path, counts) for d in (torch.float32, BF16)
         for path, counts in (("entry_train", entry[d]["train_counts"]),
                              ("entry_eval", entry[d]["eval_counts"]),
                              ("e2e_train", e2e[d]["counts"]))]
-    x101_errs = {f"roi_align_{part}{'' if d == torch.float32 else '_bf16'}":
-                 max(x101[d][k][part][0] for k in ("check_predict", "check_train"))
-                 for d in x101 for part in ("fwd", "bwd")}
+    # ... and the X101 and cascade paths held them to their plain versions
+    checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
+               + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}
+    checked[BF16].append(cascade["coco"]["check_predict"])
+    more_errs = {f"roi_align_{part}{'' if d == torch.float32 else '_bf16'}":
+                 max(c[part][0] for c in checked[d]) for d in checked for part in ("fwd", "bwd")}
     for record in records:
         for path, counts in paths:
             n = counts.get(record["name"], 0)
             if n:
                 record.setdefault("launches_by_path", {})[path] = n
-        if record["name"] in x101_errs:
-            record["max_abs_err"] = max(record["max_abs_err"], x101_errs[record["name"]])
+        if record["name"] in more_errs:
+            record["max_abs_err"] = max(record["max_abs_err"], more_errs[record["name"]])
+        for d in utdac:
+            sfx = "" if d == torch.float32 else "_bf16"
+            for part in ("fwd", "bwd"):
+                if record["name"] == f"roi_align_{part}{sfx}":
+                    record["cascade_stage2_shapes"] = {
+                        path: {"call_ms": t["call"], "kernel_ms": t["kernel"],
+                               "plain_ms": t["plain"], "bound_ms": t["bound"][0]}
+                        for path, t in (("predict", utdac[d]["predict_shapes"][part]),
+                                        ("train", utdac[d]["train_shapes"][part]))}
     for record in records:
         timings = [v for part in (record, record.get("train_shapes", {}),
                                   record.get("predict_shapes", {}),
-                                  *record.get("box_shapes", {}).values())
+                                  *record.get("box_shapes", {}).values(),
+                                  *record.get("cascade_stage2_shapes", {}).values())
                    for k, v in part.items() if k.endswith("_ms") and v is not None]
         if not all(math.isfinite(v) and v > 0 for v in timings):
             raise AssertionError(f"non-finite timing in {record}")

@@ -1,0 +1,119 @@
+"""Which Cascade R-CNN configs the PyTorch port builds, on the CPU, at full
+width (no JAX).
+
+Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
+ones on the ported backbones build (``BUILDS``, 16 files; files with the
+same model, such as a 1x and a 20e schedule, are built once); every other
+one raises ``NotImplementedError`` naming what is missing (``_reason``):
+Cascade Mask R-CNN (the JAX package's HTC machinery), the caffe-style
+ResNet, DetectoRS, HRNet, ResNeSt, SABL heads, and the ensemble configs'
+ATSS and RetinaNet RPNs.  Each built one is checked against its config:
+one class-agnostic stage head per stage, the IoU ladder, the stage loss
+weights, boosting and fusion for ``ProbCascadeRoIHead`` only.
+"""
+import functools
+import glob
+import json
+import os
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
+from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
+
+CONFIGS = os.path.join(REPO, "configs")
+BUILDS = {
+    "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py", "cascade_rcnn/cascade_rcnn_r50_fpn_20e_coco.py",
+    "cascade_rcnn/cascade_rcnn_r50_fpn_1x_brackish.py",
+    "cascade_rcnn/cascade_rcnn_r50_fpn_1x_trashcanins.py",
+    "cascade_rcnn/cascade_rcnn_s4_r50_fpn_1x_coco.py",
+    "cascade_rcnn/cascade_rcnn_r101_fpn_1x_coco.py", "cascade_rcnn/cascade_rcnn_r101_fpn_20e_coco.py",
+    "cascade_rcnn/cascade_rcnn_x101_32x4d_fpn_1x_coco.py",
+    "cascade_rcnn/cascade_rcnn_x101_32x4d_fpn_20e_coco.py",
+    "cascade_rcnn/cascade_rcnn_x101_64x4d_fpn_1x_coco.py",
+    "cascade_rcnn/cascade_rcnn_x101_64x4d_fpn_20e_coco.py",
+    "dcn/cascade_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py", "dcn/cascade_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py",
+    "ensemble/prob_cascade_rcnn_r50_pafpn_1x_utdac.py",
+    "pascal_voc/cascade_rcnn_r50_fpn_1x_voc0712.py", "res2net/cascade_rcnn_r2_101_fpn_20e_coco.py",
+}
+
+
+def _names():
+    return sorted(os.path.relpath(p, CONFIGS)
+                  for p in glob.glob(os.path.join(CONFIGS, "*", "*cascade*.py")))
+
+
+def _reason(name: str, mc) -> str:
+    """The missing piece that the builder names for a config it rejects."""
+    if mc["roi_head"].get("mask_head"):
+        return "Cascade Mask R-CNN"
+    if mc["backbone"].get("style") == "caffe":
+        return "caffe"
+    for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
+                      ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
+                      ("ensemble/cascade_atss", "atss=True"),
+                      ("ensemble/cascade_retinanet", "num_convs=4")):
+        if name.startswith(key):
+            return what
+    raise AssertionError(f"{name}: no expected reason")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: each full-width build initialises ~70-110M weights,
+    and several test workers share the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _built(model_json: str):
+    """What the checks read of the built detector (the detector itself is
+    dropped: each holds ~0.3-0.5 GB)."""
+    det = build_detector(json.loads(model_json), device="cpu")
+    return dict(type=type(det), cascade=det.cascade_cfg, roi=det.roi_cfg, bbox=det.bbox_cfg,
+                rpn_type=det.rpn_type, test_proposals=det.test_proposal_cfg.max_per_img,
+                heads=[(h.fc_cls.weight.shape[0], h.fc_reg.weight.shape[0])
+                       for h in det.net.bbox_heads])
+
+
+def test_the_probe_covers_the_buildable_configs():
+    assert BUILDS <= set(_names()) and len(_names()) == 79
+
+
+@pytest.mark.parametrize("name", _names())
+def test_cascade_config_builds_or_names_what_is_missing(name):
+    mc = load_config(os.path.join(CONFIGS, name)).model.to_dict()
+    assert mc["type"] == "CascadeRCNN"
+    if name not in BUILDS:
+        with pytest.raises(NotImplementedError, match=_reason(name, mc)):
+            build_detector(mc, device="cpu")
+        return
+    det = _built(json.dumps(mc, sort_keys=True))
+    assert det["type"] is CascadeDetector
+    roi = mc["roi_head"]
+    cc = det["cascade"]
+    n = roi.get("num_stages", 3)
+    heads = roi["bbox_head"] if isinstance(roi["bbox_head"], list) else [roi["bbox_head"]] * n
+    assert cc.num_stages == len(det["heads"]) == n
+    assert cc.stage_pos_iou == tuple(min(0.5 + 0.1 * i, 0.9) for i in range(n))
+    assert cc.stage_loss_weights[:n] == tuple(float(w) for w in roi["stage_loss_weights"])[:n]
+    prob = roi["type"] == "ProbCascadeRoIHead"
+    assert (cc.prob, cc.boost, det["roi"].prob) == (prob, roi.get("boost", False), prob)
+    agnostic = heads[0].get("reg_class_agnostic", False)
+    k = heads[0].get("num_classes", 80)
+    assert det["bbox"].reg_class_agnostic == agnostic and det["bbox"].num_classes == k
+    assert det["heads"] == [(k + 1, 4 if agnostic else 4 * k)] * n
+    if name.startswith("ensemble/prob_cascade"):
+        assert (cc.gamma, cc.boost, det["rpn_type"]) == (0.5, True, "atss_rpn")
+        assert det["test_proposals"] == 256
+    if "_s4_" in name:
+        assert n == 4 and cc.stage_pos_iou[3] == 0.8

@@ -590,3 +590,67 @@ def test_cuda_res2net_block_gradient_matches_cpu(cuda):
     for k, ref in grads["cpu"].items():
         got = grads[str(cuda)][k]
         assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item(), k
+
+
+def _tiny_cascade_inputs(rs):
+    """The tiny ProbCascade's batch (two 128 x 160 images, 5 gt boxes each)
+    and its stages' sampler uniforms, made with numpy: every device samples
+    alike."""
+    gts = np.zeros((2, 5, 4), np.float32)
+    wh = rs.uniform(12, 70, (2, 5, 2))
+    xy = rs.uniform(0, 1, (2, 5, 2)) * ([150.0, 116.0] - wh)
+    gts[:] = np.concatenate([xy, xy + wh], -1)
+    batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
+             "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
+             "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32),
+             "gt_bboxes": gts, "gt_labels": rs.randint(0, 4, (2, 5)),
+             "gt_mask": np.ones((2, 5), bool)}
+    sizes = (5 + 64, 5 + 32, 5 + 32)  # the gt boxes, then the proposals or the slots before
+    return batch, [rs.rand(2, 2, n).astype(np.float32) for n in sizes]
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_cascade_matches_cpu(cuda):
+    """The tiny ProbCascade (``configs/ensemble/prob_cascade_rcnn_r50_pafpn_
+    1x_utdac.py`` at ``--tiny``) on the card against the CPU in float32
+    with TF32 off: ``predict`` (labels and valid equal, detections within
+    1e-3; the forward kernel once a stage) and a train step on the same
+    stage draws (metrics rtol 1e-4; the forward, tile-key and gradient
+    kernels once a stage)."""
+    from boosting_rcnn_tpu_torch.builder import build_detector
+    from boosting_rcnn_tpu_torch.config import load_config
+    from boosting_rcnn_tpu_torch.engine.runner import shrink_model
+    from boosting_rcnn_tpu_torch.engine.train import make_optimizer, make_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mc = shrink_model(load_config(os.path.join(
+        repo, "configs/ensemble/prob_cascade_rcnn_r50_pafpn_1x_utdac.py")).model.to_dict())
+    batch, uniforms = _tiny_cascade_inputs(np.random.RandomState(9))
+    fwd, bwd = kern.batched_multilevel_roi_align, kern.batched_multilevel_roi_align.backward
+    outs, metrics, counts = {}, {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
+    try:
+        for dev in ("cpu", cuda):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            det = build_detector(mc, device=dev, seed=2)
+            anchors, nla = det.anchors_for((128, 160))
+            fwd.launches = bwd.launches = bwd.tile_launches = 0
+            outs[str(dev)] = [x.cpu() for x in det.predict(batch, anchors, nla)]
+            counts[str(dev)] = [fwd.launches]
+            step = make_train_step(det, anchors, nla,
+                                   make_optimizer(det.net.parameters(), lambda s: 0.01))
+            m = step(batch, roi_uniforms=uniforms)
+            metrics[str(dev)] = {k: float(v) for k, v in m.items()}
+            counts[str(dev)] += [fwd.launches, bwd.launches, bwd.tile_launches]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_num_threads(threads)
+    (d0, l0, v0), (d1, l1, v1) = outs["cpu"], outs[str(cuda)]
+    assert torch.equal(v0, v1) and torch.equal(l0, l1) and v0.any()
+    assert _max_err(d1, d0) <= 1e-3
+    assert counts["cpu"] == [0, 0, 0, 0] and counts[str(cuda)] == [3, 6, 3, 3]
+    assert {"s0.loss_cls", "s1.loss_bbox", "s2.loss_cls"} <= set(metrics["cpu"])
+    for k, ref in metrics["cpu"].items():
+        assert abs(metrics[str(cuda)][k] - ref) <= 1e-4 * abs(ref), k

@@ -384,7 +384,7 @@ def test_bbox_targets_and_head_loss_match_jax():
             _close(got[k], ref[k])
         np.testing.assert_array_equal(got["pos"].numpy(), np.asarray(ref["pos"]))
     with pytest.raises(NotImplementedError):
-        t_bbox.bbox_targets(t_bbox.BBoxHeadCfg(loss_bbox_type="smooth_l1"),
+        t_bbox.bbox_targets(t_bbox.BBoxHeadCfg(loss_bbox_type="giou"),
                             *(_t(c[k]) for k in ("boxes", "is_pos", "valid", "gt")), _t(lab))
 
 
@@ -743,7 +743,7 @@ def test_builder_reads_the_flagship_train_cfg():
     ("roi_head.alpha", 0.5),
     ("roi_head.reg_norm", "sum"),
     ("train_cfg.rcnn.sampler.add_gt_as_proposals", False),
-    ("roi_head.bbox_head.loss_bbox.type", "SmoothL1Loss"),
+    ("roi_head.bbox_head.loss_bbox.type", "GIoULoss"),
     ("roi_head.bbox_head.loss_cls.use_sigmoid", True),
     ("train_cfg.rpn.assigner.ignore_iof_thr", 0.5),
     ("train_cfg.rpn.sampler.type", "RandomSampler"),
