@@ -17,7 +17,11 @@ deltas) with cross entropy and L1 or smooth L1, and hard or soft NMS at
 test; and an ``FCNMaskHead`` on a 14 x 14 ``RoIAlign`` (Mask R-CNN).
 ``CascadeRCNN`` (box only) builds its ``CascadeRoIHead`` or the fork's
 ``ProbCascadeRoIHead`` as the JAX ``build_cascade`` does, one Shared2FC
-head per stage.  The ``train_cfg`` is read as the JAX builder reads it.
+head per stage; ``HybridTaskCascade`` and a ``CascadeRCNN`` with a
+``mask_head`` (Cascade Mask R-CNN) build the HTC detector as the JAX
+``build_htc`` does: the box cascade, one FCN or HTC mask head per stage
+(``conv_res`` under information flow) and HTC's ``FusedSemanticHead``.
+The ``train_cfg`` is read as the JAX builder reads it.
 Any type or value the port does not implement raises
 ``NotImplementedError`` naming it.
 
@@ -39,6 +43,7 @@ from .models.backbones.resnet import ResNet
 from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
 from .models.detectors.cascade import CascadeDetector, CascadeNet
+from .models.detectors.htc import HTCDetector, HTCNet
 from .models.detectors.two_stage import (
     ProposalCfg,
     RCNNTestCfg,
@@ -49,7 +54,7 @@ from .models.layers import set_compute_dtype
 from .models.necks.fpn import FPN, PAFPN
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
 from .models.roi_heads.cascade_roi_head import CascadeCfg
-from .models.roi_heads.mask_head import FCNMaskHead
+from .models.roi_heads.mask_head import FCNMaskHead, FusedSemanticHead, HTCMaskHead
 from .models.roi_heads.prob_roi_head import ProbRoICfg
 from .ops.anchors import AnchorGenerator
 
@@ -305,11 +310,27 @@ def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: i
     """The FCN mask head and the mask RoIAlign's pooled size (JAX
     ``build_detector``'s ``FCNMaskHead`` case)."""
     mh = roi["mask_head"]
+    _check_mask_head(mh, ("FCNMaskHead",))
+    out_size = _mask_extractor(roi, strides)
+    _check(train_rcnn, "mask_size", (2 * out_size,), 2 * out_size)
+    for key in ("mask_iou_head", "semantic_head"):
+        _check(roi, key, (None,))
+    module = FCNMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
+                         in_channels=mh.get("in_channels", channels),
+                         num_convs=mh.get("num_convs", 4),
+                         conv_channels=mh.get("conv_out_channels", 256))
+    return module, out_size
+
+
+def _check_mask_head(mh: Dict[str, Any], types) -> None:
+    """An FCN-style mask head of ``types`` as the port has it: 3x3 convs
+    without norms, a 2x deconvolution, a plain 1x1 predictor, per-class
+    masks, the binary cross entropy at weight 1."""
     _only(mh, "mask_head", ("type", "num_convs", "in_channels", "conv_out_channels",
                             "num_classes", "roi_feat_size", "conv_kernel_size",
                             "class_agnostic", "upsample_cfg", "norm_cfg", "conv_cfg",
-                            "predictor_cfg", "loss_mask"))
-    _check(mh, "type", ("FCNMaskHead",))
+                            "predictor_cfg", "loss_mask", "with_conv_res"))
+    _check(mh, "type", types)
     _check(mh, "conv_kernel_size", (3,), 3)
     _check(mh, "class_agnostic", (False,), False)
     _check(mh, "upsample_cfg", ({"type": "deconv", "scale_factor": 2},),
@@ -322,6 +343,10 @@ def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: i
     _check(loss_mask, "use_mask", (True,), False)
     _check(loss_mask, "class_weight", (None,))
     _check(loss_mask, "loss_weight", (1.0,), 1.0)  # the JAX package's mask_loss weight
+
+
+def _mask_extractor(roi: Dict[str, Any], strides) -> int:
+    """The mask RoIAlign's pooled size (14), on the box branch's levels."""
     extractor = roi.get("mask_roi_extractor")
     if not extractor:
         raise _unported("mask_roi_extractor", extractor)  # C4: the shared res5 head
@@ -334,14 +359,7 @@ def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: i
     _check({"mask_roi_extractor.featmap_strides": tuple(extractor.get("featmap_strides",
                                                                       strides))},
            "mask_roi_extractor.featmap_strides", (tuple(strides),))
-    _check(train_rcnn, "mask_size", (2 * out_size,), 2 * out_size)
-    for key in ("mask_iou_head", "semantic_head"):
-        _check(roi, key, (None,))
-    module = FCNMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
-                         in_channels=mh.get("in_channels", channels),
-                         num_convs=mh.get("num_convs", 4),
-                         conv_channels=mh.get("conv_out_channels", 256))
-    return module, out_size
+    return out_size
 
 
 # the R-CNN head's box losses by config type (JAX builder.py:55-66)
@@ -461,13 +479,13 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
         raise ValueError(f"compute dtype {dtype} is not supported; the port computes in "
                          f"{' or '.join(map(str, COMPUTE_DTYPES))}")
     device = resolve_device(device)
-    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "CascadeRCNN"))
-    cascade = model_cfg["type"] == "CascadeRCNN"
+    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "CascadeRCNN") + _HTC_TYPES)
     roi = model_cfg["roi_head"]
-    if cascade and roi.get("mask_head"):
-        raise NotImplementedError(
-            "Cascade Mask R-CNN (a CascadeRCNN roi_head with a mask_head, the JAX package's "
-            "HTC machinery, build_htc) is not ported to PyTorch yet")
+    # the JAX builder sends HTC and a CascadeRCNN with a mask head (Cascade
+    # Mask R-CNN) to build_htc
+    htc = model_cfg["type"] in _HTC_TYPES or (model_cfg["type"] == "CascadeRCNN"
+                                              and bool(roi.get("mask_head")))
+    cascade = htc or model_cfg["type"] == "CascadeRCNN"
     gen = torch.Generator().manual_seed(seed)
     train_cfg = model_cfg.get("train_cfg") or {}
     _only(train_cfg, "train_cfg", ("rpn", "rpn_proposal", "rcnn"))
@@ -486,10 +504,18 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
     rcnn_test = _rcnn_test_cfg(test_cfg.get("rcnn", {}))
     if cascade:
         heads, bbox_cfg, roi_cfg, cascade_cfg, train_pc, test_pc = _cascade_parts(
-            model_cfg, channels, out_size, gen)
-        net = CascadeNet(backbone, neck, rpn_module, heads, **roi_kw)
+            model_cfg, channels, out_size, gen, htc)
+        if htc:
+            mask_heads, semantic, net_kw, interleaved = _htc_parts(
+                model_cfg, strides, channels, neck_cfg.get("num_outs", 5),
+                bbox_cfg.num_classes, gen)
+            net = HTCNet(backbone, neck, rpn_module, heads, mask_heads, semantic, **net_kw,
+                         **roi_kw)
+            cascade_cfg = dataclasses.replace(cascade_cfg, interleaved=interleaved)
+        else:
+            net = CascadeNet(backbone, neck, rpn_module, heads, **roi_kw)
         set_compute_dtype(net, dtype)
-        return CascadeDetector(
+        return (HTCDetector if htc else CascadeDetector)(
             net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
             train_proposal_cfg=train_pc, test_proposal_cfg=test_pc, rcnn_test_cfg=rcnn_test,
             rpn_type=rpn_type, cascade_cfg=cascade_cfg)
@@ -556,16 +582,18 @@ def _cascade_rcnn_cfgs(train_cfg: Dict[str, Any], num_stages: int):
 
 
 def _cascade_parts(model_cfg: Dict[str, Any], channels: int, out_size: int,
-                   gen: torch.Generator):
+                   gen: torch.Generator, htc: bool = False):
     """``CascadeRCNN``'s stage heads, their ``BBoxHeadCfg`` (stage 0's),
     RoI and cascade configs and train and test proposal configs (JAX
-    ``build_cascade``): ``bbox_head`` a list of the stages' heads or one
-    dict repeated ``num_stages`` times; ``boost`` (off by default) and
-    ``gamma`` (0.1) of the RoI head; the sampler of ``train_cfg.rcnn[0]``."""
+    ``build_cascade``, and the same parts of ``build_htc`` where ``htc``):
+    ``bbox_head`` a list of the stages' heads or one dict repeated
+    ``num_stages`` times; ``boost`` (off by default) and ``gamma`` (0.1)
+    of the RoI head; the sampler of ``train_cfg.rcnn[0]``."""
     roi = model_cfg["roi_head"]
     _only(roi, "roi_head", ("type", "num_stages", "stage_loss_weights", "bbox_roi_extractor",
-                            "bbox_head", "boost", "gamma"))
-    _check(roi, "type", ("CascadeRoIHead", "ProbCascadeRoIHead"))
+                            "bbox_head", "boost", "gamma") + (_HTC_ROI_KEYS if htc else ()))
+    _check(roi, "type", ("CascadeRoIHead", "HybridTaskCascadeRoIHead") if htc
+           else ("CascadeRoIHead", "ProbCascadeRoIHead"))
     num_stages = roi.get("num_stages", 3)
     heads = roi["bbox_head"]
     heads = [heads] * num_stages if isinstance(heads, dict) else list(heads)
@@ -605,3 +633,88 @@ def _cascade_parts(model_cfg: Dict[str, Any], channels: int, out_size: int,
                (0,))
         proposal_cfgs.append(_proposal_cfg(cfg, nms_pre, 1000))
     return modules, cfgs[0], roi_cfg, cascade_cfg, *proposal_cfgs
+
+
+_HTC_TYPES = ("HybridTaskCascade", "HTC")
+# the roi_head keys of Cascade Mask R-CNN and HTC beyond the box cascade's
+_HTC_ROI_KEYS = ("mask_roi_extractor", "mask_head", "interleaved", "mask_info_flow",
+                 "semantic_roi_extractor", "semantic_head")
+
+
+def _htc_parts(model_cfg: Dict[str, Any], strides, channels: int, num_levels: int,
+               num_classes: int, gen: torch.Generator):
+    """Cascade Mask R-CNN's and HTC's mask heads, semantic head, the
+    ``HTCNet`` options and whether the mask branch is interleaved (JAX
+    ``build_htc``): ``interleaved`` and ``mask_info_flow`` on by default
+    for ``HybridTaskCascade`` only; ``mask_head`` a list of the stages'
+    heads or one dict for every stage; a ``conv_res`` in the heads after
+    the first for ``HTCMaskHead`` under information flow (from the running
+    feature of the head before); the heads pool the neck's channels (the
+    JAX package reads no ``in_channels``); ``semantic_head`` a
+    ``FusedSemanticHead`` on every neck level, its embedding pooled at
+    ``semantic_roi_extractor.featmap_strides[0]``."""
+    roi = model_cfg["roi_head"]
+    is_htc = model_cfg["type"] in _HTC_TYPES
+    interleaved = roi.get("interleaved", is_htc)
+    info_flow = roi.get("mask_info_flow", is_htc)
+    num_stages = roi.get("num_stages", 3)
+    heads = roi["mask_head"]
+    heads = [heads] * num_stages if isinstance(heads, dict) else list(heads)
+    if len(heads) != num_stages:
+        raise ValueError(f"roi_head.mask_head has {len(heads)} heads for {num_stages} stages")
+    _mask_extractor(roi, strides)
+    modules, res_channels = [], None
+    for i, mh in enumerate(heads):
+        _check_mask_head(mh, ("FCNMaskHead", "HTCMaskHead"))
+        conv_res = (mh.get("with_conv_res", True) and info_flow
+                    and mh["type"] == "HTCMaskHead")
+        if i and info_flow and not conv_res:
+            raise ValueError(f"roi_head.mask_head[{i}] has no conv_res for the information flow "
+                             "(the JAX HTCMaskHead asserts one)")
+        num_convs, conv_channels = mh.get("num_convs", 4), mh.get("conv_out_channels", 256)
+        modules.append(HTCMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
+                                   in_channels=channels, num_convs=num_convs,
+                                   conv_channels=conv_channels,
+                                   res_channels=res_channels if i and conv_res else None))
+        res_channels = conv_channels if num_convs else channels
+    semantic, semantic_stride = None, 8
+    sem = roi.get("semantic_head")
+    if sem:
+        _only(sem, "semantic_head", ("type", "num_ins", "fusion_level", "num_convs",
+                                     "in_channels", "conv_out_channels", "num_classes",
+                                     "loss_seg", "conv_cfg", "norm_cfg"))
+        _check(sem, "type", ("FusedSemanticHead",))
+        for key in ("conv_cfg", "norm_cfg"):
+            _check(sem, key, (None,))
+        _check(sem, "num_ins", (num_levels,), num_levels)
+        # the JAX package's fixed loss: 0.2 x the cross entropy, 255 ignored
+        seg = dict(sem.get("loss_seg") or {"type": "CrossEntropyLoss"})
+        _check(seg, "ignore_index", (255,), 255)
+        seg.pop("ignore_index", None)
+        seg = _loss({"loss_seg": seg}, "loss_seg", ("CrossEntropyLoss",))
+        for key in ("use_sigmoid", "use_mask"):
+            _check(seg, key, (False,), False)
+        _check(seg, "class_weight", (None,))
+        _check(seg, "loss_weight", (0.2,), 0.2)
+        width = sem.get("conv_out_channels", 256)
+        if width != channels:
+            raise ValueError(f"semantic_head.conv_out_channels={width}: its embedding is added "
+                             f"to the {channels}-channel pooled features")
+        semantic = FusedSemanticHead(gen, num_ins=num_levels, in_channels=channels,
+                                     num_classes=sem.get("num_classes", 183),
+                                     fusion_level=sem.get("fusion_level", 1),
+                                     num_convs=sem.get("num_convs", 4), channels=width)
+        extractor = roi.get("semantic_roi_extractor") or {}
+        _only(extractor, "semantic_roi_extractor", ("type", "roi_layer", "out_channels",
+                                                    "featmap_strides"))
+        _check(extractor, "type", ("SingleRoIExtractor", None))
+        _check(extractor.get("roi_layer", {}), "type", ("RoIAlign",), "RoIAlign")
+        featmap_strides = tuple(extractor.get("featmap_strides", (8,)))
+        if len(featmap_strides) != 1:
+            raise _unported("semantic_roi_extractor.featmap_strides", featmap_strides)
+        semantic_stride = featmap_strides[0]
+    else:
+        _check(roi, "semantic_roi_extractor", (None,))
+    net_kw = dict(mask_info_flow=info_flow, semantic_stride=semantic_stride,
+                  mask_roi_out_size=14)
+    return modules, semantic, net_kw, interleaved

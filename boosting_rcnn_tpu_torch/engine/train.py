@@ -20,8 +20,9 @@ rpn_uniforms=None, roi_uniforms=None) -> metrics``.  Without a ``sample``
 it computes the proposals and samples the RoIs inside the step (the JAX
 step's ``"fused"`` mode, the only one of a cascade); with one it trains on
 that ``RoISample`` (its ``"external"`` mode).  The batch goes to
-``detector.loss`` as it is (Mask R-CNN's ``gt_mask_crops`` with it);
-``rpn_uniforms`` too, and a cascade's per-stage ``roi_uniforms``.  Metrics carry the
+``detector.loss`` as it is (the mask heads' ``gt_mask_crops`` and HTC's
+``gt_semantic_seg`` with it); ``rpn_uniforms`` too, a cascade's per-stage
+``roi_uniforms`` and HTC's per-stage ``mask_uniforms``.  Metrics carry the
 JAX names: ``loss``, each loss, and ``grad_norm`` (the norm before
 clipping).  The step runs on the detector's device, in the detector's
 compute dtype; the parameters and their gradients stay float32.
@@ -157,16 +158,18 @@ def make_train_step(
     (a ``RoISample`` from ``detector.train_sample``) when one is given, else
     computes proposals and samples RoIs inside, with ``generator`` driving
     the samplers; ``rpn_uniforms`` rank the plain RPN's anchors instead
-    (``detector.loss``), and a cascade's ``roi_uniforms`` its stages'
-    samplers.  Each step runs under
+    (``detector.loss``), a cascade's ``roi_uniforms`` its stages'
+    samplers and HTC's ``mask_uniforms`` its stages' mask samplers.  Each
+    step runs under
     ``deterministic_cudnn(deterministic)``: the pin is on unless the caller
     turns it off (to time its cost)."""
 
     @deterministic_cudnn(deterministic)
     def train_step(batch, sample=None, generator: Optional[torch.Generator] = None,
-                   rpn_uniforms=None, roi_uniforms=None):
+                   rpn_uniforms=None, roi_uniforms=None, mask_uniforms=None):
         optimizer.zero_grad()
-        kw = {} if roi_uniforms is None else {"roi_uniforms": roi_uniforms}
+        kw = {k: v for k, v in (("roi_uniforms", roi_uniforms),
+                                ("mask_uniforms", mask_uniforms)) if v is not None}
         losses = detector.loss(batch, anchors, num_level_anchors, generator=generator,
                                sample=sample, rpn_uniforms=rpn_uniforms, **kw)
         total = sum(v.sum() for v in losses.values())

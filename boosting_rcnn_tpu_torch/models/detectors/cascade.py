@@ -12,7 +12,9 @@ the XLA ``multilevel_roi_align_fast``, the same function).
 stage: assign and sample at the stage's IoU threshold, the stage's head,
 its two losses, and the *sampled* boxes refined into the next stage's
 candidates, each carrying its prior back as its score (``prior`` for a
-positive, ``1 - prior`` for a negative).  A gt-added slot leaves the
+positive, ``1 - prior`` for a negative); ``_train_stages`` hands each
+stage's candidates out too, which HTC's mask branch samples again
+(``htc.py``).  A gt-added slot leaves the
 candidates by the JAX package's rule, a positive whose prior is 0.
 ``predict``: every stage refines all proposals; the stages' logits are
 averaged, then the softmax; ProbCascade fuses the foreground columns as
@@ -74,35 +76,42 @@ class CascadeDetector(TwoStageDetector):
     def train_sample(self, *args, **kwargs):
         raise NotImplementedError(_NO_SAMPLE)
 
+    def _stage_cfg(self, stage: int):
+        """The RoI config of ``stage``: assigned at its IoU threshold (as
+        ``pos_iou_thr``, ``neg_iou_thr`` and ``min_pos_iou``)."""
+        thr = self.cascade_cfg.stage_pos_iou[stage]
+        return dataclasses.replace(self.roi_cfg, pos_iou_thr=thr, neg_iou_thr=thr,
+                                   min_pos_iou=thr)
+
     def _train_stages(self, feats, rpn_outs, batch, anchors, num_level_anchors,
-                      generator: Optional[torch.Generator] = None, roi_uniforms=None):
-        """Per stage, its sample (fields ``(B, R, ...)``) and its head's
-        outputs on it: the train proposals of the detached RPN outputs, then
-        each stage assigned and sampled at its IoU threshold, and its
-        sampled boxes refined for the next (without gradient)."""
+                      generator: Optional[torch.Generator] = None, roi_uniforms=None,
+                      **roi_kw):
+        """Per stage, its sample (fields ``(B, R, ...)``), its head's outputs
+        on it and its next candidates: the train proposals of the detached
+        RPN outputs, then each stage assigned and sampled at its IoU
+        threshold, and its sampled boxes refined (without gradient) into
+        the candidates ``(boxes, scores, valid)`` of the stage after it
+        (the last stage's too, which HTC's mask branch samples).
+        ``roi_kw`` goes to ``net.roi_out``."""
         img_shape = self._tensor(batch["img_shape"])
-        cc = self.cascade_cfg
         with torch.no_grad():
             cls, reg, iou = (None if x is None else x.detach() for x in rpn_outs)
             boxes, scores, valid = self._proposals(cls, reg, iou, anchors, num_level_anchors,
                                                    img_shape, self.train_proposal_cfg)
-        for stage in range(cc.num_stages):
-            thr = cc.stage_pos_iou[stage]
-            stage_cfg = dataclasses.replace(self.roi_cfg, pos_iou_thr=thr, neg_iou_thr=thr,
-                                            min_pos_iou=thr)
+        for stage in range(self.cascade_cfg.num_stages):
             with torch.no_grad():
-                s = self._vmap_sample(boxes, scores, valid, batch, generator, stage_cfg,
+                s = self._vmap_sample(boxes, scores, valid, batch, generator,
+                                      self._stage_cfg(stage),
                                       None if roi_uniforms is None else roi_uniforms[stage])
-            cls_s, reg_s = self.net.roi_out(feats, s.boxes, s.valid, stage)
-            yield s, cls_s, reg_s
-            if stage < cc.num_stages - 1:
-                b, r = s.boxes.shape[:2]
-                with torch.no_grad():
-                    boxes = refine_boxes(stage_head_cfg(self.bbox_cfg, stage), s.boxes,
-                                         cls_s.detach().reshape(b, r, -1),
-                                         reg_s.detach().reshape(b, r, -1), img_shape)
-                    scores = torch.where(s.is_pos, s.prior, 1.0 - s.prior)
-                    valid = s.valid & ~(s.is_pos & (s.prior == 0.0))
+            cls_s, reg_s = self.net.roi_out(feats, s.boxes, s.valid, stage, **roi_kw)
+            b, r = s.boxes.shape[:2]
+            with torch.no_grad():
+                boxes = refine_boxes(stage_head_cfg(self.bbox_cfg, stage), s.boxes,
+                                     cls_s.detach().reshape(b, r, -1),
+                                     reg_s.detach().reshape(b, r, -1), img_shape)
+                scores = torch.where(s.is_pos, s.prior, 1.0 - s.prior)
+                valid = s.valid & ~(s.is_pos & (s.prior == 0.0))
+            yield s, cls_s, reg_s, (boxes, scores, valid)
 
     def loss(self, batch, anchors, num_level_anchors,
              generator: Optional[torch.Generator] = None,
@@ -120,7 +129,7 @@ class CascadeDetector(TwoStageDetector):
         feats, rpn_outs, losses = self._rpn_losses(batch, anchors, generator, rpn_uniforms)
         stages = self._train_stages(feats, rpn_outs, batch, anchors, num_level_anchors,
                                     generator, roi_uniforms)
-        for stage, (s, cls_s, reg_s) in enumerate(stages):
+        for stage, (s, cls_s, reg_s, _) in enumerate(stages):
             flat = RoISample(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in s))
             losses.update(cascade_stage_loss(self.cascade_cfg, self.bbox_cfg, stage, cls_s,
                                              reg_s, flat))
@@ -136,19 +145,20 @@ class CascadeDetector(TwoStageDetector):
         feats = self.net.features(self._tensor(batch["images"]))
         stages = self._train_stages(feats, self._rpn_flat(feats), batch, anchors,
                                     num_level_anchors, generator, roi_uniforms)
-        return [s for s, _, _ in stages]
+        return [s for s, *_ in stages]
 
     @torch.inference_mode()
     def roi_predict(self, feats, prop_boxes, prop_scores, prop_valid, img_shape,
-                    scale_factor, rescale: bool = True):
+                    scale_factor, rescale: bool = True, **roi_kw):
         """Every stage on the proposals ``(B, R, 4)``, each refining them for
         the next; the stages' averaged logits, fused with the priors for
-        ProbCascade, and the last stage's boxes, then NMS per image."""
+        ProbCascade, and the last stage's boxes, then NMS per image.
+        ``roi_kw`` goes to ``net.roi_out``."""
         b, r = prop_boxes.shape[:2]
         cc = self.cascade_cfg
         rois, logits = prop_boxes, []
         for stage in range(cc.num_stages):
-            cls_s, reg_s = self.net.roi_out(feats, rois, prop_valid, stage)
+            cls_s, reg_s = self.net.roi_out(feats, rois, prop_valid, stage, **roi_kw)
             cls_s = cls_s.reshape(b, r, -1).float()
             reg_s = reg_s.reshape(b, r, -1).float()
             logits.append(cls_s)

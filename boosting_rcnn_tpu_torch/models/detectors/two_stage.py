@@ -303,17 +303,19 @@ class TwoStageDetector:
                              is_pos=flat.is_pos.bool(), valid=flat.valid.bool())
         losses.update(prob_roi_loss(self.roi_cfg, self.bbox_cfg, cls_s, reg_s, flat))
         if self.net.mask_head is not None and "gt_mask_crops" in batch:
-            losses["loss_mask"] = self._mask_loss(feats, batch, sample, flat, gt_bboxes)
+            logits = self.net.mask_out(feats, sample.boxes.float(),
+                                       sample.valid.bool() & sample.is_pos.bool())
+            losses["loss_mask"] = self._mask_loss(logits, batch, sample, gt_bboxes)
         return losses
 
-    def _mask_loss(self, feats, batch, sample: RoISample, flat: RoISample,
+    def _mask_loss(self, logits: torch.Tensor, batch, sample: RoISample,
                    gt_bboxes: torch.Tensor) -> torch.Tensor:
-        """The mask branch on all ``B*R`` sampled slots, the positive ones
-        valid (JAX ``two_stage.py:687-715``), against the targets resampled
-        from each image's ``gt_mask_crops``."""
+        """The mask loss of the logits ``(B*R, m, m, K)`` of all ``B*R``
+        sampled slots, the positive ones valid (JAX
+        ``two_stage.py:687-715``), against the targets resampled from each
+        image's ``gt_mask_crops``."""
         b = sample.boxes.shape[0]
         boxes = sample.boxes.float()
-        logits = self.net.mask_out(feats, boxes, sample.valid.bool() & sample.is_pos.bool())
         crops = self._tensor(batch["gt_mask_crops"], torch.uint8)
         g = crops.shape[1]
         # every image's gts in one table: image i's gt j is row i * G + j
@@ -322,8 +324,10 @@ class TwoStageDetector:
         targets = resample_mask_targets(crops.reshape(b * g, *crops.shape[2:]),
                                         gt_bboxes.reshape(b * g, 4), boxes.reshape(-1, 4),
                                         gt_idx, out_size=logits.shape[1])
-        labels = torch.where(flat.is_pos, flat.matched_label, torch.zeros_like(flat.matched_label))
-        return mask_loss(logits, targets, labels, flat.is_pos & flat.valid)
+        is_pos = sample.is_pos.bool().reshape(-1)
+        label = sample.matched_label.long().reshape(-1)
+        labels = torch.where(is_pos, label, torch.zeros_like(label))
+        return mask_loss(logits, targets, labels, is_pos & sample.valid.bool().reshape(-1))
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor], anchors: torch.Tensor,

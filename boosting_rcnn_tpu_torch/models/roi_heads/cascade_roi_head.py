@@ -38,6 +38,10 @@ class CascadeCfg:
     prob: bool = False
     boost: bool = False
     gamma: float = 0.1
+    # HTC trains each stage's mask branch on the boxes the stage refined,
+    # sampled again (``htc_roi_head.py:296``); Cascade Mask R-CNN on the
+    # stage's own sample (``cascade_roi_head.py``)
+    interleaved: bool = True
 
 
 def stage_head_cfg(base: BBoxHeadCfg, stage: int) -> BBoxHeadCfg:

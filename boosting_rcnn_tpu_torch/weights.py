@@ -7,7 +7,9 @@ nested dicts of numpy arrays, named as flax names them, and returns a
 module names, so the mapping is by rule:
 
   * ``Conv_0`` / ``GroupNorm_0`` inside a ConvModule -> ``conv`` / ``norm``;
-    a cascade's stage heads ``bbox_heads_N`` -> ``bbox_heads.N``;
+    a cascade's stage heads ``bbox_heads_N`` -> ``bbox_heads.N``, HTC's
+    and Cascade Mask R-CNN's ``mask_heads_N`` -> ``mask_heads.N`` (the
+    semantic head keeps its name, ``semantic_head``);
   * conv ``kernel`` (HWIO) -> ``weight`` (OIHW); dense ``kernel`` (in, out)
     -> ``weight`` (out, in); the mask head's transposed conv ``upsample``
     (flax ``nn.ConvTranspose``, HWIO) -> ``weight`` (in, out, H, W) with
@@ -73,10 +75,11 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
 
 def _module_name(m: str) -> str:
     """A flax module name as the port names it: ``Conv_0`` -> ``conv``, a
-    cascade's stage head ``bbox_heads_N`` (flax's name for a tuple's
-    submodule) -> ``bbox_heads.N`` (an ``nn.ModuleList``)."""
-    stage = re.fullmatch(r"bbox_heads_(\d+)", m)
-    return f"bbox_heads.{stage[1]}" if stage else _MODULE_NAMES.get(m, m)
+    cascade's stage head ``bbox_heads_N`` or ``mask_heads_N`` (flax's name
+    for a tuple's submodule) -> ``bbox_heads.N`` / ``mask_heads.N`` (an
+    ``nn.ModuleList``)."""
+    stage = re.fullmatch(r"(bbox_heads|mask_heads)_(\d+)", m)
+    return f"{stage[1]}.{stage[2]}" if stage else _MODULE_NAMES.get(m, m)
 
 
 def _convert(path: Tuple[str, ...], value: np.ndarray):
@@ -183,7 +186,19 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
       roi_head.mask_head.convs.N.conv         -> mask_head.conv_N
       roi_head.mask_head.{upsample,conv_logits} -> mask_head.{upsample,conv_logits}
 
-    A key of any other module raises (the port has no such module)."""
+    A key of any other module raises (the port has no such module).  The
+    per-stage mask heads (``roi_head.mask_head.N.*``) and the semantic head
+    (``roi_head.semantic_head.*``) of Cascade Mask R-CNN and HTC raise
+    ``NotImplementedError`` naming them: the port does not place them yet
+    (the JAX package's converter maps one ``mask_head`` and drops these
+    silently)."""
+    unplaced = [k for k in state_dict
+                if re.match(r"roi_head\.(mask_head\.\d+|semantic_head)\.", k)]
+    if unplaced:
+        raise NotImplementedError(
+            f"{len(unplaced)} keys of Cascade Mask R-CNN's or HTC's per-stage mask heads and "
+            f"semantic head have no place in the port's mmdet converter yet: "
+            f"{', '.join(unplaced[:6])}{', ...' if len(unplaced) > 6 else ''}")
     backbone = {k[len("backbone."):]: v for k, v in state_dict.items()
                 if k.startswith("backbone.")}
     out = from_torchvision_resnet(backbone)

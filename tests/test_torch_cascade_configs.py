@@ -2,14 +2,18 @@
 width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
-ones on the ported backbones build (``BUILDS``, 16 files; files with the
-same model, such as a 1x and a 20e schedule, are built once); every other
-one raises ``NotImplementedError`` naming what is missing (``_reason``):
-Cascade Mask R-CNN (the JAX package's HTC machinery), the caffe-style
-ResNet, DetectoRS, HRNet, ResNeSt, SABL heads, and the ensemble configs'
+ones and the Cascade Mask R-CNN ones on the ported backbones build
+(``BUILDS``, 16 + 20 files; files with the same model, such as a 1x and a
+20e schedule, are built once); every other one raises
+``NotImplementedError`` naming what is missing (``_reason``): the
+caffe-style ResNet, DetectoRS, HRNet, RegNet, ResNeSt, GCNet's SyncBN and
+context blocks, the Seesaw loss, SABL heads, and the ensemble configs'
 ATSS and RetinaNet RPNs.  Each built one is checked against its config:
 one class-agnostic stage head per stage, the IoU ladder, the stage loss
-weights, boosting and fusion for ``ProbCascadeRoIHead`` only.
+weights, boosting and fusion for ``ProbCascadeRoIHead`` only; a Cascade
+Mask R-CNN one is the HTC detector with one mask head per stage, none
+with a ``conv_res``, trained on each stage's own sample (not interleaved)
+and without information flow.
 """
 import functools
 import glob
@@ -26,6 +30,7 @@ sys.path.insert(0, REPO)
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
+from boosting_rcnn_tpu_torch.models.detectors.htc import HTCDetector  # noqa: E402
 
 CONFIGS = os.path.join(REPO, "configs")
 BUILDS = {
@@ -41,6 +46,20 @@ BUILDS = {
     "dcn/cascade_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py", "dcn/cascade_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py",
     "ensemble/prob_cascade_rcnn_r50_pafpn_1x_utdac.py",
     "pascal_voc/cascade_rcnn_r50_fpn_1x_voc0712.py", "res2net/cascade_rcnn_r2_101_fpn_20e_coco.py",
+    # Cascade Mask R-CNN
+    *(f"cascade_rcnn/cascade_mask_rcnn_{m}.py" for m in (
+        "r50_fpn_1x_coco", "r50_fpn_20e_coco", "r50_fpn_mstrain_3x_coco", "r101_fpn_1x_coco",
+        "r101_fpn_20e_coco", "r101_fpn_mstrain_3x_coco", "x101_32x4d_fpn_1x_coco",
+        "x101_32x4d_fpn_20e_coco", "x101_32x4d_fpn_mstrain_3x_coco",
+        "x101_32x8d_fpn_mstrain_3x_coco", "x101_64x4d_fpn_1x_coco", "x101_64x4d_fpn_20e_coco",
+        "x101_64x4d_fpn_mstrain_3x_coco")),
+    "dcn/cascade_mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py",
+    "dcn/cascade_mask_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py",
+    "dcn/cascade_mask_rcnn_x101_32x4d_fpn_dconv_c3-c5_1x_coco.py",
+    "instaboost/cascade_mask_rcnn_r50_fpn_instaboost_4x_coco.py",
+    "instaboost/cascade_mask_rcnn_r101_fpn_instaboost_4x_coco.py",
+    "instaboost/cascade_mask_rcnn_x101_64x4d_fpn_instaboost_4x_coco.py",
+    "res2net/cascade_mask_rcnn_r2_101_fpn_20e_coco.py",
 }
 
 
@@ -51,12 +70,12 @@ def _names():
 
 def _reason(name: str, mc) -> str:
     """The missing piece that the builder names for a config it rejects."""
-    if mc["roi_head"].get("mask_head"):
-        return "Cascade Mask R-CNN"
     if mc["backbone"].get("style") == "caffe":
         return "caffe"
     for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
                       ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
+                      ("regnet/", "RegNet"), ("gcnet/", "SyncBN|ContextBlock"),
+                      ("seesaw_loss/", "SeesawLoss"),
                       ("ensemble/cascade_atss", "atss=True"),
                       ("ensemble/cascade_retinanet", "num_convs=4")):
         if name.startswith(key):
@@ -79,10 +98,16 @@ def _built(model_json: str):
     """What the checks read of the built detector (the detector itself is
     dropped: each holds ~0.3-0.5 GB)."""
     det = build_detector(json.loads(model_json), device="cpu")
+    net = det.net
     return dict(type=type(det), cascade=det.cascade_cfg, roi=det.roi_cfg, bbox=det.bbox_cfg,
                 rpn_type=det.rpn_type, test_proposals=det.test_proposal_cfg.max_per_img,
                 heads=[(h.fc_cls.weight.shape[0], h.fc_reg.weight.shape[0])
-                       for h in det.net.bbox_heads])
+                       for h in net.bbox_heads],
+                masks=[(h.conv_logits.weight.shape[0], h.num_convs, h.conv_res is not None)
+                       for h in getattr(net, "mask_heads", ())],
+                info_flow=getattr(net, "mask_info_flow", None),
+                semantic=(None if getattr(net, "semantic_head", None) is None else
+                          (net.semantic_head.conv_seg.weight.shape[0], net.semantic_stride)))
 
 
 def test_the_probe_covers_the_buildable_configs():
@@ -98,8 +123,11 @@ def test_cascade_config_builds_or_names_what_is_missing(name):
             build_detector(mc, device="cpu")
         return
     det = _built(json.dumps(mc, sort_keys=True))
-    assert det["type"] is CascadeDetector
     roi = mc["roi_head"]
+    if roi.get("mask_head"):
+        check_mask_heads(det, roi, htc=False)
+    else:
+        assert det["type"] is CascadeDetector and det["masks"] == []
     cc = det["cascade"]
     n = roi.get("num_stages", 3)
     heads = roi["bbox_head"] if isinstance(roi["bbox_head"], list) else [roi["bbox_head"]] * n
@@ -117,3 +145,16 @@ def test_cascade_config_builds_or_names_what_is_missing(name):
         assert det["test_proposals"] == 256
     if "_s4_" in name:
         assert n == 4 and cc.stage_pos_iou[3] == 0.8
+
+
+def check_mask_heads(det, roi, htc: bool):
+    """The HTC detector with one mask head per stage of the config's
+    classes and convs; for HTC interleaved and with information flow (a
+    ``conv_res`` in the heads after the first), for Cascade Mask R-CNN
+    neither (no ``conv_res``)."""
+    assert det["type"] is HTCDetector
+    n = roi.get("num_stages", 3)
+    heads = roi["mask_head"] if isinstance(roi["mask_head"], list) else [roi["mask_head"]] * n
+    assert det["masks"] == [(h.get("num_classes", 80), h.get("num_convs", 4), htc and i > 0)
+                            for i, h in enumerate(heads)]
+    assert det["cascade"].interleaved is htc and det["info_flow"] is htc

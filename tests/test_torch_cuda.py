@@ -654,3 +654,124 @@ def test_cuda_tiny_cascade_matches_cpu(cuda):
     assert {"s0.loss_cls", "s1.loss_bbox", "s2.loss_cls"} <= set(metrics["cpu"])
     for k, ref in metrics["cpu"].items():
         assert abs(metrics[str(cuda)][k] - ref) <= 1e-4 * abs(ref), k
+
+
+def _tiny_htc_config():
+    """HTC with the semantic branch at the CPU tests' size
+    (``tests/test_torch_htc.py::tiny_htc``, copied: that file imports JAX)."""
+    from boosting_rcnn_tpu_torch.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mc = load_config(os.path.join(repo, "configs/htc/htc_r50_fpn_1x_coco.py")).model.to_dict()
+    mc["backbone"].update(depth=18, base_channels=8)
+    mc["neck"].update(in_channels=[8, 16, 32, 64], out_channels=16)
+    mc["rpn_head"].update(feat_channels=16)
+    for h in mc["roi_head"]["bbox_head"]:
+        h.update(fc_out_channels=16, num_classes=4)
+    for h in mc["roi_head"]["mask_head"]:
+        h.update(num_classes=4, conv_out_channels=8, num_convs=1)
+    mc["roi_head"]["semantic_head"].update(num_classes=6, conv_out_channels=16, num_convs=1)
+    mc["train_cfg"]["rpn_proposal"].update(nms_pre=64, max_per_img=32)
+    for rc in mc["train_cfg"]["rcnn"]:
+        rc["sampler"]["num"] = 8
+    mc["test_cfg"]["rpn"].update(nms_pre=48, max_per_img=16)
+    return mc
+
+
+def _tiny_htc_inputs(rs, num_anchors):
+    """Two 128 x 160 images with 5 gt boxes, an ellipse mask each and a
+    stuff map at stride 8 (a band of 255), and the draws of every sampler:
+    the RPN's, each stage's (over the gt boxes and 32 proposals, then the
+    8 slots before) and each stage's mask branch (the 8 slots)."""
+    batch, _ = _tiny_cascade_inputs(rs)
+    y, x = np.mgrid[:28, :28] + 0.5
+    cy, cx, ry, rx = (rs.uniform(lo, hi, (2, 5, 1, 1)) * 28
+                      for lo, hi in ((0.3, 0.7), (0.3, 0.7), (0.2, 0.5), (0.2, 0.5)))
+    batch["gt_mask_crops"] = ((((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2) <= 1).astype(np.uint8)
+    batch["gt_labels"] = rs.randint(0, 4, (2, 5))
+    seg = rs.randint(0, 6, (2, 16, 20))
+    seg[0, 4:6] = 255
+    batch["gt_semantic_seg"] = seg
+    draws = {"rpn_uniforms": rs.rand(2, 2, num_anchors).astype(np.float32),
+             "roi_uniforms": [rs.rand(2, 2, n).astype(np.float32) for n in (5 + 32, 13, 13)],
+             "mask_uniforms": [rs.rand(2, 2, 13).astype(np.float32) for _ in range(3)]}
+    return batch, draws
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_htc_matches_cpu(cuda):
+    """The tiny HTC on the card against the CPU in float32 with TF32 off:
+    ``predict`` (labels and valid equal; detections within 1e-3 and masks
+    within 1e-4, or within 4 times what the CPU's own ``predict`` moves
+    when its images change by 1e-7 of their values, where that is more:
+    three refinements make this model's boxes move by up to 1.6e-3 px
+    under such a change; K1 at 7 six times, three stages on the pyramid
+    and on the semantic level, and at 14 twice) and a train step on the same draws
+    (losses rtol 1e-4, the gradient norm within 3e-4, ``chip_smoke.py``'s
+    float32 rule; K1, K4 and the tile keys at 7 and at 14 six times
+    each); then K1 and K4 at 7 and 14 on the one semantic level against
+    their plain versions."""
+    from boosting_rcnn_tpu_torch.builder import build_detector
+    from boosting_rcnn_tpu_torch.engine.train import make_optimizer, make_train_step
+
+    mc = _tiny_htc_config()
+    fwd, bwd = kern.batched_multilevel_roi_align, kern.batched_multilevel_roi_align.backward
+    names = ("launches", "o14_launches")
+    outs, metrics, counts = {}, {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
+    try:
+        for dev in ("cpu", cuda):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            det = build_detector(mc, device=dev, seed=4)
+            anchors, nla = det.anchors_for((128, 160))
+            batch, draws = _tiny_htc_inputs(np.random.RandomState(12), anchors.shape[0])
+            for w, attr in ((fwd, n) for n in names):
+                setattr(w, attr, 0)
+            for attr in names + ("tile_launches", "o14_tile_launches"):
+                setattr(bwd, attr, 0)
+            outs[str(dev)] = [x.cpu() for x in det.predict(batch, anchors, nla)]
+            counts[str(dev)] = [getattr(fwd, n) for n in names]
+            if dev == "cpu":  # the model's own float32 sensitivity
+                nudge = 1 + 1e-7 * np.random.RandomState(14).randn(*batch["images"].shape)
+                noisy = det.predict({**batch, "images": (batch["images"] * nudge).astype(
+                    np.float32)}, anchors, nla)
+                noise = [_max_err(a, b) for a, b in zip(noisy[::3], outs["cpu"][::3])]
+            step = make_train_step(det, anchors, nla,
+                                   make_optimizer(det.net.parameters(), lambda s: 0.01))
+            m = step(batch, **draws)
+            metrics[str(dev)] = {k: float(v) for k, v in m.items()}
+            counts[str(dev)] += [getattr(w, n) for w in (fwd, bwd) for n in names] + [
+                bwd.tile_launches, bwd.o14_tile_launches]
+            if dev == cuda:
+                feats = det.net.features(torch.from_numpy(batch["images"]).to(cuda))
+                sem = det.net.semantic_out(feats)[1].detach()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_num_threads(threads)
+    (d0, l0, v0, m0), (d1, l1, v1, m1) = outs["cpu"], outs[str(cuda)]
+    assert torch.equal(v0, v1) and torch.equal(l0, l1) and v0.any()
+    assert _max_err(d1, d0) <= max(1e-3, 4 * noise[0]), (_max_err(d1, d0), noise)
+    assert _max_err(m1, m0) <= max(1e-4, 4 * noise[1]), (_max_err(m1, m0), noise)
+    assert counts["cpu"] == [0] * 8 and counts[str(cuda)] == [6, 2, 12, 8, 6, 6, 6, 6]
+    assert {"loss_semantic_seg", "s0.loss_mask", "s2.loss_mask"} <= set(metrics["cpu"])
+    for k, ref in metrics["cpu"].items():
+        rtol = 3e-4 if k == "grad_norm" else 1e-4
+        assert abs(metrics[str(cuda)][k] - ref) <= rtol * abs(ref), k
+    # the one semantic level: every RoI routes to it
+    rs = np.random.RandomState(13)
+    _, rois, valid = _case(rs, 2, 24, 16, canvas=(128, 160))
+    rois, valid = _on(cuda, rois, valid)
+    for out_size in (7, 14):
+        got = fwd([sem], rois, valid, (8,), out_size=out_size, num_route_levels=1)
+        ref = roi_align.multilevel_roi_align_fast([sem], rois, valid, (8,), out_size=out_size)
+        assert _max_err(got, ref) <= 1e-5
+        g = torch.from_numpy(rs.randn(48, out_size, out_size, 16).astype(np.float32)).to(cuda)
+        rf, vf = _flat(rois, valid)
+        grads = bwd.launch(g, [tuple(sem.shape)], rf, vf, (8,))
+        again = bwd.launch(g, [tuple(sem.shape)], rf, vf, (8,))
+        ref_g = kern.roi_align_bwd_plain(g, [sem], rois, valid, (8,))
+        torch.cuda.synchronize()
+        assert torch.equal(grads[0], again[0])
+        assert _max_err(grads[0], ref_g[0]) <= 1e-5 * ref_g[0].abs().max().item()
