@@ -1,17 +1,20 @@
-"""COCO-style bbox mAP in numpy (PyTorch port of
-``boosting_rcnn_tpu/core/evaluation/coco_eval.py``, bbox only; the mask
-variant comes with the mask data path).
+"""COCO-style bbox and segm mAP in numpy (PyTorch port of
+``boosting_rcnn_tpu/core/evaluation/coco_eval.py``).
 
-The COCOeval bbox protocol: IoU thresholds 0.50:0.05:0.95, 101-point
+The COCOeval protocol: IoU thresholds 0.50:0.05:0.95, 101-point
 interpolated precision, area ranges all / small / medium / large,
 ``maxDets`` 100, crowd and ignore regions matched by IoF and not counted.
-On the host, as in the reference.
+``CocoStyleEval`` scores boxes; ``SegmCocoStyleEval`` overrides its hooks
+(``compute_iou``, ``gt_areas``, ``det_areas``, ``_det_scores``) to score
+masks.  On the host, as in the reference.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+from ...data.mask_utils import crop_mask_iou, paste_mask, polygons_to_bitmap
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -50,6 +53,11 @@ class CocoStyleEval:
         self.num_classes = num_classes
         self.max_dets = max_dets
 
+    def compute_iou(self, det_boxes, gt_boxes, gt_ig, img_idx, cls, det_sel):
+        """``(D, G)`` IoU of one image's detections of class ``cls`` against
+        its gts of that class and its ignore regions."""
+        return _iou(det_boxes, gt_boxes, gt_ig)
+
     @staticmethod
     def _box_areas(boxes: np.ndarray) -> np.ndarray:
         if len(boxes) == 0:
@@ -57,6 +65,17 @@ class CocoStyleEval:
         return np.maximum(boxes[:, 2] - boxes[:, 0], 0) * np.maximum(
             boxes[:, 3] - boxes[:, 1], 0
         )
+
+    def gt_areas(self, gt_boxes, gt_ig, img_idx, cls):
+        """Each gt's area for the area-range test (box areas)."""
+        return self._box_areas(gt_boxes)
+
+    def det_areas(self, det_boxes, img_idx, cls, det_sel):
+        """Each detection's area for the area-range test (box areas)."""
+        return self._box_areas(det_boxes)
+
+    def _det_scores(self, res):
+        return res[0][:, 4]
 
     def _evaluate_img(
         self, det_scores, gt_ignore_mask, area_rng, ious, det_area, gt_area
@@ -113,11 +132,11 @@ class CocoStyleEval:
 
         for ki in range(k):
             per_img = []
-            for gt, res in zip(self.gts, self.results):
+            for img_idx, (gt, res) in enumerate(zip(self.gts, self.results)):
                 dets, labels = res[0], res[1]
                 m = labels == ki
                 db = dets[m, :4]
-                ds = dets[m, 4]
+                ds = self._det_scores(res)[m]
                 order = np.argsort(-ds, kind="stable")[: self.max_dets]
                 gm = gt["labels"] == ki
                 gb = gt["bboxes"][gm]
@@ -125,9 +144,10 @@ class CocoStyleEval:
                 ig_boxes = gt.get("bboxes_ignore", np.zeros((0, 4)))
                 gb_all = np.concatenate([gb, ig_boxes], axis=0)
                 gig_all = np.concatenate([gig, np.ones(len(ig_boxes), dtype=bool)])
-                ious = _iou(db[order], gb_all, gig_all)
-                d_area = self._box_areas(db[order])
-                g_area = self._box_areas(gb_all)
+                det_sel = np.where(m)[0][order]
+                ious = self.compute_iou(db[order], gb_all, gig_all, img_idx, ki, det_sel)
+                d_area = self.det_areas(db[order], img_idx, ki, det_sel)
+                g_area = self.gt_areas(gb_all, gig_all, img_idx, ki)
                 per_img.append(
                     (ds[order], gig_all, ious, d_area, g_area)
                 )
@@ -199,3 +219,49 @@ class CocoStyleEval:
             "APl": ap(area="large"),
             "per_class_AP": per_class,
         }
+
+
+class SegmCocoStyleEval(CocoStyleEval):
+    """Mask AP: ``results[i] = (dets, labels, mask_crops)``, each mask a
+    box-relative probability crop (or a full-image mask, used as it is);
+    gt masks rasterised from the COCO segmentations (``gts[i]`` also has
+    ``width``, ``height``, ``segmentations`` and ``areas``).  Area ranges
+    use mask areas, as COCOeval does: a gt's the annotation's ``area``, a
+    detection's its pasted mask's pixel count.  Ignore regions are their
+    boxes.  A fourth result entry, where present, holds the detections'
+    mask scores."""
+
+    def _det_scores(self, res):
+        return res[3] if len(res) > 3 else res[0][:, 4]
+
+    def gt_areas(self, gt_boxes, gt_ig, img_idx, cls):
+        gt = self.gts[img_idx]
+        areas = self._box_areas(gt_boxes)
+        ann_areas = gt.get("areas")
+        if ann_areas is not None and len(ann_areas) == len(gt["labels"]):
+            seg_areas = np.asarray(ann_areas, np.float64)[gt["labels"] == cls]
+            # the class's gts come first; the ignore regions after them are
+            # boxes, whose box area is their mask area
+            areas[:len(seg_areas)] = seg_areas
+        return areas
+
+    def det_areas(self, det_boxes, img_idx, cls, det_sel):
+        gt, res = self.gts[img_idx], self.results[img_idx]
+        h, w = int(gt["height"]), int(gt["width"])
+        return np.asarray([float(res[2][j].sum()) if res[2][j].shape == (h, w)
+                           else float(paste_mask(res[2][j], det_boxes[i], h, w).sum())
+                           for i, j in enumerate(det_sel)], np.float64)
+
+    def compute_iou(self, det_boxes, gt_boxes, gt_ig, img_idx, cls, det_sel):
+        gt, res = self.gts[img_idx], self.results[img_idx]
+        h, w = int(gt["height"]), int(gt["width"])
+        crops = [res[2][j] for j in det_sel]
+        keep = gt["labels"] == cls
+        segs = [s for s, k in zip(gt.get("segmentations", []), keep) if k]
+        gt_bitmaps = [polygons_to_bitmap(s, h, w) for s in segs]
+        for bi in range(len(gt_bitmaps), len(gt_boxes)):  # the ignore regions' boxes
+            bm = np.zeros((h, w), np.uint8)
+            x1, y1, x2, y2 = [int(round(v)) for v in gt_boxes[bi]]
+            bm[max(y1, 0):max(y2, 0), max(x1, 0):max(x2, 0)] = 1
+            gt_bitmaps.append(bm)
+        return crop_mask_iou(det_boxes, crops, gt_boxes, gt_bitmaps, gt_ig, h, w)

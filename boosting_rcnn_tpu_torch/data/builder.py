@@ -26,4 +26,4 @@ def build_dataset(cfg: Dict[str, Any], test_mode: bool = False):
     if classes is None and t != "CocoDataset":
         classes = DATASET_CLASSES[t]
     return CocoDataset(ann_file=cfg["ann_file"], img_prefix=cfg.get("img_prefix", ""),
-                       classes=classes, test_mode=test_mode)
+                       classes=classes, test_mode=test_mode, seg_prefix=cfg.get("seg_prefix"))

@@ -4,9 +4,9 @@ numpy only, no pycocotools).
 Annotation loading with the ``classes`` filter, category id -> contiguous
 label, crowd and ``ignore`` boxes kept apart as ``bboxes_ignore``,
 ``filter_empty_gt`` / ``min_size`` for training, the aspect-ratio group
-flags (1 where w / h > 1), results -> COCO json, and COCO-style bbox
-evaluation.  ``"segm"`` and ``"proposal"`` evaluation are not ported yet
-and raise.
+flags (1 where w / h > 1), results -> COCO json, COCO-style bbox and
+segm evaluation, and the stuff maps of ``seg_prefix``.  ``"proposal"``
+evaluation is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .image_io import load_png_gray
 
 __all__ = ["DATASET_CLASSES", "CocoDataset"]
 
@@ -74,9 +76,11 @@ class CocoDataset:
 
     def __init__(self, ann_file: str, img_prefix: str = "",
                  classes: Optional[Sequence[str]] = None, test_mode: bool = False,
-                 filter_empty_gt: bool = True, min_size: int = 32):
+                 filter_empty_gt: bool = True, min_size: int = 32,
+                 seg_prefix: Optional[str] = None):
         self.ann_file = ann_file
         self.img_prefix = img_prefix
+        self.seg_prefix = seg_prefix
         self.test_mode = test_mode
         with open(ann_file) as f:
             coco = json.load(f)
@@ -131,11 +135,22 @@ class CocoDataset:
     def img_path(self, idx: int) -> str:
         return os.path.join(self.img_prefix, self.data_infos[idx]["filename"])
 
+    def semantic_map(self, idx: int) -> np.ndarray:
+        """The ``(H, W)`` int32 stuff map of image ``idx``:
+        ``<seg_prefix>/<stem>.png``, an 8-bit grayscale PNG of class ids
+        (255 ignored; COCO-stuff's ``stuffthingmaps`` layout), which HTC's
+        semantic head trains on."""
+        if self.seg_prefix is None:
+            raise ValueError("semantic_map() needs the dataset built with seg_prefix= (a "
+                             "directory of 8-bit grayscale PNG stuff maps)")
+        fn = os.path.splitext(self.data_infos[idx]["filename"])[0] + ".png"
+        return load_png_gray(os.path.join(self.seg_prefix, fn)).astype(np.int32)
+
     def results_to_coco_json(self, results: List[Tuple[np.ndarray, np.ndarray]]):
-        """``results[i] = (dets (N, 5), labels (N,))`` in original image
-        coordinates -> COCO detection dicts."""
+        """``results[i] = (dets (N, 5), labels (N,), ...)`` in original image
+        coordinates -> COCO detection dicts (boxes only)."""
         out = []
-        for idx, (dets, labels) in enumerate(results):
+        for idx, (dets, labels, *_) in enumerate(results):
             img_id = self.data_infos[idx]["id"]
             for det, lab in zip(dets, labels):
                 x1, y1, x2, y2, score = det.tolist()
@@ -144,22 +159,33 @@ class CocoDataset:
         return out
 
     def evaluate(self, results, metric="bbox", classwise: bool = False):
-        """COCO-style bbox mAP with the numpy evaluator."""
-        from ..core.evaluation.coco_eval import CocoStyleEval
+        """COCO-style bbox and segm mAP with the numpy evaluators; segm needs
+        ``results[i] = (dets, labels, mask_crops)``."""
+        from ..core.evaluation.coco_eval import CocoStyleEval, SegmCocoStyleEval
 
         metrics = [metric] if isinstance(metric, str) else list(metric)
         for m in metrics:
-            if m in ("segm", "proposal", "proposal_fast"):
+            if m in ("proposal", "proposal_fast"):
                 raise NotImplementedError(
-                    f"metric {m!r} is not ported to PyTorch yet: it needs the mask data path "
-                    f"and mask results (segm) or proposal recall (proposal)")
-            if m != "bbox":
+                    f"metric {m!r} is not ported to PyTorch yet: it needs proposal recall")
+            if m not in ("bbox", "segm"):
                 raise KeyError(f"metric {m!r} is not supported")
-        gts = [dict(bboxes=d["bboxes"], labels=d["labels"], bboxes_ignore=d["bboxes_ignore"])
+        if "segm" in metrics and not (results and len(results[0]) >= 3):
+            raise ValueError("segm evaluation needs mask results: (dets, labels, mask_crops) "
+                             "an image")
+        gts = [dict(bboxes=d["bboxes"], labels=d["labels"], bboxes_ignore=d["bboxes_ignore"],
+                    width=d["width"], height=d["height"],
+                    segmentations=d.get("segmentations", []), areas=d.get("areas"))
                for d in self.data_infos]
-        stats = CocoStyleEval(gts, results, num_classes=len(self.CLASSES)).summarize()
-        out = dict(bbox_mAP=stats["AP"], bbox_mAP_50=stats["AP50"], bbox_mAP_75=stats["AP75"],
-                   bbox_mAP_s=stats["APs"], bbox_mAP_m=stats["APm"], bbox_mAP_l=stats["APl"])
-        if classwise:
-            out["classwise"] = {self.CLASSES[i]: ap for i, ap in enumerate(stats["per_class_AP"])}
+        out = {}
+        for name, evaluator in (("bbox", CocoStyleEval), ("segm", SegmCocoStyleEval)):
+            if name not in metrics:
+                continue
+            stats = evaluator(gts, results, num_classes=len(self.CLASSES)).summarize()
+            out.update({f"{name}_mAP": stats["AP"], f"{name}_mAP_50": stats["AP50"],
+                        f"{name}_mAP_75": stats["AP75"], f"{name}_mAP_s": stats["APs"],
+                        f"{name}_mAP_m": stats["APm"], f"{name}_mAP_l": stats["APl"]})
+            if classwise and name == "bbox":
+                out["classwise"] = {self.CLASSES[i]: ap
+                                    for i, ap in enumerate(stats["per_class_AP"])}
         return out

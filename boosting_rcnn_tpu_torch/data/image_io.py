@@ -5,14 +5,25 @@ Binary PPM (``P6``) and PGM (``P5``) with a maximum value of 255 decode
 with numpy alone; every other format goes through ``cv2`` where it
 imports, else PIL where it imports, else the call raises naming the
 format.  Lossless formats decode to the same bytes by either route.
+
+``load_png_gray`` reads the 8-bit grayscale PNG stuff maps of
+``seg_prefix`` (COCO-stuff's ``stuffthingmaps`` layout) with zlib and
+numpy alone, as ``cv2.imread(path, IMREAD_GRAYSCALE)`` gives them, and
+``write_png_gray`` writes them.
 """
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
-__all__ = ["load_image", "write_ppm"]
+__all__ = ["load_image", "write_ppm", "load_png_gray", "write_png_gray"]
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_COLOR_TYPES = {0: "grayscale", 2: "RGB", 3: "palette", 4: "grayscale with alpha",
+                    6: "RGBA"}
 
 
 def _netpbm_header(data: bytes):
@@ -83,3 +94,186 @@ def write_ppm(path: str, bgr: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"P6\n%d %d\n255\n" % (w, h))
         f.write(np.ascontiguousarray(bgr[..., ::-1], np.uint8).tobytes())
+
+
+def _png_chunks(data: bytes, path: str):
+    """``(type, payload)`` of each chunk of a PNG file's bytes."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        yield kind, data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IEND":
+            return
+    raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+
+
+def _unfilter_row(ftype: int, raw: np.ndarray, prior: np.ndarray) -> np.ndarray:
+    """One scanline of one byte a pixel with its PNG filter (None, Sub or
+    Up) undone."""
+    if ftype == 0:
+        return raw
+    if ftype == 1:  # Sub: a running sum mod 256
+        return np.cumsum(raw, dtype=np.uint8)
+    return raw + prior  # Up
+
+
+_PREDICTORS = None  # see _predictor_table
+
+
+def _predictor_table() -> np.ndarray:
+    """``table[f * 511**2 + (a - c + 255) * 511 + (b - c + 255)]``: PNG
+    filter ``f``'s (1-4) predictor less ``c``, from the left byte ``a``,
+    the upper ``b`` and the upper-left ``c`` (filter 0's entries are 0;
+    its predictor, 0, is handled by the caller).  Every predictor is ``c``
+    plus a function of ``a - c`` and ``b - c``, Average's
+    ``floor((a + b) / 2)`` too."""
+    global _PREDICTORS
+    if _PREDICTORS is None:
+        da = np.arange(-255, 256)[:, None]
+        db = np.arange(-255, 256)[None, :]
+        pa, pb, pc = np.abs(db), np.abs(da), np.abs(da + db)  # |p - a|, |p - b|, |p - c|
+        paeth = np.where((pa <= pb) & (pa <= pc), da, np.where(pb <= pc, db, 0))
+        zero = np.zeros_like(paeth)
+        _PREDICTORS = np.stack([zero, da + zero, db + zero, (da + db) >> 1, paeth]).astype(
+            np.int32).ravel()
+    return _PREDICTORS
+
+
+def _unfilter_diagonals(types: np.ndarray, raw: np.ndarray, prior: np.ndarray) -> np.ndarray:
+    """Rows ``raw`` ``(k, w)`` of PNG filter types ``types`` (0-4) under the
+    decoded row ``prior``, with their filters undone along anti-diagonals.
+    A byte's predictor reads its left, upper and upper-left neighbours
+    only, which lie on the two diagonals before its own, so each of the
+    ``k + w - 1`` diagonals is a few vector operations whatever the rows'
+    filters (Average and Paeth rows need a step a byte along a row).  The
+    bytes are kept skewed: with the prior row above and a zero column on
+    the left, byte ``(y, x)`` of the padded rows sits at ``[x + y, y]``,
+    so each diagonal is one contiguous row."""
+    k, w = raw.shape
+    table = _predictor_table()
+    skewed = np.zeros((k + w + 1, k + 1), np.int32)
+    src = np.zeros_like(skewed)
+
+    def padded(a: np.ndarray) -> np.ndarray:  # the (k + 1, w + 1) padded rows' view
+        step = a.itemsize
+        return np.lib.stride_tricks.as_strided(a, shape=(k + 1, w + 1),
+                                               strides=((k + 2) * step, (k + 1) * step))
+
+    padded(skewed)[0, 1:] = prior
+    padded(src)[1:, 1:] = raw
+    base = np.zeros(k + 1, np.int32)
+    base[1:] = types * 511 ** 2 + 255 * 511 + 255
+    keep_c = np.zeros(k + 1, np.int32)  # 0 on a None row, whose predictor is 0, not c
+    keep_c[1:] = types != 0
+    all_c = bool(keep_c[1:].all())
+    da, db = np.empty(min(k, w), np.int32), np.empty(min(k, w), np.int32)
+    for d in range(2, k + w + 1):
+        lo, hi = max(1, d - w), min(k, d - 1) + 1
+        a, b, c = skewed[d - 1, lo:hi], skewed[d - 1, lo - 1:hi - 1], skewed[d - 2, lo - 1:hi - 1]
+        x, y = da[:hi - lo], db[:hi - lo]
+        np.subtract(a, c, out=x)
+        np.subtract(b, c, out=y)
+        x *= 511
+        x += y
+        x += base[lo:hi]
+        out = skewed[d, lo:hi]
+        table.take(x, out=out)
+        out += src[d, lo:hi]
+        if all_c:
+            out += c
+        else:
+            np.multiply(c, keep_c[lo:hi], out=y)
+            out += y
+        out &= 255
+    return padded(skewed)[1:, 1:].astype(np.uint8)
+
+
+def load_png_gray(path: str) -> np.ndarray:
+    """The ``(H, W)`` uint8 pixels of an 8-bit grayscale, non-interlaced PNG
+    (colour type 0, any of the five filter types); other PNGs raise,
+    naming their type.  Rows from the first Average or Paeth row to the
+    last are decoded along diagonals (``_unfilter_diagonals``), the others
+    a row at a time."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    header, idat = None, []
+    for kind, payload in _png_chunks(data, path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload[:13])
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None:
+        raise ValueError(f"{path}: PNG without an IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if color != 0 or depth != 8:
+        kind = _PNG_COLOR_TYPES.get(color, f"colour type {color}")
+        raise ValueError(f"{path}: a {depth}-bit {kind} PNG (colour type {color}); only 8-bit "
+                         f"grayscale (colour type 0) decodes without cv2 or PIL")
+    if interlace:
+        raise ValueError(f"{path}: an interlaced PNG; only non-interlaced ones decode")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != h * (w + 1):
+        raise ValueError(f"{path}: {rows.size} bytes of scanlines for {w} x {h}")
+    rows = rows.reshape(h, w + 1)
+    types = rows[:, 0].astype(np.int32)
+    if types.max(initial=0) > 4:
+        raise ValueError(f"{path}: PNG filter type {types.max()} is not one of 0-4")
+    slow = np.flatnonzero(types >= 3)
+    first, last = (int(slow[0]), int(slow[-1]) + 1) if slow.size else (h, h)
+    out = np.zeros((h, w), np.uint8)
+    prior = out[0]
+    for y in range(first):
+        out[y] = prior = _unfilter_row(int(types[y]), rows[y, 1:], prior)
+    if slow.size:
+        out[first:last] = _unfilter_diagonals(types[first:last], rows[first:last, 1:], prior)
+        prior = out[last - 1]
+    for y in range(last, h):
+        out[y] = prior = _unfilter_row(int(types[y]), rows[y, 1:], prior)
+    return out
+
+
+def _filter_row(ftype: int, row: np.ndarray, prior: np.ndarray) -> np.ndarray:
+    """One scanline filtered with PNG filter ``ftype`` (0-4)."""
+    left = np.concatenate([[0], row[:-1]]).astype(np.int32)
+    up, r = prior.astype(np.int32), row.astype(np.int32)
+    if ftype == 0:
+        pred = np.zeros_like(r)
+    elif ftype == 1:
+        pred = left
+    elif ftype == 2:
+        pred = up
+    elif ftype == 3:
+        pred = (left + up) >> 1
+    else:
+        upleft = np.concatenate([[0], up[:-1]])
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    return ((r - pred) & 255).astype(np.uint8)
+
+
+def write_png_gray(path: str, img: np.ndarray, filters=(0,)) -> None:
+    """Write an ``(H, W)`` uint8 image as an 8-bit grayscale PNG; row ``y``
+    takes the filter type ``filters[y % len(filters)]`` (0-4)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    prior = np.zeros(w, np.uint8)
+    scan = bytearray()
+    for y in range(h):
+        ftype = int(filters[y % len(filters)])
+        scan.append(ftype)
+        scan += _filter_row(ftype, img[y], prior).tobytes()
+        prior = img[y]
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(bytes(scan))) + chunk(b"IEND", b""))

@@ -18,9 +18,13 @@ may mix buckets in a batch and yields its results in bucket order; the
 port does none of these.)
 
 The images are preprocessed on ``device`` (``data/pipeline.py``): a batch's
-``images`` is a tensor there, its other fields numpy.  The JAX loader's
-other augmentations are not ported (``engine/runner.py`` rejects a config
-that asks for one).
+``images`` is a tensor there, its other fields numpy.  With ``with_masks``
+a batch also carries the instances' box-relative ``gt_mask_crops`` ``(B,
+max_gt, 112, 112)`` uint8, rasterised from their polygons or uncompressed
+RLE; with ``with_semantic`` the stuff maps of the dataset's
+``seg_prefix`` as ``gt_semantic_seg`` ``(B, ceil(H / stride), ceil(W /
+stride))`` int32 (255 ignored).  The JAX loader's other augmentations are
+not ported (``engine/runner.py`` rejects a config that asks for one).
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ class DetDataLoader:
         max_gt: int = 100,
         seed: int = 0,
         mstrain_range: Optional[Tuple[int, int]] = None,
+        with_masks: bool = False,
+        with_semantic: bool = False,
+        semantic_stride: int = 8,
         img_norm: Optional[Dict] = None,  # dict(mean=, std=, to_rgb=)
         device="cpu",
     ):
@@ -64,6 +71,9 @@ class DetDataLoader:
         self.max_gt = max_gt
         self.seed = seed
         self.mstrain_range = mstrain_range
+        self.with_masks = with_masks
+        self.with_semantic = with_semantic
+        self.semantic_stride = semantic_stride
         self.device = torch.device(device)
         img_norm = img_norm or {}
         self.norm_mean = np.asarray(img_norm.get("mean", DEFAULT_MEAN), np.float32)
@@ -113,13 +123,16 @@ class DetDataLoader:
 
     def _load(self, i: int, rng: np.random.RandomState) -> Dict[str, object]:
         info = self.ds.data_infos[i]
+        segs = info.get("segmentations") if self.with_masks else None
+        sem = self.ds.semantic_map(i) if self.with_semantic else None
         img = load_image(self.ds.img_path(i))
         flip, short = self._draw(rng)
         canvas = self.canvas if self.ds.flags[i] == 1 else self.canvas_portrait
         return preprocess(img, info["bboxes"], info["labels"], canvas=canvas, scale=self.scale,
                           flip=flip, max_gt=self.max_gt, mean=self.norm_mean,
                           std=self.norm_std, to_rgb=self.norm_to_rgb,
-                          short_side_override=short, device=self.device)
+                          short_side_override=short, segmentations=segs, semantic_map=sem,
+                          semantic_stride=self.semantic_stride, device=self.device)
 
     def __len__(self):
         if not self.train:
@@ -173,22 +186,57 @@ class DetDataLoader:
                     t.join(0.01)
 
 
+FAKE_MASK_CROP_SIZE = 28  # the fake loader's circle crops (the JAX loader's default)
+FAKE_STUFF_CLASSES = 8  # the fake loader's stuff classes after the thing classes
+
+
 class FakeDetLoader:
-    """Seeded synthetic batches (the JAX package's ``FakeDetLoader``, boxes
-    only): noise images on the canvas, 1 to ``max_gt`` boxes per image."""
+    """Seeded synthetic batches (the JAX package's ``FakeDetLoader``): noise
+    images on the canvas, 1 to ``max_gt`` boxes per image; with
+    ``with_masks`` a 28 x 28 circle crop for every slot, with
+    ``with_semantic`` a stuff map at ``1 / semantic_stride`` of the canvas
+    (2-4 horizontal stripes of classes ``num_classes`` to ``num_classes +
+    7``, each gt box painted with its label).  The draws are the JAX
+    loader's, in its order, so the two give equal batches for a seed."""
 
     def __init__(self, batch_size: int, canvas: Tuple[int, int], num_classes: int,
-                 max_gt: int = 20, seed: int = 0, num_batches: int = 10, device="cpu"):
+                 max_gt: int = 20, seed: int = 0, num_batches: int = 10,
+                 with_masks: bool = False, with_semantic: bool = False,
+                 semantic_stride: int = 8, device="cpu"):
         self.batch_size = batch_size
         self.canvas = tuple(canvas)
         self.num_classes = num_classes
         self.max_gt = max_gt
         self.seed = seed
         self.num_batches = num_batches
+        self.with_masks = with_masks
+        self.with_semantic = with_semantic
+        self.semantic_stride = semantic_stride
         self.device = torch.device(device)
 
     def __len__(self):
         return self.num_batches
+
+    def _semantic(self, rng, boxes, labels, n) -> np.ndarray:
+        """The batch's stuff maps: stripes of stuff classes, then each gt box
+        painted with its label (a learnable image -> class map)."""
+        h, w = self.canvas
+        st = self.semantic_stride
+        b = boxes.shape[0]
+        sh, sw = (h + st - 1) // st, (w + st - 1) // st
+        sem = np.zeros((b, sh, sw), np.int32)
+        for bi in range(b):
+            nstripe = rng.randint(2, 5)
+            edges = np.sort(rng.randint(0, sh, nstripe - 1))
+            cls = rng.randint(self.num_classes, self.num_classes + FAKE_STUFF_CLASSES, nstripe)
+            prev = 0
+            for e, c in zip(list(edges) + [sh], cls):
+                sem[bi, prev:e] = c
+                prev = e
+            for gi in range(int(n[bi])):
+                x1, y1, x2, y2 = (boxes[bi, gi] / st).astype(int)
+                sem[bi, y1:y2, x1:x2] = labels[bi, gi]
+        return sem
 
     def epoch_iter(self, epoch: int, start: int = 0):
         rng = np.random.RandomState(self.seed + epoch)
@@ -206,15 +254,19 @@ class FakeDetLoader:
             boxes[..., [1, 3]] = boxes[..., [1, 3]].clip(0, h)
             mask = np.arange(g)[None, :] < n[:, None]
             images = rng.randn(b, h, w, 3).astype(np.float32)
-            labels = rng.randint(0, self.num_classes, (b, g))
+            labels = (rng.randint(0, self.num_classes, (b, g)) * mask).astype(np.int32)
+            boxes = boxes * mask[..., None]
+            batch = dict(gt_bboxes=boxes, gt_labels=labels, gt_mask=mask,
+                         img_shape=np.tile(np.array([h, w], np.float32), (b, 1)),
+                         scale_factor=np.ones((b, 4), np.float32),
+                         ori_shape=np.tile(np.array([h, w], np.int32), (b, 1)))
+            if self.with_masks:
+                s = FAKE_MASK_CROP_SIZE
+                yy, xx = np.mgrid[0:s, 0:s]
+                circle = (((yy - s / 2) ** 2 + (xx - s / 2) ** 2) < (s / 2.5) ** 2).astype(np.uint8)
+                batch["gt_mask_crops"] = np.broadcast_to(circle, (b, g, s, s)).copy()
+            if self.with_semantic:
+                batch["gt_semantic_seg"] = self._semantic(rng, boxes, labels, n)
             if k < start:
                 continue
-            yield dict(
-                images=torch.from_numpy(images).to(self.device),
-                gt_bboxes=boxes * mask[..., None],
-                gt_labels=(labels * mask).astype(np.int32),
-                gt_mask=mask,
-                img_shape=np.tile(np.array([h, w], np.float32), (b, 1)),
-                scale_factor=np.ones((b, 4), np.float32),
-                ori_shape=np.tile(np.array([h, w], np.int32), (b, 1)),
-            )
+            yield dict(images=torch.from_numpy(images).to(self.device), **batch)

@@ -13,6 +13,16 @@ with the weights ``(1 - l)`` and ``l`` of each axis, and is normalised as
 ``new_w - 1 - o``.  The boxes and the per-image arrays (``img_shape``
 ``(H, W)`` resized, ``scale_factor`` ``(w_s, h_s, w_s, h_s)``,
 ``ori_shape``) are numpy, as there.
+
+With ``segmentations`` each kept instance gets a ``(S, S)`` uint8 crop of
+its box (``gt_mask_crops``, ``S`` = ``mask_crop_size``, default
+``MASK_CROP_SIZE`` = 112), rasterised in original-image coordinates
+against the original box and mirrored when the image is flipped (a crop
+is box-relative, so a resize needs no new rasterisation); with a
+``semantic_map`` (a stuff map of class ids, 255 ignored) the batch gets
+``gt_semantic_seg``: the map resized by nearest neighbour as the image
+is, flipped, padded with 255 to the canvas and rescaled by nearest
+neighbour to ``ceil(canvas / semantic_stride)``.  Both stay numpy.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .mask_utils import MASK_CROP_SIZE, polygons_to_box_crop, resize_nearest, rle_to_box_crop
 
 __all__ = ["DEFAULT_MEAN", "DEFAULT_STD", "rescale_size", "resize_normalize", "preprocess",
            "collate"]
@@ -89,6 +101,10 @@ def preprocess(
     std: np.ndarray = DEFAULT_STD,
     to_rgb: bool = True,
     short_side_override: Optional[int] = None,
+    segmentations: Optional[list] = None,
+    mask_crop_size: Optional[int] = None,
+    semantic_map: Optional[np.ndarray] = None,
+    semantic_stride: int = 8,
     device="cpu",
 ) -> Dict[str, object]:
     """One sample: ``images`` a tensor on ``device``, the rest numpy."""
@@ -124,7 +140,44 @@ def preprocess(
     gt_bboxes[:n] = b[:n]
     gt_labels[:n] = labels[:n]
     gt_mask[:n] = True
+
+    extra = {}
+    if semantic_map is not None:
+        sem = semantic_map
+        if sem.dtype != np.uint8:
+            sem = np.clip(sem, 0, 255).astype(np.uint8)
+        sem_r = resize_nearest(sem, nw, nh)
+        if flip:
+            sem_r = sem_r[:, ::-1]
+        sem_canvas = np.full(canvas, 255, np.uint8)
+        sem_canvas[:nh, :nw] = sem_r
+        st = semantic_stride
+        sh, sw = (canvas[0] + st - 1) // st, (canvas[1] + st - 1) // st
+        extra["gt_semantic_seg"] = resize_nearest(sem_canvas, sw, sh).astype(np.int32)
+    if segmentations is not None:
+        s = mask_crop_size or MASK_CROP_SIZE
+        crops = np.zeros((max_gt, s, s), np.uint8)
+        for i in range(n):
+            seg = segmentations[i]
+            if seg is None:
+                continue
+            if isinstance(seg, dict):
+                crops[i] = rle_to_box_crop(seg, bboxes[i], h0, w0, s)
+            elif isinstance(seg, np.ndarray) and seg.ndim == 2:
+                # a full-image bitmap: its box region, resized as an RLE crop is
+                x1, y1, x2, y2 = [int(round(v)) for v in bboxes[i]]
+                x2, y2 = max(x2, x1 + 1), max(y2, y1 + 1)
+                region = seg[max(y1, 0):y2, max(x1, 0):x2]
+                if region.size:
+                    crops[i] = resize_nearest(region.astype(np.uint8), s, s)
+            else:
+                crops[i] = polygons_to_box_crop(seg, bboxes[i], s)
+            if flip:
+                crops[i] = crops[i][:, ::-1]
+        extra["gt_mask_crops"] = crops
+
     return dict(
+        **extra,
         images=out,
         gt_bboxes=gt_bboxes,
         gt_labels=gt_labels,

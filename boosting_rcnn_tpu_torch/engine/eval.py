@@ -6,7 +6,9 @@ batch's canvas is the transposed one), the results of the loader's
 padding repeats (``pad``) are dropped, and each result goes to its
 image's dataset index (``index``): the loader yields the landscape bucket
 before the portrait one, and the dataset's ``evaluate`` pairs
-``results[i]`` with image ``i``.
+``results[i]`` with image ``i``.  A mask model's results carry its
+detections' box-relative mask crops too: ``(dets, labels, masks (N, 28,
+28))``, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ LOG_EVERY = 20  # batches between progress lines
 def run_eval(detector, loader, logger=None,
              stats: dict | None = None) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Per-image ``(dets (N, 5), labels (N,))`` numpy results in
-    original-image coordinates, in the order of ``loader``'s dataset (a
-    test-mode ``DetDataLoader``).  ``stats``, when given, receives
+    original-image coordinates (``(dets, labels, masks (N, M, M))`` for a
+    mask model), in the order of ``loader``'s dataset (a test-mode
+    ``DetDataLoader``).  ``stats``, when given, receives
     ``images``, ``seconds`` and ``images_per_s``."""
     anchors = {}
     results: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * len(loader.ds)
@@ -36,14 +39,17 @@ def run_eval(detector, loader, logger=None,
         canvas = tuple(int(s) for s in batch["images"].shape[1:3])
         if canvas not in anchors:
             anchors[canvas] = detector.anchors_for(canvas)
-        dets, labels, valid = (t.cpu().numpy() for t in detector.predict(
-            batch, *anchors[canvas], rescale=True)[:3])
+        out = [t.cpu().numpy() for t in detector.predict(batch, *anchors[canvas], rescale=True)]
+        dets, labels, valid = out[:3]
+        masks = out[3] if len(out) > 3 else None
         for i, j in enumerate(batch["index"]):
             if batch["pad"][i]:
                 continue
             if results[j] is not None:
                 raise RuntimeError(f"image {j} came twice from the test loader")
-            results[j] = (dets[i][valid[i]], labels[i][valid[i]])
+            v = valid[i]
+            results[j] = ((dets[i][v], labels[i][v]) if masks is None
+                          else (dets[i][v], labels[i][v], masks[i][v]))
             done += 1
         n_batches += 1
         if logger and n_batches % LOG_EVERY == 0:

@@ -1,10 +1,12 @@
 """The train loop (the epoch loop of the JAX package's ``tools/train.py``,
 as a function): ``train_detector(cfg, work_dir, ...)``.
 
-From the config: the model (``--tiny`` shrinks a box-only two-stage config
-to ResNet-18 at width 8 on a 128 x 160 canvas), its compute dtype
-(``compute_dtype``),
-the train dataset and loader (``data.train``, batch ``samples_per_gpu``),
+From the config: the model (``--tiny`` shrinks a two-stage config, the
+mask and HTC ones too, to ResNet-18 at width 8 on a 128 x 160 canvas),
+its compute dtype (``compute_dtype``), the train dataset and loader
+(``data.train``, batch ``samples_per_gpu``; with the instances' mask crops
+for a model with a mask head, with the stuff maps of ``seg_prefix`` for
+one with a semantic head),
 SGD with momentum, weight decay and the gradient clip
 (``optimizer``, ``optimizer_config``), the step schedule with linear
 warmup (``lr_config``, epochs from ``runner.max_epochs``), checkpoints
@@ -66,16 +68,19 @@ def _each(x):
 
 
 def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
-    """The two-stage branch of the JAX ``tools/train.py::shrink_model``, for
-    box-only configs (the Boosting R-CNN family, Faster R-CNN, Cascade
-    R-CNN and ProbCascade): the backbone (ResNet, ResNeXt or Res2Net)
-    becomes ResNet-18 at width 8, neck 32, RPN 32 (the ATSS RPN's 2 convs
-    deep), FC 64 (every cascade stage's), fewer proposals and RoIs (every
-    stage's sampler).  Other model types raise."""
+    """The two-stage branch of the JAX ``tools/train.py::shrink_model``
+    (the Boosting R-CNN family, Faster and Mask R-CNN, Cascade R-CNN, the
+    ProbCascade, Cascade Mask R-CNN and HTC): the backbone (ResNet, ResNeXt
+    or Res2Net) becomes ResNet-18 at width 8, neck 32, RPN 32 (the ATSS
+    RPN's 2 convs deep), FC 64 (every cascade stage's), fewer proposals
+    and RoIs (every stage's sampler).  The mask heads keep their widths and
+    pool the neck's 32 channels, as in the JAX package; the semantic head's
+    width becomes the neck's, which its embedding is added to (the JAX
+    shrink keeps its 256 channels, and its tiny HTC then fails to build).
+    Other model types raise."""
     rpn = mc.get("rpn_head", {}).get("type")
-    if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc or \
-            mc["roi_head"].get("mask_head"):
-        raise NotImplementedError("--tiny shrinks the box-only two-stage configs only")
+    if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc:
+        raise NotImplementedError("--tiny shrinks the two-stage configs only")
     for key in _BIG_BLOCK_KEYS:
         mc["backbone"].pop(key, None)
     mc["backbone"].update(type="ResNet", depth=18, base_channels=8)
@@ -83,8 +88,13 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     # the JAX shrink sets stacked_convs on the plain RPN too, where it is unread
     mc["rpn_head"].update(feat_channels=32, **({"stacked_convs": 2} if rpn == "ATSSRPNHead"
                                                else {}))
-    for head in _each(mc["roi_head"]["bbox_head"]):
+    roi = mc["roi_head"]
+    for head in _each(roi["bbox_head"]):
         head["fc_out_channels"] = 64
+    for head in _each(roi.get("mask_head") or []):
+        head["in_channels"] = 32
+    if roi.get("semantic_head"):
+        roi["semantic_head"].update(in_channels=32, conv_out_channels=32)
     mc["train_cfg"]["rpn_proposal"].update(nms_pre=200, max_per_img=64)
     for rcnn in _each(mc["train_cfg"]["rcnn"]):
         rcnn["sampler"]["num"] = 32
@@ -234,9 +244,15 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
     batch = data_cfg.get("samples_per_gpu", 2)
     pipeline, canvas = _pipeline(data_cfg, "train", tiny)
     val_ds = None
+    # the mask heads' gt crops and the semantic head's stuff maps
+    roi = mc.get("roi_head") or {}
+    targets = {"with_masks": bool(roi.get("mask_head")),
+               "with_semantic": bool(roi.get("semantic_head"))}
+    semantic_stride = pipeline.get("semantic_stride", 8)
     if fake_data:
         loader = FakeDetLoader(batch, canvas, _num_classes(mc), num_batches=max_iters or 10,
-                               seed=seed, device=device)
+                               seed=seed, semantic_stride=semantic_stride, device=device,
+                               **targets)
     else:
         train_ds = build_dataset(data_cfg["train"])
         loader = DetDataLoader(
@@ -244,7 +260,8 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
             scale=tuple(pipeline.get("scale", (1333, 800))), train=True,
             flip_prob=pipeline.get("flip_prob", 0.5), max_gt=pipeline.get("max_gt", 100),
             seed=seed, mstrain_range=pipeline.get("mstrain_range"),
-            img_norm=pipeline.get("img_norm", cfg.get("img_norm")), device=device)
+            semantic_stride=semantic_stride,
+            img_norm=pipeline.get("img_norm", cfg.get("img_norm")), device=device, **targets)
         logger.info(f"train dataset: {len(train_ds)} imgs, {len(loader)} steps/epoch")
         if validate:
             val_ds = build_dataset(data_cfg["val"], test_mode=True)

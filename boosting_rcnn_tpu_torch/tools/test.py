@@ -2,11 +2,13 @@
 ``tools/test.py``):
 
     python -m boosting_rcnn_tpu_torch.tools.test <config> [<checkpoint>]
-        [--eval bbox] [--out results.json] [--classwise]
+        [--eval bbox [segm]] [--out results.json] [--classwise]
         [--cfg-options k=v ...] [--tiny] [--device DEV]
 
 Evaluates every image of ``data.test`` once and prints the metrics as one
-json line.  The checkpoint is a directory of the train CLI or an mmdet
+json line: ``bbox_mAP``... and, with ``--eval segm`` for a mask model,
+``segm_mAP``, ``segm_mAP_50``, ``segm_mAP_75``, ``segm_mAP_s``,
+``segm_mAP_m`` and ``segm_mAP_l``.  ``--out`` writes the boxes only.  The checkpoint is a directory of the train CLI or an mmdet
 ``.pth``; without one the weights are seeded random.  ``--device``
 defaults to the GPU; without one the command raises unless ``--device
 cpu`` is given.

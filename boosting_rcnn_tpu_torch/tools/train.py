@@ -6,9 +6,13 @@
         [--iters N] [--tiny] [--no-validate] [--fake-data] [--device DEV]
 
 ``--device`` defaults to the GPU; without one the command raises unless
-``--device cpu`` is given.  ``--tiny`` trains a box-only two-stage config
-(the flagship, a cascade, ...) at ResNet-18 width 8 on a 128 x 160 canvas; ``--fake-data`` trains on seeded noise
-batches; ``--iters`` caps the steps.  Checkpoints go to
+``--device cpu`` is given.  ``--tiny`` trains a two-stage config (the
+flagship, a cascade, Mask R-CNN, Cascade Mask R-CNN, HTC, ...) at
+ResNet-18 width 8 on a 128 x 160 canvas; ``--fake-data`` trains on seeded
+noise batches (with circle mask crops and striped stuff maps for a mask
+or semantic head); ``--iters`` caps the steps.  A mask config trains its
+mask losses on the instances' polygons or uncompressed RLE, and HTC's
+semantic head on the 8-bit PNG stuff maps of ``data.train.seg_prefix``.  Checkpoints go to
 ``<work-dir>/epoch_<n>``, or ``<work-dir>/iter_<step>`` where ``--iters``
 stops the run inside an epoch (default work dir ``work_dirs/<config
 name>``); ``--resume-from`` either continues at its next batch.

@@ -1,6 +1,7 @@
 """Drive the PyTorch port's flagship, Mask R-CNN, Boosting R-CNN family,
-Cascade R-CNN and Cascade Mask R-CNN / HTC inference and training on one
-NVIDIA GPU.
+Cascade R-CNN and Cascade Mask R-CNN / HTC inference and training, and
+its entry points with boxes, instance masks and stuff maps, on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -190,10 +191,41 @@ linearly (lr 0.01, warmup 50), no validation, the 7 x 7 kernels launched
 once a step, then the test CLI, bbox mAP in [0, 1]; in bfloat16 (the
 CLIs' default dtype) the whole recipe, 24 epochs (the epochs of the JAX
 script's recorded passes), step decay at epochs 16 and 22: bbox mAP at
-least 0.8 (the JAX script's threshold); in float32 the same path for 2
-epochs (``E2E_EPOCHS_OF``), decay at epoch 1.  It prints train images/s
+least 0.8 (the JAX script's threshold); in float32 the same path for 1
+epoch (``E2E_EPOCHS_OF``), no decay.  It prints train images/s
 (loading included), the loader-wait share, eval images/s, the kernels'
 launches and the mAP with its wall time.
+
+Then the phase "mask entry": a COCO-format set written to a temporary
+directory (6 + 4 PPM frames at UTDAC2020's and COCO's sizes, portrait and
+landscape, the shapes' polygons, an uncompressed-RLE ring and a crowd box
+with compressed counts, an 8-bit PNG stuff map a frame under
+``seg_prefix``, its rows under all five PNG filter types); full-width
+Mask R-CNN and HTC with its semantic branch in bfloat16 from
+``init_detector``'s seeded weights through
+``train_detector`` (2 steps at batch 2, the loader rasterising the
+112 x 112 crops and reading the stuff maps; counts set to 0 before, read
+after: K1, K4 and the tile keys at 7 and 14 once a step, HTC's six times;
+every stage's ``loss_mask`` and ``loss_semantic_seg`` finite and positive
+at every step; the mask and semantic heads moved), then the test CLI's
+``--eval bbox segm`` on the 4 val frames (one result a frame, the segm
+stats present, K1 at 7 and 14 exact); and, in a child process (below),
+``scripts/e2e_ap_check.py --segm``'s recipe through the port's CLIs: the
+tiny Mask R-CNN (4 classes) from scratch on the shapes set, 24 epochs at
+batch 8 with the batch-2 learning rate and warmup scaled linearly, K1 and
+K4 at 7 and 14 once a step, to bbox and segm mAP at least 0.8.  It prints the loader's
+wait share, images/s, peaks and the mAPs.
+
+In the whole run the order is: the flagship and Mask R-CNN, the boosting
+family, "cascade" and "htc" at full width; then the two host-bound
+bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
+in child processes on the same card (``--e2e-child``, each with its own
+launch counts, read and checked in the child, on 2 PyTorch threads), and
+the parent meanwhile runs, on the host's other threads, the entry points
+and "mask entry" at full width (their images/s and wait shares are taken
+beside the children), the float32 e2e and every tiny-model check (GPU
+against CPU, the step rules' teeth, C.2; the ProbCascade's and HTC's
+too), none of which is timed, then waits for the children.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -202,8 +234,10 @@ result.  ``python3 chip_smoke.py --step-readings`` builds the kernels and
 only prints the tiny models' GPU-against-CPU train steps over ten seeds
 (``step_readings``), the readings behind the two step rules, with the
 float32 edge reports, and the rules on deliberately wrong steps
-(``--step-readings f32 htc`` picks a dtype and models); ``--cascade`` and
-``--htc`` run only the phase "cascade" or "htc".
+(``--step-readings f32 htc`` picks a dtype and models); ``--cascade``,
+``--htc`` and ``--mask-entry`` run only the phase "cascade", "htc" or
+"mask entry" (the last with 12 full-width steps a model and nothing beside
+them, then its e2e in the child process).
 """
 from __future__ import annotations
 
@@ -230,6 +264,7 @@ from boosting_rcnn_tpu_torch import cuda_build  # noqa: E402
 from boosting_rcnn_tpu_torch.apis import init_detector, train_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.data.image_io import write_png_gray  # noqa: E402
 from boosting_rcnn_tpu_torch.data.synthetic import generate  # noqa: E402
 from boosting_rcnn_tpu_torch.engine.checkpoint import restore_checkpoint  # noqa: E402
 from boosting_rcnn_tpu_torch.engine.runner import build_trainer, shrink_model  # noqa: E402
@@ -2470,14 +2505,21 @@ def run_cascade_coco(gpu: str, seed: int = 0) -> dict:
 
 
 def cascade_phase(gpu: str) -> dict:
-    """The phase "cascade": the ProbCascade UTDAC at full width in float32
-    and bfloat16 (``run_cascade``), Cascade R-CNN COCO in bfloat16
-    (``run_cascade_coco``), then the tiny ProbCascade's ``predict`` and
-    train step on the GPU against the CPU in both dtypes and its C.2
-    check."""
+    """The phase "cascade" at full width: the ProbCascade UTDAC in float32
+    and bfloat16 (``run_cascade``) and Cascade R-CNN COCO in bfloat16
+    (``run_cascade_coco``); its tiny checks are ``cascade_tiny``'s."""
     t0 = time.perf_counter()
     out = {"utdac": {d: run_cascade(d, gpu) for d in (torch.float32, BF16)},
            "coco": run_cascade_coco(gpu)}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase cascade: {out['wall_s']:.1f} s")
+    return out
+
+
+def cascade_tiny() -> dict:
+    """The phase "cascade"'s checks without timings: the tiny
+    ProbCascade's ``predict`` and train step on the GPU against the CPU in
+    both dtypes, each step rule's teeth, and its C.2 check."""
     tiny = {"predict_detections": tiny_gpu_matches_cpu(3, tiny_cascade_config)}
     errs, match = tiny_bf16_gpu_matches_cpu(3, tiny_cascade_config)
     tiny["bf16_predict"] = {"level_errs": errs, "match": match}
@@ -2498,12 +2540,9 @@ def cascade_phase(gpu: str) -> dict:
         f"train step on the GPU against the CPU: f32 {tiny['f32']}, bf16 {tiny['bf16']}; with "
         f"level 0's K4 gradient x {WRONG_K4_CAUGHT} the bf16 step rule breaks: "
         f"{tiny['wrong_step_breaks']}")
-    out["tiny"] = tiny
-    out["repeat"] = {}
+    out = {"tiny": tiny, "repeat": {}}
     for dtype in (torch.float32, BF16):
         out["repeat"].update(c2_check("prob_cascade", tiny_cascade_config, dtype))
-    out["wall_s"] = time.perf_counter() - t0
-    say(f"phase cascade: {out['wall_s']:.1f} s")
     return out
 
 
@@ -2750,15 +2789,22 @@ def tiny_htc_config():
 
 
 def htc_phase(gpu: str) -> dict:
-    """The phase "htc": HTC with the semantic branch at full width in
-    float32 and bfloat16 (``run_htc``), Cascade Mask R-CNN in bfloat16
-    (``run_cascade_mask``), then the tiny HTC's ``predict`` and float32
-    and bfloat16 train steps on the GPU against the CPU, each step rule's
-    teeth (level 0's K4 gradient dropped breaks the float32 rule), and its
-    C.2 check."""
+    """The phase "htc" at full width: HTC with the semantic branch in
+    float32 and bfloat16 (``run_htc``) and Cascade Mask R-CNN in bfloat16
+    (``run_cascade_mask``); its tiny checks are ``htc_tiny``'s."""
     t0 = time.perf_counter()
     out = {"htc": {d: run_htc(d, gpu) for d in (torch.float32, BF16)},
            "cascade_mask": run_cascade_mask(gpu)}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase htc: {out['wall_s']:.1f} s")
+    return out
+
+
+def htc_tiny() -> dict:
+    """The phase "htc"'s checks without timings: the tiny HTC's
+    ``predict`` and float32 and bfloat16 train steps on the GPU against the
+    CPU, the float32 step rule's teeth (level 0's K4 gradient dropped
+    breaks it), and its C.2 check."""
     tiny = {"predict_detections": tiny_gpu_matches_cpu(3, tiny_htc_config)}
     for dtype in (torch.float32, BF16):
         m, worst, repeat, summary = tiny_train_gpu_matches_cpu(7, dtype, tiny_htc_config)
@@ -2774,12 +2820,9 @@ def htc_phase(gpu: str) -> dict:
         f"masks within 1e-4); one train step on the GPU against the CPU: f32 {tiny['f32']}, "
         f"bf16 {tiny['bf16']}; with level 0's K4 gradient x {WRONG_K4_CAUGHT} the f32 step rule "
         f"breaks: {tiny['wrong_f32_step_breaks'][:3]}")
-    out["tiny"] = tiny
-    out["repeat"] = {}
+    out = {"tiny": tiny, "repeat": {}}
     for dtype in (torch.float32, BF16):
         out["repeat"].update(c2_check("htc", tiny_htc_config, dtype))
-    out["wall_s"] = time.perf_counter() - t0
-    say(f"phase htc: {out['wall_s']:.1f} s")
     return out
 
 
@@ -2801,10 +2844,11 @@ E2E_WARMUP = 200 * 2 // E2E_BATCH
 E2E_MIN_MAP = 0.8  # scripts/e2e_ap_check.py's threshold
 # the whole recipe, to its mAP threshold, runs in the CLIs' default dtype
 # (default_runtime.py: bfloat16); float32 takes the same path through the
-# CLIs for 2 epochs only (launches, finite losses and bbox stats): the
-# whole recipe in both dtypes took ~130 s, and 4 float32 epochs 15.5 s of
-# a run over its time limit
-E2E_EPOCHS_OF = {torch.bfloat16: E2E_EPOCHS, torch.float32: 2}
+# CLIs for 1 epoch only (launches, finite losses and bbox stats): the
+# whole recipe in both dtypes took ~130 s, 4 float32 epochs 15.5 s of a run
+# over its time limit, and 2 epochs the 25 steps that the mask entry phase
+# needed
+E2E_EPOCHS_OF = {torch.bfloat16: E2E_EPOCHS, torch.float32: 1}
 
 
 def data_options(root: str, dtype, **more) -> dict:
@@ -2944,7 +2988,7 @@ def e2e_trains(dtype, gpu: str, synth: str, work: str) -> dict:
     least E2E_MIN_MAP after the whole recipe's E2E_EPOCHS."""
     tag = "f32" if dtype == torch.float32 else "bf16"
     epochs = E2E_EPOCHS_OF[dtype]
-    decay = sorted({2 * epochs // 3, epochs - 2} - {0})
+    decay = sorted(e for e in {2 * epochs // 3, epochs - 2} if e > 0)
     opts = cli_options(data_options(
         synth, dtype, **{"data.samples_per_gpu": E2E_BATCH, "runner.max_epochs": epochs,
                          "optimizer.lr": E2E_LR, "lr_config.warmup_iters": E2E_WARMUP,
@@ -2976,6 +3020,269 @@ def e2e_trains(dtype, gpu: str, synth: str, work: str) -> dict:
                              f"{out['bbox_mAP_50']}")
     if epochs == E2E_EPOCHS and not metrics["bbox_mAP"] >= E2E_MIN_MAP:
         raise AssertionError(f"{tag} e2e: bbox mAP {metrics['bbox_mAP']} < {E2E_MIN_MAP}")
+    return out
+
+
+# -------------------------------------------------------------- mask entry
+COCO_FRAMES = ((640, 480), (640, 427))  # COCO's two most common frame sizes
+MASK_ENTRY_STEPS = 2  # full-width train_detector steps a model in the whole run
+# ... and with --mask-entry, which times the phase with nothing beside it:
+# 3 epochs of the 6 train frames' 4 batches, so that the first batch's load
+# does not weigh in the loader's wait share
+MASK_ENTRY_STEPS_ALONE = 12
+STUFF_CLASSES = 183  # COCO-stuff's, the HTC config's semantic classes
+# the tiny Mask R-CNN's e2e (scripts/e2e_ap_check.py --segm, whose recorded
+# run reached bbox 0.862 and segm 0.861 at 24 epochs of batch 2): 24 epochs
+# at batch 8, the batch-2 learning rate and warmup scaled linearly, the
+# flagship e2e's recipe, from the CPU readings over seeds 0-3 in both dtypes
+# (PERF.md; at batch 16, lr 0.02, the tiny models ended at bbox mAP 0.0-0.75)
+MASK_E2E_EPOCHS = 24
+MASK_E2E_BATCH = 8
+MASK_E2E_LR = 0.0025 * MASK_E2E_BATCH / 2
+MASK_E2E_WARMUP = 200 * 2 // MASK_E2E_BATCH
+E2E_CHILD_TIMEOUT_S = 400
+E2E_CHILD_THREADS = 2  # an e2e child's host threads for PyTorch (its loop is host-bound)
+SEGM_KEYS = ("segm_mAP", "segm_mAP_50", "segm_mAP_75", "segm_mAP_s", "segm_mAP_m",
+             "segm_mAP_l")
+
+
+def rle_of(mask: np.ndarray) -> dict:
+    """The uncompressed COCO RLE of a binary ``(H, W)`` mask."""
+    flat = mask.T.reshape(-1)
+    change = np.flatnonzero(np.diff(np.concatenate([[0], flat, [1 - flat[-1]]])))
+    return {"size": list(mask.shape), "counts": np.diff(np.concatenate([[0], change])).tolist()}
+
+
+def mask_coco_set(root: str) -> str:
+    """A COCO-format set with instance masks and stuff maps under ``root``:
+    6 train and 4 val PPM frames at UTDAC2020's and COCO's sizes (the last
+    of each split portrait), the shapes' exact polygons, in each split an
+    uncompressed-RLE instance (a ring) and a crowd box with compressed
+    counts, and per frame an 8-bit PNG stuff map of 32-pixel blocks of the
+    183 COCO-stuff classes with an ignored (255) band under ``stuff/``,
+    its rows filtered with each of the five PNG filter types in turn (an
+    adaptive writer such as libpng's picks Average and Paeth rows too)."""
+    generate(root, n_train=6, n_val=4, seed=4, frame_sizes=UTDAC_FRAMES[:2] + COCO_FRAMES,
+             n_portrait=1, object_scale=0.5)
+    rs = np.random.RandomState(4)
+    os.makedirs(os.path.join(root, "stuff"))
+    for split in ("train", "val"):
+        path = os.path.join(root, f"{split}.json")
+        with open(path) as f:
+            coco = json.load(f)
+        im = coco["images"][0]
+        h, w = im["height"], im["width"]
+        yy, xx = np.mgrid[0:h, 0:w]
+        r = np.hypot(yy - h * 0.75, xx - w * 0.2)
+        ring = ((r < h * 0.15) & (r > h * 0.06)).astype(np.uint8)
+        ys, xs = np.nonzero(ring)
+        coco["annotations"] += [
+            {"id": 9000, "image_id": im["id"], "category_id": 2, "iscrowd": 0,
+             "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                      int(ys.max() - ys.min() + 1)],
+             "area": float(ring.sum()), "segmentation": rle_of(ring)},
+            {"id": 9001, "image_id": im["id"], "category_id": 1, "iscrowd": 1,
+             "bbox": [w * 0.6, h * 0.1, w * 0.2, h * 0.2], "area": w * h * 0.04,
+             "segmentation": {"size": [h, w], "counts": "PPYo0"}}]
+        with open(path, "w") as f:
+            json.dump(coco, f)
+        for im in coco["images"]:
+            h, w = im["height"], im["width"]
+            stuff = rs.randint(0, STUFF_CLASSES, (h // 32 + 1, w // 32 + 1)).repeat(32, 0)
+            stuff = stuff.repeat(32, 1)[:h, :w].astype(np.uint8)
+            top = rs.randint(0, h - 8)
+            stuff[top:top + 8] = 255
+            write_png_gray(os.path.join(root, "stuff", os.path.splitext(im["file_name"])[0]
+                                        + ".png"), stuff, filters=(4, 3, 2, 1, 0))
+    return root
+
+
+def mask_options(root: str, **more) -> dict:
+    """``--cfg-options`` pointing a config's splits at ``mask_coco_set``'s
+    frames and stuff maps, random backbone weights, bfloat16, a log line
+    every step."""
+    opts = data_options(root, BF16, **{"data.train.seg_prefix": os.path.join(root, "stuff"),
+                                       "log_config.interval": 1})
+    opts.update({k: str(v) for k, v in more.items()})
+    return opts
+
+
+def mask_entry_train(config: str, root: str, work: str, gpu: str, steps: int) -> dict:
+    """``train_detector`` at full width in bfloat16 on ``mask_coco_set``'s
+    frames: ``steps`` steps at the config's batch of 2 from
+    ``init_detector``'s seeded weights, the loader cropping the instances'
+    masks and reading the stuff maps; the counts set to 0 before, read
+    after (exact); every stage's ``loss_mask`` and HTC's
+    ``loss_semantic_seg`` finite and positive at every step; the mask heads
+    and the semantic head moved.  Returns the step's numbers and the
+    checkpoint."""
+    name = os.path.splitext(os.path.basename(config))[0]
+    tag = f"bf16 mask entry {name}"
+    cfg = load_config(config)
+    cfg.merge_from_options(mask_options(root))
+    handle = init_detector(cfg, device="cuda", seed=41)
+    net = handle.detector.net
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    summary = train_detector(handle, os.path.join(work, name), max_iters=steps,
+                             validate=False)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # K1, K4 at 7 and 14 once a step; HTC's twice a stage (pyramid, semantic level)
+    k = (1 if config == MASK_CONFIG else 6) * steps
+    htc_launches(counts, BF16, f"{tag} train", k, k, k, k)
+    with open(os.path.join(work, name, "train.log.json")) as f:
+        logged = [json.loads(line) for line in f if '"train"' in line]
+    losses = (["loss_mask"] if config == MASK_CONFIG else
+              [f"s{i}.loss_mask" for i in range(3)] + ["loss_semantic_seg"])
+    bad = [(m.get("iter"), key, m.get(key)) for m in logged for key in losses + ["loss"]
+           if not (key in m and math.isfinite(m[key]) and m[key] > 0)]
+    if len(logged) != steps or bad:
+        raise AssertionError(f"{tag}: {len(logged)} logged steps, bad losses {bad}")
+    heads = (("mask_head.",) if config == MASK_CONFIG else
+             tuple(f"mask_heads.{i}." for i in range(3)) + ("semantic_head.",))
+    moved = check_moved(before, handle.detector, f"{tag} train", heads=heads)
+    out = {"steps": summary["steps"], "train_images_per_s": summary["images_per_s"],
+           "loader_wait_share": summary["loader_wait_share"], "train_peak_gib": peak,
+           "losses": {key: logged[-1][key] for key in losses + ["loss"]},
+           "counts": ran(counts), "moved": moved, "checkpoint": summary["checkpoints"][-1]}
+    say(f"{tag} ({gpu}): " + json.dumps({k: v for k, v in out.items() if k != "moved"}))
+    del handle, summary, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def mask_entry_eval(config: str, root: str, ckpt: str, gpu: str) -> dict:
+    """The test CLI's ``--eval bbox segm`` on ``mask_coco_set``'s val frames
+    from ``ckpt``: one result per frame, every bbox and segm stat present
+    and a number, K1 at 7 and 14 launched exactly (per batch: once for
+    Mask R-CNN, six and twice for HTC)."""
+    name = os.path.splitext(os.path.basename(config))[0]
+    torch.cuda.synchronize()
+    reset_counts()
+    metrics = test_cli([config, ckpt, "--device", "cuda", "--eval", "bbox", "segm",
+                        *cli_options(mask_options(root))])
+    counts = read_counts()
+    batches = 3  # the 3 landscape frames at batch 2, then the portrait one
+    n = 1 if config == MASK_CONFIG else 6
+    htc_launches(counts, BF16, f"bf16 mask entry {name} eval", n * batches,
+                 (1 if config == MASK_CONFIG else 2) * batches)
+    stats = {k: metrics[k] for k in SEGM_KEYS + ("bbox_mAP", "bbox_mAP_50")}
+    if metrics["num_results"] != 4 or not all(isinstance(v, float) for v in stats.values()):
+        raise AssertionError(f"{name} test CLI: {metrics['num_results']} results, {stats}")
+    out = {"num_results": metrics["num_results"], **stats, "counts": ran(counts),
+           "eval_images_per_s": metrics["eval_stats"]["images_per_s"]}
+    say(f"bf16 mask entry {name} test CLI ({gpu}): " + json.dumps(out))
+    return out
+
+
+def mask_e2e_trains(gpu: str, synth: str, work: str) -> dict:
+    """``scripts/e2e_ap_check.py --segm``'s recipe through the port's CLIs in
+    bfloat16: the tiny Mask R-CNN (4 classes) from scratch on the shapes
+    set, MASK_E2E_EPOCHS epochs at batch MASK_E2E_BATCH, lr MASK_E2E_LR,
+    warmup MASK_E2E_WARMUP, decay at 2/3 of the epochs and 2 before the
+    end, no validation, the 7 x 7 and 14 x 14 kernels launched once a step;
+    then the test CLI's ``--eval bbox segm`` on the 50 val images (the
+    forward kernels at 7 and 14 once a batch): bbox and segm mAP at least
+    E2E_MIN_MAP."""
+    epochs = MASK_E2E_EPOCHS
+    decay = sorted(e for e in {2 * epochs // 3, epochs - 2} if e > 0)
+    opts = cli_options(data_options(
+        synth, BF16, **{"data.samples_per_gpu": MASK_E2E_BATCH, "runner.max_epochs": epochs,
+                        "optimizer.lr": MASK_E2E_LR, "lr_config.warmup_iters": MASK_E2E_WARMUP,
+                        "lr_config.step": "[" + ",".join(map(str, decay)) + "]",
+                        "model.backbone.frozen_stages": -1,
+                        "model.roi_head.bbox_head.num_classes": 4,
+                        "model.roi_head.mask_head.num_classes": 4}))
+    wd = os.path.join(work, "mask_e2e")
+    t0 = time.perf_counter()
+    reset_counts()
+    summary = train_cli([MASK_CONFIG, "--device", "cuda", "--tiny", "--no-validate", "--seed",
+                         "0", "--work-dir", wd, *opts])
+    counts = read_counts()
+    train_s = time.perf_counter() - t0
+    reset_counts()
+    metrics = test_cli([MASK_CONFIG, os.path.join(wd, f"epoch_{epochs}"), "--device", "cuda",
+                        "--tiny", "--eval", "bbox", "segm", *opts])
+    eval_counts = read_counts()
+    out = {"epochs": epochs, "batch": MASK_E2E_BATCH, "steps": summary["steps"],
+           **{k: metrics[k] for k in ("bbox_mAP", "bbox_mAP_50") + SEGM_KEYS[:2]},
+           "last_loss": summary["last_metrics"]["loss"],
+           "last_loss_mask": summary["last_metrics"]["loss_mask"],
+           "train_images_per_s": summary["images_per_s"],
+           "loader_wait_share": summary["loader_wait_share"], "train_s": train_s,
+           "eval_images_per_s": metrics["eval_stats"]["images_per_s"],
+           "wall_s": time.perf_counter() - t0, "counts": ran(counts),
+           "eval_counts": ran(eval_counts)}
+    say(f"bf16 mask e2e shapes set ({gpu}): " + json.dumps(out))
+    s = summary["steps"]
+    htc_launches(counts, BF16, "bf16 mask e2e train", s, s, s, s)
+    b = -(-metrics["num_results"] // MASK_E2E_BATCH)  # the val images share one bucket
+    htc_launches(eval_counts, BF16, "bf16 mask e2e eval", b, b)
+    if not (metrics["bbox_mAP"] >= E2E_MIN_MAP and metrics["segm_mAP"] >= E2E_MIN_MAP):
+        raise AssertionError(f"mask e2e: bbox mAP {metrics['bbox_mAP']}, segm mAP "
+                             f"{metrics['segm_mAP']}; both must reach {E2E_MIN_MAP}")
+    return out
+
+
+def start_e2e(kind: str, synth: str, work: str):
+    """A bf16 e2e training (``kind``: "flagship", ``e2e_trains``, or "mask",
+    ``mask_e2e_trains``) in a child process on the same card (``python3
+    chip_smoke.py --e2e-child <kind> <synth> <work>``), to run beside the
+    parent's timing-free checks: both e2e trainings are host-bound and
+    leave the card mostly idle.  Returns the process and its output's path."""
+    log = os.path.join(work, f"e2e_{kind}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--e2e-child", kind,
+                                 synth, work], stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+    return proc, log
+
+
+def finish_e2e(proc, log: str) -> dict:
+    """Wait for ``start_e2e``'s child, print its lines but the train log's,
+    and return its result; raises with its output's end where it failed."""
+    try:
+        rc = proc.wait(timeout=E2E_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    with open(log) as f:
+        lines = f.read().splitlines()
+    result = [line for line in lines if line.startswith("E2E_RESULT ")]
+    if rc != 0 or not result:
+        raise AssertionError(f"the e2e child ({log}) exited {rc}:\n" + "\n".join(lines[-30:]))
+    for line in lines:
+        if " - INFO - " not in line and not line.startswith("E2E_RESULT "):
+            say(line)
+    return json.loads(result[-1][len("E2E_RESULT "):])
+
+
+def mask_entry_phase(gpu: str, steps: int) -> dict:
+    """The phase "mask entry" at full width: Mask R-CNN and HTC (with its
+    semantic head) in bfloat16 through ``train_detector`` (``steps`` steps
+    each) and the test CLI on ``mask_coco_set``'s frames.  The tiny Mask
+    R-CNN's e2e, ``mask_e2e_trains``, runs in a child process
+    (``start_e2e``)."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mask_")
+    out = {}
+    try:
+        frames = mask_coco_set(os.path.join(work, "frames"))
+        say(f"mask entry set written in {time.perf_counter() - t0:.1f} s: 6 + 4 frames "
+            f"{UTDAC_FRAMES[:2] + COCO_FRAMES} with polygons, an RLE ring, a crowd box and PNG "
+            "stuff maps")
+        for name, config in (("mask_rcnn", MASK_CONFIG), ("htc", HTC_CONFIG)):
+            train = mask_entry_train(config, frames, work, gpu, steps)
+            out[name] = {"train": train,
+                         "eval": mask_entry_eval(config, frames, train.pop("checkpoint"), gpu)}
+            say(f"wall {time.perf_counter() - t0:.1f} s of the phase")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase mask entry: {out['wall_s']:.1f} s")
     return out
 
 
@@ -3047,13 +3354,24 @@ def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list
 
 def main(argv) -> int:
     readings = argv[1:] if argv[:1] == ["--step-readings"] else None
-    if readings is None and argv not in ([], ["--cascade"], ["--htc"]):
+    e2e_child = argv[1:] if argv[:1] == ["--e2e-child"] and len(argv) == 4 else None
+    if readings is None and e2e_child is None and argv not in (
+            [], ["--cascade"], ["--htc"], ["--mask-entry"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
-              "--cascade | --htc]", file=sys.stderr)
+              "--cascade | --htc | --mask-entry]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if e2e_child is not None:  # the parent built the kernels
+        torch.set_num_threads(E2E_CHILD_THREADS)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kind, synth, work = e2e_child
+        out = (e2e_trains(BF16, card(), synth, work) if kind == "flagship"
+               else mask_e2e_trains(card(), synth, work))
+        say("E2E_RESULT " + json.dumps(out))
+        return 0
     t_start = time.perf_counter()
     gpu = card()
     say(gpu)
@@ -3074,9 +3392,21 @@ def main(argv) -> int:
         return 0
     if argv == ["--cascade"]:
         cascade_phase(gpu)
+        cascade_tiny()
         return 0
     if argv == ["--htc"]:
         htc_phase(gpu)
+        htc_tiny()
+        return 0
+    if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
+        mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            synth = os.path.join(work, "shapes")
+            generate(synth, n_train=200, n_val=50, seed=0)
+            finish_e2e(*start_e2e("mask", synth, work))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         return 0
     walls = {"nvcc": time.perf_counter() - t0}
     t_phase = time.perf_counter()
@@ -3117,95 +3447,116 @@ def main(argv) -> int:
     htc = htc_phase(gpu)
     phase_done("htc")
 
-    # ------------------------------------------------ tiny flagship, GPU vs CPU
-    n_tiny = tiny_gpu_matches_cpu(seed=3)
-    say(f"tiny flagship: GPU predict matches CPU predict ({n_tiny} detections)")
-    tiny_metrics, tiny_worst, tiny_repeat, _ = tiny_train_gpu_matches_cpu(seed=7)
-    say(f"tiny flagship: a GPU train step matches the CPU one (loss {tiny_metrics['loss']:.6g}, "
-        f"worst parameter error {tiny_worst:.3g} of its tolerance); two GPU steps from the same "
-        f"state give the same bits: {tiny_repeat}")
-    level_errs, match = tiny_bf16_gpu_matches_cpu(seed=3)
-    say("tiny bf16 flagship, GPU against CPU: C2-C5, P3-P7 max rel err "
-        + ", ".join(f"{e:.3g}" for e in level_errs)
-        + f" (tolerance {BF16_TOL['levels']}); roi_predict on the CPU's levels and proposals: "
-        f"{match[0]} of {match[1]} detections matched, boxes within {match[2]:.3g} px, scores "
-        f"within {match[3]:.3g}")
-    b16_metrics, _, _, b16_summary = tiny_train_gpu_matches_cpu(seed=7, dtype=BF16)
-    say(f"tiny bf16 flagship: a GPU train step holds the bf16 step rule (loss "
-        f"{b16_metrics['loss']:.6g}, median GPU error over the float32 step's distance "
-        f"{b16_summary['ratio_median']:.3g}, median tensor {b16_summary['median_of_update']:.3g} "
-        f"of its update)")
-
-    # ---------------------------------------------- tiny Mask R-CNN, GPU vs CPU
-    for dtype in (torch.float32, BF16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        say(f"tiny {tag} Mask R-CNN: GPU predict matches CPU predict: "
-            f"{tiny_mask_gpu_matches_cpu(seed=3, dtype=dtype)}")
-        m, worst, repeat, summary = tiny_train_gpu_matches_cpu(seed=7, dtype=dtype,
-                                                               config=tiny_mask_config)
-        say(f"tiny {tag} Mask R-CNN: a GPU train step matches the CPU one (loss {m['loss']:.6g}, "
-            f"loss_mask {m['loss_mask']:.6g}, worst f32 parameter error {worst:.3g} of its "
-            f"tolerance, median tensor {summary['median_of_update']:.3g} of its update"
-            + (f", median GPU error over the float32 step's distance "
-               f"{summary['ratio_median']:.3g}" if "ratio_median" in summary else "")
-            + f"); two GPU steps from the same state give the same bits: {repeat}")
-
-    # -------------- the step rules' teeth: a deliberately wrong gradient
-    teeth = {}
-    for name, config in (("flagship", tiny_config), ("mask_rcnn", tiny_mask_config)):
-        for dtype in (torch.float32, BF16):
-            tag = "f32" if dtype == torch.float32 else "bf16"
-            teeth[f"{tag} {name}"] = broken = wrong_step_broken(config, WRONG_K4_CAUGHT,
-                                                                dtype=dtype)
-            if not broken:
-                raise AssertionError(f"the {tag} step rule holds for the tiny {name}'s step "
-                                     f"with level 0's K4 gradient x {WRONG_K4_CAUGHT}")
-            say(f"tiny {tag} {name}, level 0's K4 gradient x {WRONG_K4_CAUGHT}: the {tag} step "
-                f"rule breaks: {'; '.join(broken[:4])}")
-
-    # ------------------------------- tiny ResNeXt and Res2Net-DCN, GPU vs CPU
-    tiny_family = {}
-    for name, config in TINY_FAMILY:
-        n = tiny_gpu_matches_cpu(3, config)
-        tiny_family[name] = {"predict_detections": n}
-        for dtype in (torch.float32, BF16):
-            tag = "f32" if dtype == torch.float32 else "bf16"
-            m, worst, repeat, summary = tiny_train_gpu_matches_cpu(7, dtype, config)
-            tiny_family[name][tag] = {"loss": m["loss"], "worst_of_tolerance": worst,
-                                      **summary, "repeat_identical": repeat}
-        say(f"tiny {name}: GPU predict matches CPU predict ({n} detections); one train step "
-            f"on the GPU against the CPU: {tiny_family[name]}")
-
-    # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
-    repeat_report = {}
-    for name, config in (("flagship", tiny_config), ("mask_rcnn", tiny_mask_config),
-                         *TINY_FAMILY):
-        for dtype in (torch.float32, BF16):
-            repeat_report.update(c2_check(name, config, dtype, unpinned=name == "flagship"))
-    repeat_report.update(cascade["repeat"])
-    repeat_report.update(htc["repeat"])
-    phase_done("tiny models and C.2")
-
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    children = []
     try:
         t0 = time.perf_counter()
         utdac, synth = os.path.join(work, "utdac_like"), os.path.join(work, "shapes")
+        generate(synth, n_train=200, n_val=50, seed=0)
+        # the flagship's and the tiny Mask R-CNN's bf16 e2e trainings run in
+        # child processes on the card, host-bound, beside the entry points,
+        # "mask entry" and the tiny-model checks; the parent leaves them cores
+        children = [start_e2e(kind, synth, work) for kind in ("flagship", "mask")]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(threads - 2 * E2E_CHILD_THREADS, 1))
         generate(utdac, n_train=24, n_val=9, seed=0, frame_sizes=UTDAC_FRAMES, n_portrait=2,
                  object_scale=0.3)
-        generate(synth, n_train=200, n_val=50, seed=0)
         say(f"synthetic COCO sets written in {time.perf_counter() - t0:.1f} s: 24 + 9 "
             f"UTDAC-sized frames {UTDAC_FRAMES} (2 portrait each), 200 + 50 shapes images")
         entry, e2e = {}, {}
         for dtype in (torch.float32, BF16):
             entry[dtype] = entry_points(dtype, gpu, utdac, work)
             say(f"wall {time.perf_counter() - t_start:.1f} s")
-        phase_done("entry points")
+        phase_done("entry points, beside the e2e trainings")
+
+        # --------- mask entry: masks and stuff maps through the loader, segm
+        mask_entry = mask_entry_phase(gpu, MASK_ENTRY_STEPS)
+        phase_done("mask entry, beside the e2e trainings")
+        e2e[torch.float32] = e2e_trains(torch.float32, gpu, synth, work)
+
+        # -------------------------------------------- tiny flagship, GPU vs CPU
+        n_tiny = tiny_gpu_matches_cpu(seed=3)
+        say(f"tiny flagship: GPU predict matches CPU predict ({n_tiny} detections)")
+        tiny_metrics, tiny_worst, tiny_repeat, _ = tiny_train_gpu_matches_cpu(seed=7)
+        say(f"tiny flagship: a GPU train step matches the CPU one (loss "
+            f"{tiny_metrics['loss']:.6g}, worst parameter error {tiny_worst:.3g} of its "
+            f"tolerance); two GPU steps from the same state give the same bits: {tiny_repeat}")
+        level_errs, match = tiny_bf16_gpu_matches_cpu(seed=3)
+        say("tiny bf16 flagship, GPU against CPU: C2-C5, P3-P7 max rel err "
+            + ", ".join(f"{e:.3g}" for e in level_errs)
+            + f" (tolerance {BF16_TOL['levels']}); roi_predict on the CPU's levels and proposals: "
+            f"{match[0]} of {match[1]} detections matched, boxes within {match[2]:.3g} px, scores "
+            f"within {match[3]:.3g}")
+        b16_metrics, _, _, b16_summary = tiny_train_gpu_matches_cpu(seed=7, dtype=BF16)
+        say(f"tiny bf16 flagship: a GPU train step holds the bf16 step rule (loss "
+            f"{b16_metrics['loss']:.6g}, median GPU error over the float32 step's distance "
+            f"{b16_summary['ratio_median']:.3g}, median tensor "
+            f"{b16_summary['median_of_update']:.3g} of its update)")
+
+        # ------------------------------------------ tiny Mask R-CNN, GPU vs CPU
         for dtype in (torch.float32, BF16):
-            e2e[dtype] = e2e_trains(dtype, gpu, synth, work)
-            say(f"wall {time.perf_counter() - t_start:.1f} s")
-        phase_done("e2e")
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            say(f"tiny {tag} Mask R-CNN: GPU predict matches CPU predict: "
+                f"{tiny_mask_gpu_matches_cpu(seed=3, dtype=dtype)}")
+            m, worst, repeat, summary = tiny_train_gpu_matches_cpu(seed=7, dtype=dtype,
+                                                                   config=tiny_mask_config)
+            say(f"tiny {tag} Mask R-CNN: a GPU train step matches the CPU one (loss "
+                f"{m['loss']:.6g}, loss_mask {m['loss_mask']:.6g}, worst f32 parameter error "
+                f"{worst:.3g} of its tolerance, median tensor "
+                f"{summary['median_of_update']:.3g} of its update"
+                + (f", median GPU error over the float32 step's distance "
+                   f"{summary['ratio_median']:.3g}" if "ratio_median" in summary else "")
+                + f"); two GPU steps from the same state give the same bits: {repeat}")
+
+        # -------------- the step rules' teeth: a deliberately wrong gradient
+        teeth = {}
+        for name, config in (("flagship", tiny_config), ("mask_rcnn", tiny_mask_config)):
+            for dtype in (torch.float32, BF16):
+                tag = "f32" if dtype == torch.float32 else "bf16"
+                teeth[f"{tag} {name}"] = broken = wrong_step_broken(config, WRONG_K4_CAUGHT,
+                                                                    dtype=dtype)
+                if not broken:
+                    raise AssertionError(f"the {tag} step rule holds for the tiny {name}'s step "
+                                         f"with level 0's K4 gradient x {WRONG_K4_CAUGHT}")
+                say(f"tiny {tag} {name}, level 0's K4 gradient x {WRONG_K4_CAUGHT}: the {tag} step "
+                    f"rule breaks: {'; '.join(broken[:4])}")
+
+        # ------------------------------- tiny ResNeXt and Res2Net-DCN, GPU vs CPU
+        tiny_family = {}
+        for name, config in TINY_FAMILY:
+            n = tiny_gpu_matches_cpu(3, config)
+            tiny_family[name] = {"predict_detections": n}
+            for dtype in (torch.float32, BF16):
+                tag = "f32" if dtype == torch.float32 else "bf16"
+                m, worst, repeat, summary = tiny_train_gpu_matches_cpu(7, dtype, config)
+                tiny_family[name][tag] = {"loss": m["loss"], "worst_of_tolerance": worst,
+                                          **summary, "repeat_identical": repeat}
+            say(f"tiny {name}: GPU predict matches CPU predict ({n} detections); one train step "
+                f"on the GPU against the CPU: {tiny_family[name]}")
+
+        # ------------------- tiny ProbCascade and HTC, GPU vs CPU, C.2, teeth
+        cascade.update(cascade_tiny())
+        htc.update(htc_tiny())
+
+        # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
+        repeat_report = {}
+        for name, config in (("flagship", tiny_config), ("mask_rcnn", tiny_mask_config),
+                             *TINY_FAMILY):
+            for dtype in (torch.float32, BF16):
+                repeat_report.update(c2_check(name, config, dtype, unpinned=name == "flagship"))
+        repeat_report.update(cascade["repeat"])
+        repeat_report.update(htc["repeat"])
+        phase_done("tiny models and C.2, beside the e2e trainings")
+        torch.set_num_threads(threads)
+        e2e[BF16] = finish_e2e(*children[0])
+        mask_entry["e2e"] = finish_e2e(*children[1])
+        phase_done("e2e trainings' rest")
     finally:
+        for proc, _ in children:
+            if proc.poll() is None:  # a check failed: stop the e2e trainings
+                proc.kill()
+                proc.wait()
         shutil.rmtree(work, ignore_errors=True)
 
     r32, r16 = runs[torch.float32], runs[BF16]
@@ -3264,6 +3615,7 @@ def main(argv) -> int:
             "cascade_mask_rcnn_bf16": {k: v for k, v in htc["cascade_mask"].items()
                                        if not k.endswith("_counts")},
             "tiny": htc["tiny"], "wall_s": htc["wall_s"]},
+        "mask_entry": mask_entry,
         "phase_walls_s": walls,
         "wall_s": time.perf_counter() - t_start}))
     records = (kernel_records(r32, torch.float32, box=m32) + kernel_records(r16, BF16, box=m16)
@@ -3287,7 +3639,11 @@ def main(argv) -> int:
         (path, counts) for d in (torch.float32, BF16)
         for path, counts in (("entry_train", entry[d]["train_counts"]),
                              ("entry_eval", entry[d]["eval_counts"]),
-                             ("e2e_train", e2e[d]["counts"]))]
+                             ("e2e_train", e2e[d]["counts"]))] + [
+        (f"mask_entry_{name}_{part}", mask_entry[name][part]["counts"])
+        for name in ("mask_rcnn", "htc") for part in ("train", "eval")] + [
+        ("mask_e2e_train", mask_entry["e2e"]["counts"]),
+        ("mask_e2e_eval", mask_entry["e2e"]["eval_counts"])]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
                + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}

@@ -10,7 +10,8 @@ sees matches) go through both packages:
   * ``eval_map``: mAP and every class's numbers within 1e-12, in both the
     area and the 11-point mode, at IoU 0.5 and 0.75;
   * ``CocoDataset.results_to_coco_json`` and ``evaluate``: equal / within
-    1e-12; ``VOCDataset.evaluate`` (mAP and bbox) on XML annotations.
+    1e-12 (segm on box-only results raises); ``VOCDataset.evaluate`` (mAP
+    and bbox) on XML annotations.
 """
 import json
 import os
@@ -119,8 +120,8 @@ def test_coco_dataset_json_and_evaluate(tmp_path):
             np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=TOL, err_msg=key)
     np.testing.assert_allclose(list(got["classwise"].values()),
                                list(ref["classwise"].values()), rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError):
-        tds.evaluate(results, "segm")
+    with pytest.raises(ValueError, match="needs mask results"):
+        tds.evaluate(results, "segm")  # box-only results
 
 
 def test_voc_dataset_evaluate(tmp_path):
