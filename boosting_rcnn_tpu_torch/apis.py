@@ -63,7 +63,9 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
                          dtype=runner.compute_dtype(cfg, dtype))
     meta = {}
     if checkpoint:
-        det.net.load_state_dict(load_params(checkpoint))
+        # an mmdet file holds no Dynamic R-CNN state: the head keeps its initial one
+        state = {k: v for k, v in det.net.state_dict().items() if ".dyn_" in k}
+        det.net.load_state_dict({**state, **load_params(checkpoint)})
         meta = checkpoint_meta(checkpoint)
     data = cfg.get("data") or {}
     classes = (data.get("test") or {}).get("classes") or meta.get("classes") or None

@@ -7,11 +7,15 @@ DCN / DCNv2 stages), ``ResNeXt`` (grouped 3x3s) or ``Res2Net`` (deep stem,
 hierarchical splits, DCN / DCNv2 stages); the neck ``PAFPN`` (extra convs
 on output) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
 pool or by convs on the input, lateral or output); the RPN
-``ATSSRPNHead`` (max-IoU assignment, focal / IoU / CIoU / MSE / BCE
-losses, on decoded boxes or on encoded deltas) or ``RPNHead`` (one 3x3
-conv, BCE and smooth L1, a random anchor sampler); the RoI head
-``ProbRoIHead`` (boosting loss, prior fusion, ``reg_norm``) or
-``StandardRoIHead`` (plain cross entropy, softmax scores), each with a
+``ATSSRPNHead`` (max-IoU or ATSS assignment, focal / IoU / GIoU / CIoU /
+MSE / BCE losses, on decoded boxes or on encoded deltas) or ``RPNHead``
+(one or more 3x3 convs, BCE or focal objectness and smooth L1, a random
+anchor sampler); the RoI head ``ProbRoIHead`` (boosting loss, prior
+fusion, ``reg_norm``), ``BoostRoIHead`` (prior fusion, boosting only where
+its config says ``boost``), ``StandardRoIHead`` (plain cross entropy,
+softmax scores) or ``DynamicRoIHead`` (Dynamic R-CNN: the standard head
+with an IoU threshold and smooth-L1 beta adapted from
+``train_cfg.rcnn.dynamic_rcnn``, the ``DynamicRCNNDetector``), each with a
 random sampler and a Shared2FC box head (class-wise or class-agnostic
 deltas) with cross entropy and L1 or smooth L1, and hard or soft NMS at
 test; and an ``FCNMaskHead`` on a 14 x 14 ``RoIAlign`` (Mask R-CNN).
@@ -45,6 +49,7 @@ from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
 from .models.detectors.cascade import CascadeDetector, CascadeNet
 from .models.detectors.htc import HTCDetector, HTCNet
 from .models.detectors.two_stage import (
+    DynamicRCNNDetector,
     ProposalCfg,
     RCNNTestCfg,
     TwoStageDetector,
@@ -171,6 +176,7 @@ _LOSS_KEYS = {
     "FocalLoss": ("type", "use_sigmoid", "gamma", "alpha", "loss_weight"),
     "IoULoss": ("type", "linear", "mode", "loss_weight"),
     "CIoULoss": ("type", "eps", "loss_weight"),
+    "GIoULoss": ("type", "eps", "loss_weight"),
     "CrossEntropyLoss": ("type", "use_sigmoid", "use_mask", "class_weight", "loss_weight"),
     "MSELoss": ("type", "loss_weight"),
     "L1Loss": ("type", "loss_weight"),
@@ -205,13 +211,18 @@ def _max_iou_assigner(cfg: Dict[str, Any], defaults) -> Dict[str, Any]:
 
 
 # the ATSS RPN's box losses by config type (JAX builder.py:53-64)
-_RPN_BOX_LOSSES = {"IoULoss": "iou", "CIoULoss": "ciou"}
+_RPN_BOX_LOSSES = {"IoULoss": "iou", "GIoULoss": "giou", "CIoULoss": "ciou"}
 
 
 def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
     """The ATSS RPN's coder, losses and train assigner (JAX
-    ``build_rpn``)."""
-    _check(rpn, "atss", (False,), False)
+    ``build_rpn``).  With ``atss=True`` the ATSS assignment takes every
+    anchor and reads nothing of ``train_cfg.rpn`` (the ensemble configs
+    inherit a random sampler there from the Cascade R-CNN base, which the
+    JAX package does not read either); with an ``aug_reg_loss`` the
+    decoded-box branch adds the MSE term (``with_aug_loss``)."""
+    _check(rpn, "atss", (False, True), False)
+    atss = rpn.get("atss", False)
     _check(rpn, "reg_decoded_bbox", (True, False), True)
     loss_cls = _loss(rpn, "loss_cls", ("FocalLoss",), {"type": "FocalLoss"})
     _check(loss_cls, "use_sigmoid", (True,), True)
@@ -224,16 +235,18 @@ def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
     _check(loss_iou, "use_sigmoid", (True,), False)
     # read on both branches; the encoded-delta one adds no MSE term (JAX
     # atss_rpn_head.py:348-372)
-    aug = _loss(rpn, "aug_reg_loss", ("MSELoss",))
+    with_aug = rpn.get("aug_reg_loss") is not None
+    aug = _loss(rpn, "aug_reg_loss", ("MSELoss",)) if with_aug else {}
     _only(train_rpn, "train_cfg.rpn", ("assigner", "sampler", "allowed_border", "pos_weight",
                                        "debug"))
-    _check(train_rpn, "sampler", ({"type": "PseudoSampler"},), {"type": "PseudoSampler"})
-    _check(train_rpn, "allowed_border", (-1,), -1)
+    if not atss:
+        _check(train_rpn, "sampler", ({"type": "PseudoSampler"},), {"type": "PseudoSampler"})
+        _check(train_rpn, "allowed_border", (-1,), -1)
     _check(train_rpn, "pos_weight", (-1,), -1)
     _check(train_rpn, "debug", (False,), False)
     means, stds = _coder(rpn, (1.0,) * 4)
     return ATSSRPNCfg(
-        gamma=rpn.get("gamma", 1.0), atss=False,
+        gamma=rpn.get("gamma", 1.0), atss=atss,
         reg_decoded_bbox=rpn.get("reg_decoded_bbox", True),
         loss_bbox_type=_RPN_BOX_LOSSES[loss_bbox["type"]],
         target_means=means, target_stds=stds,
@@ -241,23 +254,25 @@ def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
         loss_cls_weight=loss_cls.get("loss_weight", 1.0),
         loss_bbox_weight=loss_bbox.get("loss_weight", 1.0),
         loss_iou_weight=loss_iou.get("loss_weight", 1.0),
-        aug_loss_weight=aug.get("loss_weight", 1.0),
+        with_aug_loss=with_aug, aug_loss_weight=aug.get("loss_weight", 1.0),
         **_max_iou_assigner(train_rpn.get("assigner", {}), (0.5, 0.5, 0.0, True)),
     )
 
 
 def _plain_rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> RPNCfg:
     """The plain RPN's coder, losses, train assigner and sampler (JAX
-    ``build_rpn``'s ``RPNHead`` case)."""
+    ``build_rpn``'s ``RPNHead`` case): BCE or focal objectness; the box
+    loss smooth L1 at the config's ``beta`` (1/9 by default) for an
+    ``L1Loss`` too, as the JAX builder reads it."""
     _only(rpn, "rpn_head", ("type", "in_channels", "feat_channels", "num_convs",
                             "anchor_generator", "bbox_coder", "loss_cls", "loss_bbox"))
-    _check(rpn, "num_convs", (1,), 1)
-    loss_cls = _loss(rpn, "loss_cls", ("CrossEntropyLoss",),
+    loss_cls = _loss(rpn, "loss_cls", ("CrossEntropyLoss", "FocalLoss"),
                      {"type": "CrossEntropyLoss", "use_sigmoid": True})
-    _check(loss_cls, "use_sigmoid", (True,), False)
+    focal = loss_cls["type"] == "FocalLoss"
+    _check(loss_cls, "use_sigmoid", (True,), focal)
     _check(loss_cls, "use_mask", (False,), False)
     _check(loss_cls, "class_weight", (None,))
-    loss_bbox = _loss(rpn, "loss_bbox", ("SmoothL1Loss",), {"type": "SmoothL1Loss"})
+    loss_bbox = _loss(rpn, "loss_bbox", ("SmoothL1Loss", "L1Loss"), {"type": "SmoothL1Loss"})
     _only(train_rpn, "train_cfg.rpn", ("assigner", "sampler", "allowed_border", "pos_weight",
                                        "debug"))
     sampler = train_rpn.get("sampler", {})
@@ -280,6 +295,8 @@ def _plain_rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> RPNCfg:
         smooth_l1_beta=loss_bbox.get("beta", 1.0 / 9.0),
         loss_cls_weight=loss_cls.get("loss_weight", 1.0),
         loss_bbox_weight=loss_bbox.get("loss_weight", 1.0),
+        loss_cls_type="focal" if focal else "bce", focal_gamma=loss_cls.get("gamma", 2.0),
+        focal_alpha=loss_cls.get("alpha", 0.25),
     )
 
 
@@ -293,7 +310,8 @@ def _build_rpn(rpn: Dict[str, Any], train_rpn: Dict[str, Any], channels: int,
     ag = AnchorGenerator(**ag_cfg)
     if rpn["type"] == "RPNHead":
         module = RPNConvs(gen, in_channels=channels, num_anchors=ag.num_base_anchors[0],
-                          feat_channels=rpn.get("feat_channels", 256))
+                          feat_channels=rpn.get("feat_channels", 256),
+                          num_convs=rpn.get("num_convs", 1))
         return module, _plain_rpn_cfg(rpn, train_rpn), "rpn", ag
     _check(rpn, "last_conv", ("norm",), "norm")
     _check(rpn, "bridge", (False,), False)
@@ -367,16 +385,18 @@ _BOX_LOSSES = {"L1Loss": "l1", "SmoothL1Loss": "smooth_l1"}
 
 
 def _bbox_head(head: Dict[str, Any], channels: int, out_size: int, gen: torch.Generator,
-               types=("ProbConvFCBBoxHead", "Shared2FCBBoxHead", "ConvFCBBoxHead")):
+               types=("ProbConvFCBBoxHead", "Shared2FCBBoxHead", "ConvFCBBoxHead"),
+               **head_kw):
     """A Shared2FC box head module of ``types`` (JAX ``_std_convfc_head``)
-    and its coder and losses (``build_bbox_head``)."""
+    and its coder and losses (``build_bbox_head``); ``head_kw`` (Dynamic
+    R-CNN's state options) go to the module."""
     _check(head, "type", types)
     _check(head, "num_shared_convs", (0, None))
     module = ConvFCBBoxHead(
         gen, num_classes=head.get("num_classes", 80), in_channels=channels,
         num_shared_fcs=head.get("num_shared_fcs", 2),
         fc_out_channels=head.get("fc_out_channels", 1024), roi_feat_size=out_size,
-        reg_class_agnostic=head.get("reg_class_agnostic", False),
+        reg_class_agnostic=head.get("reg_class_agnostic", False), **head_kw,
     )
     return module, _bbox_cfg(head)
 
@@ -402,14 +422,16 @@ def _bbox_cfg(head: Dict[str, Any]) -> BBoxHeadCfg:
 
 
 def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
-    """The RoI head's boosting options (on by default for ``ProbRoIHead``,
-    off for ``StandardRoIHead``) and its train sampler and assigner (JAX
+    """The RoI head's boosting options (boosting on by default for
+    ``ProbRoIHead`` only, prior fusion for ``ProbRoIHead`` and
+    ``BoostRoIHead``) and its train sampler and assigner (JAX
     ``build_detector``, two-stage branch)."""
     _check(roi, "quality", (False,), False)
     _check(roi, "alpha", (0,), 0)
     _check(roi, "reg_norm", ("bbox_num", "mean"), "bbox_num")
     _only(train_rcnn, "train_cfg.rcnn", ("assigner", "sampler", "pos_weight", "debug",
-                                         "mask_size"))
+                                         "mask_size")
+          + (("dynamic_rcnn",) if roi["type"] == "DynamicRoIHead" else ()))
     sampler = train_rcnn.get("sampler", {})
     _only(sampler, "train_cfg.rcnn.sampler", ("type", "num", "pos_fraction", "neg_pos_ub",
                                               "add_gt_as_proposals"))
@@ -420,7 +442,8 @@ def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
     prob_head = roi["type"] == "ProbRoIHead"
     return ProbRoICfg(
         gamma=roi.get("gamma", 0.1), boost=roi.get("boost", prob_head),
-        prob=roi.get("prob", prob_head), reg_norm=roi.get("reg_norm", "bbox_num"),
+        prob=roi.get("prob", roi["type"] in ("ProbRoIHead", "BoostRoIHead")),
+        reg_norm=roi.get("reg_norm", "bbox_num"),
         num_samples=sampler.get("num", 512), pos_fraction=sampler.get("pos_fraction", 0.25),
         neg_pos_ub=sampler.get("neg_pos_ub", -1),
         **_max_iou_assigner(train_rcnn.get("assigner", {}), (0.5, 0.5, 0.5, False)),
@@ -520,10 +543,12 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
             train_proposal_cfg=train_pc, test_proposal_cfg=test_pc, rcnn_test_cfg=rcnn_test,
             rpn_type=rpn_type, cascade_cfg=cascade_cfg)
 
-    _check(roi, "type", ("ProbRoIHead", "StandardRoIHead"))
+    _check(roi, "type", ("ProbRoIHead", "StandardRoIHead", "BoostRoIHead", "DynamicRoIHead"))
     _check(roi, "shared_head", (None,))
-    bbox_module, bbox_cfg = _bbox_head(roi["bbox_head"], channels, out_size, gen)
     train_rcnn = train_cfg.get("rcnn") or {}
+    dynamic = roi["type"] == "DynamicRoIHead"
+    head_kw, det_kw = _dynamic_rcnn(train_rcnn, roi) if dynamic else ({}, {})
+    bbox_module, bbox_cfg = _bbox_head(roi["bbox_head"], channels, out_size, gen, **head_kw)
     roi_cfg = _roi_cfg(roi, train_rcnn)
     mask_module, mask_out_size = None, 14
     if roi.get("mask_head"):
@@ -535,13 +560,32 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
     net = TwoStageNet(backbone, neck, rpn_module, bbox_module, mask_head=mask_module,
                       mask_roi_out_size=mask_out_size, **roi_kw)
     set_compute_dtype(net, dtype)
-    return TwoStageDetector(
+    return (DynamicRCNNDetector if dynamic else TwoStageDetector)(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
         train_proposal_cfg=_proposal_cfg(train_cfg.get("rpn_proposal") or {}, 4000, 2000),
         test_proposal_cfg=_proposal_cfg(test_cfg.get("rpn") or {}, 1000, 256),
         rcnn_test_cfg=rcnn_test,
-        rpn_type=rpn_type,
+        rpn_type=rpn_type, **det_kw,
     )
+
+
+# Dynamic R-CNN's train_cfg.rcnn.dynamic_rcnn with the JAX builder's defaults
+# (builder.py:2294-2302, :2504-2511)
+_DYN_DEFAULTS = {"iou_topk": 75, "beta_topk": 10, "update_iter_interval": 100,
+                 "initial_iou": 0.4, "initial_beta": 1.0}
+
+
+def _dynamic_rcnn(train_rcnn: Dict[str, Any], roi: Dict[str, Any]):
+    """A ``DynamicRoIHead``'s ``train_cfg.rcnn.dynamic_rcnn``: the box
+    head's state options and the detector's statistics options."""
+    cfg = train_rcnn.get("dynamic_rcnn") or {}
+    _only(cfg, "train_cfg.rcnn.dynamic_rcnn", tuple(_DYN_DEFAULTS))
+    if roi.get("mask_head"):
+        raise _unported("DynamicRoIHead mask_head", roi["mask_head"].get("type"))
+    v = {k: cfg.get(k, d) for k, d in _DYN_DEFAULTS.items()}
+    return (dict(dynamic=True, dyn_interval=v["update_iter_interval"],
+                 dyn_initial_iou=v["initial_iou"], dyn_initial_beta=v["initial_beta"]),
+            dict(dyn_iou_topk=v["iou_topk"], dyn_beta_topk=v["beta_topk"]))
 
 
 # the stage heads' types: the JAX builder gives any type but its SABL and

@@ -2,7 +2,8 @@
 ``boosting_rcnn_tpu/engine/checkpoint.py``, which uses orbax).
 
 A checkpoint is a directory: ``state.pth`` holds the model's
-``state_dict``, the optimizer's state (its step count and SGD momentum
+``state_dict`` (its buffers too, Dynamic R-CNN's adaptive state among
+them), the optimizer's state (its step count and SGD momentum
 buffers), the step and, when given, the sampler generator's state;
 ``meta.json`` holds the caller's meta (epoch, classes, config) with the
 step and the port's version.  A restored model, optimizer and generator

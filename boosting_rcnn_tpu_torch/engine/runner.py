@@ -70,9 +70,10 @@ def _each(x):
 def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     """The two-stage branch of the JAX ``tools/train.py::shrink_model``
     (the Boosting R-CNN family, Faster and Mask R-CNN, Cascade R-CNN, the
-    ProbCascade, Cascade Mask R-CNN and HTC): the backbone (ResNet, ResNeXt
-    or Res2Net) becomes ResNet-18 at width 8, neck 32, RPN 32 (the ATSS
-    RPN's 2 convs deep), FC 64 (every cascade stage's), fewer proposals
+    ProbCascade and the other ensemble cascades, Cascade Mask R-CNN, HTC
+    and Dynamic R-CNN): the backbone (ResNet, ResNeXt or Res2Net) becomes
+    ResNet-18 at width 8, neck 32, RPN 32 (the ATSS RPN's 2 convs deep, the
+    plain RPN's count of convs kept), FC 64 (every cascade stage's), fewer proposals
     and RoIs (every stage's sampler).  The mask heads keep their widths and
     pool the neck's 32 channels, as in the JAX package; the semantic head's
     width becomes the neck's, which its embedding is added to (the JAX

@@ -22,9 +22,13 @@ step's ``"fused"`` mode, the only one of a cascade); with one it trains on
 that ``RoISample`` (its ``"external"`` mode).  The batch goes to
 ``detector.loss`` as it is (the mask heads' ``gt_mask_crops`` and HTC's
 ``gt_semantic_seg`` with it); ``rpn_uniforms`` too, a cascade's per-stage
-``roi_uniforms`` and HTC's per-stage ``mask_uniforms``.  Metrics carry the
-JAX names: ``loss``, each loss, and ``grad_norm`` (the norm before
-clipping).  The step runs on the detector's device, in the detector's
+``roi_uniforms`` and HTC's per-stage ``mask_uniforms`` (Dynamic R-CNN's
+``roi_uniforms`` is one ``(B, 2, G + P)`` array).  After the update the
+step calls ``detector.update_state()``: Dynamic R-CNN records the step's
+statistics in its box head's buffers there, as the JAX step threads its
+``batch_stats`` (so the state is in the model's ``state_dict`` and in
+every checkpoint).  Metrics carry the JAX names: ``loss``, each loss, and
+``grad_norm`` (the norm before clipping).  The step runs on the detector's device, in the detector's
 compute dtype; the parameters and their gradients stay float32.
 
 The step is bitwise repeatable on the GPU, as the JAX step is on the TPU:
@@ -175,6 +179,7 @@ def make_train_step(
         total = sum(v.sum() for v in losses.values())
         total.backward()
         grad_norm = optimizer.step()
+        detector.update_state()
         metrics = {"loss": total.detach(), **{k: v.detach().sum() for k, v in losses.items()}}
         metrics["grad_norm"] = grad_norm.detach()
         return metrics

@@ -9,12 +9,15 @@ per-level exact top-``nms_pre``, decode, level-aware NMS, keep
 ``max_per_img``.
 
 Training (``atss_rpn_targets``, ``atss_rpn_loss``): max-IoU assignment
-(``atss=False``), sigmoid focal loss on objectness, and one of two box
-regressions, each with the IoU or the CIoU loss (``loss_bbox_type``):
+(``atss=False``) or ATSS assignment over the levels' anchors
+(``atss=True``, the ensemble configs' ``cascade_atss``), sigmoid focal
+loss on objectness, and one of two box regressions, each with the IoU,
+GIoU or CIoU loss (``loss_bbox_type``):
 
   * on decoded boxes (``reg_decoded_bbox=True``, the flagship's): the box
-    loss plus the MSE on deltas, weighted by ``max(iou_target**gamma,
-    EPS)``, halved;
+    loss weighted by ``max(iou_target**gamma, EPS)``; with an
+    ``aug_reg_loss`` in the config (``with_aug_loss``, the flagship's) the
+    MSE on deltas with the same weights is added and the sum halved;
   * on the encoded deltas (``reg_decoded_bbox=False``, the COCO configs'):
     the IoU target still comes from the decoded prediction against the
     decoded target, but the box loss is applied to the raw delta vectors,
@@ -26,8 +29,8 @@ regressions, each with the IoU or the CIoU loss (``loss_bbox_type``):
 Either is divided by ``max(sum iou_target, 1)``; the IoU branch's BCE
 against the IoU target is averaged over the positives.  The JAX package's
 ``lax.pmean`` normalisers become plain sums over the batch on one card.
-ATSS assignment, varifocal loss and the other box losses (GIoU, DIoU,
-EIoU, L1) raise ``NotImplementedError``.
+Varifocal loss and the other box losses (DIoU, EIoU, L1) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from torch import nn
 
 from ...ops import box_ops
 from ...ops import losses as L
-from ...ops.assigners import max_iou_assign
+from ...ops.assigners import atss_assign, max_iou_assign
 from ...ops.nms import batched_nms_padded
 from ...ops.topk import select_topk
 from ..layers import ConvModule, Scale, make_conv
@@ -95,6 +98,7 @@ class ATSSRPNCfg:
 
     gamma: float = 0.5
     atss: bool = False
+    atss_topk: int = 9
     reg_decoded_bbox: bool = True
     target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
     target_stds: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
@@ -106,6 +110,7 @@ class ATSSRPNCfg:
     loss_bbox_type: str = "iou"
     loss_cls_type: str = "focal"
     loss_iou_weight: float = 1.0
+    with_aug_loss: bool = True
     aug_loss_weight: float = 1.0
     # train assigner
     pos_iou_thr: float = 0.5
@@ -114,12 +119,11 @@ class ATSSRPNCfg:
     match_low_quality: bool = True
 
 
-_BOX_LOSSES = {"iou": L.iou_loss, "ciou": L.ciou_loss}
+_BOX_LOSSES = {"iou": L.iou_loss, "giou": L.giou_loss, "ciou": L.ciou_loss}
 
 
 def _check_train_cfg(cfg: ATSSRPNCfg) -> None:
-    for what, value, ported in (("atss", cfg.atss, (False,)),
-                                ("loss_cls_type", cfg.loss_cls_type, ("focal",)),
+    for what, value, ported in (("loss_cls_type", cfg.loss_cls_type, ("focal",)),
                                 ("loss_bbox_type", cfg.loss_bbox_type, tuple(_BOX_LOSSES))):
         if value not in ported:
             raise NotImplementedError(f"ATSS RPN {what}={value!r} is not ported")
@@ -199,17 +203,26 @@ def level_topk_nms(scores: torch.Tensor, bbox_preds: torch.Tensor, anchors: torc
 
 
 def atss_rpn_targets(cfg: ATSSRPNCfg, anchors: torch.Tensor, valid: torch.Tensor,
-                     gt_bboxes: torch.Tensor, gt_mask: torch.Tensor):
+                     gt_bboxes: torch.Tensor, gt_mask: torch.Tensor,
+                     num_level_anchors: Sequence[int] = ()):
     """Targets of one image: ``anchors`` ``(A, 4)``, ``valid`` ``(A,)``,
     padded ``gt_bboxes`` ``(G, 4)`` and ``gt_mask`` ``(G,)`` -> (positive
     mask, label weights, box targets ``(A, 4)``: the matched gt boxes, or
     with ``reg_decoded_bbox=False`` their deltas from the anchors; zero off
-    the positives)."""
+    the positives).  ATSS (``cfg.atss``) takes each level's anchor count,
+    ``num_level_anchors``."""
     _check_train_cfg(cfg)
-    assign = max_iou_assign(anchors, valid, gt_bboxes, gt_mask,
-                            pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
-                            min_pos_iou=cfg.min_pos_iou,
-                            match_low_quality=cfg.match_low_quality)
+    if cfg.atss:
+        if sum(num_level_anchors) != anchors.shape[0]:
+            raise ValueError(f"ATSS needs the anchors of each level: num_level_anchors "
+                             f"{tuple(num_level_anchors)} for {anchors.shape[0]} anchors")
+        assign = atss_assign(anchors, valid, num_level_anchors, gt_bboxes, gt_mask,
+                             topk=cfg.atss_topk)
+    else:
+        assign = max_iou_assign(anchors, valid, gt_bboxes, gt_mask,
+                                pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
+                                min_pos_iou=cfg.min_pos_iou,
+                                match_low_quality=cfg.match_low_quality)
     pos = assign.gt_inds > 0
     label_weights = (pos | (assign.gt_inds == 0)).float()
     safe_gt = torch.clamp(assign.gt_inds - 1, 0, gt_bboxes.shape[0] - 1)
@@ -222,13 +235,16 @@ def atss_rpn_targets(cfg: ATSSRPNCfg, anchors: torch.Tensor, valid: torch.Tensor
 
 def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
                   iou_logits: torch.Tensor, anchors: torch.Tensor, valid: torch.Tensor,
-                  gt_bboxes: torch.Tensor, gt_mask: torch.Tensor):
+                  gt_bboxes: torch.Tensor, gt_mask: torch.Tensor,
+                  num_level_anchors: Sequence[int] = ()):
     """RPN losses of a batch: ``cls_logits``/``iou_logits`` ``(B, A)``,
     ``bbox_preds`` ``(B, A, 4)``, ``anchors`` ``(A, 4)``, ``valid``
-    ``(B, A)``, ``gt_bboxes`` ``(B, G, 4)``, ``gt_mask`` ``(B, G)``."""
+    ``(B, A)``, ``gt_bboxes`` ``(B, G, 4)``, ``gt_mask`` ``(B, G)``; each
+    level's anchor count for ATSS."""
     _check_train_cfg(cfg)
     b, a = cls_logits.shape
-    targets = [atss_rpn_targets(cfg, anchors, valid[i], gt_bboxes[i], gt_mask[i])
+    targets = [atss_rpn_targets(cfg, anchors, valid[i], gt_bboxes[i], gt_mask[i],
+                                num_level_anchors)
                for i in range(b)]
     pos, label_weights, bbox_targets = (torch.stack(x) for x in zip(*targets))
     num_total = torch.clamp(pos.float().sum(), min=1.0)
@@ -256,11 +272,12 @@ def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.T
         w = torch.clamp(iou_target ** cfg.gamma, min=EPS) * posf
     if cfg.reg_decoded_bbox:
         loss_box = box_loss(decoded, safe_t, weight=w, avg_factor=1.0)
-        enc_t = _encode(cfg, anchors_b.reshape(-1, 4), safe_t)
-        loss_aug = L.mse_loss(bbox_preds.reshape(-1, 4), enc_t,
-                              weight=w[:, None].expand_as(enc_t),
-                              avg_factor=1.0) * cfg.aug_loss_weight
-        loss_box = (loss_box + loss_aug) * 0.5
+        if cfg.with_aug_loss:
+            enc_t = _encode(cfg, anchors_b.reshape(-1, 4), safe_t)
+            loss_aug = L.mse_loss(bbox_preds.reshape(-1, 4), enc_t,
+                                  weight=w[:, None].expand_as(enc_t),
+                                  avg_factor=1.0) * cfg.aug_loss_weight
+            loss_box = (loss_box + loss_aug) * 0.5
     else:
         # the deltas read as boxes (JAX atss_rpn_head.py:348-372)
         flat_pred = bbox_preds.reshape(-1, 4)

@@ -1,17 +1,21 @@
 """The plain RPN head of Faster and Mask R-CNN (PyTorch port of
 ``boosting_rcnn_tpu/models/dense_heads/rpn_head.py``).
 
-``RPNConvs``: a 3x3 ``rpn_conv`` + ReLU shared by the pyramid levels, then
-the 1x1 ``rpn_cls`` (A objectness logits, in the compute dtype) and
-``rpn_reg`` (A*4 deltas, float32).  ``rpn_proposals``: sigmoid scores,
-per-level exact top-``nms_pre``, decode within the image, level-aware NMS.
+``RPNConvs``: a 3x3 ``rpn_conv`` + ReLU shared by the pyramid levels (with
+``num_convs`` > 1 a stack: ``rpn_conv``, then ``rpn_conv_1`` to
+``rpn_conv_{N-1}``, each with its ReLU; the ensemble configs'
+``cascade_retinanet`` has 4), then the 1x1 ``rpn_cls`` (A objectness
+logits, in the compute dtype) and ``rpn_reg`` (A*4 deltas, float32).
+``rpn_proposals``: sigmoid scores, per-level exact top-``nms_pre``,
+decode within the image, level-aware NMS.
 ``rpn_loss``: max-IoU assignment (low-quality matches on), a random sample
 of ``num_samples`` anchors per image with ``pos_fraction`` positives, the
 sampled slots scattered back onto the anchor axis, then binary cross
-entropy on the objectness and smooth L1 on the encoded deltas of the
-positives, both averaged over the sampled anchors of the batch.  More than
-one ``rpn_conv`` and the focal objectness loss raise
-``NotImplementedError``.
+entropy (``loss_cls_type="bce"``) or the sigmoid focal loss (``"focal"``)
+on the objectness of the sampled anchors, and smooth L1 on the encoded
+deltas of the positives, both averaged over the sampled anchors of the
+batch.  The box loss is smooth L1 with the config's ``beta`` (default 1/9)
+whatever its type, as the JAX package reads an ``L1Loss`` too.
 """
 from __future__ import annotations
 
@@ -34,16 +38,21 @@ class RPNConvs(nn.Module):
     """Per-level NCHW features -> per-level NCHW (cls, reg, None) maps."""
 
     def __init__(self, gen: torch.Generator, in_channels: int = 256, num_anchors: int = 3,
-                 feat_channels: int = 256):
+                 feat_channels: int = 256, num_convs: int = 1):
         super().__init__()
-        self.rpn_conv = make_conv(in_channels, feat_channels, 3, 1, 1, True, gen)
+        self.conv_names = [f"rpn_conv_{i}" if i else "rpn_conv" for i in range(num_convs)]
+        cin = in_channels
+        for name in self.conv_names:
+            self.add_module(name, make_conv(cin, feat_channels, 3, 1, 1, True, gen))
+            cin = feat_channels
         self.rpn_cls = make_conv(feat_channels, num_anchors, 1, 1, 0, True, gen)
         self.rpn_reg = make_conv(feat_channels, num_anchors * 4, 1, 1, 0, True, gen)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         cls_out, reg_out = [], []
-        for x in feats:
-            y = F.relu(self.rpn_conv(x))
+        for y in feats:
+            for name in self.conv_names:
+                y = F.relu(getattr(self, name)(y))
             cls_out.append(self.rpn_cls(y))
             reg_out.append(self.rpn_reg(y).float())  # JAX rpn_head.py:52
         return cls_out, reg_out, None
@@ -63,7 +72,9 @@ class RPNCfg:
     smooth_l1_beta: float = 1.0 / 9.0
     loss_cls_weight: float = 1.0
     loss_bbox_weight: float = 1.0
-    loss_cls_type: str = "bce"
+    loss_cls_type: str = "bce"  # "bce" or "focal"
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
 
 
 def rpn_proposals(cfg: RPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
@@ -92,7 +103,7 @@ def rpn_targets(cfg: RPNCfg, anchors: torch.Tensor, valid: torch.Tensor,
     Only the sampled slots are scattered onto the anchor axis: the JAX
     package scatters the padding slots too, onto anchor 0, where they add
     a zero weight and set no positive."""
-    if cfg.loss_cls_type != "bce":
+    if cfg.loss_cls_type not in ("bce", "focal"):
         raise NotImplementedError(f"RPN loss_cls_type={cfg.loss_cls_type!r} is not ported")
     assign = max_iou_assign(anchors, valid, gt_bboxes, gt_mask, pos_iou_thr=cfg.pos_iou_thr,
                             neg_iou_thr=cfg.neg_iou_thr, min_pos_iou=cfg.min_pos_iou,
@@ -130,9 +141,16 @@ def rpn_loss(cfg: RPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
                    for i in range(b)]
     pos, weight, box_t = (torch.stack(x) for x in zip(*targets))
     num_total = torch.clamp(weight.sum(), min=1.0)
-    loss_cls = L.binary_cross_entropy_loss(
-        cls_logits.reshape(-1), pos.reshape(-1).float(), weight=weight.reshape(-1),
-        avg_factor=num_total) * cfg.loss_cls_weight
+    if cfg.loss_cls_type == "focal":
+        # weighted by the sampled anchors (JAX rpn_head.py:115-124)
+        loss_cls = L.sigmoid_focal_loss(
+            cls_logits.reshape(-1, 1), pos.reshape(-1, 1).float(), weight=weight.reshape(-1, 1),
+            gamma=cfg.focal_gamma, alpha=cfg.focal_alpha, avg_factor=num_total)
+    else:
+        loss_cls = L.binary_cross_entropy_loss(
+            cls_logits.reshape(-1), pos.reshape(-1).float(), weight=weight.reshape(-1),
+            avg_factor=num_total)
+    loss_cls = loss_cls * cfg.loss_cls_weight
     loss_bbox = L.smooth_l1_loss(
         bbox_preds.reshape(-1, 4), box_t.reshape(-1, 4), weight=pos.reshape(-1, 1).float(),
         beta=cfg.smooth_l1_beta, avg_factor=num_total) * cfg.loss_bbox_weight

@@ -126,7 +126,8 @@ class CascadeDetector(TwoStageDetector):
         rank each stage's candidates, instead of draws."""
         if sample is not None:
             raise NotImplementedError(_NO_SAMPLE)
-        feats, rpn_outs, losses = self._rpn_losses(batch, anchors, generator, rpn_uniforms)
+        feats, rpn_outs, losses = self._rpn_losses(batch, anchors, num_level_anchors, generator,
+                                                   rpn_uniforms)
         stages = self._train_stages(feats, rpn_outs, batch, anchors, num_level_anchors,
                                     generator, roi_uniforms)
         for stage, (s, cls_s, reg_s, _) in enumerate(stages):

@@ -162,7 +162,8 @@ class HTCDetector(CascadeDetector):
         instead of draws."""
         if sample is not None:
             raise NotImplementedError(_NO_SAMPLE)
-        feats, rpn_outs, losses = self._rpn_losses(batch, anchors, generator, rpn_uniforms)
+        feats, rpn_outs, losses = self._rpn_losses(batch, anchors, num_level_anchors, generator,
+                                                   rpn_uniforms)
         sem_feat = self._semantic(feats, batch, losses)
         with_mask = "gt_mask_crops" in batch and len(self.net.mask_heads) > 0
         gt_bboxes = self._tensor(batch["gt_bboxes"])

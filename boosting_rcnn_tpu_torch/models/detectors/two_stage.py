@@ -19,6 +19,12 @@ loss, and the positive ones through the mask branch into the mask loss.
 with its IoU branch) or ``"rpn"`` (the plain RPN head of Faster and Mask
 R-CNN, no IoU branch).
 
+``DynamicRCNNDetector`` (Dynamic R-CNN, JAX ``two_stage.py:1131-1224``)
+samples at the box head's working IoU threshold and takes its box loss at
+the working beta; after the step's optimizer update the train step calls
+``update_state``, which records the step's statistics in the head's
+buffers (every detector has the method; only this one has a state).
+
 Layouts at the public functions are the JAX package's: images
 ``(B, H, W, 3)``, pyramid levels ``(B, H, W, C)``, pooled RoI features
 ``(B, R, k, k, C)``, mask logits ``(B*R, 28, 28, K)``.  The convolutions
@@ -43,6 +49,7 @@ import torch
 from torch import nn
 
 from ...ops.anchors import AnchorGenerator
+from ...ops.box_ops import bbox_overlaps
 from ...ops.roi_align_kernel import batched_multilevel_roi_align
 from ..dense_heads.atss_rpn_head import (
     ATSSRPNCfg,
@@ -52,10 +59,11 @@ from ..dense_heads.atss_rpn_head import (
 )
 from ..dense_heads.rpn_head import RPNCfg, rpn_loss, rpn_proposals
 from ..roi_heads.mask_head import mask_loss, resample_mask_targets
-from ..roi_heads.bbox_head import BBoxHeadCfg, bbox_head_decode
+from ..roi_heads.bbox_head import BBoxHeadCfg, bbox_head_decode, bbox_targets
 from ..roi_heads.prob_roi_head import (
     ProbRoICfg,
     RoISample,
+    dynamic_rcnn_batch_stats,
     prob_fuse_scores,
     prob_roi_loss,
     sample_rois,
@@ -252,8 +260,8 @@ class TwoStageDetector:
         return self.sample_from_rpn_outs(self._rpn_flat(feats), batch, anchors,
                                          num_level_anchors, generator)
 
-    def _rpn_losses(self, batch, anchors, generator: Optional[torch.Generator] = None,
-                    rpn_uniforms=None):
+    def _rpn_losses(self, batch, anchors, num_level_anchors,
+                    generator: Optional[torch.Generator] = None, rpn_uniforms=None):
         """The features, the flat RPN outputs ``(cls, reg, iou)`` and the RPN
         losses of a batch (``loss``'s first part)."""
         gt_bboxes, gt_mask, _ = self._gt(batch)
@@ -268,7 +276,7 @@ class TwoStageDetector:
                               else self._tensor(rpn_uniforms))
         else:
             losses = atss_rpn_loss(self.rpn_cfg, cls, reg, iou, anchors, valid,
-                                   gt_bboxes, gt_mask)
+                                   gt_bboxes, gt_mask, num_level_anchors)
         return feats, (cls, reg, iou), losses
 
     def loss(self, batch, anchors, num_level_anchors,
@@ -289,8 +297,8 @@ class TwoStageDetector:
         Returns the five losses (ATSS RPN: ``loss_rpn_cls``,
         ``loss_rpn_bbox``, ``loss_rpn_iou``, ``loss_cls``, ``loss_bbox``;
         plain RPN: the first two, the R-CNN's two and ``loss_mask``)."""
-        feats, (cls, reg, iou), losses = self._rpn_losses(batch, anchors, generator,
-                                                          rpn_uniforms)
+        feats, (cls, reg, iou), losses = self._rpn_losses(batch, anchors, num_level_anchors,
+                                                          generator, rpn_uniforms)
         gt_bboxes = self._tensor(batch["gt_bboxes"])
         if sample is None:
             sample = self.sample_from_rpn_outs((cls, reg, iou), batch, anchors,
@@ -307,6 +315,11 @@ class TwoStageDetector:
                                        sample.valid.bool() & sample.is_pos.bool())
             losses["loss_mask"] = self._mask_loss(logits, batch, sample, gt_bboxes)
         return losses
+
+    def update_state(self) -> None:
+        """Carry the detector's adaptive state past a train step; the
+        train step calls it after its update.  Only Dynamic R-CNN has a
+        state."""
 
     def _mask_loss(self, logits: torch.Tensor, batch, sample: RoISample,
                    gt_bboxes: torch.Tensor) -> torch.Tensor:
@@ -405,3 +418,85 @@ class TwoStageDetector:
         ]
         dets, labels, valid = (torch.stack(x) for x in zip(*outs))
         return dets, labels, valid
+
+
+_DYN_NO_SAMPLE = ("Dynamic R-CNN samples at the working IoU threshold of its state inside its "
+                  "loss: it takes no external RoISample (the JAX package's raises too)")
+
+
+class DynamicRCNNDetector(TwoStageDetector):
+    """Dynamic R-CNN (reference ``roi_heads/dynamic_roi_head.py``,
+    ``configs/dynamic_rcnn``): a two-stage detector whose RoI assigner IoU
+    threshold and smooth-L1 beta adapt to the training statistics, held in
+    the box head's buffers (``ConvFCBBoxHead(dynamic=True)``).
+
+    ``loss`` samples the train proposals with all three assigner
+    thresholds at the state's ``dyn_iou_thr`` and takes the box loss at
+    its ``dyn_beta``, both as they stood at the start of the step, and
+    keeps the step's statistics (``dynamic_rcnn_batch_stats``: the IoU
+    one over *all* the proposals' max IoUs, not only the sampled ones; a
+    beta statistic below 1e-15 counts as none); ``update_state`` then
+    records them (``update_dynamic``), without gradient.  A ``loss`` call
+    alone leaves the state as it was.  There is no external ``RoISample``
+    (``train_sample`` and ``loss(sample=)`` raise): the sampler reads the
+    state."""
+
+    def __init__(self, *args, dyn_iou_topk: int = 75, dyn_beta_topk: int = 10, **kwargs):
+        super().__init__(*args, **kwargs)
+        if not getattr(self.net.bbox_head, "dynamic", False):
+            raise ValueError("Dynamic R-CNN needs a box head with the dynamic state")
+        self.dyn_iou_topk = dyn_iou_topk
+        self.dyn_beta_topk = dyn_beta_topk
+        self._dyn_stats = None
+
+    def train_sample(self, *args, **kwargs):
+        raise NotImplementedError(_DYN_NO_SAMPLE)
+
+    def loss(self, batch, anchors, num_level_anchors,
+             generator: Optional[torch.Generator] = None,
+             sample: Optional[RoISample] = None,
+             rpn_uniforms=None, roi_uniforms=None) -> Dict[str, torch.Tensor]:
+        """``TwoStageDetector.loss`` (no mask branch) at the working
+        threshold and beta; ``roi_uniforms`` ``(B, 2, G + P)`` rank the RoI
+        sampler's candidates (the gt boxes, then the ``P`` train proposals)
+        instead of draws."""
+        if sample is not None:
+            raise NotImplementedError(_DYN_NO_SAMPLE)
+        feats, rpn_outs, losses = self._rpn_losses(batch, anchors, num_level_anchors,
+                                                   generator, rpn_uniforms)
+        head = self.net.bbox_head
+        iou_thr, beta = head.dyn_iou_thr.clone(), head.dyn_beta.clone()
+        with torch.no_grad():
+            cls, reg, iou = (None if x is None else x.detach() for x in rpn_outs)
+            boxes, scores, valid = self._proposals(cls, reg, iou, anchors, num_level_anchors,
+                                                   batch["img_shape"], self.train_proposal_cfg)
+            roi_cfg = dataclasses.replace(self.roi_cfg, pos_iou_thr=iou_thr,
+                                          neg_iou_thr=iou_thr, min_pos_iou=iou_thr)
+            sample = self._vmap_sample(boxes, scores, valid, batch, generator, roi_cfg,
+                                       roi_uniforms)
+            gt_bboxes, gt_mask, _ = self._gt(batch)
+            overlaps = torch.where(gt_mask[:, None, :], bbox_overlaps(boxes, gt_bboxes),
+                                   boxes.new_zeros(()))
+            max_overlaps = torch.where(valid, overlaps.max(-1).values, boxes.new_zeros(()))
+        cls_s, reg_s = self.net.roi_out(feats, sample.boxes, sample.valid)
+        flat = RoISample(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in sample))
+        losses.update(prob_roi_loss(self.roi_cfg, self.bbox_cfg, cls_s, reg_s, flat,
+                                    beta_override=beta))
+        with torch.no_grad():
+            labels = torch.where(flat.is_pos, flat.matched_label,
+                                 torch.full_like(flat.matched_label, self.bbox_cfg.num_classes))
+            _, _, targets, _ = bbox_targets(self.bbox_cfg, flat.boxes, flat.is_pos, flat.valid,
+                                            flat.matched_gt, labels)
+            batch_iou, batch_beta = dynamic_rcnn_batch_stats(
+                max_overlaps, valid, targets, flat.is_pos & flat.valid,
+                iou_topk=self.dyn_iou_topk, beta_topk=self.dyn_beta_topk)
+            batch_beta = torch.where(batch_beta < 1e-15, batch_beta.new_full((), torch.nan),
+                                     batch_beta)
+        self._dyn_stats = (batch_iou, batch_beta)
+        return losses
+
+    def update_state(self) -> None:
+        """Record the last ``loss``'s statistics in the head's state."""
+        if self._dyn_stats is not None:
+            self.net.bbox_head.update_dynamic(*self._dyn_stats)
+            self._dyn_stats = None

@@ -14,6 +14,15 @@ The head computes in the compute dtype of its ``Linear`` layers, and cls
 and reg come out in it (JAX ``roi_heads/bbox_head.py:143-157``); the
 losses compute in the predictions' dtype until a float32 weight promotes
 them.
+
+Dynamic R-CNN (``dynamic=True``): the head carries the working assigner
+IoU threshold and smooth-L1 beta as float32 buffers, ``dyn_iou_thr`` and
+``dyn_beta``, with a ring of the last ``dyn_interval`` batch statistics
+(``dyn_iou_hist``, ``dyn_beta_hist``) and the count of steps recorded
+(``dyn_count``, int32), as the JAX head's ``batch_stats``; they live in
+the ``state_dict``, so a checkpoint carries them.  ``update_dynamic``
+replays the reference's ``update_hyperparameters`` (JAX
+``bbox_head.py:60-95``).
 """
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ class ConvFCBBoxHead(nn.Module):
 
     def __init__(self, gen: torch.Generator, num_classes: int, in_channels: int = 256,
                  num_shared_fcs: int = 2, fc_out_channels: int = 1024,
-                 roi_feat_size: int = 7, reg_class_agnostic: bool = False):
+                 roi_feat_size: int = 7, reg_class_agnostic: bool = False,
+                 dynamic: bool = False, dyn_initial_iou: float = 0.4,
+                 dyn_initial_beta: float = 1.0, dyn_interval: int = 100):
         super().__init__()
         self.num_shared_fcs = num_shared_fcs
         cin = in_channels * roi_feat_size * roi_feat_size
@@ -45,6 +56,39 @@ class ConvFCBBoxHead(nn.Module):
             cin = fc_out_channels
         self.fc_cls = make_linear(cin, num_classes + 1, gen)
         self.fc_reg = make_linear(cin, 4 if reg_class_agnostic else 4 * num_classes, gen)
+        self.dynamic = dynamic
+        if dynamic:
+            self.dyn_initial_iou, self.dyn_initial_beta = dyn_initial_iou, dyn_initial_beta
+            self.register_buffer("dyn_iou_thr", torch.tensor(dyn_initial_iou))
+            self.register_buffer("dyn_beta", torch.tensor(dyn_initial_beta))
+            self.register_buffer("dyn_iou_hist", torch.zeros(dyn_interval))
+            self.register_buffer("dyn_beta_hist", torch.zeros(dyn_interval))
+            self.register_buffer("dyn_count", torch.tensor(0, dtype=torch.int32))
+
+    @torch.no_grad()
+    def update_dynamic(self, batch_iou: torch.Tensor, batch_beta: torch.Tensor):
+        """Record a step's statistics in the ring and, at every
+        ``dyn_interval``-th step, set ``iou_thr = max(initial_iou,
+        mean(iou_hist))`` and ``beta = min(initial_beta, median(beta_hist))``
+        (beta kept where the median is below 1e-15; the median of an even
+        count the mean of the two middle values, as ``jnp.median``).  A NaN
+        statistic is recorded as the current working value.  Stays on the
+        device: no value is read to the host."""
+        iou, beta = self.dyn_iou_thr, self.dyn_beta
+        batch_iou = torch.where(torch.isnan(batch_iou), iou, batch_iou.float())
+        batch_beta = torch.where(torch.isnan(batch_beta), beta, batch_beta.float())
+        k = self.dyn_iou_hist.shape[0]
+        idx = (self.dyn_count.long() % k).reshape(1)
+        self.dyn_iou_hist.index_copy_(0, idx, batch_iou.reshape(1))
+        self.dyn_beta_hist.index_copy_(0, idx, batch_beta.reshape(1))
+        self.dyn_count += 1
+        boundary = self.dyn_count % k == 0
+        cand_iou = torch.clamp(self.dyn_iou_hist.mean(), min=self.dyn_initial_iou)
+        ordered = self.dyn_beta_hist.sort().values
+        med = (ordered[(k - 1) // 2] + ordered[k // 2]) * 0.5
+        cand_beta = torch.where(med < 1e-15, beta, torch.clamp(med, max=self.dyn_initial_beta))
+        self.dyn_iou_thr.copy_(torch.where(boundary, cand_iou, iou))
+        self.dyn_beta.copy_(torch.where(boundary, cand_beta, beta))
 
     def forward(self, x: torch.Tensor):
         x = x.reshape(x.shape[0], -1)
@@ -97,12 +141,14 @@ def bbox_targets(cfg: BBoxHeadCfg, sampled_boxes: torch.Tensor, is_pos: torch.Te
 def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.Tensor,
                    rois: torch.Tensor, labels: torch.Tensor, label_weights: torch.Tensor,
                    bbox_t: torch.Tensor, bbox_w: torch.Tensor,
-                   reduction_override: Optional[str] = None):
+                   reduction_override: Optional[str] = None,
+                   beta_override: Optional[torch.Tensor] = None):
     """The head loss on ``(R, K+1)`` logits and ``(R, 4K)`` deltas (``(R,
     4)`` class-agnostic).  With ``reduction_override='none'`` the
     elementwise losses come back, for the boosting renormalisation; else
     cls is averaged over the weighted slots and the box loss over all
-    ``R``."""
+    ``R``.  ``beta_override``, a float32 scalar tensor (Dynamic R-CNN's
+    working beta), replaces the smooth-L1 beta."""
     _check_train_cfg(cfg)
     r = cls_score.shape[0]
     c = cfg.num_classes
@@ -117,7 +163,7 @@ def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.T
         pred4 = (bbox_pred.reshape(r, c, 4) * onehot[:, :, None]).sum(1)
     d = (pred4 - bbox_t).abs()
     if cfg.loss_bbox_type == "smooth_l1":
-        b = cfg.smooth_l1_beta
+        b = cfg.smooth_l1_beta if beta_override is None else beta_override
         d = torch.where(d < b, 0.5 * d * d / b, d - 0.5 * b)
     elem = d * bbox_w * pos.float()[:, None] * cfg.loss_bbox_weight
     ce = L.cross_entropy_loss(cls_score, labels, reduction="none")

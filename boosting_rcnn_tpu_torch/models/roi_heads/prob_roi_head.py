@@ -15,7 +15,19 @@ averages over the valid slots; the box loss is summed and averaged over
 the valid slots too, or with ``reg_norm='mean'`` divided by four times the
 positives (at least one).  The builder rejects what is not ported: the
 ``quality``, ISR and CARL variants, ``alpha`` and sampling without the gt
-boxes.
+boxes.  ``BoostRoIHead`` is this head with prior fusion and, unless its
+config says ``boost``, no boosting loss, as the JAX builder reads it.
+
+Dynamic R-CNN (JAX ``prob_roi_head.py:344-439``): its detector samples
+with a ``ProbRoICfg`` whose three assigner thresholds are the working IoU
+threshold, a scalar tensor (JAX ``sample_rois_dynamic``);
+``prob_roi_loss(..., beta_override=)`` takes the working smooth-L1 beta,
+and ``dynamic_rcnn_batch_stats`` gives a step's two statistics, which
+``ConvFCBBoxHead.update_dynamic`` records.
+
+``sample_rois_boost`` and ``boost_fuse_scores`` are the reference
+``BoostRoIHead``'s multi-class priors (JAX ``prob_roi_head.py:157-212``),
+plain functions: no JAX detector path calls them either.
 """
 from __future__ import annotations
 
@@ -121,6 +133,60 @@ def sample_rois(
                      gt_bboxes[safe_gt], matched_label, safe_gt, res.inds, is_gt)
 
 
+def dynamic_rcnn_batch_stats(max_overlaps: torch.Tensor, prop_valid: torch.Tensor,
+                             bbox_targets: torch.Tensor, pos_valid: torch.Tensor,
+                             iou_topk: int = 75, beta_topk: int = 10):
+    """Dynamic R-CNN's statistics of a step (JAX
+    ``dynamic_rcnn_batch_stats``): the IoU statistic, per image the
+    ``iou_topk``-th largest assigner max IoU over all its valid proposals
+    (``max_overlaps``, ``prop_valid`` ``(B, P)``; invalid ones count as
+    -1), meaned over the batch; the beta statistic, the ``min(beta_topk *
+    B, num_pos)``-th smallest ``mean(|dx|, |dy|)`` of the positives'
+    encoded targets (``bbox_targets`` ``(R, 4)``, ``pos_valid`` ``(R,)``),
+    NaN without a positive.  Both float32 scalar tensors, on the device."""
+    b, p = max_overlaps.shape
+    masked = torch.where(prop_valid, max_overlaps, max_overlaps.new_full((), -1.0))
+    batch_iou = masked.topk(min(iou_topk, p), dim=1).values[:, -1].mean()
+    mean_xy = bbox_targets[:, :2].abs().mean(-1)
+    r = mean_xy.shape[0]
+    num_pos = pos_valid.sum()
+    vals = torch.where(pos_valid, mean_xy, mean_xy.new_full((), torch.inf)).sort().values
+    kb = torch.clamp(torch.clamp(num_pos, max=min(beta_topk * b, r)), 1, r)
+    kth = vals.index_select(0, (kb - 1).reshape(1))[0]  # no read to the host
+    batch_beta = torch.where(num_pos > 0, kth, vals.new_full((), torch.nan))
+    return batch_iou, batch_beta
+
+
+def sample_rois_boost(cfg: ProbRoICfg, proposals: torch.Tensor, prop_cls_scores: torch.Tensor,
+                      prop_valid: torch.Tensor, gt_bboxes: torch.Tensor, gt_mask: torch.Tensor,
+                      gt_labels: torch.Tensor, **kw) -> RoISample:
+    """``BoostRoIHead``'s sampling with multi-class priors (JAX
+    ``sample_rois_boost``): ``prop_cls_scores`` ``(P, C)``, the
+    proposals' per-class scores; the slots are sampled as ``sample_rois``
+    samples them ranked by each proposal's largest score, and each takes
+    the prior of its label: a positive its proposal's score at the matched
+    gt's label, a negative its largest score, a gt-added box 0.  ``kw`` as
+    ``sample_rois``'s."""
+    g, c = gt_bboxes.shape[0], prop_cls_scores.shape[1]
+    base = sample_rois(cfg, proposals, prop_cls_scores.max(1).values, prop_valid, gt_bboxes,
+                       gt_mask, gt_labels, **kw)
+    rows = torch.cat([prop_cls_scores.new_zeros((g, c)), prop_cls_scores])[base.cand_idx]
+    safe_lab = torch.clamp(base.matched_label, 0, c - 1)
+    pos_prior = torch.gather(rows, 1, safe_lab[:, None])[:, 0]
+    prior = torch.where(base.is_pos, pos_prior, rows.max(1).values)
+    prior = torch.where(base.is_gt | ~base.valid, torch.zeros_like(prior), prior)
+    return base._replace(prior=prior.detach())
+
+
+def boost_fuse_scores(cls_score: torch.Tensor, prior_cls: torch.Tensor) -> torch.Tensor:
+    """``BoostRoIHead``'s test fusion (JAX ``boost_fuse_scores``):
+    ``sqrt(softmax(cls) * prior)`` elementwise over ``(R, K+1)`` logits and
+    the multi-class prior ``(R, K)`` with a background column of ones."""
+    p = torch.softmax(cls_score.float(), dim=-1)
+    prior = torch.cat([prior_cls.to(p.dtype), p.new_ones((prior_cls.shape[0], 1))], dim=1)
+    return torch.sqrt(torch.clamp(p * prior, min=0.0))
+
+
 def norm_loss(loss: torch.Tensor, weights: torch.Tensor, avg_factor) -> torch.Tensor:
     """Boosting renormalisation (reference ``norm_loss:151``): rescale the
     weights so that the weighted loss sums to the unweighted sum, with the
@@ -131,18 +197,21 @@ def norm_loss(loss: torch.Tensor, weights: torch.Tensor, avg_factor) -> torch.Te
 
 
 def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tensor,
-                  bbox_pred: torch.Tensor, sample: RoISample):
+                  bbox_pred: torch.Tensor, sample: RoISample,
+                  beta_override: Optional[torch.Tensor] = None):
     """Boosting-reweighted R-CNN loss on a flattened ``(B*R, ...)`` sample
     (``_bbox_forward_train_boost:107``).  The cross entropy is averaged over
     the valid slots, not over the slot count; the box loss too, or with
     ``reg_norm='mean'`` over four times the positives (JAX
-    ``prob_roi_head.py:308-311``)."""
+    ``prob_roi_head.py:308-311``).  ``beta_override`` goes to
+    ``bbox_head_loss`` (Dynamic R-CNN's working beta)."""
     labels, label_w, bbox_t, bbox_w = bbox_targets(
         head_cfg, sample.boxes, sample.is_pos, sample.valid, sample.matched_gt,
         torch.where(sample.is_pos, sample.matched_label,
                     torch.full_like(sample.matched_label, head_cfg.num_classes)))
     raw = bbox_head_loss(head_cfg, cls_score, bbox_pred, sample.boxes, labels, label_w,
-                         bbox_t, bbox_w, reduction_override="none")
+                         bbox_t, bbox_w, reduction_override="none",
+                         beta_override=beta_override)
     validf = sample.valid.float()
     n_valid = torch.clamp(validf.sum(), min=1.0)
     if cfg.boost:

@@ -72,15 +72,25 @@ def bbox_overlaps(
 
 
 def bbox_overlaps_aligned(boxes1: torch.Tensor, boxes2: torch.Tensor,
-                          eps: float = 1e-6) -> torch.Tensor:
-    """Element-wise IoU of two equally shaped ``(..., 4)`` box tensors ->
-    ``(...)``, the union floored at ``eps``."""
+                          eps: float = 1e-6, mode: str = "iou") -> torch.Tensor:
+    """Element-wise IoU (``mode="iou"``) or GIoU (``"giou"``) of two equally
+    shaped ``(..., 4)`` box tensors -> ``(...)``, the union and the
+    enclosing box's area floored at ``eps``."""
+    if mode not in ("iou", "giou"):
+        raise ValueError(f"unknown overlap mode {mode!r}")
     lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
     rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     overlap = wh[..., 0] * wh[..., 1]
-    union = bbox_area(boxes1) + bbox_area(boxes2) - overlap
-    return overlap / torch.clamp(union, min=eps)
+    union = torch.clamp(bbox_area(boxes1) + bbox_area(boxes2) - overlap, min=eps)
+    ious = overlap / union
+    if mode == "iou":
+        return ious
+    enc_lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    enc_rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    enc_wh = torch.clamp(enc_rb - enc_lt, min=0.0)
+    enc_area = torch.clamp(enc_wh[..., 0] * enc_wh[..., 1], min=eps)
+    return ious - (enc_area - union) / enc_area
 
 
 def bbox_center_wh(boxes: torch.Tensor):

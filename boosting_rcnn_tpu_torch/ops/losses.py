@@ -1,8 +1,8 @@
 """The losses of the flagship, in the mmdet reduction protocol (PyTorch port).
 
 Counterpart of ``boosting_rcnn_tpu/ops/losses.py``, only what the ported
-models call: sigmoid focal loss (RPN objectness), IoU loss, CIoU loss and
-MSE (RPN boxes), binary cross entropy on logits (the ATSS RPN's IoU branch, the
+models call: sigmoid focal loss (RPN objectness), IoU, GIoU and CIoU losses
+and MSE (RPN boxes), binary cross entropy on logits (the ATSS RPN's IoU branch, the
 plain RPN's objectness, the mask head), smooth L1 (the plain RPN's boxes),
 softmax cross entropy and L1 (R-CNN head).  Every loss goes through ``weight_reduce_loss``:
 elementwise loss times an optional weight, then ``mean`` / ``sum`` /
@@ -29,6 +29,7 @@ __all__ = [
     "smooth_l1_loss",
     "mse_loss",
     "iou_loss",
+    "giou_loss",
     "ciou_loss",
 ]
 
@@ -142,6 +143,15 @@ def iou_loss(pred, target, weight=None, eps=1e-6, reduction="mean", avg_factor=N
     """``-log(max(iou, eps))`` of aligned ``(N, 4)`` boxes; ``(N, 4)``
     weights are averaged over the last axis, as mmdet does."""
     loss = -torch.log(torch.clamp(bbox_overlaps_aligned(pred, target, eps=eps), min=eps))
+    if weight is not None and weight.ndim == loss.ndim + 1:
+        weight = weight.mean(dim=-1)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def giou_loss(pred, target, weight=None, eps=1e-7, reduction="mean", avg_factor=None):
+    """``1 - giou`` of aligned ``(N, 4)`` boxes (JAX ``giou_loss``, eps
+    1e-7); ``(N, 4)`` weights are averaged over the last axis."""
+    loss = 1.0 - bbox_overlaps_aligned(pred, target, eps=eps, mode="giou")
     if weight is not None and weight.ndim == loss.ndim + 1:
         weight = weight.mean(dim=-1)
     return weight_reduce_loss(loss, weight, reduction, avg_factor)

@@ -20,7 +20,10 @@ module names, so the mapping is by rule:
     both packages flatten the pooled (7, 7, C) features in HWC order;
   * norm ``scale`` -> ``weight``; a scalar ``scale`` (the per-level RPN
     ``Scale``) stays ``scale``; ``mean`` / ``var`` -> ``running_mean`` /
-    ``running_var``.
+    ``running_var``; Dynamic R-CNN's state in the box head's
+    ``batch_stats`` (``dyn_iou_thr``, ``dyn_beta``, ``dyn_iou_hist``,
+    ``dyn_beta_hist``, and ``dyn_count``, which stays an integer) keeps
+    its names, as the head's buffers.
 
 The same rules carry the rest of the Boosting R-CNN family: ResNeXt's
 grouped 3x3 kernels (HWIO with I = Cin / groups, to OIHW), Res2Net's
@@ -110,7 +113,8 @@ def from_jax_params(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     state = {}
     for coll in ("params", "batch_stats"):
         for path, value in _leaves(collections.get(coll, {})):
-            key, tensor = _convert(path, value.astype(np.float32))
+            integer = np.issubdtype(value.dtype, np.integer)
+            key, tensor = _convert(path, value.astype(value.dtype if integer else np.float32))
             state[key] = tensor
     return state
 
@@ -177,6 +181,7 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
       neck.{lateral,fpn,downsample,pafpn}_convs.N.conv -> neck.{lateral_N,fpn_conv_N,...}.conv
       rpn_head.rpn_convs.N.{conv,gn}          -> rpn.rpn_conv_N.{conv,norm}
       rpn_head.rpn_conv (plain RPN)           -> rpn.rpn_conv
+      rpn_head.rpn_conv.N.conv (stacked RPN)  -> rpn.rpn_conv (N = 0), rpn.rpn_conv_N
       rpn_head.{rpn_cls,rpn_reg,rpn_iou}      -> rpn.{rpn_cls,rpn_reg,rpn_iou}
       rpn_head.scales.N.scale                 -> rpn.scale_N.scale (a scalar)
       roi_head.bbox_head.shared_fcs.N         -> bbox_head.shared_fc_N (N = 0 reordered)
@@ -209,6 +214,8 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
          lambda m: f"rpn.rpn_conv_{m[1]}.{'conv' if m[2] == 'conv' else 'norm'}.{m[3]}"),
         (r"rpn_head\.(rpn_conv|rpn_cls|rpn_reg|rpn_iou)\.(weight|bias)",
          lambda m: f"rpn.{m[1]}.{m[2]}"),
+        (r"rpn_head\.rpn_conv\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"rpn.rpn_conv{'_' + m[1] if int(m[1]) else ''}.{m[2]}"),
         (r"rpn_head\.scales\.(\d+)\.scale", lambda m: f"rpn.scale_{m[1]}.scale"),
         (r"roi_head\.bbox_head\.shared_fcs\.(\d+)\.(weight|bias)",
          lambda m: f"bbox_head.shared_fc_{m[1]}.{m[2]}"),

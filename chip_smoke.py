@@ -1,6 +1,7 @@
 """Drive the PyTorch port's flagship, Mask R-CNN, Boosting R-CNN family,
-Cascade R-CNN and Cascade Mask R-CNN / HTC inference and training, and
-its entry points with boxes, instance masks and stuff maps, on one NVIDIA
+Cascade R-CNN, Cascade Mask R-CNN / HTC and the fork's remaining heads
+(the ensemble configs, Dynamic R-CNN) inference and training, and its
+entry points with boxes, instance masks and stuff maps, on one NVIDIA
 GPU.
 
     python3 chip_smoke.py
@@ -161,6 +162,31 @@ takes a train step on the GPU as on the CPU in both dtypes (its stages'
 and mask branches' samplers fed the same numpy uniforms) and joins the
 repeatability check.  Each phase prints its wall time.
 
+Then the phase "fork heads", with seeded random weights and nothing cut
+(each path with the counts set to 0 before and read after, exact):
+Dynamic R-CNN R50-FPN (``configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py``,
+4 classes, its state in the box head) in float32 and bfloat16, three
+requests of two 800 x 1344 images (K1 once a request) and three train
+steps at batch 2 (K1, the tile keys and K4 once a step), then its state:
+three ring slots finite, the IoU threshold and beta still 0.4 and 1.0 (no
+boundary of the config's 100-step ring); ``configs/ensemble/
+cascade_atss_r50_fpn_1x_coco.py`` (ATSS assignment in the RPN over the
+201,600 anchors of the canvas, GIoU, three ProbCascade stages) in both
+dtypes, one request and one step (K1 and K4 three times each), the ATSS
+``gt_inds`` of the step's gts equal on the card and on the CPU; both held
+to the plain K1 and K4 at their last stage's predict RoIs; and in
+bfloat16 one request and one step of ``cascade_atss_s2``,
+``cascade_retinanet`` (four stacked RPN convs, focal objectness),
+``cascade_retinanet_s2`` and ``ensemble/boosting_rcnn`` (``BoostRoIHead``
+on the focal RPN).  It prints each one's times and peaks beside the
+card's name and power limit.  The tiny Dynamic R-CNN (a ring of 2 steps)
+and ``cascade_atss`` predict on the GPU as on the CPU; ``cascade_atss``'s
+ATSS ``gt_inds`` are equal on both and its float32 step holds
+``f32_step_rule``; the tiny Dynamic R-CNN's four float32 steps each hold
+it from the CPU's parameters, its state after each within 1e-6 plus rtol
+1e-4 of the CPU's, ``dyn_count`` equal; both join the repeatability
+check, which compares every buffer (the state) too.
+
 Every tiny float32 GPU step is held by a rule set from readings over
 seeds 7-16 (``f32_step_rule``: the losses within rtol 1e-4, the gradient
 norm within ``F32_GRAD_NORM_RTOL``, each tensor within ``F32_TENSOR_TOL``
@@ -217,15 +243,16 @@ K4 at 7 and 14 once a step, to bbox and segm mAP at least 0.8.  It prints the lo
 wait share, images/s, peaks and the mAPs.
 
 In the whole run the order is: the flagship and Mask R-CNN, the boosting
-family, "cascade" and "htc" at full width; then the two host-bound
-bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
+family, "cascade", "htc" and "fork heads" at full width; then the two
+host-bound bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
 in child processes on the same card (``--e2e-child``, each with its own
 launch counts, read and checked in the child, on 2 PyTorch threads), and
 the parent meanwhile runs, on the host's other threads, the entry points
 and "mask entry" at full width (their images/s and wait shares are taken
 beside the children), the float32 e2e and every tiny-model check (GPU
-against CPU, the step rules' teeth, C.2; the ProbCascade's and HTC's
-too), none of which is timed, then waits for the children.
+against CPU, the step rules' teeth, C.2; the ProbCascade's, HTC's and
+the fork heads' too), none of which is timed, then waits for the
+children.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises and the exit
@@ -235,9 +262,10 @@ only prints the tiny models' GPU-against-CPU train steps over ten seeds
 (``step_readings``), the readings behind the two step rules, with the
 float32 edge reports, and the rules on deliberately wrong steps
 (``--step-readings f32 htc`` picks a dtype and models); ``--cascade``,
-``--htc`` and ``--mask-entry`` run only the phase "cascade", "htc" or
-"mask entry" (the last with 12 full-width steps a model and nothing beside
-them, then its e2e in the child process).
+``--htc``, ``--fork-heads`` and ``--mask-entry`` run only the phase
+"cascade", "htc", "fork heads" or "mask entry" (the last with 12
+full-width steps a model and nothing beside them, then its e2e in the
+child process).
 """
 from __future__ import annotations
 
@@ -270,6 +298,7 @@ from boosting_rcnn_tpu_torch.engine.checkpoint import restore_checkpoint  # noqa
 from boosting_rcnn_tpu_torch.engine.runner import build_trainer, shrink_model  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors import two_stage  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
+from boosting_rcnn_tpu_torch.models.detectors.two_stage import DynamicRCNNDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.layers import DeformConv  # noqa: E402
 from boosting_rcnn_tpu_torch.models.roi_heads.cascade_roi_head import (  # noqa: E402
     refine_boxes,
@@ -286,6 +315,7 @@ from boosting_rcnn_tpu_torch.engine.train import (  # noqa: E402
 from boosting_rcnn_tpu_torch.tools.test import main as test_cli  # noqa: E402
 from boosting_rcnn_tpu_torch.tools.train import main as train_cli  # noqa: E402
 from boosting_rcnn_tpu_torch.ops import roi_align  # noqa: E402
+from boosting_rcnn_tpu_torch.ops.assigners import atss_assign  # noqa: E402
 from boosting_rcnn_tpu_torch.ops.roi_align_kernel import (  # noqa: E402
     batched_multilevel_roi_align,
     multilevel_roi_align,
@@ -721,12 +751,23 @@ def is_cascade(mc) -> bool:
     return mc["type"] in ("CascadeRCNN", "HybridTaskCascade")
 
 
+def is_dynamic(mc) -> bool:
+    return mc["roi_head"]["type"] == "DynamicRoIHead"
+
+
+def samples_in_loss(mc) -> bool:
+    """A cascade samples its stages inside its loss, Dynamic R-CNN at its
+    state's threshold: neither takes an external ``RoISample``."""
+    return is_cascade(mc) or is_dynamic(mc)
+
+
 def tiny_train_inputs(seed: int, mc, anchors):
     """The tiny models' train batch (with gt mask crops for a mask head) and
     the step's keyword arguments, made with numpy so that every device and
     run samples alike: for the plain RPN its anchor sampler's uniforms, for
     a cascade each stage's RoI sampler's (over the gt boxes and the train
-    proposals, then the gt boxes and the slots sampled before)."""
+    proposals, then the gt boxes and the slots sampled before), for Dynamic
+    R-CNN its RoI sampler's (over the gt boxes and the train proposals)."""
     masks = bool(mc["roi_head"].get("mask_head"))
     batch = (mask_train_batch if masks else train_batch)(
         seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0), **(
@@ -748,6 +789,10 @@ def tiny_train_inputs(seed: int, mc, anchors):
         if mc["type"] == "HybridTaskCascade":  # its mask branch samples each stage again
             kw["mask_uniforms"] = [rs.rand(2, 2, slots).astype(np.float32)
                                    for _ in range(stages)]
+    if is_dynamic(mc):
+        g = batch["gt_bboxes"].shape[1]
+        kw["roi_uniforms"] = rs.rand(
+            2, 2, g + mc["train_cfg"]["rpn_proposal"]["max_per_img"]).astype(np.float32)
     return batch, kw
 
 
@@ -853,7 +898,7 @@ def step_report(seed: int, dtype, config) -> dict:
     dets = {k: build(mc, device=d, seed=seed, dtype=t) for k, (d, t) in devices.items()}
     anchors, nla = dets["cpu"].anchors_for((128, 160))
     batch, kw = tiny_train_inputs(seed, mc, anchors)
-    sample = None if is_cascade(mc) else dets["cpu"].train_sample(
+    sample = None if samples_in_loss(mc) else dets["cpu"].train_sample(
         batch, anchors, nla, generator=torch.Generator().manual_seed(seed))
     p0 = {k: v.detach().clone() for k, v in dets["cpu"].net.named_parameters()}
     metrics, params = {}, {}
@@ -1268,15 +1313,16 @@ def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool 
                     config=tiny_config):
     """Two tiny train steps (of the model of ``config``) on the GPU from one
     saved state, on the same batch, ``RoISample`` and RPN draws: whether
-    the metrics, every gradient and every parameter are bit-identical, and
-    how many tensors differ.  With ``flagged`` the steps run under
+    the metrics, every gradient, every parameter and every buffer (Dynamic
+    R-CNN's state among them) are bit-identical, and how many tensors
+    differ.  With ``flagged`` the steps run under
     ``torch.use_deterministic_algorithms``, which raises on an op that has
     no deterministic form."""
     mc = config()
     det = build(mc, device="cuda", seed=seed, dtype=dtype)
     anchors, nla = det.anchors_for((128, 160))
     batch, kw = tiny_train_inputs(seed, mc, anchors)
-    sample = None if is_cascade(mc) else det.train_sample(
+    sample = None if samples_in_loss(mc) else det.train_sample(
         batch, anchors, nla, generator=torch.Generator(device="cuda").manual_seed(seed))
     state = {k: v.clone() for k, v in det.net.state_dict().items()}
     runs = []
@@ -1291,7 +1337,8 @@ def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool 
                          **{f"grad {k}": p.grad.clone() for k, p in det.net.named_parameters()
                             if p.grad is not None},
                          **{f"param {k}": p.detach().clone()
-                            for k, p in det.net.named_parameters()}})
+                            for k, p in det.net.named_parameters()},
+                         **{f"buffer {k}": b.clone() for k, b in det.net.named_buffers()}})
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1364,8 +1411,8 @@ def train_setup(det, anchors, nla, config: str = CONFIG, tb=None):
     if tb is None:
         tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
     tb = {k: torch.as_tensor(v).cuda() for k, v in tb.items()}
-    sample0 = None if isinstance(det, CascadeDetector) else det.train_sample(
-        tb, anchors, nla, generator=torch.Generator(device="cuda").manual_seed(5))
+    sample0 = None if isinstance(det, (CascadeDetector, DynamicRCNNDetector)) else (
+        det.train_sample(tb, anchors, nla, generator=torch.Generator(device="cuda").manual_seed(5)))
     return step, tb, sample0
 
 
@@ -2305,7 +2352,7 @@ def c2_check(name: str, config, dtype, unpinned: bool = False) -> dict:
     if not flagged:
         raise AssertionError(f"C.2 {tag}: steps under use_deterministic_algorithms differ "
                              f"in {differ[:6]}")
-    say(f"C.2 {tag}: with the pin, the losses, every gradient and every parameter of two "
+    say(f"C.2 {tag}: with the pin, the losses, every gradient, parameter and buffer of two "
         f"steps are bit-identical; under torch.use_deterministic_algorithms(True) no op "
         f"raised and the steps are bit-identical")
     return {tag: out}
@@ -2823,6 +2870,281 @@ def htc_tiny() -> dict:
     out = {"tiny": tiny, "repeat": {}}
     for dtype in (torch.float32, BF16):
         out["repeat"].update(c2_check("htc", tiny_htc_config, dtype))
+    return out
+
+
+# --------------------------------------------------------------- fork heads
+DYNAMIC_CONFIG = os.path.join(REPO, "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py")
+ATSS_CONFIG = os.path.join(REPO, "configs/ensemble/cascade_atss_r50_fpn_1x_coco.py")
+# the fork's other ensemble configs, each one predict and one step in bfloat16
+FORK_BF16 = tuple(os.path.join(REPO, "configs", n) for n in (
+    "ensemble/cascade_atss_s2_r50_fpn_1x_coco.py", "ensemble/cascade_retinanet_r50_fpn_1x_coco.py",
+    "ensemble/cascade_retinanet_s2_r50_fpn_1x_coco.py",
+    "ensemble/boosting_rcnn_r50_fpn_1x_coco.py"))
+DYNAMIC_STEPS = 3  # the config as it is: no boundary of its 100-step ring
+DYN_STATE = ("dyn_iou_thr", "dyn_beta", "dyn_iou_hist", "dyn_beta_hist", "dyn_count")
+TINY_DYN_STEPS = 4
+TINY_DYN_INITIAL_IOU = 0.3  # the tiny model's proposals reach IoU 0.25-0.55 (tests)
+
+
+def stage_count(det) -> int:
+    return det.cascade_cfg.num_stages if isinstance(det, CascadeDetector) else 1
+
+
+def atss_devices_agree(det_gpu, batch, anchors, nla) -> int:
+    """ATSS assignment of ``batch``'s gts over ``anchors`` (each level's
+    count ``nla``) on the card and on the CPU: ``gt_inds`` equal image by
+    image (ties in the levels' distances broken alike).  Returns the
+    positives."""
+    cfg = det_gpu.rpn_cfg
+    pos = 0
+    for i in range(len(batch["gt_bboxes"])):
+        gi = {}
+        for d in ("cpu", "cuda"):
+            a = torch.as_tensor(anchors, device=d)
+            gi[d] = atss_assign(a, torch.ones_like(a[:, 0], dtype=torch.bool), nla,
+                                torch.as_tensor(batch["gt_bboxes"][i], device=d),
+                                torch.as_tensor(batch["gt_mask"][i], device=d),
+                                topk=cfg.atss_topk).gt_inds.cpu()
+        if not torch.equal(gi["cpu"], gi["cuda"]):
+            raise AssertionError(f"ATSS gt_inds differ between the card and the CPU at "
+                                 f"{int((gi['cpu'] != gi['cuda']).sum())} anchors (image {i})")
+        pos += int((gi["cpu"] > 0).sum())
+    return pos
+
+
+def run_fork(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
+             check: bool = False) -> dict:
+    """The config at ``path`` at full width in ``dtype`` with seeded random
+    weights: ``n_requests`` requests of two 800 x 1344 images through
+    ``predict`` (K1 of the dtype once a stage and request), then
+    ``n_steps`` train steps at batch 2 with its schedule (K1, the tile keys
+    and K4 once a stage and step), each path with the counts set to 0
+    before and read after, exact; valid detections of its classes, finite
+    and positive losses, the frozen stages bit-identical and every other
+    part moved.  An ATSS RPN's assignment of the step's gts over the
+    full-width anchors is the same on the card as on the CPU.  Dynamic
+    R-CNN's state after the steps: ``dyn_count`` the steps, that many ring
+    slots finite, the IoU threshold and beta at their initial 0.4 and 1.0
+    (no boundary of the config's ring of 100).  With ``check``, K1 and K4
+    against their plain versions at the last stage's predict RoIs."""
+    name = os.path.relpath(path, os.path.join(REPO, "configs"))
+    tag = ("f32 " if dtype == torch.float32 else "bf16 ") + name[:-3]
+    mc = load_config(path).model.to_dict()
+    t0 = time.perf_counter()
+    det = build(mc, seed=0, dtype=dtype)
+    n = stage_count(det)
+    r = {"build_s": time.perf_counter() - t0, "stages": n}
+    anchors, nla = det.anchors_for(CANVAS)
+    batches = list(requests(seed=2))[:n_requests]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    predict_ms, results = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        results.append(det.predict(b, anchors, nla))
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    kernel_launches(counts, dtype, f"{tag} predict", n * n_requests)
+    r["predict_first_ms"], r["predict_ms"] = predict_ms[0], float(np.mean(predict_ms[1:] or
+                                                                           predict_ms))
+    r["detections"] = [check_dets(*x, det.bbox_cfg.num_classes, det.rcnn_test_cfg.max_per_img)
+                       for x in results]
+    if check:
+        x = batches[0]
+        feats, boxes, _, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
+        strides = det.net.roi_strides
+        rois = (cascade_stage_rois(det, feats, boxes, valid, x["img_shape"], n - 1)
+                if n > 1 else boxes)
+        m = rois.shape[0] * rois.shape[1]
+        g = torch.from_numpy(np.random.RandomState(8).randn(m, 7, 7, feats[0].shape[-1])
+                             .astype(np.float32)).cuda()
+        r["check_predict"] = kernels_vs_plain(list(feats[:len(strides)]), rois, valid, strides,
+                                              g, dtype, f"{tag} stage-{n - 1} predict shapes")
+        r["check_rois"] = edge_rois(rois, valid)
+        del feats, boxes, valid, rois, g
+    del results
+    tb = train_batch(9, FAMILY_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE,
+                     num_classes=det.bbox_cfg.num_classes)
+    if getattr(det.rpn_cfg, "atss", False):
+        r["atss_positives"] = atss_devices_agree(det, tb, anchors, nla)
+        r["anchors"] = int(anchors.shape[0])
+    step, tb, _ = train_setup(det, anchors, nla, path, tb)
+    before = {k: v.detach().clone() for k, v in det.net.named_parameters()}
+    metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train", n_steps)
+    r["train_counts"] = counts
+    kernel_launches(counts, dtype, f"{tag} train", n * n_steps, n * n_steps)
+    r["moved"] = check_moved(before, det, f"{tag} train", heads=tuple(
+        f"bbox_heads.{i}." for i in range(n)) if n > 1 else ("bbox_head.",))
+    r["train_first_ms"], r["train_ms"] = step_ms[0], float(np.mean(step_ms[1:] or step_ms))
+    r["losses"] = metrics[-1]
+    if isinstance(det, DynamicRCNNDetector):
+        head = det.net.bbox_head
+        state = {k: getattr(head, k).cpu() for k in DYN_STATE}
+        filled = state["dyn_iou_hist"][:n_steps], state["dyn_beta_hist"][:n_steps]
+        if not (int(state["dyn_count"]) == n_steps
+                and all(torch.isfinite(f).all() for f in filled)
+                and not state["dyn_iou_hist"][n_steps:].any()
+                and state["dyn_iou_thr"].item() == np.float32(0.4)
+                and state["dyn_beta"].item() == 1.0
+                and state["dyn_iou_thr"].dtype == torch.float32):
+            raise AssertionError(f"{tag}: the state after {n_steps} steps is {state}")
+        r["state"] = {"count": int(state["dyn_count"]), "iou_hist": filled[0].tolist(),
+                      "beta_hist": filled[1].tolist()}
+    say(f"{tag} ({gpu}): built in {r['build_s']:.1f} s, {n} stage(s); predict of {BATCH} images "
+        f"{predict_ms[0]:.0f} ms first call" + (f", {r['predict_ms']:.1f} ms after"
+                                                if n_requests > 1 else "")
+        + f", {r['detections']} valid detections, peak {r['predict_peak']:.2f} GiB; train step at "
+        f"batch {FAMILY_BATCH} {step_ms[0]:.0f} ms first" + (f", {r['train_ms']:.1f} ms after"
+                                                              if n_steps > 1 else "")
+        + f", peak {r['train_peak']:.2f} GiB; launches {ran(r['predict_counts'])} / "
+        f"{ran(counts)}"
+        + (f"; ATSS over {r['anchors']} anchors: {r['atss_positives']} positives, gt_inds equal "
+           "on the card and the CPU" if "anchors" in r else "")
+        + (f"; state {r['state']}" if "state" in r else "")
+        + (f"; K1/K4 vs plain at the stage-{n - 1} predict RoIs ({r['check_rois']}) "
+           f"{r['check_predict']}" if check else ""))
+    del det, step, tb, before
+    torch.cuda.empty_cache()
+    return r
+
+
+def fork_phase(gpu: str) -> dict:
+    """The phase "fork heads" at full width: Dynamic R-CNN (R50-FPN, 4
+    classes) in float32 and bfloat16, ``REQUESTS`` requests and
+    ``DYNAMIC_STEPS`` steps; ``cascade_atss`` (ATSS over 201,600 anchors,
+    GIoU, three ProbCascade stages) in both dtypes, one request and one
+    step; the other four ensemble configs in bfloat16, one of each.  Its
+    tiny checks are ``fork_tiny``'s."""
+    t0 = time.perf_counter()
+    out = {"dynamic": {}, "atss": {}}
+    for dtype in (torch.float32, BF16):
+        out["dynamic"][dtype] = run_fork(DYNAMIC_CONFIG, dtype, gpu, REQUESTS, DYNAMIC_STEPS,
+                                         check=True)
+        out["atss"][dtype] = run_fork(ATSS_CONFIG, dtype, gpu, check=True)
+    out["bf16"] = {os.path.basename(p)[:-3]: run_fork(p, BF16, gpu) for p in FORK_BF16}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase fork heads: {out['wall_s']:.1f} s")
+    return out
+
+
+def tiny_dynamic_config():
+    """Dynamic R-CNN as ``--tiny`` shrinks it (ResNet-18 at width 8, FPN and
+    RPN 32, FC 64, 64 train proposals, 32 RoIs an image) with a ring of 2
+    steps, each image's largest IoU as the IoU statistic and an initial
+    threshold of ``TINY_DYN_INITIAL_IOU``, so that the state moves at each
+    boundary (``tests/test_torch_dynamic_rcnn.py``'s)."""
+    mc = shrink_model(load_config(DYNAMIC_CONFIG).model.to_dict())
+    mc["train_cfg"]["rcnn"]["dynamic_rcnn"].update(update_iter_interval=2, iou_topk=1,
+                                                   initial_iou=TINY_DYN_INITIAL_IOU)
+    return mc
+
+
+def tiny_atss_config():
+    """``cascade_atss`` as ``--tiny`` shrinks it (the ATSS RPN 2 convs deep)."""
+    return shrink_model(load_config(ATSS_CONFIG).model.to_dict())
+
+
+def sync_step_state(det, opt, ref_det, ref_opt) -> None:
+    """``det``'s parameters, SGD momentum and step count set to
+    ``ref_det``'s and ``ref_opt``'s (the buffers, Dynamic R-CNN's state
+    among them, stay ``det``'s own)."""
+    with torch.no_grad():
+        for p, q in zip(det.net.parameters(), ref_det.net.parameters()):
+            p.copy_(q)
+    for p, q in zip(opt.params, ref_opt.params):
+        if q in ref_opt.sgd.state:
+            opt.sgd.state[p]["momentum_buffer"] = (
+                ref_opt.sgd.state[q]["momentum_buffer"].to(p.device).clone())
+    opt.step_count = ref_opt.step_count
+
+
+def dynamic_gpu_matches_cpu(seed: int = 7, steps: int = TINY_DYN_STEPS) -> list:
+    """The tiny Dynamic R-CNN's ``steps`` float32 train steps on the card
+    against the CPU's, the RPN's and RoI samplers fed the same numpy
+    uniforms, each card step from the CPU's parameters and momentum before
+    it (the state is each device's own): each step held by
+    ``f32_step_rule``; after each, the state within 1e-6 plus rtol 1e-4 of
+    the CPU's (the losses' tolerance: its statistics are the IoUs and
+    encoded ``|dx|`` of the device's own proposals, whose float32 rounding
+    differs, 3.8e-6 apart on an IoU of 0.48 on an H100), ``dyn_count``
+    equal; the threshold moved at both boundaries."""
+    mc = tiny_dynamic_config()
+    dets = {d: build(mc, device=d, seed=seed) for d in ("cpu", "cuda")}
+    anchors, nla = dets["cpu"].anchors_for((128, 160))
+    batch, _ = tiny_train_inputs(seed, mc, anchors)
+    opts = {d: make_optimizer(det.net.parameters(), lambda s: 0.01) for d, det in dets.items()}
+    steps_ = {d: make_train_step(det, *det.anchors_for((128, 160)), opts[d])
+              for d, det in dets.items()}
+    threads = torch.get_num_threads()
+    out = []
+    for k in range(steps):
+        _, kw = tiny_train_inputs(seed + 100 * (k + 1), mc, anchors)
+        sync_step_state(dets["cuda"], opts["cuda"], dets["cpu"], opts["cpu"])
+        p0 = {n: v.detach().clone() for n, v in dets["cpu"].net.named_parameters()}
+        metrics, params = {}, {}
+        for d in ("cpu", "cuda"):
+            torch.set_num_threads(1 if d == "cpu" else threads)
+            metrics[d] = {n: float(v) for n, v in steps_[d](batch, **kw).items()}
+            params[d] = {n: v.detach().cpu() for n, v in dets[d].net.named_parameters()}
+        torch.set_num_threads(threads)
+        rep = {"metrics": metrics, "tensors": {
+            n: ((params["cuda"][n] - ref).abs().max().item(), (ref - p0[n]).abs().max().item(),
+                ref.abs().max().item(), math.inf, (params["cuda"][n] - p0[n]).abs().max().item())
+            for n, ref in params["cpu"].items()}}
+        summary = step_summary(rep)
+        broken = f32_step_rule(rep, summary)
+        state = {d: {n: getattr(det.net.bbox_head, n).cpu() for n in DYN_STATE}
+                 for d, det in dets.items()}
+        for n in DYN_STATE:
+            got, ref = state["cuda"][n], state["cpu"][n]
+            if n == "dyn_count":
+                ok = torch.equal(got, ref) and int(ref) == k + 1
+            else:
+                ok = bool(((got - ref).abs() <= 1e-6 + 1e-4 * ref.abs()).all())
+            if not ok:
+                broken.append(f"state {n}: card {got.tolist()} CPU {ref.tolist()}")
+        if k % 2 and not state["cpu"]["dyn_iou_thr"].item() > TINY_DYN_INITIAL_IOU + 1e-3:
+            broken.append(f"the IoU threshold did not move at step {k}: {state['cpu']}")
+        if broken:
+            raise AssertionError(f"tiny Dynamic R-CNN step {k}, card against CPU: "
+                                 + "; ".join(broken))
+        out.append({"loss": metrics["cuda"]["loss"], "median_of_update":
+                    summary["median_of_update"], "worst_of_f32_tol": summary["worst_of_f32_tol"][0],
+                    "state": {n: v.tolist() for n, v in state["cuda"].items()}})
+    return out
+
+
+def fork_tiny() -> dict:
+    """The phase "fork heads"'s checks without timings: the tiny Dynamic
+    R-CNN's and ``cascade_atss``'s ``predict`` on the card against the CPU;
+    ``cascade_atss``'s ATSS ``gt_inds`` on both and its float32 train step
+    by ``f32_step_rule``; the tiny Dynamic R-CNN's four float32 steps with
+    its state (``dynamic_gpu_matches_cpu``); the C.2 check of both, the
+    state buffers compared with the rest."""
+    tiny = {name: {"predict_detections": tiny_gpu_matches_cpu(3, config)}
+            for name, config in (("dynamic_rcnn", tiny_dynamic_config),
+                                 ("cascade_atss", tiny_atss_config))}
+    mc = tiny_atss_config()
+    det = build(mc, device="cuda", seed=7)
+    anchors, nla = det.anchors_for((128, 160))
+    batch, _ = tiny_train_inputs(7, mc, anchors)
+    tiny["cascade_atss"]["atss_positives"] = atss_devices_agree(det, batch, anchors.cpu(), nla)
+    del det
+    m, worst, repeat, summary = tiny_train_gpu_matches_cpu(7, torch.float32, tiny_atss_config)
+    tiny["cascade_atss"]["f32"] = {"loss": m["loss"], "worst_of_tolerance": worst, **summary,
+                                   "repeat_identical": repeat}
+    tiny["dynamic_rcnn"]["f32_steps"] = dynamic_gpu_matches_cpu()
+    say(f"tiny fork heads: GPU predict matches CPU predict, ATSS gt_inds equal on both, "
+        f"cascade_atss's f32 step and the Dynamic R-CNN's {TINY_DYN_STEPS} f32 steps hold the "
+        f"f32 step rule, its state within 1e-6 + rtol 1e-4: {json.dumps(tiny)}")
+    out = {"tiny": tiny, "repeat": {}}
+    for dtype in (torch.float32, BF16):
+        out["repeat"].update(c2_check("dynamic_rcnn", tiny_dynamic_config, dtype))
+    out["repeat"].update(c2_check("cascade_atss", tiny_atss_config, torch.float32))
     return out
 
 
@@ -3356,9 +3678,9 @@ def main(argv) -> int:
     readings = argv[1:] if argv[:1] == ["--step-readings"] else None
     e2e_child = argv[1:] if argv[:1] == ["--e2e-child"] and len(argv) == 4 else None
     if readings is None and e2e_child is None and argv not in (
-            [], ["--cascade"], ["--htc"], ["--mask-entry"]):
+            [], ["--cascade"], ["--htc"], ["--mask-entry"], ["--fork-heads"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
-              "--cascade | --htc | --mask-entry]", file=sys.stderr)
+              "--cascade | --htc | --mask-entry | --fork-heads]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3397,6 +3719,10 @@ def main(argv) -> int:
     if argv == ["--htc"]:
         htc_phase(gpu)
         htc_tiny()
+        return 0
+    if argv == ["--fork-heads"]:
+        fork_phase(gpu)
+        fork_tiny()
         return 0
     if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
         mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
@@ -3446,6 +3772,10 @@ def main(argv) -> int:
     # --------------------------------------------------------------------- HTC
     htc = htc_phase(gpu)
     phase_done("htc")
+
+    # -------------------------------------------------------------- fork heads
+    fork = fork_phase(gpu)
+    phase_done("fork heads")
 
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3538,6 +3868,7 @@ def main(argv) -> int:
         # ------------------- tiny ProbCascade and HTC, GPU vs CPU, C.2, teeth
         cascade.update(cascade_tiny())
         htc.update(htc_tiny())
+        fork.update(fork_tiny())
 
         # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
         repeat_report = {}
@@ -3547,6 +3878,7 @@ def main(argv) -> int:
                 repeat_report.update(c2_check(name, config, dtype, unpinned=name == "flagship"))
         repeat_report.update(cascade["repeat"])
         repeat_report.update(htc["repeat"])
+        repeat_report.update(fork["repeat"])
         phase_done("tiny models and C.2, beside the e2e trainings")
         torch.set_num_threads(threads)
         e2e[BF16] = finish_e2e(*children[0])
@@ -3615,6 +3947,13 @@ def main(argv) -> int:
             "cascade_mask_rcnn_bf16": {k: v for k, v in htc["cascade_mask"].items()
                                        if not k.endswith("_counts")},
             "tiny": htc["tiny"], "wall_s": htc["wall_s"]},
+        "fork_heads": {
+            **{f"{model}_{'f32' if d == torch.float32 else 'bf16'}": {
+                k: v for k, v in fork[model][d].items() if not k.endswith("_counts")}
+               for model in ("dynamic", "atss") for d in (torch.float32, BF16)},
+            "bf16_configs": {n: {k: v for k, v in r.items() if not k.endswith("_counts")}
+                             for n, r in fork["bf16"].items()},
+            "tiny": fork["tiny"], "wall_s": fork["wall_s"]},
         "mask_entry": mask_entry,
         "phase_walls_s": walls,
         "wall_s": time.perf_counter() - t_start}))
@@ -3643,11 +3982,18 @@ def main(argv) -> int:
         (f"mask_entry_{name}_{part}", mask_entry[name][part]["counts"])
         for name in ("mask_rcnn", "htc") for part in ("train", "eval")] + [
         ("mask_e2e_train", mask_entry["e2e"]["counts"]),
-        ("mask_e2e_eval", mask_entry["e2e"]["eval_counts"])]
+        ("mask_e2e_eval", mask_entry["e2e"]["eval_counts"])] + [
+        (f"{model}_{part}", fork[model][d][f"{part}_counts"])
+        for model in ("dynamic", "atss") for d in (torch.float32, BF16)
+        for part in ("predict", "train")] + [
+        (f"fork_bf16_{part}", {k: sum(f[f"{part}_counts"][k] for f in fork["bf16"].values())
+                               for k in counters()}) for part in ("predict", "train")]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
                + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}
     checked[BF16].append(cascade["coco"]["check_predict"])
+    for d in checked:  # ... and the fork heads' last stage at its predict RoIs
+        checked[d] += [fork[model][d]["check_predict"] for model in ("dynamic", "atss")]
     more_errs = {f"roi_align_{part}{'' if d == torch.float32 else '_bf16'}":
                  max(c[part][0] for c in checked[d]) for d in checked for part in ("fwd", "bwd")}
     # ... and the HTC paths on the one semantic level, at 7 and 14

@@ -183,17 +183,18 @@ def _sync(det, opt, state):
     opt.step_count = step
 
 
-def run_cascade_pair(make_cfg):
+def run_cascade_pair(make_cfg, seed: int = 0):
     """Both packages on ``make_cfg(load_config(...))``'s cascade (each
     package's config reader reads the file) through predict, the loss with
     its per-stage samples, its gradients and two fused train steps on the
-    same weights, batch and random draws."""
+    same weights, batch and random draws (the weights and batch drawn from
+    ``seed``)."""
     mc = make_cfg(jax_load_config)
     heads = mc["roi_head"]["bbox_head"]
     num_classes = heads[0]["num_classes"]
     jdet = jax_build(mc, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), CANVAS))
-    rs = np.random.RandomState(0)
+    rs = np.random.RandomState(seed)
     variables = _random_variables(shapes, rs)
     batch = _batch(rs, num_classes)
     jv = jax.tree.map(jnp.asarray, variables)

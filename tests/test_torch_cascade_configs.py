@@ -3,17 +3,23 @@ width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
 ones and the Cascade Mask R-CNN ones on the ported backbones build
-(``BUILDS``, 16 + 20 files; files with the same model, such as a 1x and a
-20e schedule, are built once); every other one raises
+(``BUILDS``, 20 + 20 files, the ensemble configs' ATSS and RetinaNet-style
+RPNs among them; files with the same model, such as a 1x and a 20e
+schedule, are built once); every other one raises
 ``NotImplementedError`` naming what is missing (``_reason``): the
 caffe-style ResNet, DetectoRS, HRNet, RegNet, ResNeSt, GCNet's SyncBN and
-context blocks, the Seesaw loss, SABL heads, and the ensemble configs'
-ATSS and RetinaNet RPNs.  Each built one is checked against its config:
-one class-agnostic stage head per stage, the IoU ladder, the stage loss
-weights, boosting and fusion for ``ProbCascadeRoIHead`` only; a Cascade
-Mask R-CNN one is the HTC detector with one mask head per stage, none
-with a ``conv_res``, trained on each stage's own sample (not interleaved)
-and without information flow.
+context blocks, the Seesaw loss and SABL heads.  Each built one is
+checked against its config: one class-agnostic stage head per stage, the
+IoU ladder, the stage loss weights, boosting and fusion for
+``ProbCascadeRoIHead`` only, the ensemble configs' RPN (its type, ATSS
+and its losses); a Cascade Mask R-CNN one is the HTC detector with one
+mask head per stage, none with a ``conv_res``, trained on each stage's
+own sample (not interleaved) and without information flow.
+
+``test_fork_head_config_builds`` builds the six configs of the fork's
+remaining heads (the four ensemble cascades, ``ensemble/boosting_rcnn``'s
+focal RPN with ``BoostRoIHead``, Dynamic R-CNN) and checks the detector
+type, the RPN and the RoI head each is read as.
 """
 import functools
 import glob
@@ -31,6 +37,10 @@ from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.htc import HTCDetector  # noqa: E402
+from boosting_rcnn_tpu_torch.models.detectors.two_stage import (  # noqa: E402
+    DynamicRCNNDetector,
+    TwoStageDetector,
+)
 
 CONFIGS = os.path.join(REPO, "configs")
 BUILDS = {
@@ -45,6 +55,9 @@ BUILDS = {
     "cascade_rcnn/cascade_rcnn_x101_64x4d_fpn_20e_coco.py",
     "dcn/cascade_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py", "dcn/cascade_rcnn_r101_fpn_dconv_c3-c5_1x_coco.py",
     "ensemble/prob_cascade_rcnn_r50_pafpn_1x_utdac.py",
+    "ensemble/cascade_atss_r50_fpn_1x_coco.py", "ensemble/cascade_atss_s2_r50_fpn_1x_coco.py",
+    "ensemble/cascade_retinanet_r50_fpn_1x_coco.py",
+    "ensemble/cascade_retinanet_s2_r50_fpn_1x_coco.py",
     "pascal_voc/cascade_rcnn_r50_fpn_1x_voc0712.py", "res2net/cascade_rcnn_r2_101_fpn_20e_coco.py",
     # Cascade Mask R-CNN
     *(f"cascade_rcnn/cascade_mask_rcnn_{m}.py" for m in (
@@ -75,9 +88,7 @@ def _reason(name: str, mc) -> str:
     for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
                       ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
                       ("regnet/", "RegNet"), ("gcnet/", "SyncBN|ContextBlock"),
-                      ("seesaw_loss/", "SeesawLoss"),
-                      ("ensemble/cascade_atss", "atss=True"),
-                      ("ensemble/cascade_retinanet", "num_convs=4")):
+                      ("seesaw_loss/", "SeesawLoss")):
         if name.startswith(key):
             return what
     raise AssertionError(f"{name}: no expected reason")
@@ -99,10 +110,13 @@ def _built(model_json: str):
     dropped: each holds ~0.3-0.5 GB)."""
     det = build_detector(json.loads(model_json), device="cpu")
     net = det.net
-    return dict(type=type(det), cascade=det.cascade_cfg, roi=det.roi_cfg, bbox=det.bbox_cfg,
-                rpn_type=det.rpn_type, test_proposals=det.test_proposal_cfg.max_per_img,
+    return dict(type=type(det), cascade=getattr(det, "cascade_cfg", None), roi=det.roi_cfg,
+                bbox=det.bbox_cfg, rpn_type=det.rpn_type, rpn=det.rpn_cfg,
+                rpn_convs=getattr(net.rpn, "conv_names", None),
+                test_proposals=det.test_proposal_cfg.max_per_img,
                 heads=[(h.fc_cls.weight.shape[0], h.fc_reg.weight.shape[0])
-                       for h in net.bbox_heads],
+                       for h in getattr(net, "bbox_heads", [net.bbox_head])],
+                dyn={k: v.clone() for k, v in net.state_dict().items() if ".dyn_" in k},
                 masks=[(h.conv_logits.weight.shape[0], h.num_convs, h.conv_res is not None)
                        for h in getattr(net, "mask_heads", ())],
                 info_flow=getattr(net, "mask_info_flow", None),
@@ -145,6 +159,65 @@ def test_cascade_config_builds_or_names_what_is_missing(name):
         assert det["test_proposals"] == 256
     if "_s4_" in name:
         assert n == 4 and cc.stage_pos_iou[3] == 0.8
+    if name.startswith("ensemble/cascade_"):
+        check_ensemble_rpn(det, mc["rpn_head"])
+
+
+def check_ensemble_rpn(det, rpn):
+    """The ensemble configs' RPNs: ATSS assignment with GIoU on decoded
+    boxes and no MSE term, or the plain RPN with focal objectness (and
+    ``cascade_retinanet``'s four convs, its ``L1Loss`` read as smooth L1 at
+    beta 1/9)."""
+    r = det["rpn"]
+    if rpn["type"] == "ATSSRPNHead":
+        assert det["rpn_type"] == "atss_rpn" and r.atss and not r.with_aug_loss
+        assert (r.loss_bbox_type, r.loss_bbox_weight) == ("giou",
+                                                          rpn["loss_bbox"]["loss_weight"])
+        return
+    assert det["rpn_type"] == "rpn" and not getattr(r, "atss", False)
+    assert (r.loss_cls_type, r.loss_cls_weight) == ("focal", rpn["loss_cls"]["loss_weight"])
+    assert len(det["rpn_convs"]) == rpn.get("num_convs", 1)
+    assert abs(r.smooth_l1_beta - 1 / 9) < 1e-12
+
+
+FORK_HEADS = ("ensemble/cascade_atss_r50_fpn_1x_coco.py",
+              "ensemble/cascade_atss_s2_r50_fpn_1x_coco.py",
+              "ensemble/cascade_retinanet_r50_fpn_1x_coco.py",
+              "ensemble/cascade_retinanet_s2_r50_fpn_1x_coco.py",
+              "ensemble/boosting_rcnn_r50_fpn_1x_coco.py",
+              "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py")
+
+
+@pytest.mark.parametrize("name", FORK_HEADS)
+def test_fork_head_config_builds(name):
+    """The fork's remaining heads build as the JAX builder reads them: the
+    ensemble cascades (a ProbCascade with boosting on an ATSS or focal
+    RPN); ``BoostRoIHead`` as prior fusion without boosting on the focal
+    plain RPN; ``DynamicRoIHead`` as the ``DynamicRCNNDetector`` with its
+    state (iou 0.4, beta 1.0, a 100-step ring) in the box head."""
+    mc = load_config(os.path.join(CONFIGS, name)).model.to_dict()
+    det = _built(json.dumps(mc, sort_keys=True))
+    roi = mc["roi_head"]
+    if name.startswith("ensemble/cascade_"):
+        assert det["type"] is CascadeDetector
+        assert det["cascade"].num_stages == (2 if "_s2_" in name else 3)
+        assert det["cascade"].prob and det["cascade"].boost
+        check_ensemble_rpn(det, mc["rpn_head"])
+        return
+    assert det["cascade"] is None and det["heads"] == [(5, 16)]
+    if roi["type"] == "BoostRoIHead":
+        assert det["type"] is TwoStageDetector and det["dyn"] == {}
+        assert (det["roi"].prob, det["roi"].boost, det["roi"].gamma) == (True, False, 0.5)
+        check_ensemble_rpn(det, {**mc["rpn_head"], "num_convs": 1})
+        return
+    assert det["type"] is DynamicRCNNDetector and det["rpn_type"] == "rpn"
+    assert not det["roi"].prob and not det["roi"].boost
+    dyn = det["dyn"]
+    assert float(dyn["bbox_head.dyn_iou_thr"]) == pytest.approx(0.4)
+    assert float(dyn["bbox_head.dyn_beta"]) == 1.0
+    assert dyn["bbox_head.dyn_iou_hist"].shape == (100,)
+    assert not dyn["bbox_head.dyn_beta_hist"].any()
+    assert dyn["bbox_head.dyn_count"].dtype == torch.int32 and int(dyn["bbox_head.dyn_count"]) == 0
 
 
 def check_mask_heads(det, roi, htc: bool):

@@ -510,9 +510,8 @@ def test_builder_builds_full_width_mask_rcnn(dtype, monkeypatch):
     ("neck.act", "relu"),
     ("neck.conv_cfg", {"type": "ConvWS"}),
     ("neck.norm_cfg", {"type": "GN", "num_groups": 32}),
-    ("rpn_head.num_convs", 2),
-    ("rpn_head.loss_cls.type", "FocalLoss"),
-    ("rpn_head.loss_bbox.type", "L1Loss"),
+    ("rpn_head.loss_cls.type", "VarifocalLoss"),
+    ("rpn_head.loss_bbox.type", "GIoULoss"),
     ("train_cfg.rpn.sampler.add_gt_as_proposals", True),
     ("roi_head.mask_head.type", "HTCMaskHead"),
     ("roi_head.mask_head.norm_cfg", {"type": "GN", "num_groups": 32}),
@@ -534,3 +533,28 @@ def test_builder_rejects_unported_mask_rcnn_values(path, value):
     set_by_dotted_key(mc, path, value)
     with pytest.raises(NotImplementedError, match=path.split(".")[-1]):
         build_detector(mc, device="cpu")
+
+
+@pytest.mark.parametrize("path,value", [
+    ("rpn_head.num_convs", 2),
+    ("rpn_head.loss_cls.type", "FocalLoss"),
+    ("rpn_head.loss_bbox", {"type": "L1Loss", "loss_weight": 1.0}),
+])
+def test_builder_reads_the_ensemble_plain_rpn_values(path, value):
+    """Values of the plain RPN the builder rejected before the ensemble
+    configs were ported now build as the JAX builder reads them: stacked
+    convs, focal objectness (gamma 2, alpha 0.25), and an ``L1Loss`` read
+    as smooth L1 at beta 1/9."""
+    from boosting_rcnn_tpu_torch.builder import build_detector
+    from boosting_rcnn_tpu_torch.config import set_by_dotted_key
+
+    mc = _mask_cfg()
+    set_by_dotted_key(mc, path, value)
+    det = build_detector(mc, device="cpu")
+    r = det.rpn_cfg
+    if path.endswith("num_convs"):
+        assert det.net.rpn.conv_names == ["rpn_conv", "rpn_conv_1"]
+    elif value == "FocalLoss":
+        assert (r.loss_cls_type, r.focal_gamma, r.focal_alpha) == ("focal", 2.0, 0.25)
+    else:
+        assert abs(r.smooth_l1_beta - 1 / 9) < 1e-12

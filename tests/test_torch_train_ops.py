@@ -338,7 +338,7 @@ def test_atss_rpn_loss_and_gradients_match_jax(gamma):
 
 def test_atss_rpn_loss_rejects_unported_branches():
     z = torch.zeros((1, 4))
-    for cfg in (t_rpn.ATSSRPNCfg(atss=True), t_rpn.ATSSRPNCfg(loss_bbox_type="giou"),
+    for cfg in (t_rpn.ATSSRPNCfg(loss_bbox_type="diou"), t_rpn.ATSSRPNCfg(loss_bbox_type="eiou"),
                 t_rpn.ATSSRPNCfg(loss_cls_type="varifocal")):
         with pytest.raises(NotImplementedError):
             t_rpn.atss_rpn_loss(cfg, z, z[..., None].expand(1, 4, 4), z, z.reshape(4, 1)
@@ -733,12 +733,9 @@ def test_builder_reads_the_flagship_train_cfg():
 
 
 @pytest.mark.parametrize("path,value", [
-    ("rpn_head.atss", True),
     ("rpn_head.loss_bbox.type", "DIoULoss"),
     ("rpn_head.loss_cls.type", "VarifocalLoss"),
-    ("rpn_head.loss_bbox.type", "GIoULoss"),
     ("rpn_head.aug_reg_loss.type", "L1Loss"),
-    ("rpn_head.aug_reg_loss", None),
     ("roi_head.quality", True),
     ("roi_head.alpha", 0.5),
     ("roi_head.reg_norm", "sum"),
@@ -763,3 +760,20 @@ def test_builder_rejects_unported_train_values(path, value):
     set_by_dotted_key(mc, path, value)
     with pytest.raises(NotImplementedError, match=path.split(".")[-1]):
         build_detector(mc, device="cpu")
+
+
+@pytest.mark.parametrize("path,value,field,want", [
+    ("rpn_head.atss", True, "atss", True),
+    ("rpn_head.loss_bbox.type", "GIoULoss", "loss_bbox_type", "giou"),
+    ("rpn_head.aug_reg_loss", None, "with_aug_loss", False),
+])
+def test_builder_reads_the_ensemble_rpn_values(path, value, field, want):
+    """Values the builder rejected before the ensemble configs' RPNs were
+    ported (ATSS assignment, GIoU, no MSE term) now build, read as the JAX
+    builder reads them."""
+    from boosting_rcnn_tpu_torch.builder import build_detector
+    from boosting_rcnn_tpu_torch.config import set_by_dotted_key
+
+    mc = _flagship_cfg()
+    set_by_dotted_key(mc, path, value)
+    assert getattr(build_detector(mc, device="cpu").rpn_cfg, field) == want
