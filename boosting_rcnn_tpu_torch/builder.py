@@ -2,8 +2,9 @@
 two-stage branch of ``boosting_rcnn_tpu/builder.py::build_detector``).
 
 Ported types: ``FasterRCNN`` and ``MaskRCNN`` with the backbone ``ResNet``
-(depths 18, 34, 50, 101, 152, pytorch style, frozen BN, ``frozen_stages``,
-DCN / DCNv2 stages), ``ResNeXt`` (grouped 3x3s) or ``Res2Net`` (deep stem,
+(depths 18, 34, 50, 101, 152, pytorch or caffe style, frozen BN,
+``frozen_stages``, DCN / DCNv2 stages), ``ResNeXt`` (grouped 3x3s, either
+style) or ``Res2Net`` (deep stem,
 hierarchical splits, DCN / DCNv2 stages); the neck ``PAFPN`` (extra convs
 on output) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
 pool or by convs on the input, lateral or output); the RPN
@@ -109,7 +110,10 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     _check(cfg, "type", ("ResNet", "ResNeXt", "Res2Net"))
     for key in ("plugins", "conv_cfg", "norm_cfg"):
         _check(cfg, key, (None,))
-    _check(cfg, "style", ("pytorch",), "pytorch")
+    # the caffe style moves a bottleneck's stride to its first 1x1 (JAX
+    # build_resnet and build_resnext read it; build_res2net does not)
+    _check(cfg, "style", ("pytorch",) if cfg["type"] == "Res2Net" else ("pytorch", "caffe"),
+           "pytorch")
     _check(cfg, "deep_stem", (False,), False)
     _check(cfg, "norm_eval", (True,), True)
     _check(cfg, "num_stages", (4,), 4)
@@ -123,6 +127,7 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     if cfg["type"] == "Res2Net":
         return Res2Net(gen, depth=cfg.get("depth", 101), scales=cfg.get("scales", 4),
                        base_width=cfg.get("base_width", 26), **common)
+    common["style"] = cfg.get("style", "pytorch")
     if cfg["type"] == "ResNeXt":
         return ResNet(gen, depth=cfg.get("depth", 101), groups=cfg.get("groups", 32),
                       base_width=cfg.get("base_width", 4), **common)

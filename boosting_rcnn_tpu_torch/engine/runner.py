@@ -47,7 +47,7 @@ from .eval import run_eval
 from .train import make_optimizer, make_train_step, step_lr_schedule
 
 __all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "test_geometry",
-           "eval_loader", "Trainer", "build_trainer", "train_detector"]
+           "eval_loader", "tta_options", "Trainer", "build_trainer", "train_detector"]
 
 TINY_CANVAS = (128, 160)
 # hooks whose work the loop does by construction
@@ -152,6 +152,20 @@ def eval_loader(cfg: Config, dataset, device, tiny: bool = False,
     return DetDataLoader(dataset, batch_size=data_cfg.get("samples_per_gpu", 2), canvas=canvas,
                          scale=tuple(pipeline.get("scale", (1333, 800))), train=False,
                          img_norm=pipeline.get("img_norm", cfg.get("img_norm")), device=device)
+
+
+def tta_options(cfg: Config, scales=None) -> Dict[str, Any]:
+    """``run_eval_tta``'s keyword arguments for ``data.test`` (JAX
+    ``tools/test.py``'s ``--tta``): the config's batch, the short sides
+    ``scales`` (default: the pipeline's short side alone, flip-only TTA),
+    ``long_side`` the pipeline scale's first value, and the pipeline's
+    ``img_norm``.  ``--tiny`` leaves them as they are."""
+    data_cfg = cfg.data.to_dict()
+    pipeline, _ = _pipeline(data_cfg, "test", False)
+    scale = tuple(pipeline.get("scale", (1333, 800)))
+    return dict(batch_size=data_cfg.get("samples_per_gpu", 2),
+                scales=list(scales or [scale[1]]), long_side=scale[0],
+                img_norm=pipeline.get("img_norm", cfg.get("img_norm")))
 
 
 def _sync(device: torch.device) -> None:

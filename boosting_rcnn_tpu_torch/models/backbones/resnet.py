@@ -1,7 +1,10 @@
 """ResNet backbone (PyTorch port of ``boosting_rcnn_tpu/models/backbones/resnet.py``).
 
 Depths 18 and 34 (``BasicBlock``), 50, 101 and 152 (``Bottleneck``),
-``style='pytorch'`` (stride on the 3x3), frozen BN; ResNeXt's grouped 3x3
+``style='pytorch'`` (a bottleneck's stride on the 3x3) or ``'caffe'`` (on
+the first 1x1, JAX ``resnet.py:201-202``; a ``BasicBlock`` keeps it on its
+first 3x3 in both styles, and the shortcut keeps it in both; the
+parameters are the same in both styles), frozen BN; ResNeXt's grouped 3x3
 (``groups``, ``base_width``: its width is ``int(planes * base_width /
 base_channels) * groups``, JAX ``resnet.py:194-199``), and a deformable
 3x3 (``dcn``, DCN or DCNv2; dense, as the JAX package's, whatever
@@ -77,16 +80,17 @@ class Bottleneck(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
                  gen: torch.Generator, groups: int = 1, base_width: int = 4,
-                 base_channels: int = 64, dcn: dict | None = None):
+                 base_channels: int = 64, dcn: dict | None = None, style: str = "pytorch"):
         super().__init__()
         out = planes * self.expansion
         width = planes if groups == 1 else int(planes * (base_width / base_channels)) * groups
-        self.conv1 = make_conv(cin, width, 1, 1, 0, False, gen)
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = make_conv(cin, width, 1, s1, 0, False, gen)
         self.bn1 = FrozenBatchNorm(width)
         if dcn is not None:
-            self.conv2 = make_dcn(width, width, stride, dcn, gen)
+            self.conv2 = make_dcn(width, width, s2, dcn, gen)
         else:
-            self.conv2 = make_conv(width, width, 3, stride, 1, False, gen, groups=groups)
+            self.conv2 = make_conv(width, width, 3, s2, 1, False, gen, groups=groups)
         self.bn2 = FrozenBatchNorm(width)
         self.conv3 = make_conv(width, out, 1, 1, 0, False, gen)
         self.bn3 = FrozenBatchNorm(out)
@@ -112,11 +116,14 @@ class ResNet(nn.Module):
 
     def __init__(self, gen: torch.Generator, depth: int = 50, base_channels: int = 64,
                  frozen_stages: int = -1, groups: int = 1, base_width: int = 4,
-                 dcn: dict | None = None, stage_with_dcn=(False, False, False, False)):
+                 dcn: dict | None = None, stage_with_dcn=(False, False, False, False),
+                 style: str = "pytorch"):
         super().__init__()
         self.frozen_stages = frozen_stages
         if depth not in ARCH_SETTINGS:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
+        if style not in ("pytorch", "caffe"):
+            raise NotImplementedError(f"ResNet style={style!r} is not ported")
         kind, blocks = ARCH_SETTINGS[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
         if kind == "basic" and (groups != 1 or dcn is not None):
@@ -135,7 +142,7 @@ class ResNet(nn.Module):
                 name = f"layer{stage + 1}_{b}"
                 extra = {} if kind == "basic" else dict(
                     groups=groups, base_width=base_width, base_channels=base_channels,
-                    dcn=dcn if stage_with_dcn[stage] else None)
+                    dcn=dcn if stage_with_dcn[stage] else None, style=style)
                 self.add_module(name, block(cin, planes, stride, down, gen, **extra))
                 names.append(name)
                 cin = out

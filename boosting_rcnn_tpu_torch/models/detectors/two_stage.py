@@ -19,6 +19,12 @@ loss, and the positive ones through the mask branch into the mask loss.
 with its IoU branch) or ``"rpn"`` (the plain RPN head of Faster and Mask
 R-CNN, no IoU branch).
 
+``aug_predict`` and ``aug_predict_multi`` are the flip and multi-scale
+test-time augmentation (JAX ``two_stage.py:851-989``, the reference's
+``MultiScaleFlipAug`` and ``merge_augs``): each view's proposals in the
+original image's frame, merged by one NMS, each view's R-CNN scores and
+decoded boxes on the merged proposals, averaged, and one multiclass NMS.
+
 ``DynamicRCNNDetector`` (Dynamic R-CNN, JAX ``two_stage.py:1131-1224``)
 samples at the box head's working IoU threshold and takes its box loss at
 the working beta; after the step's optimizer update the train step calls
@@ -49,7 +55,8 @@ import torch
 from torch import nn
 
 from ...ops.anchors import AnchorGenerator
-from ...ops.box_ops import bbox_overlaps
+from ...ops.box_ops import bbox_overlaps, clip_boxes, delta2bbox, hflip_boxes
+from ...ops.nms import multiclass_nms_padded, nms_padded
 from ...ops.roi_align_kernel import batched_multilevel_roi_align
 from ..dense_heads.atss_rpn_head import (
     ATSSRPNCfg,
@@ -418,6 +425,121 @@ class TwoStageDetector:
         ]
         dets, labels, valid = (torch.stack(x) for x in zip(*outs))
         return dets, labels, valid
+
+
+def check_tta(detector) -> None:
+    """Raise ``NotImplementedError`` where test-time augmentation cannot
+    serve ``detector``: a cascade or HTC, whose net's ``roi_out`` takes a
+    stage (JAX ``cascade.py:56``), so that the JAX ``aug_predict_multi``
+    cannot serve it either."""
+    if getattr(detector, "cascade_cfg", None) is not None:
+        raise NotImplementedError(
+            f"test-time augmentation is not ported for {type(detector).__name__}: a cascade's "
+            f"roi_out takes a stage, and the JAX package's aug_predict_multi, which calls it "
+            f"without one, cannot serve a cascade or HTC either")
+
+
+def aug_predict(detector: TwoStageDetector, batch, anchors, num_level_anchors,
+                rescale: bool = True):
+    """Horizontal-flip test-time augmentation: ``aug_predict_multi`` over
+    the batch and its mirror."""
+    views = [(batch, anchors, num_level_anchors, False), (batch, anchors, num_level_anchors, True)]
+    return aug_predict_multi(detector, views, rescale=rescale)
+
+
+@torch.inference_mode()
+def aug_proposals(detector: TwoStageDetector, views):
+    """Steps 1-2 of ``aug_predict_multi``: each view's features and frame
+    ``(feats, img_shape, scale_factor, mirror width or None)``, and the
+    merged proposals ``(B, R, 4)`` in the original images' frame with their
+    scores (zero in empty slots) and validity."""
+    det = detector
+    tc = det.test_proposal_cfg
+    seen, props = [], []
+    for batch, anchors, nla, flip in views:
+        images = det._tensor(batch["images"])
+        img_shape, scale = det._tensor(batch["img_shape"]), det._tensor(batch["scale_factor"])
+        b, h, w = images.shape[:3]
+        feats = det.net.features(images.flip(2) if flip else images)
+        cls, reg, iou = det._rpn_flat(feats)
+        canvas = img_shape.new_tensor([float(h), float(w)]).expand(b, 2)
+        boxes, scores, valid = det._proposals(cls, reg, iou, anchors, nla,
+                                              canvas if flip else img_shape, tc)
+        if flip:
+            boxes = clip_boxes(hflip_boxes(boxes, float(w)), img_shape)
+        props.append((boxes / scale[:, None, :], scores, valid))
+        seen.append((feats, img_shape, scale, float(w) if flip else None))
+    merged = [torch.cat(x, dim=1) for x in zip(*props)]
+    kept = [nms_padded(merged[0][i], merged[1][i], tc.nms_iou_thr, tc.max_per_img,
+                       valid=merged[2][i]) for i in range(merged[0].shape[0])]
+    boxes, scores, valid = (torch.stack(x) for x in list(zip(*kept))[:3])
+    return seen, boxes, torch.where(valid, scores, torch.zeros_like(scores)), valid
+
+
+def view_rois(boxes: torch.Tensor, scale_factor: torch.Tensor, flip_w) -> torch.Tensor:
+    """Boxes ``(B, R, 4)`` of the original frame in a view's frame: times
+    its ``scale_factor`` ``(B, 4)``, mirrored by the canvas width
+    ``flip_w`` where it is not None."""
+    rois = boxes * scale_factor[:, None, :]
+    return rois if flip_w is None else hflip_boxes(rois, flip_w)
+
+
+@torch.inference_mode()
+def aug_predict_multi(detector: TwoStageDetector, views, rescale: bool = True):
+    """Multi-scale and flip test-time augmentation of ``detector`` (JAX
+    ``aug_predict_multi``): ``views`` is a list of ``(batch, anchors,
+    num_level_anchors, flip)``, one for each (scale, flip), each batch the
+    same images resized to its own canvas (``images``, ``img_shape``,
+    ``scale_factor``, as ``predict`` takes them).
+
+    1. per view: the features of the images, mirrored along the width for
+       a flipped view, and the test-config proposals; a flipped view's are
+       clipped to the canvas, mirrored back by the canvas width and clipped
+       to ``img_shape``; every view's are divided by ``scale_factor``;
+    2. one NMS over all views' proposals (``test_proposal_cfg``'s
+       threshold and ``max_per_img``), the scores of empty slots zeroed
+       (``aug_proposals``);
+    3. per view: the merged proposals back in its frame, RoIAlign and the
+       box head (``roi_out``), prior fusion or the float32 softmax, the
+       deltas decoded and clipped to its ``img_shape``, mirrored back and
+       divided by ``scale_factor``;
+    4. the scores and boxes averaged over the views, one multiclass NMS
+       (hard or soft, ``rcnn_test_cfg``).
+
+    Returns ``(dets (B, max, 5), labels (B, max), valid (B, max))`` in the
+    original images' frame (``rescale=False`` raises: the views merge
+    there).  A mask head is not run: the result is boxes only, as the JAX
+    package's.  Each view launches the RoIAlign forward once."""
+    check_tta(detector)
+    if not rescale:
+        raise ValueError("aug_predict_multi merges its views in the original images' frame: "
+                         "rescale=False is not supported")
+    det = detector
+    seen, boxes, scores, valid = aug_proposals(det, views)
+    b, r = boxes.shape[:2]
+    cfg = det.bbox_cfg
+    fused_sum, boxes_sum = 0.0, 0.0
+    for feats, img_shape, scale, flip_w in seen:
+        rois = view_rois(boxes, scale, flip_w)
+        cls_s, reg_s = det.net.roi_out(feats, rois, valid)
+        cls_s, reg_s = cls_s.reshape(b, r, -1), reg_s.reshape(b, r, -1)
+        fused_sum = fused_sum + (prob_fuse_scores(cls_s, scores) if det.roi_cfg.prob
+                                 else torch.softmax(cls_s.float(), dim=-1))
+        dec = delta2bbox(rois, reg_s, cfg.target_means, cfg.target_stds,
+                         max_shape=img_shape).reshape(b, r, -1, 4)
+        if flip_w is not None:
+            dec = hflip_boxes(dec, flip_w)
+        boxes_sum = boxes_sum + dec / scale[:, None, None, :]
+    fused = fused_sum / len(views)
+    c = cfg.num_classes
+    dec = (boxes_sum / len(views)).expand(b, r, c, 4)
+    t = det.rcnn_test_cfg
+    outs = [multiclass_nms_padded(
+        dec[i], fused[i, :, :c], score_thr=t.score_thr, iou_threshold=t.nms_iou_thr,
+        max_per_img=t.max_per_img, valid=valid[i], pre_nms_top_k=t.pre_nms_top_k,
+        nms_type=t.nms_type, soft_sigma=t.soft_sigma, soft_min_score=t.soft_min_score,
+        soft_method=t.soft_method) for i in range(b)]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 _DYN_NO_SAMPLE = ("Dynamic R-CNN samples at the working IoU threshold of its state inside its "

@@ -24,6 +24,7 @@ __all__ = [
     "bbox2delta",
     "delta2bbox",
     "clip_boxes",
+    "hflip_boxes",
     "take_small_table",
 ]
 
@@ -176,3 +177,11 @@ def clip_boxes(boxes: torch.Tensor, max_shape: torch.Tensor) -> torch.Tensor:
     x2 = torch.minimum(torch.maximum(boxes[..., 2], zero), w)
     y2 = torch.minimum(torch.maximum(boxes[..., 3], zero), h)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def hflip_boxes(boxes: torch.Tensor, img_w) -> torch.Tensor:
+    """Mirror ``(..., 4)`` xyxy boxes inside a width ``img_w`` (a number,
+    or a tensor broadcast against the boxes' leading axes): ``x1' = w -
+    x2``, ``x2' = w - x1`` (JAX ``two_stage.py::_hflip_boxes``)."""
+    return torch.stack([img_w - boxes[..., 2], boxes[..., 1], img_w - boxes[..., 0],
+                        boxes[..., 3]], dim=-1)

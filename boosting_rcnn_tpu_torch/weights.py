@@ -171,11 +171,15 @@ def _fc_after_pool(w: torch.Tensor, roi_feat_size: int) -> torch.Tensor:
     return w.reshape(out_dim, c, s, s).permute(0, 2, 3, 1).reshape(out_dim, in_dim).contiguous()
 
 
+def _mask_head(stage) -> str:
+    return "mask_head" if stage is None else f"mask_heads.{stage}"
+
+
 def from_mmdet_state_dict(state_dict: Dict[str, Any],
                           roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (``TwoStageNet``) from an mmdet two-stage
-    state dict (the flagship Boosting R-CNN, Faster / Mask R-CNN R50-FPN or
-    Cascade R-CNN):
+    state dict (the flagship Boosting R-CNN, Faster / Mask R-CNN R50-FPN,
+    Cascade R-CNN, Cascade Mask R-CNN or HTC):
 
       backbone.*                              -> backbone.* (``from_torchvision_resnet``)
       neck.{lateral,fpn,downsample,pafpn}_convs.N.conv -> neck.{lateral_N,fpn_conv_N,...}.conv
@@ -190,20 +194,18 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
       roi_head.bbox_head.S.{fc_cls,fc_reg}    -> bbox_heads.S.{fc_cls,fc_reg}
       roi_head.mask_head.convs.N.conv         -> mask_head.conv_N
       roi_head.mask_head.{upsample,conv_logits} -> mask_head.{upsample,conv_logits}
+      roi_head.mask_head.S.convs.N.conv       -> mask_heads.S.conv_N (Cascade Mask R-CNN's
+                                                 and HTC's stage S)
+      roi_head.mask_head.S.conv_res.conv      -> mask_heads.S.conv_res
+      roi_head.mask_head.S.{upsample,conv_logits} -> mask_heads.S.{upsample,conv_logits}
+      roi_head.semantic_head.lateral_convs.N.conv -> semantic_head.lateral_N
+      roi_head.semantic_head.convs.N.conv     -> semantic_head.conv_N
+      roi_head.semantic_head.conv_embedding.conv -> semantic_head.conv_embedding
+      roi_head.semantic_head.conv_logits      -> semantic_head.conv_seg
 
-    A key of any other module raises (the port has no such module).  The
-    per-stage mask heads (``roi_head.mask_head.N.*``) and the semantic head
-    (``roi_head.semantic_head.*``) of Cascade Mask R-CNN and HTC raise
-    ``NotImplementedError`` naming them: the port does not place them yet
-    (the JAX package's converter maps one ``mask_head`` and drops these
-    silently)."""
-    unplaced = [k for k in state_dict
-                if re.match(r"roi_head\.(mask_head\.\d+|semantic_head)\.", k)]
-    if unplaced:
-        raise NotImplementedError(
-            f"{len(unplaced)} keys of Cascade Mask R-CNN's or HTC's per-stage mask heads and "
-            f"semantic head have no place in the port's mmdet converter yet: "
-            f"{', '.join(unplaced[:6])}{', ...' if len(unplaced) > 6 else ''}")
+    A key of any other module raises ``ValueError`` naming it (the port has
+    no such module).  The JAX package's converter maps one ``mask_head``
+    only and drops the per-stage and semantic keys."""
     backbone = {k[len("backbone."):]: v for k, v in state_dict.items()
                 if k.startswith("backbone.")}
     out = from_torchvision_resnet(backbone)
@@ -225,10 +227,21 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
          lambda m: f"bbox_heads.{m[1]}.shared_fc_{m[2]}.{m[3]}"),
         (r"roi_head\.bbox_head\.(\d+)\.(fc_cls|fc_reg)\.(weight|bias)",
          lambda m: f"bbox_heads.{m[1]}.{m[2]}.{m[3]}"),
-        (r"roi_head\.mask_head\.convs\.(\d+)\.conv\.(weight|bias)",
-         lambda m: f"mask_head.conv_{m[1]}.{m[2]}"),
-        (r"roi_head\.mask_head\.(upsample|conv_logits)\.(weight|bias)",
-         lambda m: f"mask_head.{m[1]}.{m[2]}"),
+        # one mask head, or a cascade's stage S (group 1)
+        (r"roi_head\.mask_head\.(?:(\d+)\.)?convs\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"{_mask_head(m[1])}.conv_{m[2]}.{m[3]}"),
+        (r"roi_head\.mask_head\.(?:(\d+)\.)?(upsample|conv_logits)\.(weight|bias)",
+         lambda m: f"{_mask_head(m[1])}.{m[2]}.{m[3]}"),
+        (r"roi_head\.mask_head\.(\d+)\.conv_res\.conv\.(weight|bias)",
+         lambda m: f"mask_heads.{m[1]}.conv_res.{m[2]}"),
+        (r"roi_head\.semantic_head\.lateral_convs\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"semantic_head.lateral_{m[1]}.{m[2]}"),
+        (r"roi_head\.semantic_head\.convs\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"semantic_head.conv_{m[1]}.{m[2]}"),
+        (r"roi_head\.semantic_head\.conv_embedding\.conv\.(weight|bias)",
+         lambda m: f"semantic_head.conv_embedding.{m[1]}"),
+        (r"roi_head\.semantic_head\.conv_logits\.(weight|bias)",
+         lambda m: f"semantic_head.conv_seg.{m[1]}"),
     ]
     for key, value in state_dict.items():
         if key.startswith("backbone.") or _SKIP.search(key):

@@ -129,16 +129,16 @@ def _rpn_uniforms(rng, num_anchors):
     return np.asarray(out, np.float32)
 
 
-def run_pair(make_cfg):
+def run_pair(make_cfg, seed: int = 0):
     """Both packages on ``make_cfg(load_config(...))``'s model (the JAX
     package's and the port's config readers each read the file) through
     predict, the loss, its gradients and two train steps on the same
-    weights, batch, samples and RPN draws."""
+    weights, batch, samples and RPN draws, drawn from ``seed``."""
     mc = make_cfg(jax_load_config)
     num_classes = mc["roi_head"]["bbox_head"]["num_classes"]
     jdet = jax_build(mc, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), CANVAS))
-    rs = np.random.RandomState(0)
+    rs = np.random.RandomState(seed)
     variables = _random_variables(shapes, rs)
     batch = _batch(rs, num_classes)
     jv = jax.tree.map(jnp.asarray, variables)

@@ -3,12 +3,12 @@ width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
 ones and the Cascade Mask R-CNN ones on the ported backbones build
-(``BUILDS``, 20 + 20 files, the ensemble configs' ATSS and RetinaNet-style
-RPNs among them; files with the same model, such as a 1x and a 20e
-schedule, are built once); every other one raises
-``NotImplementedError`` naming what is missing (``_reason``): the
-caffe-style ResNet, DetectoRS, HRNet, RegNet, ResNeSt, GCNet's SyncBN and
-context blocks, the Seesaw loss and SABL heads.  Each built one is
+(``BUILDS``, 22 + 24 files, the ensemble configs' ATSS and RetinaNet-style
+RPNs and the caffe-style ResNets among them; files with the same model,
+such as a 1x and a 20e schedule, are built once); every other one raises
+``NotImplementedError`` naming what is missing (``_reason``): DetectoRS,
+HRNet, RegNet, ResNeSt, GCNet's SyncBN and context blocks, the Seesaw
+loss and SABL heads.  Each built one is
 checked against its config: one class-agnostic stage head per stage, the
 IoU ladder, the stage loss weights, boosting and fusion for
 ``ProbCascadeRoIHead`` only, the ensemble configs' RPN (its type, ATSS
@@ -59,11 +59,14 @@ BUILDS = {
     "ensemble/cascade_retinanet_r50_fpn_1x_coco.py",
     "ensemble/cascade_retinanet_s2_r50_fpn_1x_coco.py",
     "pascal_voc/cascade_rcnn_r50_fpn_1x_voc0712.py", "res2net/cascade_rcnn_r2_101_fpn_20e_coco.py",
+    "cascade_rcnn/cascade_rcnn_r50_caffe_fpn_1x_coco.py",
+    "cascade_rcnn/cascade_rcnn_r101_caffe_fpn_1x_coco.py",
     # Cascade Mask R-CNN
     *(f"cascade_rcnn/cascade_mask_rcnn_{m}.py" for m in (
         "r50_fpn_1x_coco", "r50_fpn_20e_coco", "r50_fpn_mstrain_3x_coco", "r101_fpn_1x_coco",
         "r101_fpn_20e_coco", "r101_fpn_mstrain_3x_coco", "x101_32x4d_fpn_1x_coco",
-        "x101_32x4d_fpn_20e_coco", "x101_32x4d_fpn_mstrain_3x_coco",
+        "x101_32x4d_fpn_20e_coco", "x101_32x4d_fpn_mstrain_3x_coco", "r50_caffe_fpn_1x_coco",
+        "r50_caffe_fpn_mstrain_3x_coco", "r101_caffe_fpn_1x_coco", "r101_caffe_fpn_mstrain_3x_coco",
         "x101_32x8d_fpn_mstrain_3x_coco", "x101_64x4d_fpn_1x_coco", "x101_64x4d_fpn_20e_coco",
         "x101_64x4d_fpn_mstrain_3x_coco")),
     "dcn/cascade_mask_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py",
@@ -81,10 +84,8 @@ def _names():
                   for p in glob.glob(os.path.join(CONFIGS, "*", "*cascade*.py")))
 
 
-def _reason(name: str, mc) -> str:
+def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
-    if mc["backbone"].get("style") == "caffe":
-        return "caffe"
     for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
                       ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
                       ("regnet/", "RegNet"), ("gcnet/", "SyncBN|ContextBlock"),
@@ -133,7 +134,7 @@ def test_cascade_config_builds_or_names_what_is_missing(name):
     mc = load_config(os.path.join(CONFIGS, name)).model.to_dict()
     assert mc["type"] == "CascadeRCNN"
     if name not in BUILDS:
-        with pytest.raises(NotImplementedError, match=_reason(name, mc)):
+        with pytest.raises(NotImplementedError, match=_reason(name)):
             build_detector(mc, device="cpu")
         return
     det = _built(json.dumps(mc, sort_keys=True))

@@ -14,8 +14,8 @@ The builder: ``htc_r50_fpn_1x_coco.py``, ``htc_without_semantic_...``
 and ``cascade_mask_rcnn_r50_fpn_1x_coco.py`` at full width, and what it
 rejects.  Weights: the tiny HTC's flax tree into the port through
 ``from_jax_params`` with ``strict=True`` (stage 0's head has no
-``conv_res`` in either), and mmdet's per-stage mask head and semantic
-head keys raising, named.
+``conv_res`` in either); ``tests/test_torch_mmdet_weights.py`` loads
+mmdet's per-stage mask head and semantic head keys.
 """
 import os
 import sys
@@ -42,7 +42,7 @@ from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.htc import HTCDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.roi_heads import mask_head as t_mask  # noqa: E402
 from boosting_rcnn_tpu_torch.ops.roi_align_kernel import batched_multilevel_roi_align  # noqa: E402
-from boosting_rcnn_tpu_torch.weights import from_jax_params, from_mmdet_state_dict  # noqa: E402
+from boosting_rcnn_tpu_torch.weights import from_jax_params  # noqa: E402
 from test_torch_boosting_detectors import CANVAS, _random_variables, config_path  # noqa: E402
 from test_torch_htc import tiny_htc  # noqa: E402
 from test_torch_mask_ops import _close, _load, _params  # noqa: E402
@@ -279,12 +279,3 @@ def test_flax_tree_loads_strictly(name):
     for k, v in det.net.state_dict().items():
         assert torch.equal(v, state[k]), k
 
-
-def test_mmdet_htc_keys_raise_named():
-    t = torch.zeros(8, 8, 1, 1)
-    sd = {"roi_head.mask_head.0.convs.0.conv.weight": t,
-          "roi_head.mask_head.1.conv_res.conv.weight": t,
-          "roi_head.semantic_head.lateral_convs.0.conv.weight": t}
-    with pytest.raises(NotImplementedError, match=r"roi_head\.mask_head\.1\.conv_res") as exc:
-        from_mmdet_state_dict(sd)
-    assert "roi_head.semantic_head.lateral_convs.0.conv.weight" in str(exc.value)

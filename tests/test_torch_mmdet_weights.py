@@ -20,7 +20,13 @@ each with seeded random values and written with ``torch.save``.  Checked:
   * ``from_torchvision_resnet`` equals ``from_jax_params`` of the JAX
     ``convert_torchvision_resnet`` at depths 18 and 50 (classifier and BN
     counters skipped); ``load_pretrained`` loads a local file and refuses
-    an address; ``engine.checkpoint.load_params`` reads an mmdet file.
+    an address; ``engine.checkpoint.load_params`` reads an mmdet file;
+  * Cascade Mask R-CNN's and HTC's (with and without the semantic head)
+    per-stage mask heads and semantic head: the port's seeded weights,
+    renamed to mmdet's names in the test, load back into a fresh model
+    through ``from_mmdet_state_dict`` and ``load_params``, every tensor
+    equal (the JAX converter drops these keys, so the port is held to its
+    own module names); keys of modules the port lacks raise, named.
 """
 import os
 import re
@@ -41,6 +47,7 @@ from tools.convert_torch_weights import (  # noqa: E402
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.engine.checkpoint import load_params  # noqa: E402
+from boosting_rcnn_tpu_torch.engine.runner import shrink_model  # noqa: E402
 from boosting_rcnn_tpu_torch.weights import (  # noqa: E402
     from_jax_params,
     from_mmdet_state_dict,
@@ -228,3 +235,84 @@ def test_torchvision_resnet(depth, tmp_path):
     _same(det.net.state_dict(), got)
     with pytest.raises(ValueError, match="fetches nothing"):
         load_pretrained(det.net, dict(type="Pretrained", checkpoint="torchvision://resnet50"))
+
+
+# the port's module names -> mmdet's, for the cascade models' round trips
+_TO_MMDET = (
+    (r"backbone\.layer(\d+)_(\d+)\.downsample_conv\.(.+)", r"backbone.layer\1.\2.downsample.0.\3"),
+    (r"backbone\.layer(\d+)_(\d+)\.downsample_bn\.(.+)", r"backbone.layer\1.\2.downsample.1.\3"),
+    (r"backbone\.layer(\d+)_(\d+)\.(.+)", r"backbone.layer\1.\2.\3"),
+    (r"backbone\.(.+)", r"backbone.\1"),
+    (r"neck\.lateral_(\d+)\.conv\.(.+)", r"neck.lateral_convs.\1.conv.\2"),
+    (r"neck\.fpn_conv_(\d+)\.conv\.(.+)", r"neck.fpn_convs.\1.conv.\2"),
+    (r"rpn\.(rpn_conv|rpn_cls|rpn_reg)\.(.+)", r"rpn_head.\1.\2"),
+    (r"bbox_heads\.(\d+)\.shared_fc_(\d+)\.(.+)", r"roi_head.bbox_head.\1.shared_fcs.\2.\3"),
+    (r"bbox_heads\.(\d+)\.(fc_cls|fc_reg)\.(.+)", r"roi_head.bbox_head.\1.\2.\3"),
+    (r"mask_heads\.(\d+)\.conv_(\d+)\.(.+)", r"roi_head.mask_head.\1.convs.\2.conv.\3"),
+    (r"mask_heads\.(\d+)\.conv_res\.(.+)", r"roi_head.mask_head.\1.conv_res.conv.\2"),
+    (r"mask_heads\.(\d+)\.(upsample|conv_logits)\.(.+)", r"roi_head.mask_head.\1.\2.\3"),
+    (r"semantic_head\.lateral_(\d+)\.(.+)", r"roi_head.semantic_head.lateral_convs.\1.conv.\2"),
+    (r"semantic_head\.conv_(\d+)\.(.+)", r"roi_head.semantic_head.convs.\1.conv.\2"),
+    (r"semantic_head\.conv_embedding\.(.+)", r"roi_head.semantic_head.conv_embedding.conv.\1"),
+    (r"semantic_head\.conv_seg\.(.+)", r"roi_head.semantic_head.conv_logits.\1"),
+)
+
+
+def _mmdet_names(state, roi_feat_size=7):
+    """An mmdet state dict of the port's ``state``: mmdet's names, the first
+    FC after the pool taking its input flattened ``(C, S, S)``."""
+    out = {}
+    for key, value in state.items():
+        name = next(re.sub(p, r, key) for p, r in _TO_MMDET if re.fullmatch(p, key))
+        if re.fullmatch(r"bbox_heads\.\d+\.shared_fc_0\.weight", key):
+            s = roi_feat_size
+            o, i = value.shape
+            value = value.reshape(o, s, s, i // (s * s)).permute(0, 3, 1, 2).reshape(o, i)
+        out[name] = value.clone()
+    return out
+
+
+CASCADE_MASK_MODELS = {
+    "htc": os.path.join(REPO, "configs/htc/htc_r50_fpn_1x_coco.py"),
+    "htc_without_semantic": os.path.join(
+        REPO, "configs/htc/htc_without_semantic_r50_fpn_1x_coco.py"),
+    "cascade_mask_rcnn": os.path.join(
+        REPO, "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASCADE_MASK_MODELS))
+def test_cascade_mask_mmdet_round_trip(name, tmp_path):
+    """The port's seeded weights in mmdet's names, through
+    ``from_mmdet_state_dict`` and an mmdet ``.pth`` file into a model of
+    another seed: every tensor back, equal; the per-stage mask heads'
+    ``convs``, ``conv_res``, ``upsample`` and ``conv_logits`` and the
+    semantic head's laterals, convs, embedding and logits each placed."""
+    mc = shrink_model(load_config(CASCADE_MASK_MODELS[name]).model.to_dict())
+    src = build_detector(mc, device="cpu", seed=1).net.state_dict()
+    sd = _mmdet_names(src)
+    assert any(".mask_head.1.convs.0.conv." in k for k in sd)
+    assert any(".mask_head.2.conv_res.conv." in k for k in sd) == name.startswith("htc")
+    assert any(".semantic_head.conv_logits." in k for k in sd) == (name == "htc")
+    path = str(tmp_path / f"{name}.pth")
+    torch.save({"state_dict": {**sd, "backbone.bn1.num_batches_tracked": torch.tensor(7)}},
+               path)
+    det = build_detector(mc, device="cpu", seed=2)
+    assert any(not torch.equal(v, src[k]) for k, v in det.net.state_dict().items())
+    got = from_mmdet_state_dict(sd)
+    assert set(got) == set(src)
+    det.net.load_state_dict(load_params(path), strict=True)
+    for k, v in det.net.state_dict().items():
+        assert torch.equal(v, src[k]), k
+        assert torch.equal(got[k], src[k]), k
+
+
+@pytest.mark.parametrize("key", [
+    "roi_head.mask_head.1.conv_res.norm.weight",
+    "roi_head.semantic_head.fcs.0.weight",
+    "roi_head.mask_head.0.convs.0.bn.weight",
+    "roi_head.mask_iou_head.fc_mask_iou.weight",
+])
+def test_unknown_mmdet_keys_raise_named(key):
+    with pytest.raises(ValueError, match=re.escape(repr(key))):
+        from_mmdet_state_dict({key: torch.zeros(2)})
