@@ -2,12 +2,16 @@
 two-stage branch of ``boosting_rcnn_tpu/builder.py::build_detector``).
 
 Ported types: ``FasterRCNN`` and ``MaskRCNN`` with the backbone ``ResNet``
-(depths 18, 34, 50, 101, 152, pytorch or caffe style, frozen BN,
-``frozen_stages``, DCN / DCNv2 stages), ``ResNeXt`` (grouped 3x3s, either
-style) or ``Res2Net`` (deep stem,
+(depths 18, 34, 50, 101, 152, pytorch or caffe style, frozen BN or, with
+``norm_eval=False``, BN that trains on batch statistics, GN,
+weight-standardised convs, GCNet's ``ContextBlock`` and
+``GeneralizedAttention`` plugins, ``frozen_stages``, DCN / DCNv2 stages),
+``ResNeXt`` (grouped 3x3s, either style, the same norms, convs and
+plugins; its BN frozen) or ``Res2Net`` (deep stem,
 hierarchical splits, DCN / DCNv2 stages); the neck ``PAFPN`` (extra convs
 on output) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
-pool or by convs on the input, lateral or output); the RPN
+pool or by convs on the input, lateral or output; GN or frozen BN and
+ConvWS); the RPN
 ``ATSSRPNHead`` (max-IoU or ATSS assignment, focal / IoU / GIoU / CIoU /
 MSE / BCE losses, on decoded boxes or on encoded deltas) or ``RPNHead``
 (one or more 3x3 convs, BCE or focal objectness and smooth L1, a random
@@ -17,9 +21,10 @@ its config says ``boost``), ``StandardRoIHead`` (plain cross entropy,
 softmax scores) or ``DynamicRoIHead`` (Dynamic R-CNN: the standard head
 with an IoU threshold and smooth-L1 beta adapted from
 ``train_cfg.rcnn.dynamic_rcnn``, the ``DynamicRCNNDetector``), each with a
-random sampler and a Shared2FC box head (class-wise or class-agnostic
-deltas) with cross entropy and L1 or smooth L1, and hard or soft NMS at
-test; and an ``FCNMaskHead`` on a 14 x 14 ``RoIAlign`` (Mask R-CNN).
+random sampler and a Shared2FC or Shared4Conv1FC box head (class-wise or
+class-agnostic deltas) with cross entropy and L1 or smooth L1, and hard or
+soft NMS at test; and an ``FCNMaskHead`` (GN or not) on a 14 x 14
+``RoIAlign`` (Mask R-CNN).
 ``CascadeRCNN`` (box only) builds its ``CascadeRoIHead`` or the fork's
 ``ProbCascadeRoIHead`` as the JAX ``build_cascade`` does, one Shared2FC
 head per stage; ``HybridTaskCascade`` and a ``CascadeRCNN`` with a
@@ -103,19 +108,53 @@ def _dcn(cfg: Dict[str, Any]):
     return dcn, stages
 
 
+_NORM_TYPES = ("BN", "SyncBN", "FrozenBN", "GN")
+
+
+def _norm_cfg(cfg: Dict[str, Any], what: str):
+    """``cfg["norm_cfg"]``: None, or BN / SyncBN / FrozenBN / GN (the JAX
+    package reads ``type`` and GN's ``num_groups``, and trains every norm's
+    parameters)."""
+    norm = cfg.get("norm_cfg")
+    if norm is None:
+        return None
+    key = f"{what}.norm_cfg"
+    _only(norm, key, ("type", "num_groups", "requires_grad"))
+    _check({f"{key}.type": norm.get("type")}, f"{key}.type", _NORM_TYPES)
+    _check({f"{key}.requires_grad": norm.get("requires_grad", True)}, f"{key}.requires_grad",
+           (True,))
+    return norm
+
+
+def _conv_cfg(cfg: Dict[str, Any], what: str):
+    """``cfg["conv_cfg"]``: None, or ``dict(type="ConvWS")``."""
+    conv = cfg.get("conv_cfg")
+    if conv is not None:
+        key = f"{what}.conv_cfg"
+        _only(conv, key, ("type",))
+        _check({f"{key}.type": conv.get("type")}, f"{key}.type", ("ConvWS",))
+    return conv
+
+
 def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     """``ResNet``, ``ResNeXt`` (JAX ``build_resnext``'s defaults: depth 101,
     32 groups of base width 4) or ``Res2Net`` (depth 101, 4 scales of base
-    width 26)."""
+    width 26).  ResNet and ResNeXt take ``plugins``, ``conv_cfg`` (ConvWS)
+    and ``norm_cfg`` (BN / SyncBN / GN); ResNet also ``norm_eval`` (False:
+    live BN), which the JAX ``build_resnext`` does not read, so a ResNeXt's
+    BN stays frozen whatever it says (JAX ``builder.py:68-122``)."""
     _check(cfg, "type", ("ResNet", "ResNeXt", "Res2Net"))
-    for key in ("plugins", "conv_cfg", "norm_cfg"):
-        _check(cfg, key, (None,))
+    if cfg["type"] == "Res2Net":
+        for key in ("plugins", "conv_cfg", "norm_cfg"):
+            _check(cfg, key, (None,))
+        _check(cfg, "norm_eval", (True,), True)
+    elif cfg["type"] == "ResNet":
+        _check(cfg, "norm_eval", (True, False), True)
     # the caffe style moves a bottleneck's stride to its first 1x1 (JAX
     # build_resnet and build_resnext read it; build_res2net does not)
     _check(cfg, "style", ("pytorch",) if cfg["type"] == "Res2Net" else ("pytorch", "caffe"),
            "pytorch")
     _check(cfg, "deep_stem", (False,), False)
-    _check(cfg, "norm_eval", (True,), True)
     _check(cfg, "num_stages", (4,), 4)
     for key, value in (("dilations", (1, 1, 1, 1)), ("strides", (1, 2, 2, 2)),
                        ("out_indices", (0, 1, 2, 3))):
@@ -127,29 +166,32 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     if cfg["type"] == "Res2Net":
         return Res2Net(gen, depth=cfg.get("depth", 101), scales=cfg.get("scales", 4),
                        base_width=cfg.get("base_width", 26), **common)
-    common["style"] = cfg.get("style", "pytorch")
+    common.update(style=cfg.get("style", "pytorch"), plugins=cfg.get("plugins") or None,
+                  conv_cfg=_conv_cfg(cfg, "backbone"), norm_cfg=_norm_cfg(cfg, "backbone"))
     if cfg["type"] == "ResNeXt":
         return ResNet(gen, depth=cfg.get("depth", 101), groups=cfg.get("groups", 32),
                       base_width=cfg.get("base_width", 4), **common)
     for key in ("groups", "base_width", "scales"):  # the JAX build_resnet reads none
         _check(cfg, key, (None,))
-    return ResNet(gen, depth=cfg.get("depth", 50), **common)
+    return ResNet(gen, depth=cfg.get("depth", 50), norm_eval=cfg.get("norm_eval", True),
+                  **common)
 
 
 def _build_neck(cfg: Dict[str, Any], gen: torch.Generator):
     _check(cfg, "type", ("PAFPN", "FPN"))
     if cfg["type"] == "FPN":
-        # no norm and no activation, as every ported config's FPN
-        for key, value in (("norm_cfg", None), ("conv_cfg", None), ("act", None)):
-            if cfg.get(key, value) != value:
-                raise _unported(f"FPN {key}", cfg[key])
+        # no activation, as every ported config's FPN; norms and ConvWS as the
+        # JAX FPN takes them
+        _check({"FPN act": cfg.get("act")}, "FPN act", (None,))
         _check(cfg, "add_extra_convs", (False, True, "on_input", "on_lateral", "on_output"),
                False)
         return FPN(gen, in_channels=cfg["in_channels"],
                    out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5),
                    start_level=cfg.get("start_level", 0), end_level=cfg.get("end_level", -1),
                    add_extra_convs=cfg.get("add_extra_convs", False),
-                   relu_before_extra_convs=cfg.get("relu_before_extra_convs", False))
+                   relu_before_extra_convs=cfg.get("relu_before_extra_convs", False),
+                   norm_cfg=_norm_cfg(cfg, "neck"), conv_cfg=_conv_cfg(cfg, "neck"),
+                   no_norm_on_lateral=cfg.get("no_norm_on_lateral", False))
     _check(cfg, "norm_cfg", (None,))
     _check(cfg, "no_norm_on_lateral", (False,), False)
     _check(cfg, "add_extra_convs", ("on_output",), False)
@@ -333,7 +375,7 @@ def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: i
     """The FCN mask head and the mask RoIAlign's pooled size (JAX
     ``build_detector``'s ``FCNMaskHead`` case)."""
     mh = roi["mask_head"]
-    _check_mask_head(mh, ("FCNMaskHead",))
+    _check_mask_head(mh, ("FCNMaskHead",), norm=True)
     out_size = _mask_extractor(roi, strides)
     _check(train_rcnn, "mask_size", (2 * out_size,), 2 * out_size)
     for key in ("mask_iou_head", "semantic_head"):
@@ -341,13 +383,16 @@ def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: i
     module = FCNMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
                          in_channels=mh.get("in_channels", channels),
                          num_convs=mh.get("num_convs", 4),
-                         conv_channels=mh.get("conv_out_channels", 256))
+                         conv_channels=mh.get("conv_out_channels", 256),
+                         norm_cfg=_norm_cfg(mh, "mask_head"))
     return module, out_size
 
 
-def _check_mask_head(mh: Dict[str, Any], types) -> None:
+def _check_mask_head(mh: Dict[str, Any], types, norm: bool = False) -> None:
     """An FCN-style mask head of ``types`` as the port has it: 3x3 convs
-    without norms, a 2x deconvolution, a plain 1x1 predictor, per-class
+    (with a ``norm_cfg`` where ``norm``: Mask R-CNN's ``FCNMaskHead``; the
+    JAX ``FCNMaskHead`` reads no ``conv_cfg``, so a ConvWS one leaves its
+    convs plain), a 2x deconvolution, a plain 1x1 predictor, per-class
     masks, the binary cross entropy at weight 1."""
     _only(mh, "mask_head", ("type", "num_convs", "in_channels", "conv_out_channels",
                             "num_classes", "roi_feat_size", "conv_kernel_size",
@@ -358,8 +403,12 @@ def _check_mask_head(mh: Dict[str, Any], types) -> None:
     _check(mh, "class_agnostic", (False,), False)
     _check(mh, "upsample_cfg", ({"type": "deconv", "scale_factor": 2},),
            {"type": "deconv", "scale_factor": 2})
-    for key in ("norm_cfg", "conv_cfg"):
-        _check(mh, key, (None,))
+    if norm:
+        _norm_cfg(mh, "mask_head")
+        _conv_cfg(mh, "mask_head")
+    else:
+        for key in ("norm_cfg", "conv_cfg"):
+            _check(mh, key, (None,))
     _check(mh, "predictor_cfg", (None, {"type": "Conv"}))
     loss_mask = _loss(mh, "loss_mask", ("CrossEntropyLoss",),
                       {"type": "CrossEntropyLoss", "use_mask": True})
@@ -389,19 +438,28 @@ def _mask_extractor(roi: Dict[str, Any], strides) -> int:
 _BOX_LOSSES = {"L1Loss": "l1", "SmoothL1Loss": "smooth_l1"}
 
 
+# the box heads' (shared convs, shared FCs) by type (JAX ``_std_convfc_head``)
+_HEAD_PRESETS = {"Shared4Conv1FCBBoxHead": (4, 1)}
+
+
 def _bbox_head(head: Dict[str, Any], channels: int, out_size: int, gen: torch.Generator,
-               types=("ProbConvFCBBoxHead", "Shared2FCBBoxHead", "ConvFCBBoxHead"),
+               types=("ProbConvFCBBoxHead", "Shared2FCBBoxHead", "ConvFCBBoxHead",
+                      "Shared4Conv1FCBBoxHead"),
                **head_kw):
-    """A Shared2FC box head module of ``types`` (JAX ``_std_convfc_head``)
-    and its coder and losses (``build_bbox_head``); ``head_kw`` (Dynamic
-    R-CNN's state options) go to the module."""
+    """A ConvFC box head module of ``types`` (JAX ``_std_convfc_head``:
+    Shared2FC, or Shared4Conv1FC's 3x3 convs with their ``conv_cfg`` and
+    ``norm_cfg`` and one FC) and its coder and losses (``build_bbox_head``);
+    ``head_kw`` (Dynamic R-CNN's state options) go to the module."""
     _check(head, "type", types)
-    _check(head, "num_shared_convs", (0, None))
+    convs, fcs = _HEAD_PRESETS.get(head.get("type"), (0, 2))
     module = ConvFCBBoxHead(
         gen, num_classes=head.get("num_classes", 80), in_channels=channels,
-        num_shared_fcs=head.get("num_shared_fcs", 2),
+        num_shared_fcs=head.get("num_shared_fcs", fcs),
         fc_out_channels=head.get("fc_out_channels", 1024), roi_feat_size=out_size,
-        reg_class_agnostic=head.get("reg_class_agnostic", False), **head_kw,
+        reg_class_agnostic=head.get("reg_class_agnostic", False),
+        num_shared_convs=head.get("num_shared_convs", convs),
+        conv_out_channels=head.get("conv_out_channels", 256),
+        conv_cfg=_conv_cfg(head, "bbox_head"), norm_cfg=_norm_cfg(head, "bbox_head"), **head_kw,
     )
     return module, _bbox_cfg(head)
 
@@ -597,7 +655,7 @@ def _dynamic_rcnn(train_rcnn: Dict[str, Any], roi: Dict[str, Any]):
 # Double heads the Shared2FC preset (``_std_convfc_head``); a stage given
 # as only ``{"num_classes": K}`` (a merged config's list) has no type
 _CASCADE_HEADS = (None, "Shared2FCBBoxHead", "ProbShared2FCBBoxHead", "ConvFCBBoxHead",
-                  "ProbConvFCBBoxHead")
+                  "ProbConvFCBBoxHead", "Shared4Conv1FCBBoxHead")
 
 
 def _cascade_rcnn_cfgs(train_cfg: Dict[str, Any], num_stages: int):

@@ -50,6 +50,7 @@ __all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "test
            "eval_loader", "tta_options", "Trainer", "build_trainer", "train_detector"]
 
 TINY_CANVAS = (128, 160)
+TINY_GN_GROUPS = 8  # divides the shrunk backbone's, neck's and heads' widths
 # hooks whose work the loop does by construction
 _INHERENT_HOOKS = ("NumClassCheckHook", "CheckInvalidLossHook")
 # the JAX loader's augmentations and extra targets that the port's loader lacks
@@ -78,14 +79,25 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     pool the neck's 32 channels, as in the JAX package; the semantic head's
     width becomes the neck's, which its embedding is added to (the JAX
     shrink keeps its 256 channels, and its tiny HTC then fails to build).
+    Two more changes where the JAX shrink's model cannot build: a backbone
+    with ``plugins`` becomes ResNet-50 at width 8 (their bottlenecks; the
+    JAX ResNet asserts that a BasicBlock takes none), and every GN
+    ``norm_cfg`` gets ``TINY_GN_GROUPS`` groups, which divide every shrunk
+    width (a GN(32) stem over 8 channels fails to build in flax).
     Other model types raise."""
     rpn = mc.get("rpn_head", {}).get("type")
     if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc:
         raise NotImplementedError("--tiny shrinks the two-stage configs only")
     for key in _BIG_BLOCK_KEYS:
         mc["backbone"].pop(key, None)
-    mc["backbone"].update(type="ResNet", depth=18, base_channels=8)
-    mc["neck"].update(in_channels=[8, 16, 32, 64], out_channels=32)
+    plugins = bool(mc["backbone"].get("plugins"))
+    mc["backbone"].update(type="ResNet", depth=50 if plugins else 18, base_channels=8)
+    mc["neck"].update(in_channels=[32, 64, 128, 256] if plugins else [8, 16, 32, 64],
+                      out_channels=32)
+    for part in (mc["backbone"], mc["neck"], *_each(mc["roi_head"]["bbox_head"]),
+                 *_each(mc["roi_head"].get("mask_head") or [])):
+        if (part.get("norm_cfg") or {}).get("type") == "GN":
+            part["norm_cfg"] = dict(part["norm_cfg"], num_groups=TINY_GN_GROUPS)
     # the JAX shrink sets stacked_convs on the plain RPN too, where it is unread
     mc["rpn_head"].update(feat_channels=32, **({"stacked_convs": 2} if rpn == "ATSSRPNHead"
                                                else {}))

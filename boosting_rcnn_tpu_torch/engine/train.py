@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 __all__ = ["step_lr_schedule", "Optimizer", "make_optimizer", "deterministic_cudnn",
-           "make_train_step"]
+           "live_norms", "make_train_step"]
 
 
 def step_lr_schedule(
@@ -150,6 +150,18 @@ def deterministic_cudnn(on: bool = True):
         cudnn.deterministic, cudnn.benchmark = saved
 
 
+@contextlib.contextmanager
+def live_norms(net: torch.nn.Module):
+    """``net`` in ``train()`` mode inside the block (its ``LiveBatchNorm``
+    layers on batch statistics, moving their running averages), back in
+    ``eval()`` mode after it."""
+    net.train()
+    try:
+        yield
+    finally:
+        net.eval()
+
+
 def make_train_step(
     detector,
     anchors: torch.Tensor,
@@ -174,8 +186,9 @@ def make_train_step(
         optimizer.zero_grad()
         kw = {k: v for k, v in (("roi_uniforms", roi_uniforms),
                                 ("mask_uniforms", mask_uniforms)) if v is not None}
-        losses = detector.loss(batch, anchors, num_level_anchors, generator=generator,
-                               sample=sample, rpn_uniforms=rpn_uniforms, **kw)
+        with live_norms(detector.net):
+            losses = detector.loss(batch, anchors, num_level_anchors, generator=generator,
+                                   sample=sample, rpn_uniforms=rpn_uniforms, **kw)
         total = sum(v.sum() for v in losses.values())
         total.backward()
         grad_norm = optimizer.step()

@@ -63,8 +63,10 @@ class ATSSRPNConvs(nn.Module):
         self.num_levels = num_levels
         cin = in_channels
         for i in range(stacked_convs):
-            self.add_module(f"rpn_conv_{i}", ConvModule(
-                cin, feat_channels, 3, gen, num_groups=32, act="relu"))
+            conv = ConvModule(cin, feat_channels, 3, gen,
+                              norm_cfg={"type": "GN", "num_groups": 32}, act="relu")
+            conv.norm.fast_variance = False
+            self.add_module(f"rpn_conv_{i}", conv)
             cin = feat_channels
         self.rpn_cls = make_conv(cin, num_anchors, 3, 1, 1, True, gen, PRIOR_BIAS)
         self.rpn_reg = make_conv(cin, num_anchors * 4, 3, 1, 1, True, gen)

@@ -179,8 +179,8 @@ class TwoStageDetector:
         if rpn_type not in ("atss_rpn", "rpn"):
             raise NotImplementedError(f"rpn_type={rpn_type!r} is not ported")
         self.rpn_type = rpn_type
-        # eval mode throughout: the ported models have only frozen BN and
-        # GroupNorm, which compute the same in both modes
+        # eval mode (running BN averages) but inside the train step's loss
+        # forward (engine/train.py::live_norms)
         self.net = net.to(device).eval()
         self.anchor_generator = anchor_generator
         self.rpn_cfg = rpn_cfg

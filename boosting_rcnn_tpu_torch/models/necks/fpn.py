@@ -7,8 +7,12 @@ output convs, and the extra levels as ``max_pool(outs[-1], 1, 2)``
 lateral or its output (``FPN._add_extra_levels``).  ``PAFPN`` (the flagship's): the FPN top-down
 merge, then the bottom-up path (``downsample_{i}`` stride-2 convs,
 ``pafpn_conv_{i}``), then extra levels by stride-2 convs on the last output
-(``add_extra_convs='on_output'``).  No norm and no activation, as both
-configs have.  NCHW in and out.
+(``add_extra_convs='on_output'``).  No activation, as every config has;
+the FPN takes a ``norm_cfg`` for every conv (the laterals' not with
+``no_norm_on_lateral``; GN, or BN as a frozen BN, ``layers.make_norm``) and
+a ``conv_cfg`` (``ConvWS``) for its laterals and output convs, not its extra
+convs, as the JAX FPN (``necks/fpn.py:20-100``); the PAFPN neither.  NCHW in
+and out.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ class FPN(nn.Module):
     def __init__(self, gen: torch.Generator, in_channels: Sequence[int],
                  out_channels: int = 256, num_outs: int = 5, start_level: int = 0,
                  end_level: int = -1, add_extra_convs=False,
-                 relu_before_extra_convs: bool = False):
+                 relu_before_extra_convs: bool = False, norm_cfg: dict | None = None,
+                 conv_cfg: dict | None = None, no_norm_on_lateral: bool = False):
         super().__init__()
         if add_extra_convs is True:
             add_extra_convs = "on_input"
@@ -56,15 +61,17 @@ class FPN(nn.Module):
         self.add_extra_convs = add_extra_convs
         self.relu_before_extra_convs = relu_before_extra_convs
         for i in range(used):
-            self.add_module(f"lateral_{i}",
-                            ConvModule(in_channels[start_level + i], out_channels, 1, gen))
-            self.add_module(f"fpn_conv_{i}", ConvModule(out_channels, out_channels, 3, gen))
+            self.add_module(f"lateral_{i}", ConvModule(
+                in_channels[start_level + i], out_channels, 1, gen, conv_cfg=conv_cfg,
+                norm_cfg=None if no_norm_on_lateral else norm_cfg))
+            self.add_module(f"fpn_conv_{i}", ConvModule(out_channels, out_channels, 3, gen,
+                                                        conv_cfg=conv_cfg, norm_cfg=norm_cfg))
         if add_extra_convs:
             for i in range(used, num_outs):
                 cin = (in_channels[end - 1] if i == used and add_extra_convs == "on_input"
                        else out_channels)
-                self.add_module(f"fpn_conv_{i}",
-                                ConvModule(cin, out_channels, 3, gen, stride=2))
+                self.add_module(f"fpn_conv_{i}", ConvModule(cin, out_channels, 3, gen, stride=2,
+                                                            norm_cfg=norm_cfg))
 
     def forward(self, inputs):
         used = self.used

@@ -1,10 +1,12 @@
 """R-CNN box head, inference (PyTorch port of
 ``boosting_rcnn_tpu/models/roi_heads/bbox_head.py``).
 
-``ConvFCBBoxHead`` with the flagship's Shared2FC layout: the pooled
-``(N, 7, 7, C)`` RoI features are flattened in (H, W, C) order, as in the
-JAX package, so the first FC takes the JAX kernel with no column
-permutation.  The box deltas are class-wise, ``(N, 4K)``, or with
+``ConvFCBBoxHead`` with the flagship's Shared2FC layout, or with
+``num_shared_convs`` 3x3 ConvModules (ReLU, a ``conv_cfg`` and a
+``norm_cfg``; ``Shared4Conv1FCBBoxHead``: 4 convs and 1 FC) before the FCs
+(JAX ``bbox_head.py:140-148``): the pooled (or convolved) ``(N, 7, 7, C)``
+RoI features are flattened in (H, W, C) order, as in the JAX package, so
+the first FC takes the JAX kernel with no column permutation.  The box deltas are class-wise, ``(N, 4K)``, or with
 ``reg_class_agnostic`` one set for every class, ``(N, 4)`` (Cascade
 R-CNN's stage heads).  ``bbox_head_decode`` decodes the deltas and runs
 multiclass NMS for one image.  ``bbox_targets`` and ``bbox_head_loss`` are
@@ -36,7 +38,7 @@ from torch import nn
 from ...ops import box_ops
 from ...ops import losses as L
 from ...ops.nms import multiclass_nms_padded
-from ..layers import make_linear
+from ..layers import ConvModule, make_linear
 
 
 class ConvFCBBoxHead(nn.Module):
@@ -47,10 +49,19 @@ class ConvFCBBoxHead(nn.Module):
                  num_shared_fcs: int = 2, fc_out_channels: int = 1024,
                  roi_feat_size: int = 7, reg_class_agnostic: bool = False,
                  dynamic: bool = False, dyn_initial_iou: float = 0.4,
-                 dyn_initial_beta: float = 1.0, dyn_interval: int = 100):
+                 dyn_initial_beta: float = 1.0, dyn_interval: int = 100,
+                 num_shared_convs: int = 0, conv_out_channels: int = 256,
+                 conv_cfg: Optional[dict] = None, norm_cfg: Optional[dict] = None):
         super().__init__()
         self.num_shared_fcs = num_shared_fcs
-        cin = in_channels * roi_feat_size * roi_feat_size
+        self.num_shared_convs = num_shared_convs
+        cin = in_channels
+        for i in range(num_shared_convs):
+            self.add_module(f"shared_conv_{i}", ConvModule(
+                cin, conv_out_channels, 3, gen, norm_cfg=norm_cfg, act="relu",
+                conv_cfg=conv_cfg))
+            cin = conv_out_channels
+        cin = cin * roi_feat_size * roi_feat_size
         for i in range(num_shared_fcs):
             self.add_module(f"shared_fc_{i}", make_linear(cin, fc_out_channels, gen))
             cin = fc_out_channels
@@ -91,6 +102,11 @@ class ConvFCBBoxHead(nn.Module):
         self.dyn_beta.copy_(torch.where(boundary, cand_beta, beta))
 
     def forward(self, x: torch.Tensor):
+        if self.num_shared_convs:
+            x = x.permute(0, 3, 1, 2)
+            for i in range(self.num_shared_convs):
+                x = getattr(self, f"shared_conv_{i}")(x)
+            x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[0], -1)
         for i in range(self.num_shared_fcs):
             x = F.relu(getattr(self, f"shared_fc_{i}")(x))

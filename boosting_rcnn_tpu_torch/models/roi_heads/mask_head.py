@@ -5,8 +5,9 @@
 transposed conv with ReLU, and a 1x1 ``conv_logits`` with one channel per
 class, out in float32; the pooled RoI features ``(R, 14, 14, C)`` in and
 the logits ``(R, 28, 28, K)`` out, in the JAX package's NHWC layout (the
-convolutions run on NCHW views).  Norms and ``NormedConv2d`` are not
-ported (the builder raises).  HTC's ``HTCMaskHead`` adds the mask
+convolutions run on NCHW views).  With a ``norm_cfg`` its convs are
+ConvModules (no bias, the norm, ReLU; JAX ``mask_head.py:51-80``: the GN
+heads).  ``NormedConv2d`` is not ported (the builder raises).  HTC's ``HTCMaskHead`` adds the mask
 information flow (``conv_res``) and hands out its running feature;
 ``FusedSemanticHead`` and ``semantic_seg_loss`` are HTC's stuff branch.
 
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import losses as L
-from ..layers import bilinear_resize, make_conv, make_conv_transpose
+from ..layers import ConvModule, bilinear_resize, make_conv, make_conv_transpose
 
 
 class FCNMaskHead(nn.Module):
@@ -36,22 +37,28 @@ class FCNMaskHead(nn.Module):
     float32 logits."""
 
     def __init__(self, gen: torch.Generator, num_classes: int = 80, in_channels: int = 256,
-                 num_convs: int = 4, conv_channels: int = 256):
+                 num_convs: int = 4, conv_channels: int = 256, norm_cfg: Optional[dict] = None):
         super().__init__()
         self.num_convs = num_convs
         cin = in_channels
         for i in range(num_convs):
-            self.add_module(f"conv_{i}", make_conv(cin, conv_channels, 3, 1, 1, True, gen))
+            self.add_module(f"conv_{i}", make_conv(cin, conv_channels, 3, 1, 1, True, gen)
+                            if norm_cfg is None else
+                            ConvModule(cin, conv_channels, 3, gen, norm_cfg=norm_cfg))
             cin = conv_channels
         self.upsample = make_conv_transpose(cin, conv_channels, 2, 2, gen)
         self.conv_logits = make_conv(conv_channels, num_classes, 1, 1, 0, True, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
-        for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"conv_{i}")(x))
+        x = self._convs(x.permute(0, 3, 1, 2))
         x = F.relu(self.upsample(x))
         return self.conv_logits(x).float().permute(0, 2, 3, 1)
+
+    def _convs(self, x: torch.Tensor) -> torch.Tensor:
+        """The 3x3 convs (and norms), each with its ReLU."""
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv_{i}")(x))
+        return x
 
 
 class HTCMaskHead(FCNMaskHead):
@@ -81,8 +88,7 @@ class HTCMaskHead(FCNMaskHead):
             if self.conv_res is None:
                 raise ValueError("this mask head has no conv_res to fuse a running feature")
             x = x + F.relu(self.conv_res(res_feat.permute(0, 3, 1, 2)))
-        for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"conv_{i}")(x))
+        x = self._convs(x)
         outs = []
         if return_logits:
             y = F.relu(self.upsample(x))

@@ -6,7 +6,10 @@ nested dicts of numpy arrays, named as flax names them, and returns a
 ``state_dict`` for ``TwoStageNet``.  The port's modules carry the JAX
 module names, so the mapping is by rule:
 
-  * ``Conv_0`` / ``GroupNorm_0`` inside a ConvModule -> ``conv`` / ``norm``;
+  * ``Conv_0`` / ``WSConv_0`` and ``GroupNorm_0`` / ``FrozenBatchNorm_0`` /
+    ``LayerNorm_0`` inside a ConvModule -> ``conv`` and ``norm``; the
+    ``BatchNorm_0`` inside a ``LiveBatchNorm`` is dropped (its ``scale``,
+    ``bias``, ``mean`` and ``var`` are the port's module's own);
     a cascade's stage heads ``bbox_heads_N`` -> ``bbox_heads.N``, HTC's
     and Cascade Mask R-CNN's ``mask_heads_N`` -> ``mask_heads.N`` (the
     semantic head keeps its name, ``semantic_head``);
@@ -30,7 +33,11 @@ grouped 3x3 kernels (HWIO with I = Cin / groups, to OIHW), Res2Net's
 ``stem_conv{i}`` / ``stem_bn{i}`` and per-split ``conv2_{i}`` / ``bn2_{i}``,
 a deformable 3x3's ``conv_offset`` (a conv with a bias) and its ``kernel``
 (to the ``DeformConv``'s OIHW ``weight``), and the FPN's extra convs
-``fpn_conv_{i}``.
+``fpn_conv_{i}``; and the norms and plugins: a
+``WSConv``'s ``kernel``, GroupNorm's and LayerNorm's ``scale`` / ``bias``,
+the ContextBlock's convs and LayerNorms, the GeneralizedAttention's convs,
+its position Denses (``appr_geom_fc_x`` / ``_y``, kernels transposed) and
+its ``appr_bias`` / ``geom_bias`` / ``gamma``, which keep their names.
 
 Every rule is linear (a transpose or a rename), so the same mapping
 carries a flax *gradient* tree (the ``params`` tree of ``jax.grad``) onto
@@ -64,7 +71,8 @@ import torch
 __all__ = ["from_jax_params", "from_torchvision_resnet", "from_mmdet_state_dict",
            "read_state_dict", "load_pretrained"]
 
-_MODULE_NAMES = {"Conv_0": "conv", "GroupNorm_0": "norm"}
+_MODULE_NAMES = {"Conv_0": "conv", "WSConv_0": "conv", "GroupNorm_0": "norm",
+                 "FrozenBatchNorm_0": "norm", "LayerNorm_0": "norm"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -87,7 +95,7 @@ def _module_name(m: str) -> str:
 
 def _convert(path: Tuple[str, ...], value: np.ndarray):
     *mods, leaf = path
-    mods = [_module_name(m) for m in mods]
+    mods = [_module_name(m) for m in mods if m != "BatchNorm_0"]
     if leaf == "kernel":
         if value.ndim == 4 and mods[-1:] == ["upsample"]:
             value = value[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -272,8 +280,9 @@ def read_state_dict(path: str) -> Dict[str, Any]:
 
 def load_pretrained(net: torch.nn.Module, init_cfg: Dict[str, Any]) -> str:
     """Load a backbone ``init_cfg=dict(type="Pretrained", checkpoint=path)``
-    into ``net`` from a local torchvision or mmdet ResNet file; returns the
-    path.  Model-zoo and web addresses raise: nothing is fetched."""
+    into ``net`` from a local torchvision or mmdet ResNet file (a backbone's
+    plugins keep their weights); returns the path.  Model-zoo and web
+    addresses raise: nothing is fetched."""
     path = init_cfg.get("checkpoint") or ""
     if "://" in path:
         raise ValueError(
@@ -286,7 +295,9 @@ def load_pretrained(net: torch.nn.Module, init_cfg: Dict[str, Any]) -> str:
         sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
     weights = from_torchvision_resnet(sd)
     own = {k for k in net.state_dict() if k.startswith("backbone.")}
-    missing = sorted(own - set(weights))
+    # a plugin (GCNet's ContextBlock, GeneralizedAttention) is not in an
+    # ImageNet ResNet: it keeps its seeded weights, as mmdet initialises it
+    missing = sorted(k for k in own - set(weights) if "_plugin" not in k)
     if missing:
         raise ValueError(f"{path} lacks backbone weights: {missing[:4]}")
     net.load_state_dict(weights, strict=False)

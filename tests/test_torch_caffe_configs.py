@@ -3,11 +3,11 @@ trains, on the CPU (no JAX).
 
 Every config file named ``*caffe*`` is probed: the 23 caffe-style Faster
 R-CNN, Mask R-CNN, Cascade R-CNN and Cascade Mask R-CNN configs on an FPN
-(``BUILDS``) build at full width with the caffe backbone (each stage's
-stride on its first block's first 1x1), and each other one raises
-``NotImplementedError`` naming the part that is missing (``REASONS``): the
-DC5 ``dilations``, the C4 ``num_stages=3``, SyncBN, and detector or head
-types the port lacks.  ``tests/test_torch_caffe_models.py`` drives each
+and the 3 SyncBN strong baselines (``BUILDS``) build at full width with the
+caffe backbone (each stage's stride on its first block's first 1x1), and
+each other one raises ``NotImplementedError`` naming the part that is
+missing (``REASONS``): the DC5 ``dilations``, the C4 ``num_stages=3``, and
+detector or head types the port lacks.  ``tests/test_torch_caffe_models.py`` drives each
 built model at a tiny size.
 """
 import functools
@@ -24,6 +24,8 @@ sys.path.insert(0, REPO)
 
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.models import layers as t_layers  # noqa: E402
+from boosting_rcnn_tpu_torch.models import plugins as t_plugins  # noqa: E402
 
 CONFIGS = os.path.join(REPO, "configs")
 BUILDS = {
@@ -41,6 +43,10 @@ BUILDS = {
         "rcnn_r50_caffe_fpn_1x_coco", "rcnn_r101_caffe_fpn_1x_coco",
         "mask_rcnn_r50_caffe_fpn_1x_coco", "mask_rcnn_r101_caffe_fpn_1x_coco",
         "mask_rcnn_r50_caffe_fpn_mstrain_3x_coco", "mask_rcnn_r101_caffe_fpn_mstrain_3x_coco")),
+    # SyncBN with batch statistics in the backbone, frozen BN in the FPN and
+    # the heads, as the JAX package builds them
+    *(f"strong_baselines/mask_rcnn_r50_caffe_fpn_syncbn-all_rpn-2conv_lsj_{m}_coco.py"
+      for m in ("100e", "100e_fp16", "400e")),
 }
 # the first missing part the builder names, by the file name's start
 REASONS = (("cascade_rpn/crpn_faster", "CascadeRPNHead"), ("cascade_rpn/crpn_fast", "FastRCNN"),
@@ -51,7 +57,7 @@ REASONS = (("cascade_rpn/crpn_faster", "CascadeRPNHead"), ("cascade_rpn/crpn_fas
            ("guided_anchoring/ga_retinanet", "RetinaNet"), ("guided_anchoring/ga_rpn", "'RPN'"),
            ("mask_rcnn/mask_rcnn_r50_caffe_c4", "num_stages=3"), ("ms_rcnn/", "MaskScoringRCNN"),
            ("nas_fcos/", "NASFCOS"), ("point_rend/", "PointRend"), ("retinanet/", "RetinaNet"),
-           ("rpn/", "'RPN'"), ("strong_baselines/", "SyncBN"),
+           ("rpn/", "'RPN'"),
            ("tridentnet/", "TridentFasterRCNN"))
 
 
@@ -77,6 +83,17 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def seeded_init_skipped():
+    """The builds skip the seeded LeCun initialisation: the checks read the
+    built detectors' structure and configs, never their weights, and the
+    draws took most of the file's time."""
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (t_layers, t_plugins):
+            mp.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
+        yield
+
+
 @functools.lru_cache(maxsize=None)
 def _built(model_json: str):
     """What the checks read of the full-width detector (dropped after)."""
@@ -86,7 +103,7 @@ def _built(model_json: str):
 
 
 def test_the_probe_covers_the_caffe_configs():
-    assert BUILDS <= set(_names()) and len(_names()) == 72 and len(BUILDS) == 23
+    assert BUILDS <= set(_names()) and len(_names()) == 72 and len(BUILDS) == 26
 
 
 @pytest.mark.parametrize("name", _names())

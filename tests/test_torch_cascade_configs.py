@@ -3,12 +3,11 @@ width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
 ones and the Cascade Mask R-CNN ones on the ported backbones build
-(``BUILDS``, 22 + 24 files, the ensemble configs' ATSS and RetinaNet-style
+(``BUILDS``, 22 + 30 files, the ensemble configs' ATSS and RetinaNet-style
 RPNs and the caffe-style ResNets among them; files with the same model,
 such as a 1x and a 20e schedule, are built once); every other one raises
 ``NotImplementedError`` naming what is missing (``_reason``): DetectoRS,
-HRNet, RegNet, ResNeSt, GCNet's SyncBN and context blocks, the Seesaw
-loss and SABL heads.  Each built one is
+HRNet, RegNet, ResNeSt, the Seesaw loss and SABL heads.  Each built one is
 checked against its config: one class-agnostic stage head per stage, the
 IoU ladder, the stage loss weights, boosting and fusion for
 ``ProbCascadeRoIHead`` only, the ensemble configs' RPN (its type, ATSS
@@ -35,6 +34,8 @@ sys.path.insert(0, REPO)
 
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.models import layers as t_layers  # noqa: E402
+from boosting_rcnn_tpu_torch.models import plugins as t_plugins  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.htc import HTCDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.two_stage import (  # noqa: E402
@@ -76,6 +77,11 @@ BUILDS = {
     "instaboost/cascade_mask_rcnn_r101_fpn_instaboost_4x_coco.py",
     "instaboost/cascade_mask_rcnn_x101_64x4d_fpn_instaboost_4x_coco.py",
     "res2net/cascade_mask_rcnn_r2_101_fpn_20e_coco.py",
+    # GCNet's: ResNeXt's BN frozen, as the JAX
+    # build_resnext reads no norm_eval, with and without its ContextBlocks
+    *(f"gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_{m}1x_coco.py" for m in (
+        "", "dconv_c3-c5_", "dconv_c3-c5_r16_gcb_c3-c5_", "dconv_c3-c5_r4_gcb_c3-c5_",
+        "r16_gcb_c3-c5_", "r4_gcb_c3-c5_")),
 }
 
 
@@ -88,7 +94,7 @@ def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
     for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
                       ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
-                      ("regnet/", "RegNet"), ("gcnet/", "SyncBN|ContextBlock"),
+                      ("regnet/", "RegNet"),
                       ("seesaw_loss/", "SeesawLoss")):
         if name.startswith(key):
             return what
@@ -103,6 +109,17 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def seeded_init_skipped():
+    """The builds skip the seeded LeCun initialisation: the checks read the
+    built detectors' structure and configs, never their weights, and the
+    draws took most of the file's time."""
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (t_layers, t_plugins):
+            mp.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
+        yield
 
 
 @functools.lru_cache(maxsize=None)

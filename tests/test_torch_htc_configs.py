@@ -24,6 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
+from boosting_rcnn_tpu_torch.models import layers as t_layers  # noqa: E402
+from boosting_rcnn_tpu_torch.models import plugins as t_plugins  # noqa: E402
 from test_torch_cascade_configs import check_mask_heads  # noqa: E402
 
 CONFIGS = os.path.join(REPO, "configs")
@@ -55,6 +57,17 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def seeded_init_skipped():
+    """The builds skip the seeded LeCun initialisation: the checks read the
+    built detectors' structure and configs, never their weights, and the
+    draws took most of the file's time."""
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (t_layers, t_plugins):
+            mp.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
+        yield
 
 
 @functools.lru_cache(maxsize=None)

@@ -508,13 +508,14 @@ def test_builder_builds_full_width_mask_rcnn(dtype, monkeypatch):
 
 @pytest.mark.parametrize("path,value", [
     ("neck.act", "relu"),
-    ("neck.conv_cfg", {"type": "ConvWS"}),
-    ("neck.norm_cfg", {"type": "GN", "num_groups": 32}),
+    # ConvWS and GN are ported; DCN and LN are not
+    ("neck.conv_cfg", {"type": "DCN"}),
+    ("neck.norm_cfg", {"type": "LN"}),
     ("rpn_head.loss_cls.type", "VarifocalLoss"),
     ("rpn_head.loss_bbox.type", "GIoULoss"),
     ("train_cfg.rpn.sampler.add_gt_as_proposals", True),
     ("roi_head.mask_head.type", "HTCMaskHead"),
-    ("roi_head.mask_head.norm_cfg", {"type": "GN", "num_groups": 32}),
+    ("roi_head.mask_head.norm_cfg", {"type": "LN"}),
     ("roi_head.mask_head.predictor_cfg", {"type": "NormedConv2d", "tempearture": 20}),
     ("roi_head.mask_head.class_agnostic", True),
     ("roi_head.mask_head.loss_mask.loss_weight", 2.0),
