@@ -12,19 +12,25 @@ hierarchical splits, DCN / DCNv2 stages); the neck ``PAFPN`` (extra convs
 on output) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
 pool or by convs on the input, lateral or output; GN or frozen BN and
 ConvWS); the RPN
-``ATSSRPNHead`` (max-IoU or ATSS assignment, focal / IoU / GIoU / CIoU /
-MSE / BCE losses, on decoded boxes or on encoded deltas) or ``RPNHead``
+``ATSSRPNHead`` (max-IoU or ATSS assignment, focal or varifocal / IoU /
+GIoU / DIoU / CIoU / EIoU / Focal-EIoU / MSE / BCE losses, on decoded boxes
+or on encoded deltas) or ``RPNHead``
 (one or more 3x3 convs, BCE or focal objectness and smooth L1, a random
 anchor sampler); the RoI head ``ProbRoIHead`` (boosting loss, prior
 fusion, ``reg_norm``), ``BoostRoIHead`` (prior fusion, boosting only where
 its config says ``boost``), ``StandardRoIHead`` (plain cross entropy,
 softmax scores) or ``DynamicRoIHead`` (Dynamic R-CNN: the standard head
 with an IoU threshold and smooth-L1 beta adapted from
-``train_cfg.rcnn.dynamic_rcnn``, the ``DynamicRCNNDetector``), each with a
+``train_cfg.rcnn.dynamic_rcnn``, the ``DynamicRCNNDetector``) or
+``MaskScoringRoIHead`` (the standard head and a ``MaskIoUHead``), each with a
 random sampler and a Shared2FC or Shared4Conv1FC box head (class-wise or
-class-agnostic deltas) with cross entropy and L1 or smooth L1, and hard or
-soft NMS at test; and an ``FCNMaskHead`` (GN or not) on a 14 x 14
-``RoIAlign`` (Mask R-CNN).
+class-agnostic deltas) with cross entropy or the Seesaw loss (its counts
+in the head's buffers) and L1 or smooth L1 on the deltas or, with
+``reg_decoded_bbox``, the IoU, GIoU, CIoU, bounded IoU, EIoU or Focal-EIoU
+loss on the decoded boxes, and hard or soft NMS at test; and an
+``FCNMaskHead`` (GN or not; a plain or ``NormedConv2d`` predictor) on a 14 x
+14 ``RoIAlign`` (Mask R-CNN; ``MaskScoringRCNN`` adds its ``MaskIoUHead``
+there).
 ``CascadeRCNN`` (box only) builds its ``CascadeRoIHead`` or the fork's
 ``ProbCascadeRoIHead`` as the JAX ``build_cascade`` does, one Shared2FC
 head per stage; ``HybridTaskCascade`` and a ``CascadeRCNN`` with a
@@ -65,7 +71,7 @@ from .models.layers import set_compute_dtype
 from .models.necks.fpn import FPN, PAFPN
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
 from .models.roi_heads.cascade_roi_head import CascadeCfg
-from .models.roi_heads.mask_head import FCNMaskHead, FusedSemanticHead, HTCMaskHead
+from .models.roi_heads.mask_head import FCNMaskHead, FusedSemanticHead, HTCMaskHead, MaskIoUHead
 from .models.roi_heads.prob_roi_head import ProbRoICfg
 from .ops.anchors import AnchorGenerator
 
@@ -221,9 +227,15 @@ def _only(cfg: Dict[str, Any], what: str, keys) -> None:
 
 _LOSS_KEYS = {
     "FocalLoss": ("type", "use_sigmoid", "gamma", "alpha", "loss_weight"),
-    "IoULoss": ("type", "linear", "mode", "loss_weight"),
+    "VarifocalLoss": ("type", "use_sigmoid", "alpha", "gamma", "iou_weighted", "loss_weight"),
+    "IoULoss": ("type", "linear", "mode", "eps", "loss_weight"),
     "CIoULoss": ("type", "eps", "loss_weight"),
     "GIoULoss": ("type", "eps", "loss_weight"),
+    "DIoULoss": ("type", "eps", "loss_weight"),
+    "EIoULoss": ("type", "eps", "loss_weight"),
+    "FocalEIoULoss": ("type", "gamma", "eps", "loss_weight"),
+    "BoundedIoULoss": ("type", "beta", "eps", "loss_weight"),
+    "SeesawLoss": ("type", "use_sigmoid", "p", "q", "num_classes", "eps", "loss_weight"),
     "CrossEntropyLoss": ("type", "use_sigmoid", "use_mask", "class_weight", "loss_weight"),
     "MSELoss": ("type", "loss_weight"),
     "L1Loss": ("type", "loss_weight"),
@@ -257,8 +269,9 @@ def _max_iou_assigner(cfg: Dict[str, Any], defaults) -> Dict[str, Any]:
                 match_low_quality=cfg.get("match_low_quality", low))
 
 
-# the ATSS RPN's box losses by config type (JAX builder.py:53-64)
-_RPN_BOX_LOSSES = {"IoULoss": "iou", "GIoULoss": "giou", "CIoULoss": "ciou"}
+# the ATSS RPN's box losses by config type (JAX builder.py:55-66)
+_RPN_BOX_LOSSES = {"IoULoss": "iou", "GIoULoss": "giou", "CIoULoss": "ciou", "DIoULoss": "diou",
+                   "EIoULoss": "eiou", "FocalEIoULoss": "focal_eiou"}
 
 
 def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
@@ -267,16 +280,28 @@ def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
     anchor and reads nothing of ``train_cfg.rpn`` (the ensemble configs
     inherit a random sampler there from the Cascade R-CNN base, which the
     JAX package does not read either); with an ``aug_reg_loss`` the
-    decoded-box branch adds the MSE term (``with_aug_loss``)."""
+    decoded-box branch adds the MSE term (``with_aug_loss``).  A
+    ``VarifocalLoss`` objectness and the EIoU and Focal-EIoU box losses are
+    read as JAX ``build_rpn`` reads them, at the JAX losses' fixed
+    parameters; the encoded-delta branch takes no EIoU (the JAX package's
+    has none)."""
     _check(rpn, "atss", (False, True), False)
     atss = rpn.get("atss", False)
     _check(rpn, "reg_decoded_bbox", (True, False), True)
-    loss_cls = _loss(rpn, "loss_cls", ("FocalLoss",), {"type": "FocalLoss"})
+    loss_cls = _loss(rpn, "loss_cls", ("FocalLoss", "VarifocalLoss"), {"type": "FocalLoss"})
     _check(loss_cls, "use_sigmoid", (True,), True)
+    varifocal = loss_cls["type"] == "VarifocalLoss"
+    if varifocal:  # the JAX RPN calls varifocal_loss at its defaults
+        for key, value in (("alpha", 0.75), ("gamma", 2.0), ("iou_weighted", True)):
+            _check(loss_cls, key, (value,), value)
     loss_bbox = _loss(rpn, "loss_bbox", tuple(_RPN_BOX_LOSSES), {"type": "IoULoss"})
+    box_type = _RPN_BOX_LOSSES[loss_bbox["type"]]
+    if box_type in ("eiou", "focal_eiou") and not rpn.get("reg_decoded_bbox", True):
+        raise _unported("rpn_head.loss_bbox.type (on the encoded deltas)", loss_bbox["type"])
     _check(loss_bbox, "linear", (False,), False)
     _check(loss_bbox, "mode", ("log",), "log")
     _check(loss_bbox, "eps", (1e-7,), 1e-7)  # the JAX RPN calls ciou_loss at its default
+    _check(loss_bbox, "gamma", (0.5,), 0.5)  # focal_eiou_loss's
     loss_iou = _loss(rpn, "loss_centerness", ("CrossEntropyLoss",),
                      {"type": "CrossEntropyLoss", "use_sigmoid": True})
     _check(loss_iou, "use_sigmoid", (True,), False)
@@ -295,7 +320,7 @@ def _rpn_cfg(rpn: Dict[str, Any], train_rpn: Dict[str, Any]) -> ATSSRPNCfg:
     return ATSSRPNCfg(
         gamma=rpn.get("gamma", 1.0), atss=atss,
         reg_decoded_bbox=rpn.get("reg_decoded_bbox", True),
-        loss_bbox_type=_RPN_BOX_LOSSES[loss_bbox["type"]],
+        loss_bbox_type=box_type, loss_cls_type="varifocal" if varifocal else "focal",
         target_means=means, target_stds=stds,
         focal_gamma=loss_cls.get("gamma", 2.0), focal_alpha=loss_cls.get("alpha", 0.25),
         loss_cls_weight=loss_cls.get("loss_weight", 1.0),
@@ -371,29 +396,60 @@ def _build_rpn(rpn: Dict[str, Any], train_rpn: Dict[str, Any], channels: int,
 
 
 def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: int,
-                     train_rcnn: Dict[str, Any], gen: torch.Generator):
-    """The FCN mask head and the mask RoIAlign's pooled size (JAX
-    ``build_detector``'s ``FCNMaskHead`` case)."""
+                     train_rcnn: Dict[str, Any], gen: torch.Generator, scoring: bool = False):
+    """The FCN mask head, the mask RoIAlign's pooled size and, for
+    ``scoring`` (``MaskScoringRCNN``) or a ``mask_iou_head`` in the RoI
+    head, the MaskIoU head, else None (JAX ``build_detector``'s
+    ``FCNMaskHead`` case)."""
     mh = roi["mask_head"]
     _check_mask_head(mh, ("FCNMaskHead",), norm=True)
     out_size = _mask_extractor(roi, strides)
     _check(train_rcnn, "mask_size", (2 * out_size,), 2 * out_size)
-    for key in ("mask_iou_head", "semantic_head"):
-        _check(roi, key, (None,))
-    module = FCNMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
+    _check(roi, "semantic_head", (None,))
+    mask_classes = mh.get("num_classes", num_classes)
+    module = FCNMaskHead(gen, num_classes=mask_classes,
                          in_channels=mh.get("in_channels", channels),
                          num_convs=mh.get("num_convs", 4),
                          conv_channels=mh.get("conv_out_channels", 256),
-                         norm_cfg=_norm_cfg(mh, "mask_head"))
-    return module, out_size
+                         norm_cfg=_norm_cfg(mh, "mask_head"),
+                         predictor_cfg=mh.get("predictor_cfg"))
+    iou_module = None
+    if scoring or roi.get("mask_iou_head"):
+        iou_module = _mask_iou_head(roi.get("mask_iou_head") or {}, channels, mask_classes,
+                                    out_size, gen)
+    else:
+        _check(train_rcnn, "mask_thr_binary", (None,))
+    return module, out_size, iou_module
+
+
+def _mask_iou_head(mih: Dict[str, Any], channels: int, num_classes: int, out_size: int,
+                   gen: torch.Generator) -> MaskIoUHead:
+    """Mask Scoring R-CNN's ``MaskIoUHead`` (JAX ``builder.py:2355-2369``):
+    its convs, FCs and classes from the config, on the mask branch's pooled
+    neck channels (the JAX package reads no ``in_channels``); two FCs, the
+    loss half the mean squared error, and the targets binarised at 0.5, as
+    the JAX package fixes them."""
+    _only(mih, "mask_iou_head", ("type", "num_convs", "num_fcs", "roi_feat_size", "in_channels",
+                                 "conv_out_channels", "fc_out_channels", "num_classes",
+                                 "loss_iou"))
+    for key, value in (("type", "MaskIoUHead"), ("num_fcs", 2), ("roi_feat_size", out_size)):
+        _check({f"mask_iou_head.{key}": mih.get(key, value)}, f"mask_iou_head.{key}", (value,))
+    loss = _loss(mih, "loss_iou", ("MSELoss",), {"type": "MSELoss", "loss_weight": 0.5})
+    _check({"mask_iou_head.loss_iou.loss_weight": loss.get("loss_weight", 1.0)},
+           "mask_iou_head.loss_iou.loss_weight", (0.5,))
+    return MaskIoUHead(gen, num_classes=mih.get("num_classes", num_classes), in_channels=channels,
+                       num_convs=mih.get("num_convs", 4),
+                       conv_channels=mih.get("conv_out_channels", 256),
+                       fc_channels=mih.get("fc_out_channels", 1024), roi_feat_size=out_size)
 
 
 def _check_mask_head(mh: Dict[str, Any], types, norm: bool = False) -> None:
     """An FCN-style mask head of ``types`` as the port has it: 3x3 convs
     (with a ``norm_cfg`` where ``norm``: Mask R-CNN's ``FCNMaskHead``; the
     JAX ``FCNMaskHead`` reads no ``conv_cfg``, so a ConvWS one leaves its
-    convs plain), a 2x deconvolution, a plain 1x1 predictor, per-class
-    masks, the binary cross entropy at weight 1."""
+    convs plain), a 2x deconvolution, a plain or ``NormedConv2d`` 1x1
+    predictor (its temperature only), per-class masks, the binary cross
+    entropy at weight 1."""
     _only(mh, "mask_head", ("type", "num_convs", "in_channels", "conv_out_channels",
                             "num_classes", "roi_feat_size", "conv_kernel_size",
                             "class_agnostic", "upsample_cfg", "norm_cfg", "conv_cfg",
@@ -409,7 +465,11 @@ def _check_mask_head(mh: Dict[str, Any], types, norm: bool = False) -> None:
     else:
         for key in ("norm_cfg", "conv_cfg"):
             _check(mh, key, (None,))
-    _check(mh, "predictor_cfg", (None, {"type": "Conv"}))
+    predictor = mh.get("predictor_cfg")
+    if (predictor or {}).get("type") == "NormedConv2d":
+        _only(predictor, "mask_head.predictor_cfg", ("type", "tempearture", "temperature"))
+    else:
+        _check(mh, "predictor_cfg", (None, {"type": "Conv"}))
     loss_mask = _loss(mh, "loss_mask", ("CrossEntropyLoss",),
                       {"type": "CrossEntropyLoss", "use_mask": True})
     _check(loss_mask, "use_mask", (True,), False)
@@ -434,8 +494,17 @@ def _mask_extractor(roi: Dict[str, Any], strides) -> int:
     return out_size
 
 
-# the R-CNN head's box losses by config type (JAX builder.py:55-66)
+# the R-CNN head's box losses by config type (JAX builder.py:55-66): on the
+# encoded deltas, and with reg_decoded_bbox on the decoded boxes, each with
+# the parameters the JAX head calls it at (bbox_head.py:242-255)
 _BOX_LOSSES = {"L1Loss": "l1", "SmoothL1Loss": "smooth_l1"}
+_DECODED_BOX_LOSSES = {"IoULoss": "iou", "GIoULoss": "giou", "CIoULoss": "ciou",
+                       "BoundedIoULoss": "bounded_iou", "EIoULoss": "eiou",
+                       "FocalEIoULoss": "focal_eiou"}
+_DECODED_LOSS_FIXED = {"IoULoss": {"linear": False, "mode": "log", "eps": 1e-6},
+                       "GIoULoss": {"eps": 1e-7}, "CIoULoss": {"eps": 1e-7},
+                       "BoundedIoULoss": {"beta": 0.2, "eps": 1e-3},
+                       "EIoULoss": {"eps": 1e-7}, "FocalEIoULoss": {"gamma": 0.5, "eps": 1e-7}}
 
 
 # the box heads' (shared convs, shared FCs) by type (JAX ``_std_convfc_head``)
@@ -449,8 +518,10 @@ def _bbox_head(head: Dict[str, Any], channels: int, out_size: int, gen: torch.Ge
     """A ConvFC box head module of ``types`` (JAX ``_std_convfc_head``:
     Shared2FC, or Shared4Conv1FC's 3x3 convs with their ``conv_cfg`` and
     ``norm_cfg`` and one FC) and its coder and losses (``build_bbox_head``);
-    ``head_kw`` (Dynamic R-CNN's state options) go to the module."""
+    ``head_kw`` (Dynamic R-CNN's state options) go to the module, and a
+    Seesaw loss gives it its counts."""
     _check(head, "type", types)
+    cfg = _bbox_cfg(head)
     convs, fcs = _HEAD_PRESETS.get(head.get("type"), (0, 2))
     module = ConvFCBBoxHead(
         gen, num_classes=head.get("num_classes", 80), in_channels=channels,
@@ -459,28 +530,47 @@ def _bbox_head(head: Dict[str, Any], channels: int, out_size: int, gen: torch.Ge
         reg_class_agnostic=head.get("reg_class_agnostic", False),
         num_shared_convs=head.get("num_shared_convs", convs),
         conv_out_channels=head.get("conv_out_channels", 256),
-        conv_cfg=_conv_cfg(head, "bbox_head"), norm_cfg=_norm_cfg(head, "bbox_head"), **head_kw,
+        conv_cfg=_conv_cfg(head, "bbox_head"), norm_cfg=_norm_cfg(head, "bbox_head"),
+        seesaw=cfg.loss_cls_type == "seesaw", **head_kw,
     )
-    return module, _bbox_cfg(head)
+    return module, cfg
 
 
 def _bbox_cfg(head: Dict[str, Any]) -> BBoxHeadCfg:
-    """The Shared2FC head's coder and losses (JAX ``build_bbox_head``)."""
-    _check(head, "reg_decoded_bbox", (False,), False)
+    """The Shared2FC head's coder and losses (JAX ``build_bbox_head``):
+    cross entropy or the Seesaw loss (its ``p`` and ``q``; the JAX loss's
+    fixed ``eps`` 1e-2); L1 or smooth L1 on the deltas, or with
+    ``reg_decoded_bbox`` an IoU-family loss on the decoded boxes."""
+    _check(head, "reg_decoded_bbox", (False, True), False)
+    decoded = head.get("reg_decoded_bbox", False)
     _check(head, "focal_reg", (False,), False)
-    loss_cls = _loss(head, "loss_cls", ("CrossEntropyLoss",), {"type": "CrossEntropyLoss"})
+    num_classes = head.get("num_classes", 80)
+    loss_cls = _loss(head, "loss_cls", ("CrossEntropyLoss", "SeesawLoss"),
+                     {"type": "CrossEntropyLoss"})
+    seesaw = loss_cls["type"] == "SeesawLoss"
     for key in ("use_sigmoid", "use_mask"):
         _check(loss_cls, key, (False,), False)
     _check(loss_cls, "class_weight", (None,))
-    loss_bbox = _loss(head, "loss_bbox", tuple(_BOX_LOSSES), {"type": "L1Loss"})
+    if seesaw:
+        _check(loss_cls, "eps", (1e-2,), 1e-2)
+        _check(loss_cls, "num_classes", (num_classes,), num_classes)
+    losses = _DECODED_BOX_LOSSES if decoded else _BOX_LOSSES
+    if (head.get("loss_bbox") or {"type": "L1Loss"}).get("type") not in losses:
+        raise _unported(f"loss_bbox.type (with reg_decoded_bbox={decoded})",
+                        head["loss_bbox"].get("type"))
+    loss_bbox = _loss(head, "loss_bbox", tuple(losses), {"type": "L1Loss"})
+    for key, value in _DECODED_LOSS_FIXED.get(loss_bbox["type"], {}).items():
+        _check(loss_bbox, key, (value,), value)
     means, stds = _coder(head, (1.0,) * 4)
     return BBoxHeadCfg(
-        num_classes=head.get("num_classes", 80), target_means=means, target_stds=stds,
-        reg_class_agnostic=head.get("reg_class_agnostic", False),
+        num_classes=num_classes, target_means=means, target_stds=stds,
+        reg_class_agnostic=head.get("reg_class_agnostic", False), reg_decoded_bbox=decoded,
         loss_cls_weight=loss_cls.get("loss_weight", 1.0),
         loss_bbox_weight=loss_bbox.get("loss_weight", 1.0),
-        loss_bbox_type=_BOX_LOSSES[loss_bbox["type"]],
+        loss_bbox_type=losses[loss_bbox["type"]],
         smooth_l1_beta=loss_bbox.get("beta", 1.0),
+        loss_cls_type="seesaw" if seesaw else "ce",
+        seesaw_p=loss_cls.get("p", 0.8), seesaw_q=loss_cls.get("q", 2.0),
     )
 
 
@@ -493,7 +583,7 @@ def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
     _check(roi, "alpha", (0,), 0)
     _check(roi, "reg_norm", ("bbox_num", "mean"), "bbox_num")
     _only(train_rcnn, "train_cfg.rcnn", ("assigner", "sampler", "pos_weight", "debug",
-                                         "mask_size")
+                                         "mask_size", "mask_thr_binary")
           + (("dynamic_rcnn",) if roi["type"] == "DynamicRoIHead" else ()))
     sampler = train_rcnn.get("sampler", {})
     _only(sampler, "train_cfg.rcnn.sampler", ("type", "num", "pos_fraction", "neg_pos_ub",
@@ -502,6 +592,8 @@ def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
     _check(sampler, "add_gt_as_proposals", (True,), True)
     _check(train_rcnn, "pos_weight", (-1,), -1)
     _check(train_rcnn, "debug", (False,), False)
+    # the MaskIoU targets' binarisation (``mask_iou_targets``' fixed 0.5)
+    _check(train_rcnn, "mask_thr_binary", (None, 0.5))
     prob_head = roi["type"] == "ProbRoIHead"
     return ProbRoICfg(
         gamma=roi.get("gamma", 0.1), boost=roi.get("boost", prob_head),
@@ -565,7 +657,8 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
         raise ValueError(f"compute dtype {dtype} is not supported; the port computes in "
                          f"{' or '.join(map(str, COMPUTE_DTYPES))}")
     device = resolve_device(device)
-    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "CascadeRCNN") + _HTC_TYPES)
+    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "MaskScoringRCNN", "CascadeRCNN")
+           + _HTC_TYPES)
     roi = model_cfg["roi_head"]
     # the JAX builder sends HTC and a CascadeRCNN with a mask head (Cascade
     # Mask R-CNN) to build_htc
@@ -606,22 +699,28 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
             train_proposal_cfg=train_pc, test_proposal_cfg=test_pc, rcnn_test_cfg=rcnn_test,
             rpn_type=rpn_type, cascade_cfg=cascade_cfg)
 
-    _check(roi, "type", ("ProbRoIHead", "StandardRoIHead", "BoostRoIHead", "DynamicRoIHead"))
+    _check(roi, "type", ("ProbRoIHead", "StandardRoIHead", "BoostRoIHead", "DynamicRoIHead",
+                         "MaskScoringRoIHead"))
+    scoring = model_cfg["type"] == "MaskScoringRCNN"
+    if scoring and not roi.get("mask_head"):
+        raise ValueError("MaskScoringRCNN needs a mask_head")
     _check(roi, "shared_head", (None,))
     train_rcnn = train_cfg.get("rcnn") or {}
     dynamic = roi["type"] == "DynamicRoIHead"
     head_kw, det_kw = _dynamic_rcnn(train_rcnn, roi) if dynamic else ({}, {})
     bbox_module, bbox_cfg = _bbox_head(roi["bbox_head"], channels, out_size, gen, **head_kw)
     roi_cfg = _roi_cfg(roi, train_rcnn)
-    mask_module, mask_out_size = None, 14
+    mask_module, mask_out_size, iou_module = None, 14, None
     if roi.get("mask_head"):
-        mask_module, mask_out_size = _build_mask_head(roi, strides, channels,
-                                                      bbox_cfg.num_classes, train_rcnn, gen)
+        mask_module, mask_out_size, iou_module = _build_mask_head(
+            roi, strides, channels, bbox_cfg.num_classes, train_rcnn, gen, scoring)
     else:
-        _check(train_rcnn, "mask_size", (None,))
+        for key in ("mask_size", "mask_thr_binary"):
+            _check(train_rcnn, key, (None,))
+        _check(roi, "mask_iou_head", (None,))
 
     net = TwoStageNet(backbone, neck, rpn_module, bbox_module, mask_head=mask_module,
-                      mask_roi_out_size=mask_out_size, **roi_kw)
+                      mask_roi_out_size=mask_out_size, mask_iou_head=iou_module, **roi_kw)
     set_compute_dtype(net, dtype)
     return (DynamicRCNNDetector if dynamic else TwoStageDetector)(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
@@ -782,7 +881,8 @@ def _htc_parts(model_cfg: Dict[str, Any], strides, channels: int, num_levels: in
         modules.append(HTCMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
                                    in_channels=channels, num_convs=num_convs,
                                    conv_channels=conv_channels,
-                                   res_channels=res_channels if i and conv_res else None))
+                                   res_channels=res_channels if i and conv_res else None,
+                                   predictor_cfg=mh.get("predictor_cfg")))
         res_channels = conv_channels if num_convs else channels
     semantic, semantic_stride = None, 8
     sem = roi.get("semantic_head")

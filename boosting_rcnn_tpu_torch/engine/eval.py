@@ -8,7 +8,9 @@ image's dataset index (``index``): the loader yields the landscape bucket
 before the portrait one, and the dataset's ``evaluate`` pairs
 ``results[i]`` with image ``i``.  A mask model's results carry its
 detections' box-relative mask crops too: ``(dets, labels, masks (N, 28,
-28))``, as the JAX package's do.
+28))``, and Mask Scoring R-CNN's their mask scores after them, ``(dets,
+labels, masks, mask_scores (N,))``, as the JAX package's do (JAX
+``engine/eval.py:50-55``); segm evaluation ranks by the mask scores.
 
 ``run_eval_tta`` is the flip and multi-scale test-time augmentation (JAX
 ``run_eval_tta``): one test loader a short side, each on its own canvas,
@@ -39,7 +41,8 @@ def run_eval(detector, loader, logger=None,
              stats: dict | None = None) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Per-image ``(dets (N, 5), labels (N,))`` numpy results in
     original-image coordinates (``(dets, labels, masks (N, M, M))`` for a
-    mask model), in the order of ``loader``'s dataset (a test-mode
+    mask model, and ``mask_scores (N,)`` after them for Mask Scoring
+    R-CNN), in the order of ``loader``'s dataset (a test-mode
     ``DetDataLoader``).  ``stats``, when given, receives
     ``images``, ``seconds`` and ``images_per_s``."""
     anchors = _anchors(detector)
@@ -71,15 +74,14 @@ def _evaluate(outs, n_images: int, logger, stats, what: str):
     for batch, out in outs:
         out = [t.cpu().numpy() for t in out]
         dets, labels, valid = out[:3]
-        masks = out[3] if len(out) > 3 else None
+        extra = out[3:]  # masks, and Mask Scoring R-CNN's mask scores
         for i, j in enumerate(batch["index"]):
             if batch["pad"][i]:
                 continue
             if results[j] is not None:
                 raise RuntimeError(f"image {j} came twice from the test loader")
             v = valid[i]
-            results[j] = ((dets[i][v], labels[i][v]) if masks is None
-                          else (dets[i][v], labels[i][v], masks[i][v]))
+            results[j] = (dets[i][v], labels[i][v], *(x[i][v] for x in extra))
             done += 1
         n_batches += 1
         if logger and n_batches % LOG_EVERY == 0:

@@ -76,7 +76,9 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     ResNet-18 at width 8, neck 32, RPN 32 (the ATSS RPN's 2 convs deep, the
     plain RPN's count of convs kept), FC 64 (every cascade stage's), fewer proposals
     and RoIs (every stage's sampler).  The mask heads keep their widths and
-    pool the neck's 32 channels, as in the JAX package; the semantic head's
+    pool the neck's 32 channels, as in the JAX package; Mask Scoring
+    R-CNN's MaskIoU head gets convs of 16 and FCs of 64 (the JAX shrink
+    keeps its 256 and 1024); the semantic head's
     width becomes the neck's, which its embedding is added to (the JAX
     shrink keeps its 256 channels, and its tiny HTC then fails to build).
     Two more changes where the JAX shrink's model cannot build: a backbone
@@ -106,6 +108,8 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
         head["fc_out_channels"] = 64
     for head in _each(roi.get("mask_head") or []):
         head["in_channels"] = 32
+    if roi.get("mask_iou_head"):  # Mask Scoring R-CNN's, at the mask heads' scale
+        roi["mask_iou_head"].update(in_channels=32, conv_out_channels=16, fc_out_channels=64)
     if roi.get("semantic_head"):
         roi["semantic_head"].update(in_channels=32, conv_out_channels=32)
     mc["train_cfg"]["rpn_proposal"].update(nms_pre=200, max_per_img=64)

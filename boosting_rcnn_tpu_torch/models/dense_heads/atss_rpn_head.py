@@ -11,26 +11,30 @@ per-level exact top-``nms_pre``, decode, level-aware NMS, keep
 Training (``atss_rpn_targets``, ``atss_rpn_loss``): max-IoU assignment
 (``atss=False``) or ATSS assignment over the levels' anchors
 (``atss=True``, the ensemble configs' ``cascade_atss``), sigmoid focal
-loss on objectness, and one of two box regressions, each with the IoU,
-GIoU or CIoU loss (``loss_bbox_type``):
+loss on objectness (or the varifocal loss against the positives' IoU of
+the detached decoded prediction with their targets, ``loss_cls_type=
+"varifocal"``, averaged over the positives with no label weight, as JAX
+``atss_rpn_head.py:300-309``), and one of two box regressions
+(``loss_bbox_type``):
 
-  * on decoded boxes (``reg_decoded_bbox=True``, the flagship's): the box
-    loss weighted by ``max(iou_target**gamma, EPS)``; with an
-    ``aug_reg_loss`` in the config (``with_aug_loss``, the flagship's) the
-    MSE on deltas with the same weights is added and the sum halved;
-  * on the encoded deltas (``reg_decoded_bbox=False``, the COCO configs'):
-    the IoU target still comes from the decoded prediction against the
-    decoded target, but the box loss is applied to the raw delta vectors,
-    read as boxes, against the encoded targets, with ``(N, 4)`` weights
-    ``max(iou_target**gamma, EPS)`` on the positives (the reference's
-    ``loss_single`` else-branch, CIoU on deltas included, copied as the
-    JAX package copies it); no MSE term.
+  * on decoded boxes (``reg_decoded_bbox=True``, the flagship's), the IoU,
+    GIoU, DIoU, CIoU, EIoU or Focal-EIoU loss weighted by
+    ``max(iou_target**gamma, EPS)``; with an ``aug_reg_loss`` in the
+    config (``with_aug_loss``, the flagship's) the MSE on deltas with the
+    same weights is added and the sum halved;
+  * on the encoded deltas (``reg_decoded_bbox=False``, the COCO configs'),
+    the IoU, GIoU, DIoU or CIoU loss: the IoU target still comes from the
+    decoded prediction against the decoded target, but the box loss is
+    applied to the raw delta vectors, read as boxes, against the encoded
+    targets, with ``(N, 4)`` weights ``max(iou_target**gamma, EPS)`` on the
+    positives (the reference's ``loss_single`` else-branch, CIoU on deltas
+    included, copied as the JAX package copies it); no MSE term.
 
 Either is divided by ``max(sum iou_target, 1)``; the IoU branch's BCE
 against the IoU target is averaged over the positives.  The JAX package's
 ``lax.pmean`` normalisers become plain sums over the batch on one card.
-Varifocal loss and the other box losses (DIoU, EIoU, L1) raise
-``NotImplementedError``.
+Other losses raise ``NotImplementedError`` (the JAX package's encoded
+branch has no EIoU either).
 """
 from __future__ import annotations
 
@@ -121,12 +125,17 @@ class ATSSRPNCfg:
     match_low_quality: bool = True
 
 
-_BOX_LOSSES = {"iou": L.iou_loss, "giou": L.giou_loss, "ciou": L.ciou_loss}
+# the box losses of the decoded branch (JAX atss_rpn_head.py:330-337); the
+# encoded-delta branch takes the first four (:356-365)
+_BOX_LOSSES = {"iou": L.iou_loss, "giou": L.giou_loss, "diou": L.diou_loss,
+               "ciou": L.ciou_loss, "eiou": L.eiou_loss, "focal_eiou": L.focal_eiou_loss}
+ENCODED_BOX_LOSSES = ("iou", "giou", "diou", "ciou")
 
 
 def _check_train_cfg(cfg: ATSSRPNCfg) -> None:
-    for what, value, ported in (("loss_cls_type", cfg.loss_cls_type, ("focal",)),
-                                ("loss_bbox_type", cfg.loss_bbox_type, tuple(_BOX_LOSSES))):
+    box_losses = tuple(_BOX_LOSSES) if cfg.reg_decoded_bbox else ENCODED_BOX_LOSSES
+    for what, value, ported in (("loss_cls_type", cfg.loss_cls_type, ("focal", "varifocal")),
+                                ("loss_bbox_type", cfg.loss_bbox_type, box_losses)):
         if value not in ported:
             raise NotImplementedError(f"ATSS RPN {what}={value!r} is not ported")
 
@@ -251,12 +260,23 @@ def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.T
     pos, label_weights, bbox_targets = (torch.stack(x) for x in zip(*targets))
     num_total = torch.clamp(pos.float().sum(), min=1.0)
 
-    loss_cls = L.sigmoid_focal_loss(
-        cls_logits.reshape(-1, 1), pos.reshape(-1, 1).float(),
-        weight=label_weights.reshape(-1), gamma=cfg.focal_gamma, alpha=cfg.focal_alpha,
-        avg_factor=num_total) * cfg.loss_cls_weight
-
     anchors_b = anchors.expand(b, a, 4)
+    if cfg.loss_cls_type == "varifocal":
+        # the target: each positive's IoU of its detached decoded prediction
+        # with its regression target (an encoded one on the delta branch, as
+        # in the JAX package)
+        with torch.no_grad():
+            iou_all = box_ops.bbox_overlaps_aligned(_decode(cfg, anchors_b, bbox_preds),
+                                                    bbox_targets)
+            vf_target = torch.where(pos, iou_all, torch.zeros_like(iou_all)).reshape(-1, 1)
+        loss_cls = L.varifocal_loss(cls_logits.reshape(-1, 1), vf_target,
+                                    avg_factor=num_total) * cfg.loss_cls_weight
+    else:
+        loss_cls = L.sigmoid_focal_loss(
+            cls_logits.reshape(-1, 1), pos.reshape(-1, 1).float(),
+            weight=label_weights.reshape(-1), gamma=cfg.focal_gamma, alpha=cfg.focal_alpha,
+            avg_factor=num_total) * cfg.loss_cls_weight
+
     posf = pos.reshape(-1).float()
     pos_flat = posf[:, None] > 0
     decoded = _decode(cfg, anchors_b, bbox_preds).reshape(-1, 4)

@@ -15,7 +15,9 @@ candidates, each carrying its prior back as its score (``prior`` for a
 positive, ``1 - prior`` for a negative); ``_train_stages`` hands each
 stage's candidates out too, which HTC's mask branch samples again
 (``htc.py``).  A gt-added slot leaves the
-candidates by the JAX package's rule, a positive whose prior is 0.
+candidates by the JAX package's rule, a positive whose prior is 0.  With
+Seesaw box heads each stage's loss reads its own head's counts (JAX
+``cascade.py:84-97``), which ``update_state`` stores.
 ``predict``: every stage refines all proposals; the stages' logits are
 averaged, then the softmax; ProbCascade fuses the foreground columns as
 ``sqrt(p * prior)`` and the background as ``sqrt(p_bg * (1 - prior))``;
@@ -132,8 +134,9 @@ class CascadeDetector(TwoStageDetector):
                                     generator, roi_uniforms)
         for stage, (s, cls_s, reg_s, _) in enumerate(stages):
             flat = RoISample(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in s))
-            losses.update(cascade_stage_loss(self.cascade_cfg, self.bbox_cfg, stage, cls_s,
-                                             reg_s, flat))
+            losses.update(cascade_stage_loss(
+                self.cascade_cfg, self.bbox_cfg, stage, cls_s, reg_s, flat,
+                seesaw_counts=self._seesaw_counts(f"bbox_heads.{stage}", flat)))
         return losses
 
     @torch.no_grad()

@@ -172,7 +172,9 @@ class HTCDetector(CascadeDetector):
                                     generator, roi_uniforms, sem_feat=sem_feat)
         for stage, (s, cls_s, reg_s, candidates) in enumerate(stages):
             flat = RoISample(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in s))
-            losses.update(cascade_stage_loss(cc, self.bbox_cfg, stage, cls_s, reg_s, flat))
+            losses.update(cascade_stage_loss(
+                cc, self.bbox_cfg, stage, cls_s, reg_s, flat,
+                seesaw_counts=self._seesaw_counts(f"bbox_heads.{stage}", flat)))
             if not with_mask:
                 continue
             ms = self._mask_sample(stage, s, candidates, batch, generator, mask_uniforms)

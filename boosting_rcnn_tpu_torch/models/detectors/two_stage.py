@@ -15,6 +15,21 @@ and sampled without gradient; the sampled RoIs go through RoIAlign
 (forward and gradient kernels on the GPU) and the head into the R-CNN
 loss, and the positive ones through the mask branch into the mask loss.
 
+Mask Scoring R-CNN (``mask_iou_head``; JAX ``two_stage.py:690-750``,
+``:806-840``): the MaskIoU head reads the mask branch's 14 x 14 pooled
+features and the sigmoid of the label's mask logits; in training its
+prediction at the matched class goes into ``loss_mask_iou``, half the mean
+squared error against ``mask_iou_targets`` over the positives whose target
+is above 0, so that the mask RoIAlign's gradient sums two heads'
+cotangents; ``predict`` returns each detection's mask score, its score
+times its predicted IoU clipped to [0, 1].
+
+Seesaw (a box head with ``seesaw_counts``): ``loss`` takes the Seesaw loss
+with the head's counts plus the step's sampled labels (background last,
+each slot weighted by its validity, JAX ``two_stage.py:501-516``); those
+counts are stored by ``update_state``, so a ``loss`` call alone leaves the
+buffer as it was.
+
 ``rpn_type`` picks the RPN: ``"atss_rpn"`` (the flagship's ATSS RPN head,
 with its IoU branch) or ``"rpn"`` (the plain RPN head of Faster and Mask
 R-CNN, no IoU branch).
@@ -52,8 +67,10 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ...ops import losses as L
 from ...ops.anchors import AnchorGenerator
 from ...ops.box_ops import bbox_overlaps, clip_boxes, delta2bbox, hflip_boxes
 from ...ops.nms import multiclass_nms_padded, nms_padded
@@ -65,7 +82,7 @@ from ..dense_heads.atss_rpn_head import (
     flatten_levels,
 )
 from ..dense_heads.rpn_head import RPNCfg, rpn_loss, rpn_proposals
-from ..roi_heads.mask_head import mask_loss, resample_mask_targets
+from ..roi_heads.mask_head import mask_iou_targets, mask_loss, resample_mask_targets
 from ..roi_heads.bbox_head import BBoxHeadCfg, bbox_head_decode, bbox_targets
 from ..roi_heads.prob_roi_head import (
     ProbRoICfg,
@@ -116,13 +133,14 @@ class TwoStageNet(nn.Module):
                  bbox_head: nn.Module, roi_strides: Sequence[int] = (8, 16, 32, 64, 128),
                  roi_out_size: int = 7, roi_sample_num: int = 2,
                  roi_finest_scale: int = 56, mask_head: Optional[nn.Module] = None,
-                 mask_roi_out_size: int = 14):
+                 mask_roi_out_size: int = 14, mask_iou_head: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn = rpn
         self.bbox_head = bbox_head
         self.mask_head = mask_head
+        self.mask_iou_head = mask_iou_head
         self.roi_strides = tuple(roi_strides)
         self.roi_out_size = roi_out_size
         self.mask_roi_out_size = mask_roi_out_size
@@ -146,13 +164,21 @@ class TwoStageNet(nn.Module):
         return self.bbox_head(self._pool(feats, rois, roi_valid, self.roi_out_size))
 
     def mask_out(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                 roi_valid: torch.Tensor) -> torch.Tensor:
+                 roi_valid: torch.Tensor, return_pooled: bool = False):
         """``feats`` L x ``(B, H, W, C)``, ``rois`` ``(B, R, 4)`` -> mask
         logits ``(B*R, 28, 28, K)`` float32: one RoIAlign at
         ``mask_roi_out_size`` over all B*R RoIs (zeros for the invalid ones),
         then the FCN head (JAX ``TwoStageNet.mask_out``, the extractor of
-        the box branch)."""
-        return self.mask_head(self._pool(feats, rois, roi_valid, self.mask_roi_out_size))
+        the box branch); with ``return_pooled``, (logits, the pooled
+        features ``(B*R, 14, 14, C)``)."""
+        pooled = self._pool(feats, rois, roi_valid, self.mask_roi_out_size)
+        logits = self.mask_head(pooled)
+        return (logits, pooled) if return_pooled else logits
+
+    def mask_iou_out(self, pooled: torch.Tensor, mask_pred: torch.Tensor) -> torch.Tensor:
+        """The MaskIoU head's ``(N, K)`` IoU predictions from the pooled
+        features ``(N, 14, 14, C)`` and the masks ``(N, 28, 28)``."""
+        return self.mask_iou_head(pooled, mask_pred)
 
     def _pool(self, feats, rois, roi_valid, out_size: int) -> torch.Tensor:
         """``(B*R, out, out, C)`` pooled RoI features over the route levels
@@ -190,6 +216,9 @@ class TwoStageDetector:
         self.train_proposal_cfg = train_proposal_cfg
         self.test_proposal_cfg = test_proposal_cfg
         self.rcnn_test_cfg = rcnn_test_cfg
+        # buffer name -> the value ``update_state`` stores there (the Seesaw
+        # counts of the last ``loss``)
+        self._pending_state: Dict[str, torch.Tensor] = {}
 
     def featmap_sizes(self, canvas_hw: Tuple[int, int]):
         return [
@@ -316,24 +345,49 @@ class TwoStageDetector:
         flat = RoISample(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in sample))
         flat = flat._replace(matched_label=flat.matched_label.long(),
                              is_pos=flat.is_pos.bool(), valid=flat.valid.bool())
-        losses.update(prob_roi_loss(self.roi_cfg, self.bbox_cfg, cls_s, reg_s, flat))
+        losses.update(prob_roi_loss(self.roi_cfg, self.bbox_cfg, cls_s, reg_s, flat,
+                                    seesaw_counts=self._seesaw_counts("bbox_head", flat)))
         if self.net.mask_head is not None and "gt_mask_crops" in batch:
-            logits = self.net.mask_out(feats, sample.boxes.float(),
-                                       sample.valid.bool() & sample.is_pos.bool())
-            losses["loss_mask"] = self._mask_loss(logits, batch, sample, gt_bboxes)
+            with_iou = self.net.mask_iou_head is not None
+            out = self.net.mask_out(feats, sample.boxes.float(),
+                                    sample.valid.bool() & sample.is_pos.bool(),
+                                    return_pooled=with_iou)
+            logits, pooled = out if with_iou else (out, None)
+            targets = self._mask_targets(batch, sample, gt_bboxes, logits.shape[1])
+            losses["loss_mask"] = self._mask_loss(logits, batch, sample, gt_bboxes, targets)
+            if with_iou:
+                losses["loss_mask_iou"] = self._mask_iou_loss(logits, pooled, targets, batch,
+                                                              sample, gt_bboxes)
         return losses
+
+    def _seesaw_counts(self, head_name: str, flat: RoISample) -> Optional[torch.Tensor]:
+        """The Seesaw counts of the box head ``head_name`` (of ``net``) for
+        this step's loss: its ``seesaw_counts`` plus the flattened sample's
+        labels (background ``num_classes``) weighted by validity, kept for
+        ``update_state``; None for a head without them."""
+        head = self.net.get_submodule(head_name)
+        if not getattr(head, "seesaw", False):
+            return None
+        bg = torch.full_like(flat.matched_label, head.num_classes)
+        counts = head.next_seesaw_counts(torch.where(flat.is_pos, flat.matched_label, bg),
+                                         flat.valid)
+        self._pending_state[f"{head_name}.seesaw_counts"] = counts
+        return counts
 
     def update_state(self) -> None:
         """Carry the detector's adaptive state past a train step; the
-        train step calls it after its update.  Only Dynamic R-CNN has a
-        state."""
+        train step calls it after its update.  Here: the Seesaw counts of
+        the last ``loss`` go into the box heads' buffers (nothing for a
+        detector without them)."""
+        with torch.no_grad():
+            for name, value in self._pending_state.items():
+                self.net.get_buffer(name).copy_(value)
+        self._pending_state = {}
 
-    def _mask_loss(self, logits: torch.Tensor, batch, sample: RoISample,
-                   gt_bboxes: torch.Tensor) -> torch.Tensor:
-        """The mask loss of the logits ``(B*R, m, m, K)`` of all ``B*R``
-        sampled slots, the positive ones valid (JAX
-        ``two_stage.py:687-715``), against the targets resampled from each
-        image's ``gt_mask_crops``."""
+    def _mask_targets(self, batch, sample: RoISample, gt_bboxes: torch.Tensor,
+                      out_size: int) -> torch.Tensor:
+        """The ``(B*R, m, m)`` binary mask targets of all ``B*R`` sampled
+        slots, resampled from each image's ``gt_mask_crops``."""
         b = sample.boxes.shape[0]
         boxes = sample.boxes.float()
         crops = self._tensor(batch["gt_mask_crops"], torch.uint8)
@@ -341,13 +395,54 @@ class TwoStageDetector:
         # every image's gts in one table: image i's gt j is row i * G + j
         gt_idx = (sample.gt_idx.long()
                   + g * torch.arange(b, device=self.device)[:, None]).reshape(-1)
-        targets = resample_mask_targets(crops.reshape(b * g, *crops.shape[2:]),
-                                        gt_bboxes.reshape(b * g, 4), boxes.reshape(-1, 4),
-                                        gt_idx, out_size=logits.shape[1])
+        return resample_mask_targets(crops.reshape(b * g, *crops.shape[2:]),
+                                     gt_bboxes.reshape(b * g, 4), boxes.reshape(-1, 4),
+                                     gt_idx, out_size=out_size)
+
+    @staticmethod
+    def _pos_labels(sample: RoISample):
+        """The flattened slots' matched labels (0 off the positives) and the
+        valid positives."""
         is_pos = sample.is_pos.bool().reshape(-1)
         label = sample.matched_label.long().reshape(-1)
-        labels = torch.where(is_pos, label, torch.zeros_like(label))
-        return mask_loss(logits, targets, labels, is_pos & sample.valid.bool().reshape(-1))
+        return (torch.where(is_pos, label, torch.zeros_like(label)),
+                is_pos & sample.valid.bool().reshape(-1))
+
+    def _mask_loss(self, logits: torch.Tensor, batch, sample: RoISample,
+                   gt_bboxes: torch.Tensor, targets: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """The mask loss of the logits ``(B*R, m, m, K)`` of all ``B*R``
+        sampled slots, the positive ones valid (JAX
+        ``two_stage.py:687-715``), against the targets resampled from each
+        image's ``gt_mask_crops`` (``_mask_targets``, unless given)."""
+        if targets is None:
+            targets = self._mask_targets(batch, sample, gt_bboxes, logits.shape[1])
+        return mask_loss(logits, targets, *self._pos_labels(sample))
+
+    def _mask_iou_loss(self, logits: torch.Tensor, pooled: torch.Tensor, targets: torch.Tensor,
+                       batch, sample: RoISample, gt_bboxes: torch.Tensor) -> torch.Tensor:
+        """Mask Scoring R-CNN's ``loss_mask_iou`` (JAX ``two_stage.py:716-750``):
+        the MaskIoU head on the pooled features and the sigmoid of each
+        slot's label's logits (not detached, as in the JAX package), its
+        prediction at that label against ``mask_iou_targets``, ``0.5 *`` the
+        squared error summed over the valid positives with a target above
+        0 and divided by their count (at least 1).  The label's columns are
+        taken with one-hot products (an elementwise gradient)."""
+        labels, pos_w = self._pos_labels(sample)
+        c = logits.shape[-1]
+        onehot = F.one_hot(torch.clamp(labels, 0, c - 1), c).to(logits.dtype)
+        pred = L.sigmoid((logits * onehot[:, None, None, :]).sum(-1))
+        iou_pred = self.net.mask_iou_out(pooled, pred)
+        iou_pos = (iou_pred * onehot.to(iou_pred.dtype)).sum(-1)
+        b, r = sample.boxes.shape[:2]
+        crops = self._tensor(batch["gt_mask_crops"], torch.uint8)
+        bidx = torch.arange(b, device=self.device).repeat_interleave(r)
+        gidx = sample.gt_idx.long().reshape(-1)
+        crop_fracs = crops.float().mean((-1, -2))[bidx, gidx]
+        tgt = mask_iou_targets(pred.detach(), targets, crop_fracs,
+                               sample.boxes.float().reshape(-1, 4), gt_bboxes[bidx, gidx])
+        w = (pos_w & (tgt > 0)).float()
+        return 0.5 * L.mse_loss(iou_pos, tgt, weight=w, avg_factor=torch.clamp(w.sum(), min=1.0))
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor], anchors: torch.Tensor,
@@ -359,7 +454,8 @@ class TwoStageDetector:
         Returns ``(dets (B, max, 5), labels (B, max), valid (B, max))``,
         and with a mask head ``masks`` ``(B, max, 28, 28)`` float32 too: the
         sigmoid of each detection's logits of its class, in its box, not
-        pasted into the image (as the JAX package's ``predict``).
+        pasted into the image (as the JAX package's ``predict``); with a
+        MaskIoU head also ``mask_scores`` ``(B, max)``.
         """
         img_shape = self._tensor(batch["img_shape"])
         scale_factor = self._tensor(batch["scale_factor"])
@@ -368,24 +464,33 @@ class TwoStageDetector:
         out = self.roi_predict(feats, boxes, scores, valid, img_shape, scale_factor, rescale)
         if self.net.mask_head is None:
             return out
-        return (*out, self.mask_predict(feats, *out, scale_factor, rescale))
+        return (*out, *self.mask_predict(feats, *out, scale_factor, rescale))
 
     @torch.inference_mode()
     def mask_predict(self, feats, dets, labels, valid, scale_factor, rescale: bool = True):
-        """The mask branch of ``predict`` (JAX ``two_stage.py:806-826``) on
+        """The mask branch of ``predict`` (JAX ``two_stage.py:806-840``) on
         detections ``(B, D, 5)`` of ``labels`` and ``valid`` ``(B, D)``:
         the boxes back in the padded image's frame, one RoIAlign at
         ``mask_roi_out_size`` and the FCN head, then the sigmoid of each
-        detection's class channel -> ``(B, D, 28, 28)`` float32."""
+        detection's class channel -> ``(masks (B, D, 28, 28) float32,)``;
+        with a MaskIoU head ``(masks, mask_scores (B, D))``, each score
+        times the head's IoU at the label clipped to [0, 1]."""
         b, d = labels.shape
         boxes = dets[..., :4]
         if rescale:
             boxes = boxes * scale_factor[:, None, :]
-        logits = self.net.mask_out(feats, boxes, valid)
+        with_iou = self.net.mask_iou_head is not None
+        out = self.net.mask_out(feats, boxes, valid, return_pooled=with_iou)
+        logits = out[0] if with_iou else out
         m, c = logits.shape[1], logits.shape[-1]
-        idx = torch.clamp(labels, 0, c - 1).reshape(b * d, 1, 1, 1).expand(-1, m, m, 1)
-        sel = torch.gather(logits, -1, idx)[..., 0]
-        return torch.sigmoid(sel.float()).reshape(b, d, m, m)
+        safe = torch.clamp(labels, 0, c - 1)
+        idx = safe.reshape(b * d, 1, 1, 1).expand(-1, m, m, 1)
+        masks = torch.sigmoid(torch.gather(logits, -1, idx)[..., 0].float())
+        if not with_iou:
+            return (masks.reshape(b, d, m, m),)
+        iou = self.net.mask_iou_out(out[1], masks).reshape(b, d, c)
+        iou = torch.gather(iou, -1, safe[..., None])[..., 0]
+        return masks.reshape(b, d, m, m), dets[..., 4] * torch.clamp(iou, 0.0, 1.0)
 
     @torch.inference_mode()
     def proposals(self, images, img_shape, anchors: torch.Tensor,
@@ -619,6 +724,7 @@ class DynamicRCNNDetector(TwoStageDetector):
 
     def update_state(self) -> None:
         """Record the last ``loss``'s statistics in the head's state."""
+        super().update_state()
         if self._dyn_stats is not None:
             self.net.bbox_head.update_dynamic(*self._dyn_stats)
             self._dyn_stats = None

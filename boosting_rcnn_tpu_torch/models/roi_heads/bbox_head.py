@@ -10,8 +10,12 @@ the first FC takes the JAX kernel with no column permutation.  The box deltas ar
 ``reg_class_agnostic`` one set for every class, ``(N, 4)`` (Cascade
 R-CNN's stage heads).  ``bbox_head_decode`` decodes the deltas and runs
 multiclass NMS for one image.  ``bbox_targets`` and ``bbox_head_loss`` are
-the train side: softmax cross entropy, and L1 or smooth L1 on the encoded
-deltas; other loss types raise ``NotImplementedError``.
+the train side: softmax cross entropy or the Seesaw loss, and L1 or smooth
+L1 on the encoded deltas or, with ``reg_decoded_bbox``, an IoU-family loss
+on the decoded boxes (JAX ``bbox_head.py:242-255``): the IoU, GIoU, CIoU,
+EIoU or Focal-EIoU loss of each slot spread over its four coordinates
+(a quarter each), or the bounded IoU loss elementwise; other loss types
+raise ``NotImplementedError``.
 The head computes in the compute dtype of its ``Linear`` layers, and cls
 and reg come out in it (JAX ``roi_heads/bbox_head.py:143-157``); the
 losses compute in the predictions' dtype until a float32 weight promotes
@@ -25,6 +29,15 @@ IoU threshold and smooth-L1 beta as float32 buffers, ``dyn_iou_thr`` and
 the ``state_dict``, so a checkpoint carries them.  ``update_dynamic``
 replays the reference's ``update_hyperparameters`` (JAX
 ``bbox_head.py:60-95``).
+
+Seesaw (``seesaw=True``): the head carries the classes' cumulative counts
+of sampled targets, ``seesaw_counts`` ``(K+1,)`` float32 (background
+last), the reference ``SeesawLoss.cum_samples`` (JAX ``bbox_head.py:97-117``),
+in the ``state_dict`` and so in every checkpoint.  ``next_seesaw_counts``
+gives a step's counts without moving the buffer; the detector's loss reads
+them and its ``update_state`` stores them.  The JAX package applies the
+Seesaw weights over this head's K+1 softmax, where mmdet's Seesaw head has
+K+2 logits with an objectness pair; the port copies it.
 """
 from __future__ import annotations
 
@@ -51,7 +64,8 @@ class ConvFCBBoxHead(nn.Module):
                  dynamic: bool = False, dyn_initial_iou: float = 0.4,
                  dyn_initial_beta: float = 1.0, dyn_interval: int = 100,
                  num_shared_convs: int = 0, conv_out_channels: int = 256,
-                 conv_cfg: Optional[dict] = None, norm_cfg: Optional[dict] = None):
+                 conv_cfg: Optional[dict] = None, norm_cfg: Optional[dict] = None,
+                 seesaw: bool = False):
         super().__init__()
         self.num_shared_fcs = num_shared_fcs
         self.num_shared_convs = num_shared_convs
@@ -67,6 +81,10 @@ class ConvFCBBoxHead(nn.Module):
             cin = fc_out_channels
         self.fc_cls = make_linear(cin, num_classes + 1, gen)
         self.fc_reg = make_linear(cin, 4 if reg_class_agnostic else 4 * num_classes, gen)
+        self.num_classes = num_classes
+        self.seesaw = seesaw
+        if seesaw:
+            self.register_buffer("seesaw_counts", torch.zeros(num_classes + 1))
         self.dynamic = dynamic
         if dynamic:
             self.dyn_initial_iou, self.dyn_initial_beta = dyn_initial_iou, dyn_initial_beta
@@ -101,6 +119,15 @@ class ConvFCBBoxHead(nn.Module):
         self.dyn_iou_thr.copy_(torch.where(boundary, cand_iou, iou))
         self.dyn_beta.copy_(torch.where(boundary, cand_beta, beta))
 
+    @torch.no_grad()
+    def next_seesaw_counts(self, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """The cumulative counts after a step whose sampled slots have
+        ``labels`` ``(R,)`` (background ``num_classes``) and ``weights``
+        ``(R,)``: ``seesaw_counts`` plus the weighted one-hot sum (JAX
+        ``update_seesaw_counts``); the buffer is left as it is."""
+        onehot = F.one_hot(labels.long(), self.num_classes + 1).float()
+        return self.seesaw_counts + (onehot * weights.float()[:, None]).sum(0)
+
     def forward(self, x: torch.Tensor):
         if self.num_shared_convs:
             x = x.permute(0, 3, 1, 2)
@@ -124,17 +151,27 @@ class BBoxHeadCfg:
     reg_decoded_bbox: bool = False
     loss_cls_weight: float = 2.0
     loss_bbox_weight: float = 2.0
-    loss_bbox_type: str = "l1"  # "l1" or "smooth_l1"
+    loss_bbox_type: str = "l1"  # an ENCODED_LOSSES or, reg_decoded_bbox, a DECODED_LOSSES
     smooth_l1_beta: float = 1.0
-    loss_cls_type: str = "ce"
+    loss_cls_type: str = "ce"  # "ce" or "seesaw"
+    seesaw_p: float = 0.8
+    seesaw_q: float = 2.0
+
+
+ENCODED_LOSSES = ("l1", "smooth_l1")
+# the IoU-family losses of the decoded boxes (JAX bbox_head.py:248-255)
+_DECODED = {"iou": L.iou_loss, "giou": L.giou_loss, "ciou": L.ciou_loss, "eiou": L.eiou_loss,
+            "focal_eiou": L.focal_eiou_loss}
+DECODED_LOSSES = (*_DECODED, "bounded_iou")
 
 
 def _check_train_cfg(cfg: BBoxHeadCfg) -> None:
-    for what, value, ported in (("reg_decoded_bbox", cfg.reg_decoded_bbox, (False,)),
-                                ("loss_bbox_type", cfg.loss_bbox_type, ("l1", "smooth_l1")),
-                                ("loss_cls_type", cfg.loss_cls_type, ("ce",))):
+    box = DECODED_LOSSES if cfg.reg_decoded_bbox else ENCODED_LOSSES
+    for what, value, ported in (("loss_bbox_type", cfg.loss_bbox_type, box),
+                                ("loss_cls_type", cfg.loss_cls_type, ("ce", "seesaw"))):
         if value not in ported:
-            raise NotImplementedError(f"bbox head {what}={value!r} is not ported")
+            raise NotImplementedError(f"bbox head {what}={value!r} is not ported with "
+                                      f"reg_decoded_bbox={cfg.reg_decoded_bbox}")
 
 
 def bbox_targets(cfg: BBoxHeadCfg, sampled_boxes: torch.Tensor, is_pos: torch.Tensor,
@@ -142,13 +179,15 @@ def bbox_targets(cfg: BBoxHeadCfg, sampled_boxes: torch.Tensor, is_pos: torch.Te
                  matched_gt_labels: torch.Tensor):
     """Targets of ``(R,)`` sampled RoIs: labels (background =
     ``num_classes``), unit label weights on valid slots, encoded box
-    targets and unit box weights on positives."""
+    targets (the matched gt boxes themselves with ``reg_decoded_bbox``) and
+    unit box weights on positives."""
     _check_train_cfg(cfg)
     labels = torch.where(is_pos, matched_gt_labels.long(),
                          torch.full_like(matched_gt_labels.long(), cfg.num_classes))
     label_weights = valid.float()
-    t = box_ops.bbox2delta(sampled_boxes, matched_gt_boxes, cfg.target_means,
-                           cfg.target_stds, eps=1e-6)
+    t = (matched_gt_boxes if cfg.reg_decoded_bbox else
+         box_ops.bbox2delta(sampled_boxes, matched_gt_boxes, cfg.target_means,
+                            cfg.target_stds, eps=1e-6))
     t = torch.where(is_pos[:, None], t, torch.zeros_like(t))
     bbox_weights = is_pos[:, None].float().expand(-1, 4)
     return labels, label_weights, t, bbox_weights
@@ -158,13 +197,18 @@ def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.T
                    rois: torch.Tensor, labels: torch.Tensor, label_weights: torch.Tensor,
                    bbox_t: torch.Tensor, bbox_w: torch.Tensor,
                    reduction_override: Optional[str] = None,
-                   beta_override: Optional[torch.Tensor] = None):
+                   beta_override: Optional[torch.Tensor] = None,
+                   seesaw_counts: Optional[torch.Tensor] = None):
     """The head loss on ``(R, K+1)`` logits and ``(R, 4K)`` deltas (``(R,
     4)`` class-agnostic).  With ``reduction_override='none'`` the
-    elementwise losses come back, for the boosting renormalisation; else
-    cls is averaged over the weighted slots and the box loss over all
-    ``R``.  ``beta_override``, a float32 scalar tensor (Dynamic R-CNN's
-    working beta), replaces the smooth-L1 beta."""
+    elementwise losses come back, ``(R,)`` and ``(R, 4)``, for the boosting
+    renormalisation; else cls is averaged over the weighted slots and the
+    box loss over all ``R``.  ``beta_override``, a float32 scalar tensor
+    (Dynamic R-CNN's working beta), replaces the smooth-L1 beta;
+    ``seesaw_counts`` ``(K+1,)`` are the Seesaw loss's cumulative counts.
+    With ``reg_decoded_bbox`` the deltas are decoded on the RoIs and a
+    non-positive slot's target is its own decoded box, so that its (zero
+    weighted) loss and gradient stay finite."""
     _check_train_cfg(cfg)
     r = cls_score.shape[0]
     c = cfg.num_classes
@@ -177,12 +221,27 @@ def bbox_head_loss(cfg: BBoxHeadCfg, cls_score: torch.Tensor, bbox_pred: torch.T
         # gradient (a gather's is a scatter-add with float atomics on the GPU)
         onehot = F.one_hot(safe_lab.long(), c).to(bbox_pred.dtype)
         pred4 = (bbox_pred.reshape(r, c, 4) * onehot[:, :, None]).sum(1)
-    d = (pred4 - bbox_t).abs()
-    if cfg.loss_bbox_type == "smooth_l1":
-        b = cfg.smooth_l1_beta if beta_override is None else beta_override
-        d = torch.where(d < b, 0.5 * d * d / b, d - 0.5 * b)
+    if cfg.reg_decoded_bbox:
+        pred_boxes = box_ops.delta2bbox(rois, pred4, cfg.target_means, cfg.target_stds)
+        safe_t = torch.where(pos[:, None], bbox_t.to(pred_boxes.dtype), pred_boxes)
+        if cfg.loss_bbox_type == "bounded_iou":
+            d = L.bounded_iou_loss(pred_boxes, safe_t)
+        else:
+            d = (_DECODED[cfg.loss_bbox_type](pred_boxes, safe_t, reduction="none")[:, None]
+                 * torch.ones((1, 4), device=pred_boxes.device) / 4.0)
+    else:
+        d = (pred4 - bbox_t).abs()
+        if cfg.loss_bbox_type == "smooth_l1":
+            b = cfg.smooth_l1_beta if beta_override is None else beta_override
+            d = torch.where(d < b, 0.5 * d * d / b, d - 0.5 * b)
     elem = d * bbox_w * pos.float()[:, None] * cfg.loss_bbox_weight
-    ce = L.cross_entropy_loss(cls_score, labels, reduction="none")
+    if cfg.loss_cls_type == "seesaw":
+        if seesaw_counts is None:
+            raise ValueError("the Seesaw loss needs the cumulative class counts")
+        ce = L.seesaw_loss(cls_score, labels, seesaw_counts, p=cfg.seesaw_p, q=cfg.seesaw_q,
+                           reduction="none")
+    else:
+        ce = L.cross_entropy_loss(cls_score, labels, reduction="none")
     ce = ce * label_weights * cfg.loss_cls_weight
     if reduction_override == "none":
         return {"loss_cls": ce, "loss_bbox": elem, "pos": pos}

@@ -17,7 +17,7 @@ config says, and every stage decodes and takes its losses with stage 0's
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -71,13 +71,15 @@ def refine_boxes(head_cfg: BBoxHeadCfg, rois: torch.Tensor, cls_score: torch.Ten
 
 def cascade_stage_loss(cas_cfg: CascadeCfg, head_cfg: BBoxHeadCfg, stage: int,
                        cls_score: torch.Tensor, bbox_pred: torch.Tensor,
-                       sample: RoISample) -> Dict[str, torch.Tensor]:
+                       sample: RoISample,
+                       seesaw_counts: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One stage's losses on a flattened ``(R_total, ...)`` sample (the
     batch's slots, invalid ones included), at the stage's coder stds and
     weighted by its stage loss weight: ``s{stage}.loss_cls`` (boosting:
     the cross entropy weighted by ``(1 - prior)**gamma``, renormalised and
     averaged over ``R_total``; else its mean over the valid slots) and
-    ``s{stage}.loss_bbox`` (summed over ``R_total``)."""
+    ``s{stage}.loss_bbox`` (summed over ``R_total``).  ``seesaw_counts``:
+    the stage's Seesaw counts, for a Seesaw head."""
     hc = stage_head_cfg(head_cfg, stage)
     bg = torch.full_like(sample.matched_label, hc.num_classes)
     labels, label_w, bbox_t, bbox_w = bbox_targets(
@@ -86,7 +88,7 @@ def cascade_stage_loss(cas_cfg: CascadeCfg, head_cfg: BBoxHeadCfg, stage: int,
     r_total = cls_score.shape[0]
     validf = sample.valid.float()
     raw = bbox_head_loss(hc, cls_score, bbox_pred, sample.boxes, labels, label_w, bbox_t,
-                         bbox_w, reduction_override="none")
+                         bbox_w, reduction_override="none", seesaw_counts=seesaw_counts)
     if cas_cfg.boost:
         lw = (1.0 - sample.prior) ** cas_cfg.gamma * validf
         loss_cls = norm_loss(raw["loss_cls"] * validf, lw, float(r_total))

@@ -7,9 +7,16 @@ class, out in float32; the pooled RoI features ``(R, 14, 14, C)`` in and
 the logits ``(R, 28, 28, K)`` out, in the JAX package's NHWC layout (the
 convolutions run on NCHW views).  With a ``norm_cfg`` its convs are
 ConvModules (no bias, the norm, ReLU; JAX ``mask_head.py:51-80``: the GN
-heads).  ``NormedConv2d`` is not ported (the builder raises).  HTC's ``HTCMaskHead`` adds the mask
-information flow (``conv_res``) and hands out its running feature;
-``FusedSemanticHead`` and ``semantic_seg_loss`` are HTC's stuff branch.
+heads).  With ``predictor_cfg=dict(type="NormedConv2d", tempearture=T)``
+(the Seesaw configs' normed mask heads; the key spelt as the configs spell
+it) its ``conv_logits`` is ``NormedConv1x1``.  HTC's ``HTCMaskHead`` adds
+the mask information flow (``conv_res``) and hands out its running
+feature; ``FusedSemanticHead`` and ``semantic_seg_loss`` are HTC's stuff
+branch.
+
+``MaskIoUHead`` and ``mask_iou_targets`` are Mask Scoring R-CNN's (JAX
+``mask_head.py:265-325``): the IoU of each RoI's predicted mask with its
+gt, predicted from the pooled features and the mask, and its target.
 
 ``resample_mask_targets``: each RoI's ``out_size`` x ``out_size`` binary
 target, a bilinear resample of its matched gt's box-relative crop under
@@ -29,7 +36,43 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import losses as L
-from ..layers import ConvModule, bilinear_resize, make_conv, make_conv_transpose
+from ..layers import (ConvModule, bilinear_resize, lecun_normal_, make_conv,
+                      make_conv_transpose, make_linear)
+
+
+class NormedConv1x1(nn.Module):
+    """The weight- and feature-normalised 1x1 convolution times a
+    temperature (JAX ``_NormedConv1x1``, mmdet ``NormedConv2d``) on NCHW
+    maps: each output channel's weight over its L2 norm (+ 1e-6), the
+    input over its per-pixel L2 norm across channels (taken in float32,
+    + 1e-6, cast back), convolved in the input's dtype, times
+    ``temperature``.  No bias, as the JAX module; its ``weight`` is
+    ``(out, in, 1, 1)`` float32."""
+
+    def __init__(self, cin: int, cout: int, gen: torch.Generator, temperature: float = 20.0):
+        super().__init__()
+        self.temperature = float(temperature)
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        lecun_normal_(self.weight, cin, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        wn = w / (torch.sqrt((w ** 2).sum(dim=(1, 2, 3), keepdim=True)) + 1e-6)
+        norm = torch.sqrt((x.float() ** 2).sum(dim=1, keepdim=True)) + 1e-6
+        y = F.conv2d(x / norm.to(x.dtype), wn.to(x.dtype))
+        return self.temperature * y
+
+
+def make_predictor(cin: int, num_classes: int, gen: torch.Generator,
+                   predictor_cfg: Optional[dict] = None) -> nn.Module:
+    """The mask logits' 1x1 predictor: a plain convolution with a bias, or
+    ``NormedConv1x1`` for ``predictor_cfg`` of type ``NormedConv2d`` (its
+    temperature under mmdet's key ``tempearture``, or ``temperature``;
+    20 by default)."""
+    if (predictor_cfg or {}).get("type") == "NormedConv2d":
+        t = predictor_cfg.get("tempearture", predictor_cfg.get("temperature", 20))
+        return NormedConv1x1(cin, num_classes, gen, temperature=t)
+    return make_conv(cin, num_classes, 1, 1, 0, True, gen)
 
 
 class FCNMaskHead(nn.Module):
@@ -37,7 +80,8 @@ class FCNMaskHead(nn.Module):
     float32 logits."""
 
     def __init__(self, gen: torch.Generator, num_classes: int = 80, in_channels: int = 256,
-                 num_convs: int = 4, conv_channels: int = 256, norm_cfg: Optional[dict] = None):
+                 num_convs: int = 4, conv_channels: int = 256, norm_cfg: Optional[dict] = None,
+                 predictor_cfg: Optional[dict] = None):
         super().__init__()
         self.num_convs = num_convs
         cin = in_channels
@@ -47,7 +91,7 @@ class FCNMaskHead(nn.Module):
                             ConvModule(cin, conv_channels, 3, gen, norm_cfg=norm_cfg))
             cin = conv_channels
         self.upsample = make_conv_transpose(cin, conv_channels, 2, 2, gen)
-        self.conv_logits = make_conv(conv_channels, num_classes, 1, 1, 0, True, gen)
+        self.conv_logits = make_predictor(conv_channels, num_classes, gen, predictor_cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self._convs(x.permute(0, 3, 1, 2))
@@ -72,8 +116,9 @@ class HTCMaskHead(FCNMaskHead):
 
     def __init__(self, gen: torch.Generator, num_classes: int = 80, in_channels: int = 256,
                  num_convs: int = 4, conv_channels: int = 256,
-                 res_channels: Optional[int] = None):
-        super().__init__(gen, num_classes, in_channels, num_convs, conv_channels)
+                 res_channels: Optional[int] = None, predictor_cfg: Optional[dict] = None):
+        super().__init__(gen, num_classes, in_channels, num_convs, conv_channels,
+                         predictor_cfg=predictor_cfg)
         self.conv_res = (None if res_channels is None
                          else make_conv(res_channels, in_channels, 1, 1, 0, True, gen))
 
@@ -96,6 +141,74 @@ class HTCMaskHead(FCNMaskHead):
         if return_feat:
             outs.append(x.permute(0, 2, 3, 1))
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+class MaskIoUHead(nn.Module):
+    """Mask Scoring R-CNN's MaskIoU head (JAX ``MaskIoUHead``, reference
+    ``maskiou_head.py``): the pooled RoI features ``(R, S, S, C)`` and the
+    2x2 max pool of the mask prediction ``(R, 2S, 2S)`` (the sigmoid of the
+    class's logits) concatenated after them, ``num_convs`` 3x3 convs with
+    ReLU, the last of stride 2, two FCs of ``fc_channels`` with ReLU on the
+    ``(S/2, S/2, C')`` map flattened in NHWC order, and ``fc_mask_iou``:
+    ``(R, num_classes)`` IoU predictions in float32.  The max pool picks
+    each window's first largest value (``argmax``) by a one-hot product, so
+    that its gradient goes to that one cell, as XLA's ``reduce_window``
+    gradient does, elementwise."""
+
+    def __init__(self, gen: torch.Generator, num_classes: int = 80, in_channels: int = 256,
+                 num_convs: int = 4, conv_channels: int = 256, fc_channels: int = 1024,
+                 roi_feat_size: int = 14):
+        super().__init__()
+        self.num_convs = num_convs
+        cin = in_channels + 1
+        for i in range(num_convs):
+            stride = 2 if i == num_convs - 1 else 1
+            self.add_module(f"conv_{i}", make_conv(cin, conv_channels, 3, stride, 1, True, gen))
+            cin = conv_channels
+        side = roi_feat_size // 2  # after the last conv's stride 2
+        self.fc_0 = make_linear(cin * side * side, fc_channels, gen)
+        self.fc_1 = make_linear(fc_channels, fc_channels, gen)
+        self.fc_mask_iou = make_linear(fc_channels, num_classes, gen)
+
+    def forward(self, pooled: torch.Tensor, mask_pred: torch.Tensor) -> torch.Tensor:
+        r, m = mask_pred.shape[:2]
+        windows = (mask_pred.reshape(r, m // 2, 2, m // 2, 2).permute(0, 1, 3, 2, 4)
+                   .reshape(r, m // 2, m // 2, 4))
+        first = F.one_hot(windows.argmax(-1), 4).to(windows.dtype)
+        mp = (windows * first).sum(-1)
+        x = torch.cat([pooled, mp[..., None].to(pooled.dtype)], dim=-1).permute(0, 3, 1, 2)
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv_{i}")(x))
+        x = x.permute(0, 2, 3, 1).reshape(r, -1)
+        x = F.relu(self.fc_1(F.relu(self.fc_0(x))))
+        return self.fc_mask_iou(x).float()
+
+
+@torch.no_grad()
+def mask_iou_targets(mask_pred: torch.Tensor, mask_targets: torch.Tensor,
+                     crop_fracs: torch.Tensor, roi_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                     thr: float = 0.5) -> torch.Tensor:
+    """The MaskIoU head's targets (JAX ``mask_iou_targets``, reference
+    ``maskiou_head.py::get_targets``): the IoU of each RoI's binarised
+    prediction ``(R, m, m)`` (``> thr``) with the full gt instance, in
+    proposal-grid cells: the overlap with the in-RoI target ``(R, m, m)``,
+    over the predicted area plus the gt's full area (its crop's occupancy
+    ``crop_fracs`` ``(R,)`` times its box's area, in cells of the RoI
+    ``roi_boxes`` ``(R, 4)``) less the overlap.  Box areas are floored at
+    1e-3 and the union at 1e-7."""
+    binary = (mask_pred > thr).float()
+    pred_area = binary.sum((-1, -2))
+    overlap = (binary * mask_targets).sum((-1, -2))
+    # a tensor divisor: CUDA's division by a Python number multiplies by its
+    # reciprocal
+    cells = torch.full((), mask_pred.shape[-1] * mask_pred.shape[-2], dtype=torch.float32,
+                       device=mask_pred.device)
+    roi_area = torch.clamp((roi_boxes[:, 2] - roi_boxes[:, 0])
+                           * (roi_boxes[:, 3] - roi_boxes[:, 1]), min=1e-3)
+    gt_area = torch.clamp((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]),
+                          min=1e-3)
+    gt_full_cells = crop_fracs * gt_area / (roi_area / cells)
+    return overlap / torch.clamp(pred_area + gt_full_cells - overlap, min=1e-7)
 
 
 class FusedSemanticHead(nn.Module):

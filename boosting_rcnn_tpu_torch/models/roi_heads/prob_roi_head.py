@@ -198,20 +198,22 @@ def norm_loss(loss: torch.Tensor, weights: torch.Tensor, avg_factor) -> torch.Te
 
 def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tensor,
                   bbox_pred: torch.Tensor, sample: RoISample,
-                  beta_override: Optional[torch.Tensor] = None):
+                  beta_override: Optional[torch.Tensor] = None,
+                  seesaw_counts: Optional[torch.Tensor] = None):
     """Boosting-reweighted R-CNN loss on a flattened ``(B*R, ...)`` sample
     (``_bbox_forward_train_boost:107``).  The cross entropy is averaged over
     the valid slots, not over the slot count; the box loss too, or with
     ``reg_norm='mean'`` over four times the positives (JAX
-    ``prob_roi_head.py:308-311``).  ``beta_override`` goes to
-    ``bbox_head_loss`` (Dynamic R-CNN's working beta)."""
+    ``prob_roi_head.py:308-311``).  ``beta_override`` (Dynamic R-CNN's
+    working beta) and ``seesaw_counts`` (the Seesaw loss's cumulative
+    counts) go to ``bbox_head_loss``."""
     labels, label_w, bbox_t, bbox_w = bbox_targets(
         head_cfg, sample.boxes, sample.is_pos, sample.valid, sample.matched_gt,
         torch.where(sample.is_pos, sample.matched_label,
                     torch.full_like(sample.matched_label, head_cfg.num_classes)))
     raw = bbox_head_loss(head_cfg, cls_score, bbox_pred, sample.boxes, labels, label_w,
                          bbox_t, bbox_w, reduction_override="none",
-                         beta_override=beta_override)
+                         beta_override=beta_override, seesaw_counts=seesaw_counts)
     validf = sample.valid.float()
     n_valid = torch.clamp(validf.sum(), min=1.0)
     if cfg.boost:

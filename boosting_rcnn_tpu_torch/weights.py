@@ -179,6 +179,30 @@ def _fc_after_pool(w: torch.Tensor, roi_feat_size: int) -> torch.Tensor:
     return w.reshape(out_dim, c, s, s).permute(0, 2, 3, 1).reshape(out_dim, in_dim).contiguous()
 
 
+# the side of the MaskIoU head's last conv map, which its first FC flattens
+MASK_IOU_FC_SIDE = 7
+
+
+def _check_cls_rows(state_dict: Dict[str, Any]) -> None:
+    """Raise where a box head's ``fc_cls`` has two rows more than its
+    classes (each stage's classes from its class-wise ``fc_reg``, else
+    from the mask heads' ``conv_logits``): mmdet's Seesaw heads."""
+    masks = {tuple(v.shape)[0] for k, v in state_dict.items()
+             if re.fullmatch(r"roi_head\.mask_head\.(\d+\.)?conv_logits\.weight", k)}
+    for key, value in state_dict.items():
+        if not re.fullmatch(r"roi_head\.bbox_head\.(\d+\.)?fc_cls\.weight", key):
+            continue
+        reg = state_dict.get(key.replace("fc_cls", "fc_reg"))
+        rows = tuple(reg.shape)[0] if reg is not None else 4
+        classes = {rows // 4} if rows > 4 else masks
+        if tuple(value.shape)[0] - 2 in classes:
+            raise NotImplementedError(
+                f"{key!r} has {tuple(value.shape)[0]} rows for {tuple(value.shape)[0] - 2} "
+                "classes: mmdet's Seesaw box head adds an objectness pair (C + 2 logits); the "
+                "port's head is the JAX package's, which applies the Seesaw loss over its C + 1 "
+                "softmax, so mmdet's Seesaw box heads do not load")
+
+
 def _mask_head(stage) -> str:
     return "mask_head" if stage is None else f"mask_heads.{stage}"
 
@@ -210,10 +234,16 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
       roi_head.semantic_head.convs.N.conv     -> semantic_head.conv_N
       roi_head.semantic_head.conv_embedding.conv -> semantic_head.conv_embedding
       roi_head.semantic_head.conv_logits      -> semantic_head.conv_seg
+      roi_head.mask_iou_head.convs.N.conv     -> mask_iou_head.conv_N (Mask Scoring R-CNN)
+      roi_head.mask_iou_head.fcs.N            -> mask_iou_head.fc_N (N = 0 reordered at 7 x 7)
+      roi_head.mask_iou_head.fc_mask_iou      -> mask_iou_head.fc_mask_iou
 
     A key of any other module raises ``ValueError`` naming it (the port has
     no such module).  The JAX package's converter maps one ``mask_head``
-    only and drops the per-stage and semantic keys."""
+    only and drops the per-stage, semantic and MaskIoU keys.  A Seesaw box
+    head's ``fc_cls`` (mmdet: the classes plus an objectness pair) raises
+    ``NotImplementedError`` (``_check_cls_rows``)."""
+    _check_cls_rows(state_dict)
     backbone = {k[len("backbone."):]: v for k, v in state_dict.items()
                 if k.startswith("backbone.")}
     out = from_torchvision_resnet(backbone)
@@ -250,6 +280,10 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
          lambda m: f"semantic_head.conv_embedding.{m[1]}"),
         (r"roi_head\.semantic_head\.conv_logits\.(weight|bias)",
          lambda m: f"semantic_head.conv_seg.{m[1]}"),
+        (r"roi_head\.mask_iou_head\.convs\.(\d+)\.conv\.(weight|bias)",
+         lambda m: f"mask_iou_head.conv_{m[1]}.{m[2]}"),
+        (r"roi_head\.mask_iou_head\.(?:fcs\.(\d+)|(fc_mask_iou))\.(weight|bias)",
+         lambda m: f"mask_iou_head.{m[2] or 'fc_' + m[1]}.{m[3]}"),
     ]
     for key, value in state_dict.items():
         if key.startswith("backbone.") or _SKIP.search(key):
@@ -267,6 +301,8 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
             tensor = tensor.reshape(())
         elif re.fullmatch(r"bbox_head(s\.\d+)?\.shared_fc_0\.weight", name):
             tensor = _fc_after_pool(tensor, roi_feat_size)
+        elif name == "mask_iou_head.fc_0.weight":  # after the stride-2 conv of 14 x 14
+            tensor = _fc_after_pool(tensor, MASK_IOU_FC_SIDE)
         out[name] = tensor
     return out
 

@@ -1,7 +1,8 @@
 """Drive the PyTorch port's flagship, Mask R-CNN, Boosting R-CNN family,
 Cascade R-CNN, Cascade Mask R-CNN / HTC, the fork's remaining heads
-(the ensemble configs, Dynamic R-CNN) and a caffe-style Faster R-CNN
-inference and training, the flagship's flip and multi-scale test-time
+(the ensemble configs, Dynamic R-CNN), a caffe-style Faster R-CNN, the
+norm and plugin families, Mask Scoring R-CNN, the Seesaw loss and the
+decoded-box Faster R-CNN inference and training, the flagship's flip and multi-scale test-time
 augmentation, and its entry points with boxes, instance masks and stuff
 maps, on one NVIDIA GPU.
 
@@ -232,6 +233,30 @@ the CPU tests run it) predicts as on the CPU, its float32 step holds
 of the CPU's, and it joins the repeatability check in both dtypes (every
 buffer compared).
 
+Then the phase "heads + scoring", with seeded random weights and nothing
+cut: Mask Scoring R-CNN R50-FPN (``configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py``:
+Mask R-CNN and a MaskIoU head on the mask branch's 14 x 14 pooled
+features and the 2x2 max pool of the mask, 80 classes) in float32 and
+bfloat16, 3 requests of two 800 x 1344 images (detections, masks and
+mask scores: each at least 0 and at most its detection's score) and 3
+steps at batch 2 with ellipse gt masks (``loss_mask_iou`` finite and
+positive; the 14 x 14 gradient kernel's cotangent the sum of the FCN and
+MaskIoU heads'), the counts set to 0 before and read after each path (K1
+at 7 and 14 once a request; K1, K4 and the tile keys at 7 and 14 once a
+step), K1 and K4 at 7 and 14 against their plain versions at its box
+proposals, detections' mask RoIs and train slots.  Then in bfloat16 one
+``predict`` and one step each of the Seesaw Mask R-CNN with normed mask
+logits (``seesaw_loss/mask_rcnn_r50_fpn_random_seesaw_loss_normed_mask_mstrain_2x_lvis_v1.py``:
+1203 LVIS classes, 300 detections an image), the Seesaw Cascade Mask
+R-CNN R101 (three stages' counts) and the GIoU and bounded-IoU Faster
+R-CNN (``reg_decoded_bbox``), launches exact, each Seesaw head's counts
+after the step equal to its sampled labels' histogram (counted on the
+host), peaks printed.  The tiny MS R-CNN predicts as on the CPU (mask
+scores within 1e-4), its float32 step holds ``f32_step_rule`` (which must
+break with level 0's K4 gradient dropped) and its bfloat16 step the
+bfloat16 rule; it and the tiny Seesaw Mask R-CNN join the repeatability
+check in both dtypes (the counts among the buffers compared).
+
 Every tiny float32 GPU step is held by a rule set from readings over
 seeds 7-16 (``f32_step_rule``: the losses within rtol 1e-4, the gradient
 norm within ``F32_GRAD_NORM_RTOL``, each tensor within ``F32_TENSOR_TOL``
@@ -288,7 +313,7 @@ K4 at 7 and 14 once a step, to bbox and segm mAP at least 0.8.  It prints the lo
 wait share, images/s, peaks and the mAPs.
 
 In the whole run the order is: the flagship and Mask R-CNN, the boosting
-family, "cascade", "htc", "fork heads", "tta + caffe" and "norms + plugins" at full width
+family, "cascade", "htc", "fork heads", "tta + caffe", "norms + plugins" and "heads + scoring" at full width
 (full-width work beside the children delays them by about its own
 time: they share the card); then the two
 host-bound bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
@@ -298,7 +323,8 @@ the parent meanwhile runs, on the host's other threads, the entry points
 and "mask entry" at full width (their images/s and wait shares are taken
 beside the children), the float32 e2e and every tiny-model check (GPU
 against CPU, the step rules' teeth, C.2; the ProbCascade's, HTC's, the
-fork heads', "tta + caffe"'s and "norms + plugins"'s too), none of which is timed, then waits
+fork heads', "tta + caffe"'s, "norms + plugins"'s and "heads + scoring"'s too), none of which
+is timed, then waits
 for the children.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -309,9 +335,10 @@ only prints the tiny models' GPU-against-CPU train steps over ten seeds
 (``step_readings``), the readings behind the two step rules, with the
 float32 edge reports, and the rules on deliberately wrong steps
 (``--step-readings f32 htc`` picks a dtype and models); ``--cascade``,
-``--htc``, ``--fork-heads``, ``--tta-caffe``, ``--norms-plugins`` and
-``--mask-entry`` run only the phase "cascade", "htc", "fork heads", "tta +
-caffe", "norms + plugins" or "mask entry"
+``--htc``, ``--fork-heads``, ``--tta-caffe``, ``--norms-plugins``,
+``--heads-scoring`` and ``--mask-entry`` run only the phase "cascade",
+"htc", "fork heads", "tta + caffe", "norms + plugins", "heads + scoring" or
+"mask entry"
 (the last with 12
 full-width steps a model and nothing beside them, then its e2e in the
 child process).
@@ -783,7 +810,11 @@ def tiny_config():
 def tiny_mask_config():
     """Mask R-CNN at the CPU tests' size (tests/test_torch_mask_rcnn.py):
     R18 at width 8, FPN 32, RPN 32, FC 16, mask convs 16, 4 classes."""
-    mc = load_config(MASK_CONFIG).model.to_dict()
+    return tiny_mask_shape(load_config(MASK_CONFIG).model.to_dict())
+
+
+def tiny_mask_shape(mc):
+    """``tiny_mask_config``'s cuts on a Mask R-CNN config ``mc``."""
     mc["backbone"].update(depth=18, base_channels=8)
     mc["neck"].update(in_channels=[8, 16, 32, 64], out_channels=32)
     mc["rpn_head"].update(in_channels=32, feat_channels=32)
@@ -905,7 +936,9 @@ def tiny_gpu_matches_cpu(seed: int, config=tiny_config) -> int:
     """The tiny flagship (or the tiny model of ``config``, deformable
     offsets seeded alike) predicts on the GPU (CUDA kernel) what it
     predicts on the CPU (the plain version, held against the JAX package by
-    the CPU tests): labels and validity equal, detections within 1e-3."""
+    the CPU tests): labels and validity equal, detections within 1e-3, and
+    a mask model's masks (and Mask Scoring R-CNN's mask scores) within
+    1e-4."""
     mc = config()
     rs = np.random.RandomState(seed)
     batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
@@ -922,11 +955,10 @@ def tiny_gpu_matches_cpu(seed: int, config=tiny_config) -> int:
     err = (d0 - d1).abs().max().item()
     if err > 1e-3:
         raise AssertionError(f"tiny {config.__name__}: GPU and CPU boxes differ by {err}")
-    if m0:  # masks within 1e-4
-        mask_err = (m0[0] - m1[0]).abs().max().item()
-        if mask_err > 1e-4:
-            raise AssertionError(f"tiny {config.__name__}: GPU and CPU masks differ by "
-                                 f"{mask_err}")
+    for what, a, b in zip(("masks", "mask scores"), m0, m1):  # within 1e-4
+        err = (a - b).abs().max().item()
+        if err > 1e-4:
+            raise AssertionError(f"tiny {config.__name__}: GPU and CPU {what} differ by {err}")
     return int(v0.sum())
 
 
@@ -1087,7 +1119,8 @@ def step_readings(gpu: str, seeds=tuple(range(7, 17)), dtypes=None, names=None) 
     models = [(name, config) for name, config in (
         ("flagship", tiny_config), *TINY_FAMILY, ("mask_rcnn", tiny_mask_config),
         ("prob_cascade", tiny_cascade_config), ("htc", tiny_htc_config),
-        ("faster_caffe", tiny_caffe_config), ("gcnet", tiny_norms_config))
+        ("faster_caffe", tiny_caffe_config), ("gcnet", tiny_norms_config),
+        ("ms_rcnn", tiny_ms_config))
         if not names or name in names]
     dtypes = dtypes or (torch.float32, BF16)
     for name, config in models:
@@ -3690,6 +3723,302 @@ def norms_tiny() -> dict:
     return out
 
 
+# ----------------------------------------------------------- heads + scoring
+MS_CONFIG = os.path.join(REPO, "configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py")
+SEESAW_CONFIG = os.path.join(
+    REPO, "configs/seesaw_loss/mask_rcnn_r50_fpn_random_seesaw_loss_normed_mask_mstrain_2x_lvis_v1.py")
+HEADS_BF16 = (SEESAW_CONFIG,) + tuple(os.path.join(REPO, "configs", p) for p in (
+    "seesaw_loss/cascade_mask_rcnn_r101_fpn_random_seesaw_loss_mstrain_2x_lvis_v1.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py",
+    "faster_rcnn/faster_rcnn_r50_fpn_bounded_iou_1x_coco.py"))
+HEADS_STEPS = 3  # MS R-CNN's train steps: step 0 warms up, steps 1-2 are timed
+
+
+@contextlib.contextmanager
+def mask_cotangents(net, out_size: int = 14):
+    """Inside the block, the last ``out_size`` pooling with a gradient:
+    its route levels, RoIs and valid slots (detached) and, once the
+    backward has run, its cotangent (``"g"``): for Mask Scoring R-CNN the
+    sum of the FCN and MaskIoU heads' cotangents, which K4@14 reads."""
+    seen = {}
+    pool = net._pool
+
+    def spy(feats, rois, roi_valid, size):
+        out = pool(feats, rois, roi_valid, size)
+        if size == out_size and out.requires_grad:
+            seen.update(levels=[f.detach() for f in feats[:len(net.roi_strides)]],
+                        rois=rois.detach(), valid=roi_valid.detach())
+            out.register_hook(lambda g: seen.update(g=g.detach()))
+        return out
+
+    net._pool = spy
+    try:
+        yield seen
+    finally:
+        del net._pool
+
+
+@contextlib.contextmanager
+def sampled_histograms(det):
+    """Inside the block, each Seesaw head's sampled-label histogram summed
+    over the detector's losses, counted on the host from the flattened
+    ``RoISample`` the loss hands the head's counts (its positives' matched
+    labels, the background last, the valid slots only): ``{head: (K+1,)
+    int64}``."""
+    hist = {}
+    counts = det._seesaw_counts
+
+    def spy(head_name, flat):
+        out = counts(head_name, flat)
+        if out is not None:
+            bg = out.shape[0] - 1
+            labels = torch.where(flat.is_pos, flat.matched_label,
+                                 torch.full_like(flat.matched_label, bg))[flat.valid]
+            hist[head_name] = hist.get(head_name, 0) + np.bincount(
+                labels.cpu().numpy(), minlength=bg + 1)
+        return out
+
+    det._seesaw_counts = spy
+    try:
+        yield hist
+    finally:
+        del det._seesaw_counts
+
+
+def run_heads(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
+              check: bool = False) -> dict:
+    """The config at ``path`` at full width in ``dtype`` with seeded random
+    weights: ``n_requests`` requests of two 800 x 1344 images through
+    ``predict`` (K1 at 7 once a stage and request, and at 14 once a request
+    for a mask head), then ``n_steps`` train steps at batch 2 with its
+    schedule (ellipse gt masks for a mask head; K1, K4 and the tile keys at
+    7 once a stage and step, and at 14 too for a mask head), each path with
+    the counts set to 0 before and read after, exact; valid detections of
+    its classes, masks in [0, 1]; Mask Scoring R-CNN's ``mask_scores``
+    finite, at least 0 and at most the detection's score, ``loss_mask_iou``
+    finite and positive; finite and positive losses, the frozen stages
+    bit-identical and every other part moved; each Seesaw head's counts
+    after the steps equal to its sampled labels' histogram, exactly.  With
+    ``check``, K1 and K4 at 7 and 14 against their plain versions at the box
+    proposals, the detections' mask RoIs and the train slots, and K4@14
+    also on the cotangent that the last step's mask pooling received (for
+    Mask Scoring R-CNN the FCN and MaskIoU heads' summed) at its slots."""
+    name = os.path.relpath(path, os.path.join(REPO, "configs"))
+    tag = ("f32 " if dtype == torch.float32 else "bf16 ") + name[:-3]
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    mc = load_config(path).model.to_dict()
+    t0 = time.perf_counter()
+    det = build(mc, seed=0, dtype=dtype)
+    n = stage_count(det)
+    net = det.net
+    masks = getattr(net, "mask_head", None) is not None or bool(getattr(net, "mask_heads", ()))
+    scoring = getattr(net, "mask_iou_head", None) is not None
+    seesaw = [k for k, m in net.named_modules() if getattr(m, "seesaw", False)]
+    b = det.bbox_cfg
+    r = {"build_s": time.perf_counter() - t0, "stages": n, "classes": b.num_classes,
+         "loss_cls": b.loss_cls_type, "loss_bbox": b.loss_bbox_type, "seesaw_heads": len(seesaw),
+         "normed_mask": any(type(m).__name__ == "NormedConv1x1" for m in net.modules())}
+    anchors, nla = det.anchors_for(CANVAS)
+    strides = net.roi_strides
+    max_det = det.rcnn_test_cfg.max_per_img
+    batches = list(requests(seed=41))[:n_requests]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    predict_ms, results = [], []
+    for x in batches:
+        t0 = time.perf_counter()
+        results.append(det.predict(x, anchors, nla))
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    want = {f"roi_align_fwd{sfx}": n * n_requests}
+    if masks:
+        want[f"roi_align_fwd{sfx}_o14"] = n_requests
+    if ran(counts) != want:
+        raise AssertionError(f"the {tag} predict path ran {ran(counts)}, not {want}")
+    r["predict_first_ms"] = predict_ms[0]
+    r["predict_ms"] = float(np.mean(predict_ms[1:] or predict_ms))
+    r["detections"] = [check_dets(*x[:3], num_classes=b.num_classes, max_per_img=max_det)
+                       for x in results]
+    if masks:
+        check_masks(results[0][3], max_det)
+    if scoring:
+        if not all(len(x) == 5 for x in results):
+            raise AssertionError(f"{tag}: predict returned no mask scores")
+        dets, _, valid, _, scores = results[0]
+        top = dets[..., 4]
+        if not (torch.isfinite(scores).all() and (scores[valid] >= 0).all()
+                and (scores[valid] <= top[valid] * (1 + 1e-6)).all()):
+            raise AssertionError(f"{tag}: mask scores outside [0, the detection's score]")
+        ratio = (scores[valid] / torch.clamp(top[valid], min=1e-12)).cpu()
+        r["mask_score_over_score"] = {"min": ratio.min().item(), "mean": ratio.mean().item(),
+                                      "max": ratio.max().item()}
+    if check:
+        x = batches[0]
+        feats, boxes, scores, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
+        route = list(feats[:len(strides)])
+        c = feats[0].shape[-1]
+        rs = np.random.RandomState(48)
+        g = torch.from_numpy(rs.randn(boxes.shape[0] * boxes.shape[1], 7, 7, c)
+                             .astype(np.float32)).cuda()
+        r["check_box_predict"] = kernels_vs_plain(route, boxes, valid, strides, g, dtype,
+                                                  f"{tag} box predict shapes")
+        if masks:
+            dets, _, dvalid = det.roi_predict(feats, boxes, scores, valid, x["img_shape"],
+                                              x["scale_factor"])
+            mrois = (dets[..., :4] * x["scale_factor"][:, None, :]).contiguous()
+            g = torch.from_numpy(rs.randn(mrois.shape[0] * mrois.shape[1], 14, 14, c)
+                                 .astype(np.float32)).cuda()
+            r["check_mask_predict"] = kernels_vs_plain(route, mrois, dvalid, strides, g, dtype,
+                                                       f"{tag} mask predict shapes")
+            del dets, dvalid, mrois
+        del feats, boxes, scores, valid, route, g
+    del results
+    make_batch = mask_train_batch if masks else train_batch
+    tb = make_batch(9, FAMILY_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE, num_classes=b.num_classes)
+    step, tb, sample0 = train_setup(det, anchors, nla, path, tb)
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    counts0 = {k: net.get_buffer(f"{k}.seesaw_counts").clone() for k in seesaw}
+    with sampled_histograms(det) as hist, mask_cotangents(net) as seen:
+        metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train", n_steps)
+    r["train_counts"] = counts
+    want = {f"roi_align_fwd{sfx}": n * n_steps, f"roi_align_bwd{sfx}": n * n_steps,
+            "roi_tile_keys": n * n_steps}
+    if masks:
+        want.update({f"roi_align_fwd{sfx}_o14": n * n_steps, f"roi_align_bwd{sfx}_o14": n * n_steps,
+                     "roi_tile_keys_o14": n * n_steps})
+    if ran(counts) != want:
+        raise AssertionError(f"the {tag} train path ran {ran(counts)}, not {want}")
+    heads = tuple(f"bbox_heads.{i}." for i in range(n)) if n > 1 else ("bbox_head.",)
+    if masks:
+        heads += tuple(f"mask_heads.{i}." for i in range(n)) if n > 1 else ("mask_head.",)
+    if scoring:
+        heads += ("mask_iou_head.",)
+    r["moved"] = check_moved(before, det, f"{tag} train", heads)
+    if scoring and not all(m["loss_mask_iou"] > 0 for m in metrics):
+        raise AssertionError(f"{tag}: loss_mask_iou not positive: {metrics}")
+    if set(hist) != set(seesaw):
+        raise AssertionError(f"{tag}: the Seesaw heads {seesaw} counted {sorted(hist)}")
+    r["seesaw_counts"] = {}
+    for k in seesaw:
+        got = net.get_buffer(f"{k}.seesaw_counts") - counts0[k]
+        if not torch.equal(got.cpu(), torch.from_numpy(hist[k]).float()):
+            raise AssertionError(f"{tag}: {k}'s counts moved by {got.tolist()}, not by its "
+                                 f"sampled labels' histogram")
+        r["seesaw_counts"][k] = {"sum": int(hist[k].sum()), "background": int(hist[k][-1]),
+                                 "classes_seen": int((hist[k][:-1] > 0).sum())}
+    r["train_first_ms"], r["train_ms"] = step_ms[0], float(np.mean(step_ms[1:] or step_ms))
+    r["losses"] = metrics[-1]
+    if check:
+        with torch.no_grad():
+            feats = net.features(tb["images"])
+        route = list(feats[:len(strides)])
+        c = feats[0].shape[-1]
+        rois, slots = sample0.boxes, sample0.boxes.shape[0] * sample0.boxes.shape[1]
+        rs = np.random.RandomState(49)
+        g = torch.from_numpy(rs.randn(slots, 7, 7, c).astype(np.float32)).cuda()
+        r["check_box_train"] = kernels_vs_plain(route, rois, sample0.valid, strides, g, dtype,
+                                                f"{tag} box train shapes")
+        if masks:
+            g = torch.from_numpy(rs.randn(slots, 14, 14, c).astype(np.float32)).cuda()
+            r["check_mask_train"] = kernels_vs_plain(
+                route, rois, sample0.valid & sample0.is_pos, strides, g, dtype,
+                f"{tag} mask train shapes")
+            g = seen["g"].reshape(-1, 14, 14, c)
+            r["check_mask_train_cotangent"] = kernels_vs_plain(
+                seen["levels"], seen["rois"], seen["valid"], strides, g, dtype,
+                f"{tag} mask train slots, the step's own cotangent")
+        del feats, route, g
+    del seen
+    checks = {k: v for k, v in r.items() if k.startswith("check_")}
+    say(f"{tag} ({gpu}): built in {r['build_s']:.1f} s ({n} stage(s), {b.num_classes} classes, "
+        f"{b.loss_cls_type} / {b.loss_bbox_type}"
+        + (", normed mask logits" if r["normed_mask"] else "")
+        + (", MaskIoU head" if scoring else "") + f"); predict of {BATCH} images "
+        f"{predict_ms[0]:.0f} ms first call"
+        + (f", {r['predict_ms']:.1f} ms after" if n_requests > 1 else "")
+        + f", {r['detections']} valid detections, peak {r['predict_peak']:.2f} GiB; train step at "
+        f"batch {FAMILY_BATCH} {step_ms[0]:.0f} ms first"
+        + (f", {r['train_ms']:.1f} ms after" if n_steps > 1 else "")
+        + f", peak {r['train_peak']:.2f} GiB; launches {ran(r['predict_counts'])} / "
+        f"{ran(counts)}"
+        + (f"; mask score / score {r['mask_score_over_score']}" if scoring else "")
+        + (f"; Seesaw counts equal to the sampled labels' histograms {r['seesaw_counts']}"
+           if seesaw else "")
+        + (f"; K1/K4 vs plain {checks}" if checks else ""))
+    del det, step, tb, before
+    torch.cuda.empty_cache()
+    return r
+
+
+def heads_phase(gpu: str) -> dict:
+    """The phase "heads + scoring" at full width: Mask Scoring R-CNN R50-FPN
+    in float32 and bfloat16, ``REQUESTS`` requests and ``HEADS_STEPS``
+    steps, K1 and K4 at 7 and 14 against their plain versions (at 14 the
+    gradient of two heads' summed cotangents in the step); in bfloat16 one
+    request and one step each of the Seesaw Mask R-CNN with normed mask
+    logits (1203 LVIS classes), the Seesaw Cascade Mask R-CNN R101 (three
+    stages' counts) and the GIoU and bounded-IoU Faster R-CNN
+    (``reg_decoded_bbox``).  Its tiny checks are ``heads_tiny``'s."""
+    t0 = time.perf_counter()
+    out = {"ms_rcnn": {d: run_heads(MS_CONFIG, d, gpu, REQUESTS, HEADS_STEPS, check=True)
+                       for d in (torch.float32, BF16)}}
+    out["bf16"] = {os.path.basename(p)[:-3]: run_heads(p, BF16, gpu) for p in HEADS_BF16}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase heads + scoring: {out['wall_s']:.1f} s")
+    return out
+
+
+def tiny_ms_config():
+    """Mask Scoring R-CNN at the CPU tests' size (tests/test_torch_ms_rcnn.py):
+    the tiny Mask R-CNN's, its MaskIoU head at convs of 16 and FCs of 64."""
+    mc = tiny_mask_shape(load_config(MS_CONFIG).model.to_dict())
+    mc["roi_head"]["mask_iou_head"].update(in_channels=32, conv_out_channels=16,
+                                           fc_out_channels=64, num_classes=4)
+    return mc
+
+
+def tiny_seesaw_config():
+    """The Seesaw Mask R-CNN with normed mask logits at the CPU tests' size
+    (tests/test_torch_seesaw.py), 4 classes."""
+    mc = tiny_mask_shape(load_config(SEESAW_CONFIG).model.to_dict())
+    mc["roi_head"]["bbox_head"]["loss_cls"]["num_classes"] = 4
+    return mc
+
+
+def heads_tiny() -> dict:
+    """The phase "heads + scoring"'s checks without timings: the tiny MS
+    R-CNN's ``predict`` on the card against the CPU (labels equal,
+    detections within 1e-3, masks and mask scores within 1e-4); its float32
+    step by ``f32_step_rule``, which must break with level 0's K4 gradient
+    dropped; its bfloat16 step by ``bf16_step_rule``; the C.2 check of its
+    step in both dtypes and of the tiny Seesaw Mask R-CNN's (every buffer
+    compared, its counts among them)."""
+    t0 = time.perf_counter()
+    tiny = {"predict_detections": tiny_gpu_matches_cpu(3, tiny_ms_config)}
+    for dtype in (torch.float32, BF16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        m, worst, repeat, summary = tiny_train_gpu_matches_cpu(7, dtype, tiny_ms_config)
+        tiny[tag] = {"loss": m["loss"], "loss_mask_iou": m["loss_mask_iou"],
+                     "worst_of_tolerance": worst, **summary, "repeat_identical": repeat}
+    broken = wrong_step_broken(tiny_ms_config, WRONG_K4_CAUGHT, dtype=torch.float32)
+    if not broken:
+        raise AssertionError(f"the f32 step rule holds for the tiny MS R-CNN's step with level "
+                             f"0's K4 gradient x {WRONG_K4_CAUGHT}")
+    tiny["f32_teeth"] = broken[:3]
+    say(f"tiny MS R-CNN: GPU predict (with mask scores) matches CPU predict, its f32 step holds "
+        f"the f32 step rule (which breaks with level 0's K4 gradient x {WRONG_K4_CAUGHT}: "
+        f"{'; '.join(broken[:3])}), its bf16 step the bf16 rule: {json.dumps(tiny)}")
+    out = {"tiny": tiny, "repeat": {}}
+    for name, config in (("ms_rcnn", tiny_ms_config), ("seesaw_mask_rcnn", tiny_seesaw_config)):
+        for dtype in (torch.float32, BF16):
+            out["repeat"].update(c2_check(name, config, dtype))
+    tiny["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------ entry points
 UTDAC_FRAMES = ((1920, 1080), (720, 405), (586, 480))  # UTDAC2020's frame sizes
 # full-width train_detector steps before the checkpoint: one short of the
@@ -4239,10 +4568,10 @@ def main(argv) -> int:
     e2e_child = argv[1:] if argv[:1] == ["--e2e-child"] and len(argv) == 4 else None
     if readings is None and e2e_child is None and argv not in (
             [], ["--cascade"], ["--htc"], ["--mask-entry"], ["--fork-heads"], ["--tta-caffe"],
-            ["--norms-plugins"]):
+            ["--norms-plugins"], ["--heads-scoring"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
-              "--cascade | --htc | --mask-entry | --fork-heads | --tta-caffe | --norms-plugins]",
-              file=sys.stderr)
+              "--cascade | --htc | --mask-entry | --fork-heads | --tta-caffe | --norms-plugins "
+              "| --heads-scoring]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4293,6 +4622,10 @@ def main(argv) -> int:
     if argv == ["--norms-plugins"]:
         norms_phase(gpu)
         norms_tiny()
+        return 0
+    if argv == ["--heads-scoring"]:
+        heads_phase(gpu)
+        heads_tiny()
         return 0
     if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
         mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
@@ -4354,6 +4687,10 @@ def main(argv) -> int:
     # -------------------------------------------------------- norms + plugins
     norms = norms_phase(gpu)
     phase_done("norms + plugins")
+
+    # -------------------------------------------------------- heads + scoring
+    heads = heads_phase(gpu)
+    phase_done("heads + scoring")
 
 
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
@@ -4450,6 +4787,7 @@ def main(argv) -> int:
         fork.update(fork_tiny())
         tta_caffe.update(tta_caffe_tiny())
         norms.update(norms_tiny())
+        heads.update(heads_tiny())
 
         # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
         repeat_report = {}
@@ -4462,6 +4800,7 @@ def main(argv) -> int:
         repeat_report.update(fork["repeat"])
         repeat_report.update(tta_caffe["repeat"])
         repeat_report.update(norms["repeat"])
+        repeat_report.update(heads["repeat"])
         phase_done("tiny models and C.2, beside the e2e trainings")
         torch.set_num_threads(threads)
         e2e[BF16] = finish_e2e(*children[0])
@@ -4553,6 +4892,13 @@ def main(argv) -> int:
             "bf16_configs": {n: {k: v for k, v in r.items() if not k.endswith("_counts")}
                              for n, r in norms["bf16"].items()},
             "tiny": norms["tiny"], "wall_s": norms["wall_s"]},
+        "heads_scoring": {
+            **{f"ms_rcnn_{'f32' if d == torch.float32 else 'bf16'}": {
+                k: v for k, v in r.items() if not k.endswith("_counts")}
+               for d, r in heads["ms_rcnn"].items()},
+            "bf16_configs": {n: {k: v for k, v in r.items() if not k.endswith("_counts")}
+                             for n, r in heads["bf16"].items()},
+            "tiny": heads["tiny"], "wall_s": heads["wall_s"]},
         "mask_entry": mask_entry,
         "phase_walls_s": walls,
         "wall_s": time.perf_counter() - t_start}))
@@ -4595,6 +4941,10 @@ def main(argv) -> int:
         (f"norms_gcnet_{part}", norms["gcnet"][d][f"{part}_counts"])
         for d in (torch.float32, BF16) for part in ("predict", "train")] + [
         (f"norms_bf16_{part}", {k: sum(f[f"{part}_counts"][k] for f in norms["bf16"].values())
+                                for k in counters()}) for part in ("predict", "train")] + [
+        (f"heads_ms_rcnn_{part}", heads["ms_rcnn"][d][f"{part}_counts"])
+        for d in (torch.float32, BF16) for part in ("predict", "train")] + [
+        (f"heads_bf16_{part}", {k: sum(f[f"{part}_counts"][k] for f in heads["bf16"].values())
                                 for k in counters()}) for part in ("predict", "train")]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
@@ -4604,17 +4954,20 @@ def main(argv) -> int:
         # flipped view's pyramid and RoIs and the caffe model's predict RoIs
         checked[d] += [fork[model][d]["check_predict"] for model in ("dynamic", "atss")]
         checked[d] += [tta_caffe["tta"][d]["check_flipped"], tta_caffe["caffe"][d]["check_predict"]]
-        # ... and the GCNet model's box proposals and train slots
-        checked[d] += [norms["gcnet"][d][k] for k in ("check_box_predict", "check_box_train")]
+        # ... and the GCNet and MS R-CNN models' box proposals and train slots
+        checked[d] += [run[d][k] for run in (norms["gcnet"], heads["ms_rcnn"])
+                       for k in ("check_box_predict", "check_box_train")]
     more_errs = {f"roi_align_{part}{'' if d == torch.float32 else '_bf16'}":
                  max(c[part][0] for c in checked[d]) for d in checked for part in ("fwd", "bwd")}
-    # ... and at 14, the GCNet model's mask RoIs and positive train slots
-    for d, nr in norms["gcnet"].items():
+    # ... and at 14, the GCNet and MS R-CNN models' mask RoIs and positive
+    # train slots (MS R-CNN's gradient there of its two heads' cotangents)
+    for d, nr in [*norms["gcnet"].items(), *heads["ms_rcnn"].items()]:
         sfx = "" if d == torch.float32 else "_bf16"
         for part in ("fwd", "bwd"):
             name = f"roi_align_{part}{sfx}_o14"
             more_errs[name] = max([more_errs.get(name, 0.0)] + [
-                nr[k][part][0] for k in ("check_mask_predict", "check_mask_train")])
+                nr[k][part][0] for k in ("check_mask_predict", "check_mask_train",
+                                         "check_mask_train_cotangent") if k in nr])
     # ... and the HTC paths on the one semantic level, at 7 and 14
     semantic = {}
     for d, hr in htc["htc"].items():

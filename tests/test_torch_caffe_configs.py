@@ -43,6 +43,8 @@ BUILDS = {
         "rcnn_r50_caffe_fpn_1x_coco", "rcnn_r101_caffe_fpn_1x_coco",
         "mask_rcnn_r50_caffe_fpn_1x_coco", "mask_rcnn_r101_caffe_fpn_1x_coco",
         "mask_rcnn_r50_caffe_fpn_mstrain_3x_coco", "mask_rcnn_r101_caffe_fpn_mstrain_3x_coco")),
+    # Mask Scoring R-CNN's MaskIoU head on the caffe ResNets
+    *(f"ms_rcnn/ms_rcnn_{m}_caffe_fpn_{s}_coco.py" for m in ("r50", "r101") for s in ("1x", "2x")),
     # SyncBN with batch statistics in the backbone, frozen BN in the FPN and
     # the heads, as the JAX package builds them
     *(f"strong_baselines/mask_rcnn_r50_caffe_fpn_syncbn-all_rpn-2conv_lsj_{m}_coco.py"
@@ -55,7 +57,7 @@ REASONS = (("cascade_rpn/crpn_faster", "CascadeRPNHead"), ("cascade_rpn/crpn_fas
            ("faster_rcnn/faster_rcnn_r50_caffe_dc5", "dilations"), ("fcos/", "FCOS"),
            ("guided_anchoring/ga_fast_", "FastRCNN"), ("guided_anchoring/ga_faster", "GARPNHead"),
            ("guided_anchoring/ga_retinanet", "RetinaNet"), ("guided_anchoring/ga_rpn", "'RPN'"),
-           ("mask_rcnn/mask_rcnn_r50_caffe_c4", "num_stages=3"), ("ms_rcnn/", "MaskScoringRCNN"),
+           ("mask_rcnn/mask_rcnn_r50_caffe_c4", "num_stages=3"),
            ("nas_fcos/", "NASFCOS"), ("point_rend/", "PointRend"), ("retinanet/", "RetinaNet"),
            ("rpn/", "'RPN'"),
            ("tridentnet/", "TridentFasterRCNN"))
@@ -103,7 +105,7 @@ def _built(model_json: str):
 
 
 def test_the_probe_covers_the_caffe_configs():
-    assert BUILDS <= set(_names()) and len(_names()) == 72 and len(BUILDS) == 26
+    assert BUILDS <= set(_names()) and len(_names()) == 72 and len(BUILDS) == 30
 
 
 @pytest.mark.parametrize("name", _names())

@@ -3,11 +3,11 @@ width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
 ones and the Cascade Mask R-CNN ones on the ported backbones build
-(``BUILDS``, 22 + 30 files, the ensemble configs' ATSS and RetinaNet-style
-RPNs and the caffe-style ResNets among them; files with the same model,
+(``BUILDS``, 22 + 35 files, the ensemble configs' ATSS and RetinaNet-style
+RPNs, the caffe-style ResNets and the Seesaw loss among them; files with the same model,
 such as a 1x and a 20e schedule, are built once); every other one raises
 ``NotImplementedError`` naming what is missing (``_reason``): DetectoRS,
-HRNet, RegNet, ResNeSt, the Seesaw loss and SABL heads.  Each built one is
+HRNet, RegNet, ResNeSt and SABL heads.  Each built one is
 checked against its config: one class-agnostic stage head per stage, the
 IoU ladder, the stage loss weights, boosting and fusion for
 ``ProbCascadeRoIHead`` only, the ensemble configs' RPN (its type, ATSS
@@ -82,6 +82,13 @@ BUILDS = {
     *(f"gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-backbone_{m}1x_coco.py" for m in (
         "", "dconv_c3-c5_", "dconv_c3-c5_r16_gcb_c3-c5_", "dconv_c3-c5_r4_gcb_c3-c5_",
         "r16_gcb_c3-c5_", "r4_gcb_c3-c5_")),
+    # the Seesaw loss over 1203 LVIS classes (its stage heads class-wise: the
+    # merged config's list replaces the base's stage dicts), with and
+    # without the normed mask logits
+    *(f"seesaw_loss/cascade_mask_rcnn_r101_fpn_{m}_2x_lvis_v1.py" for m in (
+        "random_seesaw_loss_mstrain", "random_seesaw_loss_normed_mask_mstrain",
+        "sample1e-3_seesaw_loss_mstrain", "sample1e-3_seesaw_loss_normed_mask_mstrain",
+        "seesaw_loss_random")),
 }
 
 
@@ -94,8 +101,7 @@ def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
     for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
                       ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
-                      ("regnet/", "RegNet"),
-                      ("seesaw_loss/", "SeesawLoss")):
+                      ("regnet/", "RegNet")):
         if name.startswith(key):
             return what
     raise AssertionError(f"{name}: no expected reason")

@@ -180,17 +180,22 @@ class _MaskSpy:
         self.net.mask_out, self.loss_mod.mask_loss = self.orig_out, self.orig_loss
 
 
-def run_htc_pair(make_cfg, steps: bool = True):
+def run_htc_pair(make_cfg, steps: bool = True, edit_variables=None):
     """Both packages on ``make_cfg(load_config(...))``'s tiny HTC or Cascade
     Mask R-CNN through predict, the loss with its per-stage box and mask
     samples, its gradients and (with ``steps``) two fused train steps on
-    the same weights, batch and random draws."""
+    the same weights, batch and random draws; after each step, JAX's
+    ``batch_stats`` and the port's buffers (``states``).
+    ``edit_variables`` sets variables of the random ones (the Seesaw
+    counts)."""
     mc = make_cfg(jax_load_config)
     semantic = bool(mc["roi_head"].get("semantic_head"))
     jdet = jax_build(mc, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), CANVAS))
     rs = np.random.RandomState(0)
     variables = _random_variables(shapes, rs)
+    if edit_variables is not None:
+        variables = edit_variables(variables)
     batch = htc_batch(rs, semantic)
     jv = jax.tree.map(jnp.asarray, variables)
     jb = jax.tree.map(jnp.asarray, batch)
@@ -249,7 +254,7 @@ def run_htc_pair(make_cfg, steps: bool = True):
     t_opt = t_train.make_optimizer(tdet_train.net.parameters(), t_sched)
     t_step = t_train.make_train_step(tdet_train, t_anchors, t_nla, t_opt)
     run["p0"] = {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()}
-    run["steps"] = []
+    run["steps"], run["states"] = [], []
     for k in range(2):
         _sync(tdet_train, t_opt, state)
         state, j_metrics = j_step(state, jb, rng)  # the step folds its count into rng
@@ -257,6 +262,9 @@ def run_htc_pair(make_cfg, steps: bool = True):
         run["steps"].append((from_jax_params(jax.tree.map(np.asarray, state.params)),
                              {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()},
                              j_metrics, t_metrics))
+        run["states"].append((from_jax_params({"params": {}, "batch_stats": jax.tree.map(
+            np.asarray, state.batch_stats)}),
+            {k: v.clone() for k, v in tdet_train.net.named_buffers()}))
     return run
 
 

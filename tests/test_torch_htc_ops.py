@@ -230,7 +230,8 @@ def test_builder_builds_full_width_htc_and_cascade_mask(name):
 
 
 @pytest.mark.parametrize("edit, match", [
-    (lambda roi: roi["mask_head"][1].update(predictor_cfg=dict(type="NormedConv2d")),
+    (lambda roi: roi["mask_head"][1].update(predictor_cfg=dict(type="NormedConv2d",
+                                                               power=2.0)),
      "predictor_cfg"),
     (lambda roi: roi["mask_head"][0].update(norm_cfg=dict(type="GN", num_groups=32)),
      "norm_cfg"),

@@ -516,15 +516,18 @@ def test_builder_builds_full_width_mask_rcnn(dtype, monkeypatch):
     ("train_cfg.rpn.sampler.add_gt_as_proposals", True),
     ("roi_head.mask_head.type", "HTCMaskHead"),
     ("roi_head.mask_head.norm_cfg", {"type": "LN"}),
-    ("roi_head.mask_head.predictor_cfg", {"type": "NormedConv2d", "tempearture": 20}),
+    # the normed predictor is ported (its temperature), not mmdet's other options
+    ("roi_head.mask_head.predictor_cfg", {"type": "NormedConv2d", "tempearture": 20,
+                                          "power": 2.0}),
     ("roi_head.mask_head.class_agnostic", True),
     ("roi_head.mask_head.loss_mask.loss_weight", 2.0),
     ("roi_head.mask_roi_extractor.roi_layer.output_size", 7),
     ("roi_head.mask_roi_extractor.featmap_strides", [8, 16, 32, 64]),
     ("roi_head.mask_roi_extractor", None),
-    ("roi_head.mask_iou_head", {"type": "MaskIoUHead"}),
+    # Mask Scoring R-CNN's MaskIoU head is ported at the JAX package's two FCs
+    ("roi_head.mask_iou_head", {"type": "MaskIoUHead", "num_fcs": 3}),
     ("train_cfg.rcnn.mask_size", 56),
-    ("type", "MaskScoringRCNN"),
+    ("type", "PointRend"),
 ])
 def test_builder_rejects_unported_mask_rcnn_values(path, value):
     from boosting_rcnn_tpu_torch.builder import build_detector

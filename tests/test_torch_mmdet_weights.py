@@ -311,7 +311,7 @@ def test_cascade_mask_mmdet_round_trip(name, tmp_path):
     "roi_head.mask_head.1.conv_res.norm.weight",
     "roi_head.semantic_head.fcs.0.weight",
     "roi_head.mask_head.0.convs.0.bn.weight",
-    "roi_head.mask_iou_head.fc_mask_iou.weight",
+    "roi_head.mask_iou_head.conv_logits.weight",
 ])
 def test_unknown_mmdet_keys_raise_named(key):
     with pytest.raises(ValueError, match=re.escape(repr(key))):

@@ -338,8 +338,11 @@ def test_atss_rpn_loss_and_gradients_match_jax(gamma):
 
 def test_atss_rpn_loss_rejects_unported_branches():
     z = torch.zeros((1, 4))
-    for cfg in (t_rpn.ATSSRPNCfg(loss_bbox_type="diou"), t_rpn.ATSSRPNCfg(loss_bbox_type="eiou"),
-                t_rpn.ATSSRPNCfg(loss_cls_type="varifocal")):
+    # DIoU, EIoU and varifocal are ported (tests/test_torch_head_losses.py);
+    # the encoded-delta branch has no EIoU in the JAX package either
+    for cfg in (t_rpn.ATSSRPNCfg(reg_decoded_bbox=False, loss_bbox_type="eiou"),
+                t_rpn.ATSSRPNCfg(reg_decoded_bbox=False, loss_bbox_type="focal_eiou"),
+                t_rpn.ATSSRPNCfg(loss_cls_type="quality_focal")):
         with pytest.raises(NotImplementedError):
             t_rpn.atss_rpn_loss(cfg, z, z[..., None].expand(1, 4, 4), z, z.reshape(4, 1)
                                 .expand(4, 4), z.bool(), z[:, :1, None].expand(1, 1, 4),
@@ -733,8 +736,8 @@ def test_builder_reads_the_flagship_train_cfg():
 
 
 @pytest.mark.parametrize("path,value", [
-    ("rpn_head.loss_bbox.type", "DIoULoss"),
-    ("rpn_head.loss_cls.type", "VarifocalLoss"),
+    ("rpn_head.loss_bbox.type", "BoundedIoULoss"),
+    ("rpn_head.loss_cls.type", "QualityFocalLoss"),
     ("rpn_head.aug_reg_loss.type", "L1Loss"),
     ("roi_head.quality", True),
     ("roi_head.alpha", 0.5),
