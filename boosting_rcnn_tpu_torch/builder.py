@@ -60,6 +60,7 @@ from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
 from .models.detectors.cascade import CascadeDetector, CascadeNet
 from .models.detectors.htc import HTCDetector, HTCNet
+from .models.detectors.point_rend import PointRendDetector
 from .models.detectors.two_stage import (
     DynamicRCNNDetector,
     ProposalCfg,
@@ -72,7 +73,9 @@ from .models.necks.fpn import FPN, PAFPN
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
 from .models.roi_heads.cascade_roi_head import CascadeCfg
 from .models.roi_heads.mask_head import FCNMaskHead, FusedSemanticHead, HTCMaskHead, MaskIoUHead
+from .models.roi_heads.point_rend import CoarseMaskHead, MaskPointHead, PointRendCfg
 from .models.roi_heads.prob_roi_head import ProbRoICfg
+from .models.roi_heads.res5_head import Res5BBoxHead
 from .ops.anchors import AnchorGenerator
 
 __all__ = ["COMPUTE_DTYPES", "build_detector", "resolve_device"]
@@ -161,10 +164,19 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     _check(cfg, "style", ("pytorch",) if cfg["type"] == "Res2Net" else ("pytorch", "caffe"),
            "pytorch")
     _check(cfg, "deep_stem", (False,), False)
-    _check(cfg, "num_stages", (4,), 4)
+    stages = {}
+    if cfg["type"] == "Res2Net":
+        _check(cfg, "num_stages", (4,), 4)
+    else:  # JAX build_resnet reads the stages' strides and dilations, build_resnext not
+        stages = dict(num_stages=cfg.get("num_stages", 4),
+                      out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))))
+        if cfg["type"] == "ResNet":
+            stages.update(strides=tuple(cfg.get("strides", (1, 2, 2, 2))),
+                          dilations=tuple(cfg.get("dilations", (1, 1, 1, 1))))
     for key, value in (("dilations", (1, 1, 1, 1)), ("strides", (1, 2, 2, 2)),
                        ("out_indices", (0, 1, 2, 3))):
-        _check({key: tuple(cfg.get(key, value))}, key, (value,))
+        if key not in stages:
+            _check({key: tuple(cfg.get(key, value))}, key, (value,))
     dcn, stage_with_dcn = _dcn(cfg)
     common = dict(base_channels=cfg.get("base_channels", 64),
                   frozen_stages=cfg.get("frozen_stages", -1), dcn=dcn,
@@ -173,7 +185,8 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
         return Res2Net(gen, depth=cfg.get("depth", 101), scales=cfg.get("scales", 4),
                        base_width=cfg.get("base_width", 26), **common)
     common.update(style=cfg.get("style", "pytorch"), plugins=cfg.get("plugins") or None,
-                  conv_cfg=_conv_cfg(cfg, "backbone"), norm_cfg=_norm_cfg(cfg, "backbone"))
+                  conv_cfg=_conv_cfg(cfg, "backbone"), norm_cfg=_norm_cfg(cfg, "backbone"),
+                  **stages)
     if cfg["type"] == "ResNeXt":
         return ResNet(gen, depth=cfg.get("depth", 101), groups=cfg.get("groups", 32),
                       base_width=cfg.get("base_width", 4), **common)
@@ -396,19 +409,36 @@ def _build_rpn(rpn: Dict[str, Any], train_rpn: Dict[str, Any], channels: int,
 
 
 def _build_mask_head(roi: Dict[str, Any], strides, channels: int, num_classes: int,
-                     train_rcnn: Dict[str, Any], gen: torch.Generator, scoring: bool = False):
+                     train_rcnn: Dict[str, Any], gen: torch.Generator, scoring: bool = False,
+                     shared: Optional[Res5BBoxHead] = None, shared_size: int = 14):
     """The FCN mask head, the mask RoIAlign's pooled size and, for
     ``scoring`` (``MaskScoringRCNN``) or a ``mask_iou_head`` in the RoI
     head, the MaskIoU head, else None (JAX ``build_detector``'s
-    ``FCNMaskHead`` case)."""
+    ``FCNMaskHead`` case).  With the C4 box head ``shared`` and no
+    ``mask_roi_extractor``, the mask branch pools at the box extractor's
+    ``shared_size`` and runs the box head's ``res5`` first (JAX
+    ``mask_on_shared``): the FCN head reads its channels and gives logits
+    of the ``res5`` output's size times 2.  The targets follow the head's
+    output (JAX ``two_stage.py:697-706``): a ``train_cfg.rcnn.mask_size``
+    of another size raises."""
     mh = roi["mask_head"]
     _check_mask_head(mh, ("FCNMaskHead",), norm=True)
-    out_size = _mask_extractor(roi, strides)
-    _check(train_rcnn, "mask_size", (2 * out_size,), 2 * out_size)
+    if shared is not None and not roi.get("mask_roi_extractor"):
+        if scoring or roi.get("mask_iou_head"):
+            raise _unported("mask_iou_head (on a shared res5 head)", roi.get("mask_iou_head"))
+        # res5's first block halves the pooled size (stride 2, either style)
+        out_size, head_in = shared_size, shared.out_channels
+        head_out = 2 * ((shared_size - 1) // 2 + 1)
+    else:
+        if shared is not None:  # the JAX net would feed C4's res5 input to the mask head
+            raise _unported("mask_roi_extractor (beside a shared_head)",
+                            roi["mask_roi_extractor"])
+        out_size = _mask_extractor(roi, strides)
+        head_in, head_out = mh.get("in_channels", channels), 2 * out_size
+    _check(train_rcnn, "mask_size", (head_out,), head_out)
     _check(roi, "semantic_head", (None,))
     mask_classes = mh.get("num_classes", num_classes)
-    module = FCNMaskHead(gen, num_classes=mask_classes,
-                         in_channels=mh.get("in_channels", channels),
+    module = FCNMaskHead(gen, num_classes=mask_classes, in_channels=head_in,
                          num_convs=mh.get("num_convs", 4),
                          conv_channels=mh.get("conv_out_channels", 256),
                          norm_cfg=_norm_cfg(mh, "mask_head"),
@@ -574,17 +604,20 @@ def _bbox_cfg(head: Dict[str, Any]) -> BBoxHeadCfg:
     )
 
 
-def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any]) -> ProbRoICfg:
+def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any],
+             point_rend: bool = False) -> ProbRoICfg:
     """The RoI head's boosting options (boosting on by default for
     ``ProbRoIHead`` only, prior fusion for ``ProbRoIHead`` and
     ``BoostRoIHead``) and its train sampler and assigner (JAX
-    ``build_detector``, two-stage branch)."""
+    ``build_detector``, two-stage branch); PointRend's ``point`` options
+    are ``_point_rend_parts``'."""
     _check(roi, "quality", (False,), False)
     _check(roi, "alpha", (0,), 0)
     _check(roi, "reg_norm", ("bbox_num", "mean"), "bbox_num")
     _only(train_rcnn, "train_cfg.rcnn", ("assigner", "sampler", "pos_weight", "debug",
                                          "mask_size", "mask_thr_binary")
-          + (("dynamic_rcnn",) if roi["type"] == "DynamicRoIHead" else ()))
+          + (("dynamic_rcnn",) if roi["type"] == "DynamicRoIHead" else ())
+          + (("point",) if point_rend else ()))
     sampler = train_rcnn.get("sampler", {})
     _only(sampler, "train_cfg.rcnn.sampler", ("type", "num", "pos_fraction", "neg_pos_ub",
                                               "add_gt_as_proposals"))
@@ -657,8 +690,8 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
         raise ValueError(f"compute dtype {dtype} is not supported; the port computes in "
                          f"{' or '.join(map(str, COMPUTE_DTYPES))}")
     device = resolve_device(device)
-    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "MaskScoringRCNN", "CascadeRCNN")
-           + _HTC_TYPES)
+    _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "MaskScoringRCNN", "PointRend",
+                               "CascadeRCNN") + _HTC_TYPES)
     roi = model_cfg["roi_head"]
     # the JAX builder sends HTC and a CascadeRCNN with a mask head (Cascade
     # Mask R-CNN) to build_htc
@@ -671,11 +704,20 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
     test_cfg = model_cfg.get("test_cfg") or {}
 
     backbone = _build_backbone(model_cfg["backbone"], gen)
-    neck_cfg = model_cfg["neck"]
+    neck_cfg = model_cfg.get("neck")
     if isinstance(neck_cfg, list):
         raise _unported("neck (stacked necks)", [n.get("type") for n in neck_cfg])
-    neck = _build_neck(neck_cfg, gen)
-    channels = neck_cfg.get("out_channels", 256)
+    if neck_cfg:
+        neck = _build_neck(neck_cfg, gen)
+        channels = neck_cfg.get("out_channels", 256)
+    else:
+        # C4 and DC5 (JAX builder.py:2240-2252): no neck, the backbone's one
+        # map feeds the RPN and the RoI heads
+        neck, neck_cfg = None, {}
+        if cascade or len(getattr(backbone, "out_channels", ())) != 1:
+            raise _unported("neck (none, beside a cascade or several backbone outputs)",
+                            model_cfg.get("neck"))
+        channels = backbone.out_channels[0]
     rpn_module, rpn_cfg, rpn_type, ag = _build_rpn(model_cfg["rpn_head"],
                                                    train_cfg.get("rpn") or {}, channels, gen)
     out_size, strides, finest_scale = _extractor(roi)
@@ -699,36 +741,144 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
             train_proposal_cfg=train_pc, test_proposal_cfg=test_pc, rcnn_test_cfg=rcnn_test,
             rpn_type=rpn_type, cascade_cfg=cascade_cfg)
 
-    _check(roi, "type", ("ProbRoIHead", "StandardRoIHead", "BoostRoIHead", "DynamicRoIHead",
-                         "MaskScoringRoIHead"))
+    point_rend = model_cfg["type"] == "PointRend"
+    _check(roi, "type", ("PointRendRoIHead",) if point_rend else (
+        "ProbRoIHead", "StandardRoIHead", "BoostRoIHead", "DynamicRoIHead",
+        "MaskScoringRoIHead"))
     scoring = model_cfg["type"] == "MaskScoringRCNN"
-    if scoring and not roi.get("mask_head"):
-        raise ValueError("MaskScoringRCNN needs a mask_head")
-    _check(roi, "shared_head", (None,))
+    if (scoring or point_rend) and not roi.get("mask_head"):
+        raise ValueError(f"{model_cfg['type']} needs a mask_head")
     train_rcnn = train_cfg.get("rcnn") or {}
     dynamic = roi["type"] == "DynamicRoIHead"
     head_kw, det_kw = _dynamic_rcnn(train_rcnn, roi) if dynamic else ({}, {})
-    bbox_module, bbox_cfg = _bbox_head(roi["bbox_head"], channels, out_size, gen, **head_kw)
-    roi_cfg = _roi_cfg(roi, train_rcnn)
-    mask_module, mask_out_size, iou_module = None, 14, None
-    if roi.get("mask_head"):
+    if roi.get("shared_head"):
+        if dynamic:
+            raise _unported("shared_head (in a DynamicRoIHead)", roi["shared_head"])
+        bbox_module, bbox_cfg = _res5_head(roi, channels, gen)
+    else:
+        bbox_module, bbox_cfg = _bbox_head(roi["bbox_head"], channels, out_size, gen, **head_kw)
+    roi_cfg = _roi_cfg(roi, train_rcnn, point_rend)
+    mask_module, mask_out_size, iou_module, point_module = None, 14, None, None
+    if point_rend:
+        mask_module, mask_out_size, point_module, det_kw = _point_rend_parts(
+            roi, strides, channels, bbox_cfg.num_classes, train_cfg, test_cfg, gen)
+    elif roi.get("mask_head"):
         mask_module, mask_out_size, iou_module = _build_mask_head(
-            roi, strides, channels, bbox_cfg.num_classes, train_rcnn, gen, scoring)
+            roi, strides, channels, bbox_cfg.num_classes, train_rcnn, gen, scoring,
+            shared=bbox_module if roi.get("shared_head") else None, shared_size=out_size)
     else:
         for key in ("mask_size", "mask_thr_binary"):
             _check(train_rcnn, key, (None,))
         _check(roi, "mask_iou_head", (None,))
 
     net = TwoStageNet(backbone, neck, rpn_module, bbox_module, mask_head=mask_module,
-                      mask_roi_out_size=mask_out_size, mask_iou_head=iou_module, **roi_kw)
+                      mask_roi_out_size=mask_out_size, mask_iou_head=iou_module,
+                      mask_on_shared=bool(roi.get("shared_head") and mask_module is not None),
+                      point_head=point_module, **roi_kw)
     set_compute_dtype(net, dtype)
-    return (DynamicRCNNDetector if dynamic else TwoStageDetector)(
+    det_cls = (PointRendDetector if point_rend else
+               DynamicRCNNDetector if dynamic else TwoStageDetector)
+    return det_cls(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
         train_proposal_cfg=_proposal_cfg(train_cfg.get("rpn_proposal") or {}, 4000, 2000),
         test_proposal_cfg=_proposal_cfg(test_cfg.get("rpn") or {}, 1000, 256),
         rcnn_test_cfg=rcnn_test,
         rpn_type=rpn_type, **det_kw,
     )
+
+
+def _res5_head(roi: Dict[str, Any], channels: int, gen: torch.Generator):
+    """The C4 detectors' shared res5 head and its ``BBoxHeadCfg`` (JAX
+    ``builder.py:2269-2293``): three caffe- or pytorch-style res5
+    bottlenecks (mmdet's ``ResLayer`` of ResNet-50's stage 3) of half the
+    pooled channels as planes, 512 on C4's 1024 channels, the JAX
+    package's fixed width (a narrower backbone, as ``--tiny`` makes, gets
+    a narrower res5), the average pool and ``fc_cls`` / ``fc_reg``.  Like the JAX
+    builder, the ``BBoxHeadCfg`` takes the classes, the coder,
+    ``reg_class_agnostic``, the box loss's weight and ``beta`` from the
+    config and leaves the rest at its defaults: the L1 box loss and a
+    classification weight of 2.0, whatever ``loss_cls`` says."""
+    shared = roi["shared_head"]
+    _only(shared, "shared_head", ("type", "depth", "stage", "stride", "dilation", "style",
+                                  "norm_eval", "norm_cfg"))
+    for key, value in (("type", "ResLayer"), ("depth", 50), ("stage", 3), ("stride", 2),
+                       ("dilation", 1), ("norm_eval", True)):
+        _check({f"shared_head.{key}": shared.get(key, value)}, f"shared_head.{key}", (value,))
+    _check(shared, "style", ("pytorch", "caffe"), "pytorch")
+    # the JAX res5 blocks' BN is frozen whatever the config says
+    _check({"shared_head.norm_cfg.type": (shared.get("norm_cfg") or {}).get("type", "BN")},
+           "shared_head.norm_cfg.type", ("BN", "SyncBN", "FrozenBN"))
+    head = roi["bbox_head"]
+    _only(head, "bbox_head", ("type", "with_avg_pool", "roi_feat_size", "in_channels",
+                              "num_classes", "bbox_coder", "reg_class_agnostic", "loss_cls",
+                              "loss_bbox"))
+    _check(head, "type", ("BBoxHead",))
+    _check(head, "with_avg_pool", (True,))
+    loss_cls = _loss(head, "loss_cls", ("CrossEntropyLoss",), {"type": "CrossEntropyLoss"})
+    _check(loss_cls, "use_sigmoid", (False,), False)
+    _check(loss_cls, "class_weight", (None,))
+    loss_bbox = _loss(head, "loss_bbox", ("L1Loss",), {"type": "L1Loss"})
+    num_classes = head.get("num_classes", 80)
+    agnostic = head.get("reg_class_agnostic", False)
+    means, stds = _coder(head, (1.0,) * 4)
+    module = Res5BBoxHead(gen, num_classes=num_classes, in_channels=channels,
+                          planes=channels // 2, reg_class_agnostic=agnostic,
+                          style=shared.get("style", "pytorch"))
+    return module, BBoxHeadCfg(num_classes=num_classes, target_means=means, target_stds=stds,
+                               reg_class_agnostic=agnostic,
+                               loss_bbox_weight=loss_bbox.get("loss_weight", 1.0))
+
+
+def _point_rend_parts(roi: Dict[str, Any], strides, channels: int, num_classes: int,
+                      train_cfg: Dict[str, Any], test_cfg: Dict[str, Any],
+                      gen: torch.Generator):
+    """PointRend's ``CoarseMaskHead``, the mask RoIAlign's pooled size, the
+    ``MaskPointHead`` and the detector's ``point_cfg`` (JAX
+    ``builder.py:2319-2345``, ``:2524-2543``): the coarse head's convs, FCs,
+    ``roi_feat_size`` and ``downsample_factor`` from the config and its
+    conv width 256 (the JAX package reads no ``conv_out_channels``); the
+    point head's FCs on the finest neck level's channels and the classes'
+    coarse logits; ``train_cfg.rcnn.point`` and
+    ``test_cfg.rcnn.subdivision_*``.  Like the JAX builder it reads no
+    ``train_cfg.rcnn.mask_size``: the coarse targets take the coarse
+    head's size (7)."""
+    mh = roi["mask_head"]
+    _only(mh, "mask_head", ("type", "num_convs", "num_fcs", "in_channels", "conv_out_channels",
+                            "fc_out_channels", "num_classes", "roi_feat_size",
+                            "downsample_factor"))
+    _check(mh, "type", ("CoarseMaskHead",))
+    _check(mh, "conv_out_channels", (256,), 256)
+    out_size = _mask_extractor(roi, strides)
+    _check({"mask_head.roi_feat_size": mh.get("roi_feat_size", 14)}, "mask_head.roi_feat_size",
+           (out_size,))
+    coarse = CoarseMaskHead(gen, num_classes=mh.get("num_classes", num_classes),
+                            in_channels=channels, num_convs=mh.get("num_convs", 0),
+                            num_fcs=mh.get("num_fcs", 2),
+                            fc_channels=mh.get("fc_out_channels", 1024), roi_feat_size=out_size,
+                            downsample_factor=mh.get("downsample_factor", 2))
+    ph = roi.get("point_head") or {}
+    _only(ph, "point_head", ("type", "num_fcs", "in_channels", "fc_channels", "num_classes",
+                             "coarse_pred_each_layer"))
+    _check(ph, "type", ("MaskPointHead",), "MaskPointHead")
+    point = MaskPointHead(gen, in_channels=channels, num_classes=ph.get("num_classes",
+                                                                       num_classes),
+                          num_fcs=ph.get("num_fcs", 3), fc_channels=ph.get("fc_channels", 256),
+                          coarse_pred_each_layer=ph.get("coarse_pred_each_layer", True))
+    if point.fc_logits.out_features != coarse.num_classes:
+        raise ValueError(f"point_head has {point.fc_logits.out_features} classes, the coarse "
+                         f"mask head {coarse.num_classes}")
+    pc = (train_cfg.get("rcnn") or {}).get("point") or {}
+    _only(pc, "train_cfg.rcnn.point", ("num_points", "oversample_ratio",
+                                       "importance_sample_ratio"))
+    tc = test_cfg.get("rcnn") or {}
+    cfg = PointRendCfg(num_points=pc.get("num_points", 196),
+                       oversample_ratio=pc.get("oversample_ratio", 3.0),
+                       importance_sample_ratio=pc.get("importance_sample_ratio", 0.75),
+                       subdivision_steps=tc.get("subdivision_steps", 5),
+                       subdivision_num_points=tc.get("subdivision_num_points", 784),
+                       scale_factor=tc.get("scale_factor", 2))
+    _check({"test_cfg.rcnn.scale_factor": cfg.scale_factor}, "test_cfg.rcnn.scale_factor", (2,))
+    return coarse, out_size, point, {"point_cfg": cfg}
 
 
 # Dynamic R-CNN's train_cfg.rcnn.dynamic_rcnn with the JAX builder's defaults

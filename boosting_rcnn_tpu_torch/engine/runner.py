@@ -86,7 +86,10 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     JAX ResNet asserts that a BasicBlock takes none), and every GN
     ``norm_cfg`` gets ``TINY_GN_GROUPS`` groups, which divide every shrunk
     width (a GN(32) stem over 8 channels fails to build in flax).
-    Other model types raise."""
+    A neck-less config (C4, DC5) keeps its backbone's stages, strides and
+    dilations on ResNet-18 at width 8 (the C4 res5 head takes half the
+    backbone's output channels as planes); the JAX shrink cannot shrink
+    one.  Other model types raise."""
     rpn = mc.get("rpn_head", {}).get("type")
     if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc:
         raise NotImplementedError("--tiny shrinks the two-stage configs only")
@@ -94,9 +97,10 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
         mc["backbone"].pop(key, None)
     plugins = bool(mc["backbone"].get("plugins"))
     mc["backbone"].update(type="ResNet", depth=50 if plugins else 18, base_channels=8)
-    mc["neck"].update(in_channels=[32, 64, 128, 256] if plugins else [8, 16, 32, 64],
-                      out_channels=32)
-    for part in (mc["backbone"], mc["neck"], *_each(mc["roi_head"]["bbox_head"]),
+    if mc.get("neck"):  # C4 and DC5 have none: their backbone keeps its stages
+        mc["neck"].update(in_channels=[32, 64, 128, 256] if plugins else [8, 16, 32, 64],
+                          out_channels=32)
+    for part in (mc["backbone"], mc.get("neck") or {}, *_each(mc["roi_head"]["bbox_head"]),
                  *_each(mc["roi_head"].get("mask_head") or [])):
         if (part.get("norm_cfg") or {}).get("type") == "GN":
             part["norm_cfg"] = dict(part["norm_cfg"], num_groups=TINY_GN_GROUPS)
@@ -105,7 +109,8 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
                                                else {}))
     roi = mc["roi_head"]
     for head in _each(roi["bbox_head"]):
-        head["fc_out_channels"] = 64
+        if head.get("type") != "BBoxHead":  # C4's res5 head has no FCs but its two
+            head["fc_out_channels"] = 64
     for head in _each(roi.get("mask_head") or []):
         head["in_channels"] = 32
     if roi.get("mask_iou_head"):  # Mask Scoring R-CNN's, at the mask heads' scale

@@ -175,17 +175,20 @@ def make_train_step(
     computes proposals and samples RoIs inside, with ``generator`` driving
     the samplers; ``rpn_uniforms`` rank the plain RPN's anchors instead
     (``detector.loss``), a cascade's ``roi_uniforms`` its stages'
-    samplers and HTC's ``mask_uniforms`` its stages' mask samplers.  Each
+    samplers, HTC's ``mask_uniforms`` its stages' mask samplers and
+    PointRend's ``point_uniforms`` its training points.  Each
     step runs under
     ``deterministic_cudnn(deterministic)``: the pin is on unless the caller
     turns it off (to time its cost)."""
 
     @deterministic_cudnn(deterministic)
     def train_step(batch, sample=None, generator: Optional[torch.Generator] = None,
-                   rpn_uniforms=None, roi_uniforms=None, mask_uniforms=None):
+                   rpn_uniforms=None, roi_uniforms=None, mask_uniforms=None,
+                   point_uniforms=None):
         optimizer.zero_grad()
         kw = {k: v for k, v in (("roi_uniforms", roi_uniforms),
-                                ("mask_uniforms", mask_uniforms)) if v is not None}
+                                ("mask_uniforms", mask_uniforms),
+                                ("point_uniforms", point_uniforms)) if v is not None}
         with live_norms(detector.net):
             losses = detector.loss(batch, anchors, num_level_anchors, generator=generator,
                                    sample=sample, rpn_uniforms=rpn_uniforms, **kw)

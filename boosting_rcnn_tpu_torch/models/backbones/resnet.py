@@ -35,6 +35,13 @@ and the bottlenecks' convs weight-standardised; ``plugins`` (GCNet's
 ``ContextBlock``, ``GeneralizedAttention``) run inside the bottlenecks of
 their stages.  A ``BasicBlock`` reads neither ``norm_cfg`` nor
 ``conv_cfg``, and plugins need a bottleneck depth, as in the JAX package.
+
+Stages (JAX ``resnet.py:291-375``): ``num_stages`` (1 to 4) of them, at
+``strides`` and ``dilations`` (a stage's dilation on its 3x3s, padded by
+the dilation: a ``BasicBlock``'s first 3x3 only, as in the JAX package),
+the outputs of the stages in ``out_indices``.  The C4 configs run three
+stages and hand out C4 (1024 channels at stride 16 for ResNet-50); DC5 runs
+stage 4 at stride 1 with its 3x3s dilated by 2 (2048 channels at stride 16).
 """
 from __future__ import annotations
 
@@ -88,9 +95,9 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
-                 gen: torch.Generator, live: bool = False):
+                 gen: torch.Generator, live: bool = False, dilation: int = 1):
         super().__init__()
-        self.conv1 = make_conv(cin, planes, 3, stride, 1, False, gen)
+        self.conv1 = make_conv(cin, planes, 3, stride, dilation, False, gen, dilation=dilation)
         self.bn1 = make_bn(planes, live)
         self.conv2 = make_conv(planes, planes, 3, 1, 1, False, gen)
         self.bn2 = make_bn(planes, live)
@@ -123,7 +130,7 @@ class Bottleneck(nn.Module):
                  gen: torch.Generator, groups: int = 1, base_width: int = 4,
                  base_channels: int = 64, dcn: dict | None = None, style: str = "pytorch",
                  live: bool = False, conv_cfg: dict | None = None,
-                 norm_cfg: dict | None = None, plugins=()):
+                 norm_cfg: dict | None = None, plugins=(), dilation: int = 1):
         super().__init__()
         out = planes * self.expansion
         width = planes if groups == 1 else int(planes * (base_width / base_channels)) * groups
@@ -142,10 +149,12 @@ class Bottleneck(nn.Module):
         self.bn1 = make_bn(width, live, norm_cfg)
         plug("after_conv1")
         if dcn is not None:
+            if dilation != 1:  # the port's DeformConv is undilated
+                raise NotImplementedError(f"a deformable 3x3 dilated by {dilation} is not ported")
             self.conv2 = make_dcn(width, width, s2, dcn, gen)
         else:
-            self.conv2 = make_conv_cfg(conv_cfg, width, width, 3, s2, 1, False, gen,
-                                       groups=groups)
+            self.conv2 = make_conv_cfg(conv_cfg, width, width, 3, s2, dilation, False, gen,
+                                       groups=groups, dilation=dilation)
         self.bn2 = make_bn(width, live, norm_cfg)
         plug("after_conv2")
         self.conv3 = make_conv_cfg(conv_cfg, width, out, 1, 1, 0, False, gen)
@@ -173,18 +182,25 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """NCHW images -> the outputs of the four stages C2-C5 (NCHW), stage
-    strides (1, 2, 2, 2)."""
+    """NCHW images -> the outputs of the stages of ``out_indices`` (NCHW);
+    by default the four stages C2-C5, stage strides (1, 2, 2, 2)."""
 
     def __init__(self, gen: torch.Generator, depth: int = 50, base_channels: int = 64,
                  frozen_stages: int = -1, groups: int = 1, base_width: int = 4,
                  dcn: dict | None = None, stage_with_dcn=(False, False, False, False),
                  style: str = "pytorch", norm_eval: bool = True, conv_cfg: dict | None = None,
-                 norm_cfg: dict | None = None, plugins=None):
+                 norm_cfg: dict | None = None, plugins=None, num_stages: int = 4,
+                 strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1), out_indices=(0, 1, 2, 3)):
         super().__init__()
         self.frozen_stages = frozen_stages
         if depth not in ARCH_SETTINGS:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
+        if not 1 <= num_stages <= 4 or min(len(strides), len(dilations)) < num_stages:
+            raise ValueError(f"{num_stages} stages at strides {tuple(strides)} and dilations "
+                             f"{tuple(dilations)}")
+        if not out_indices or any(i not in range(num_stages) for i in out_indices):
+            raise ValueError(f"out_indices {tuple(out_indices)} of {num_stages} stages")
+        self.out_indices = tuple(out_indices)
         if style not in ("pytorch", "caffe"):
             raise NotImplementedError(f"ResNet style={style!r} is not ported")
         kind, blocks = ARCH_SETTINGS[depth]
@@ -199,25 +215,28 @@ class ResNet(nn.Module):
         # the stem: a weight-standardised 7x7 for ConvWS, its norm by norm_cfg
         self.conv1 = make_conv_cfg(conv_cfg, 3, base_channels, 7, 2, 3, False, gen)
         self.bn1 = make_bn(base_channels, live, norm_cfg)
-        self.stage_names = []
+        self.stage_names, self.stage_channels = [], []
         cin, planes = base_channels, base_channels
-        for stage, n_blocks in enumerate(blocks):
+        for stage, n_blocks in enumerate(blocks[:num_stages]):
             names = []
             for b in range(n_blocks):
-                stride = 2 if b == 0 and stage > 0 else 1
+                stride = strides[stage] if b == 0 else 1
                 out = planes * block.expansion
                 down = b == 0 and (stride != 1 or cin != out)
                 name = f"layer{stage + 1}_{b}"
-                extra = dict(live=live) if kind == "basic" else dict(
+                extra = dict(live=live, dilation=dilations[stage]) if kind == "basic" else dict(
                     groups=groups, base_width=base_width, base_channels=base_channels,
                     dcn=dcn if stage_with_dcn[stage] else None, style=style, live=live,
                     conv_cfg=conv_cfg, norm_cfg=norm_cfg,
-                    plugins=stage_plugins(plugins, stage))
+                    plugins=stage_plugins(plugins, stage), dilation=dilations[stage])
                 self.add_module(name, block(cin, planes, stride, down, gen, **extra))
                 names.append(name)
                 cin = out
             self.stage_names.append(names)
+            self.stage_channels.append(cin)
             planes *= 2
+        # the channels of each output (the neck-less detectors' one level)
+        self.out_channels = tuple(self.stage_channels[i] for i in self.out_indices)
         frozen = [self.conv1, self.bn1] if frozen_stages >= 0 else []
         for names in self.stage_names[:max(frozen_stages, 0)]:
             frozen += [getattr(self, name) for name in names]
@@ -236,5 +255,6 @@ class ResNet(nn.Module):
                 x = getattr(self, name)(x)
             if stage + 1 <= self.frozen_stages:
                 x = x.detach()
-            outs.append(x)
+            if stage in self.out_indices:
+                outs.append(x)
         return tuple(outs)

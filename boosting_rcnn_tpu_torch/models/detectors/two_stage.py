@@ -129,11 +129,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class TwoStageNet(nn.Module):
     """All networks of the two-stage detector."""
 
-    def __init__(self, backbone: nn.Module, neck: nn.Module, rpn: nn.Module,
+    def __init__(self, backbone: nn.Module, neck: Optional[nn.Module], rpn: nn.Module,
                  bbox_head: nn.Module, roi_strides: Sequence[int] = (8, 16, 32, 64, 128),
                  roi_out_size: int = 7, roi_sample_num: int = 2,
                  roi_finest_scale: int = 56, mask_head: Optional[nn.Module] = None,
-                 mask_roi_out_size: int = 14, mask_iou_head: Optional[nn.Module] = None):
+                 mask_roi_out_size: int = 14, mask_iou_head: Optional[nn.Module] = None,
+                 mask_on_shared: bool = False, point_head: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -141,15 +142,21 @@ class TwoStageNet(nn.Module):
         self.bbox_head = bbox_head
         self.mask_head = mask_head
         self.mask_iou_head = mask_iou_head
+        self.point_head = point_head
         self.roi_strides = tuple(roi_strides)
         self.roi_out_size = roi_out_size
         self.mask_roi_out_size = mask_roi_out_size
+        self.mask_on_shared = mask_on_shared
         self.roi_sample_num = roi_sample_num
         self.roi_finest_scale = roi_finest_scale
 
     def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """``(B, H, W, 3)`` images -> neck levels, each ``(B, H, W, C)``."""
-        outs = self.neck(self.backbone(_nchw(images)))
+        """``(B, H, W, 3)`` images -> neck levels, each ``(B, H, W, C)``;
+        without a neck (C4, DC5: the JAX builder's ``_IdentityNeck``) the
+        backbone's outputs."""
+        outs = self.backbone(_nchw(images))
+        if self.neck is not None:
+            outs = self.neck(outs)
         return tuple(_nhwc(x) for x in outs)
 
     def rpn_out(self, feats: Sequence[torch.Tensor]):
@@ -166,14 +173,24 @@ class TwoStageNet(nn.Module):
     def mask_out(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  roi_valid: torch.Tensor, return_pooled: bool = False):
         """``feats`` L x ``(B, H, W, C)``, ``rois`` ``(B, R, 4)`` -> mask
-        logits ``(B*R, 28, 28, K)`` float32: one RoIAlign at
-        ``mask_roi_out_size`` over all B*R RoIs (zeros for the invalid ones),
-        then the FCN head (JAX ``TwoStageNet.mask_out``, the extractor of
-        the box branch); with ``return_pooled``, (logits, the pooled
-        features ``(B*R, 14, 14, C)``)."""
+        logits ``(B*R, m, m, K)`` float32 (``m`` 28 for the FCN head on a 14
+        x 14 pool, 14 for C4's, 7 for PointRend's coarse head): one
+        RoIAlign at ``mask_roi_out_size`` over all B*R RoIs (zeros for the
+        invalid ones), with ``mask_on_shared`` (C4 Mask R-CNN) the box
+        head's ``res5`` with its parameters, then the mask head (JAX
+        ``TwoStageNet.mask_out``, the extractor of the box branch); with
+        ``return_pooled``, (logits, the pooled features, after ``res5``
+        where it runs)."""
         pooled = self._pool(feats, rois, roi_valid, self.mask_roi_out_size)
+        if self.mask_on_shared:
+            pooled = self.bbox_head.res5(pooled)
         logits = self.mask_head(pooled)
         return (logits, pooled) if return_pooled else logits
+
+    def point_out(self, fine: torch.Tensor, coarse: torch.Tensor) -> torch.Tensor:
+        """PointRend's point head: fine features ``(P, Cf)`` and coarse
+        logits ``(P, K)`` -> ``(P, K)`` float32 point logits."""
+        return self.point_head(fine, coarse)
 
     def mask_iou_out(self, pooled: torch.Tensor, mask_pred: torch.Tensor) -> torch.Tensor:
         """The MaskIoU head's ``(N, K)`` IoU predictions from the pooled
@@ -333,6 +350,13 @@ class TwoStageDetector:
         Returns the five losses (ATSS RPN: ``loss_rpn_cls``,
         ``loss_rpn_bbox``, ``loss_rpn_iou``, ``loss_cls``, ``loss_bbox``;
         plain RPN: the first two, the R-CNN's two and ``loss_mask``)."""
+        return self._losses(batch, anchors, num_level_anchors, generator, sample,
+                            rpn_uniforms)[0]
+
+    def _losses(self, batch, anchors, num_level_anchors, generator, sample, rpn_uniforms):
+        """``loss``'s losses, and the features, the ``RoISample`` (fields
+        ``(B, R, ...)``) and the mask logits of its slots (None without a
+        mask loss) that they came from."""
         feats, (cls, reg, iou), losses = self._rpn_losses(batch, anchors, num_level_anchors,
                                                           generator, rpn_uniforms)
         gt_bboxes = self._tensor(batch["gt_bboxes"])
@@ -347,6 +371,7 @@ class TwoStageDetector:
                              is_pos=flat.is_pos.bool(), valid=flat.valid.bool())
         losses.update(prob_roi_loss(self.roi_cfg, self.bbox_cfg, cls_s, reg_s, flat,
                                     seesaw_counts=self._seesaw_counts("bbox_head", flat)))
+        logits = None
         if self.net.mask_head is not None and "gt_mask_crops" in batch:
             with_iou = self.net.mask_iou_head is not None
             out = self.net.mask_out(feats, sample.boxes.float(),
@@ -358,7 +383,7 @@ class TwoStageDetector:
             if with_iou:
                 losses["loss_mask_iou"] = self._mask_iou_loss(logits, pooled, targets, batch,
                                                               sample, gt_bboxes)
-        return losses
+        return losses, feats, sample, logits
 
     def _seesaw_counts(self, head_name: str, flat: RoISample) -> Optional[torch.Tensor]:
         """The Seesaw counts of the box head ``head_name`` (of ``net``) for
@@ -464,17 +489,21 @@ class TwoStageDetector:
         out = self.roi_predict(feats, boxes, scores, valid, img_shape, scale_factor, rescale)
         if self.net.mask_head is None:
             return out
-        return (*out, *self.mask_predict(feats, *out, scale_factor, rescale))
+        canvas = tuple(int(s) for s in batch["images"].shape[1:3])
+        return (*out, *self.mask_predict(feats, *out, scale_factor, rescale, canvas_hw=canvas))
 
     @torch.inference_mode()
-    def mask_predict(self, feats, dets, labels, valid, scale_factor, rescale: bool = True):
+    def mask_predict(self, feats, dets, labels, valid, scale_factor, rescale: bool = True,
+                     canvas_hw=None):
         """The mask branch of ``predict`` (JAX ``two_stage.py:806-840``) on
         detections ``(B, D, 5)`` of ``labels`` and ``valid`` ``(B, D)``:
         the boxes back in the padded image's frame, one RoIAlign at
-        ``mask_roi_out_size`` and the FCN head, then the sigmoid of each
-        detection's class channel -> ``(masks (B, D, 28, 28) float32,)``;
-        with a MaskIoU head ``(masks, mask_scores (B, D))``, each score
-        times the head's IoU at the label clipped to [0, 1]."""
+        ``mask_roi_out_size`` and the mask head, then the sigmoid of each
+        detection's class channel -> ``(masks (B, D, m, m) float32,)`` (``m``
+        the head's output size: 28, or 14 for C4); with a MaskIoU head
+        ``(masks, mask_scores (B, D))``, each score times the head's IoU at
+        the label clipped to [0, 1].  ``canvas_hw``, the padded images'
+        ``(H, W)``, is read by PointRend's override only."""
         b, d = labels.shape
         boxes = dets[..., :4]
         if rescale:

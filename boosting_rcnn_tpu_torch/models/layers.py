@@ -137,10 +137,12 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
 
 
 def make_conv(cin: int, cout: int, k: int, stride: int, pad: int, bias: bool,
-              gen: torch.Generator, bias_value: float = 0.0, groups: int = 1) -> Conv2d:
+              gen: torch.Generator, bias_value: float = 0.0, groups: int = 1,
+              dilation: int = 1) -> Conv2d:
     """A ``k x k`` convolution, LeCun-normal over its fan-in ``cin / groups
-    * k * k`` (flax ``nn.Conv(feature_group_count=groups)``)."""
-    conv = Conv2d(cin, cout, k, stride, pad, bias=bias, groups=groups)
+    * k * k`` (flax ``nn.Conv(feature_group_count=groups,
+    kernel_dilation=dilation)``)."""
+    conv = Conv2d(cin, cout, k, stride, pad, dilation=dilation, bias=bias, groups=groups)
     lecun_normal_(conv.weight, cin // groups * k * k, gen)
     if bias:
         nn.init.constant_(conv.bias, bias_value)
@@ -300,18 +302,19 @@ def make_norm(norm_cfg: Optional[dict], channels: int) -> Optional[nn.Module]:
 
 
 def make_conv_cfg(conv_cfg: Optional[dict], cin: int, cout: int, k: int, stride: int, pad: int,
-                  bias: bool, gen: torch.Generator, groups: int = 1) -> Conv2d:
+                  bias: bool, gen: torch.Generator, groups: int = 1,
+                  dilation: int = 1) -> Conv2d:
     """``make_conv``, or its weight-standardised form for a ``ConvWS``
     ``conv_cfg`` (JAX ``backbones/resnet.py:48-57``); any other type
     raises."""
     if conv_cfg is None:
-        return make_conv(cin, cout, k, stride, pad, bias, gen, groups=groups)
+        return make_conv(cin, cout, k, stride, pad, bias, gen, groups=groups, dilation=dilation)
     if conv_cfg.get("type") != "ConvWS":
         raise NotImplementedError(
             f"conv_cfg type={conv_cfg.get('type')!r} is not ported to PyTorch yet")
     from .plugins import make_ws_conv
 
-    return make_ws_conv(cin, cout, k, stride, pad, bias, gen, groups=groups)
+    return make_ws_conv(cin, cout, k, stride, pad, bias, gen, groups=groups, dilation=dilation)
 
 
 class ConvModule(nn.Module):

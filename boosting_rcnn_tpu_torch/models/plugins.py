@@ -60,9 +60,9 @@ class WSConv(Conv2d):
 
 
 def make_ws_conv(cin: int, cout: int, k: int, stride: int, pad: int, bias: bool,
-                 gen: torch.Generator, groups: int = 1) -> WSConv:
+                 gen: torch.Generator, groups: int = 1, dilation: int = 1) -> WSConv:
     """``layers.make_conv``'s initialisation for a ``WSConv``."""
-    conv = WSConv(cin, cout, k, stride, pad, bias=bias, groups=groups)
+    conv = WSConv(cin, cout, k, stride, pad, dilation=dilation, bias=bias, groups=groups)
     lecun_normal_(conv.weight, cin // groups * k * k, gen)
     if bias:
         nn.init.zeros_(conv.bias)

@@ -203,6 +203,10 @@ def _check_cls_rows(state_dict: Dict[str, Any]) -> None:
                 "softmax, so mmdet's Seesaw box heads do not load")
 
 
+# mmdet ResLayer's shortcut names -> the res5 head's (JAX convert_torch_weights.py:439-457)
+_RES5 = {"downsample.0": "down_conv", "downsample.1": "down_bn"}
+
+
 def _mask_head(stage) -> str:
     return "mask_head" if stage is None else f"mask_heads.{stage}"
 
@@ -237,13 +241,27 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
       roi_head.mask_iou_head.convs.N.conv     -> mask_iou_head.conv_N (Mask Scoring R-CNN)
       roi_head.mask_iou_head.fcs.N            -> mask_iou_head.fc_N (N = 0 reordered at 7 x 7)
       roi_head.mask_iou_head.fc_mask_iou      -> mask_iou_head.fc_mask_iou
+      roi_head.shared_head.layer4.B.{conv1,bn1,conv2,bn2,conv3,bn3}
+                                              -> bbox_head.res5_B.* (the C4 res5 head)
+      roi_head.shared_head.layer4.B.downsample.{0,1} -> bbox_head.res5_B.{down_conv,down_bn}
 
+    The first FC after the pool is reordered at ``roi_feat_size`` (DC5's
+    Shared2FC head reads 7 x 7 x 2048 features).  PointRend's coarse mask
+    head (``roi_head.mask_head.fcs`` / ``fc_logits`` / ``downsample_conv``)
+    and point head (``roi_head.point_head.*``) raise
+    ``NotImplementedError``: the JAX package's converter maps neither.
     A key of any other module raises ``ValueError`` naming it (the port has
     no such module).  The JAX package's converter maps one ``mask_head``
     only and drops the per-stage, semantic and MaskIoU keys.  A Seesaw box
     head's ``fc_cls`` (mmdet: the classes plus an objectness pair) raises
     ``NotImplementedError`` (``_check_cls_rows``)."""
     _check_cls_rows(state_dict)
+    point_rend = sorted(k for k in state_dict if re.match(
+        r"roi_head\.(point_head\.|mask_head\.(fcs|fc_logits|downsample_conv)\.)", k))
+    if point_rend:
+        raise NotImplementedError(
+            f"{point_rend[0]!r} is a key of mmdet's PointRend coarse mask head or point head; "
+            "the JAX package's converter maps neither, so PointRend's mmdet weights do not load")
     backbone = {k[len("backbone."):]: v for k, v in state_dict.items()
                 if k.startswith("backbone.")}
     out = from_torchvision_resnet(backbone)
@@ -284,6 +302,9 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
          lambda m: f"mask_iou_head.conv_{m[1]}.{m[2]}"),
         (r"roi_head\.mask_iou_head\.(?:fcs\.(\d+)|(fc_mask_iou))\.(weight|bias)",
          lambda m: f"mask_iou_head.{m[2] or 'fc_' + m[1]}.{m[3]}"),
+        (r"roi_head\.shared_head\.layer4\.(\d+)\.((?:conv|bn)\d|downsample\.[01])\."
+         r"(weight|bias|running_mean|running_var)",
+         lambda m: f"bbox_head.res5_{m[1]}.{_RES5.get(m[2], m[2])}.{m[3]}"),
     ]
     for key, value in state_dict.items():
         if key.startswith("backbone.") or _SKIP.search(key):

@@ -1,13 +1,14 @@
 """Which caffe-style configs the PyTorch port builds, predicts with and
 trains, on the CPU (no JAX).
 
-Every config file named ``*caffe*`` is probed: the 23 caffe-style Faster
-R-CNN, Mask R-CNN, Cascade R-CNN and Cascade Mask R-CNN configs on an FPN
-and the 3 SyncBN strong baselines (``BUILDS``) build at full width with the
-caffe backbone (each stage's stride on its first block's first 1x1), and
-each other one raises ``NotImplementedError`` naming the part that is
-missing (``REASONS``): the DC5 ``dilations``, the C4 ``num_stages=3``, and
-detector or head types the port lacks.  ``tests/test_torch_caffe_models.py`` drives each
+Every config file named ``*caffe*`` is probed: the 27 caffe-style Faster
+R-CNN, Mask R-CNN, Cascade R-CNN, Cascade Mask R-CNN and Mask Scoring
+R-CNN configs on an FPN, the 3 SyncBN strong baselines, the neck-less C4
+and DC5 configs and the 2 caffe PointRend configs (``BUILDS``, 37) build
+at full width with the caffe backbone (each stage's stride on its first
+block's first 1x1), and each other one raises ``NotImplementedError``
+naming the part that is missing (``REASONS``): detector or head types the
+port lacks.  ``tests/test_torch_caffe_models.py`` drives each
 built model at a tiny size.
 """
 import functools
@@ -49,16 +50,20 @@ BUILDS = {
     # the heads, as the JAX package builds them
     *(f"strong_baselines/mask_rcnn_r50_caffe_fpn_syncbn-all_rpn-2conv_lsj_{m}_coco.py"
       for m in ("100e", "100e_fp16", "400e")),
+    # the neck-less C4 (three stages, the shared res5 head) and DC5 (a
+    # dilated stride-1 stage 4), and PointRend on the caffe ResNet
+    "faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py", "mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py",
+    *(f"faster_rcnn/faster_rcnn_r50_caffe_dc5_{m}coco.py" for m in ("1x_", "mstrain_1x_",
+                                                                   "mstrain_3x_")),
+    *(f"point_rend/point_rend_r50_caffe_fpn_mstrain_{m}_coco.py" for m in ("1x", "3x")),
 }
 # the first missing part the builder names, by the file name's start
 REASONS = (("cascade_rpn/crpn_faster", "CascadeRPNHead"), ("cascade_rpn/crpn_fast", "FastRCNN"),
            ("cascade_rpn/crpn_r50", "'RPN'"), ("fast_rcnn/", "FastRCNN"),
-           ("faster_rcnn/faster_rcnn_r50_caffe_c4", "num_stages=3"),
-           ("faster_rcnn/faster_rcnn_r50_caffe_dc5", "dilations"), ("fcos/", "FCOS"),
+           ("fcos/", "FCOS"),
            ("guided_anchoring/ga_fast_", "FastRCNN"), ("guided_anchoring/ga_faster", "GARPNHead"),
            ("guided_anchoring/ga_retinanet", "RetinaNet"), ("guided_anchoring/ga_rpn", "'RPN'"),
-           ("mask_rcnn/mask_rcnn_r50_caffe_c4", "num_stages=3"),
-           ("nas_fcos/", "NASFCOS"), ("point_rend/", "PointRend"), ("retinanet/", "RetinaNet"),
+           ("nas_fcos/", "NASFCOS"), ("retinanet/", "RetinaNet"),
            ("rpn/", "'RPN'"),
            ("tridentnet/", "TridentFasterRCNN"))
 
@@ -101,11 +106,12 @@ def _built(model_json: str):
     """What the checks read of the full-width detector (dropped after)."""
     net = build_detector(json.loads(model_json), device="cpu").net
     return [(getattr(net.backbone, f"layer{s}_0").conv1.stride,
-             getattr(net.backbone, f"layer{s}_0").conv2.stride) for s in (2, 3, 4)]
+             getattr(net.backbone, f"layer{s}_0").conv2.stride)
+            for s in range(2, len(net.backbone.stage_names) + 1)]
 
 
 def test_the_probe_covers_the_caffe_configs():
-    assert BUILDS <= set(_names()) and len(_names()) == 72 and len(BUILDS) == 30
+    assert BUILDS <= set(_names()) and len(_names()) == 72 and len(BUILDS) == 37
 
 
 @pytest.mark.parametrize("name", _names())
@@ -116,4 +122,7 @@ def test_caffe_config_builds_or_names_what_is_missing(name):
             build_detector(mc, device="cpu")
         return
     assert mc["backbone"]["style"] == "caffe" and mc["backbone"]["type"] == "ResNet"
-    assert _built(json.dumps(mc, sort_keys=True)) == [((2, 2), (1, 1))] * 3
+    # each later stage's stride on its first 1x1 (C4 has three stages, DC5's
+    # fourth is at stride 1)
+    strides = mc["backbone"].get("strides", (1, 2, 2, 2))[1:mc["backbone"].get("num_stages", 4)]
+    assert _built(json.dumps(mc, sort_keys=True)) == [((s, s), (1, 1)) for s in strides]

@@ -1,4 +1,4 @@
-"""The 26 caffe-style configs that the PyTorch port builds
+"""The caffe-style configs that the PyTorch port builds
 (``tests/test_torch_caffe_configs.py::BUILDS``), each distinct model with
 its backbone kept (ResNet-50 or -101 at width 8, caffe style) and its
 heads at the tiny size of ``engine.runner.shrink_model`` (mask convs of
@@ -34,10 +34,12 @@ def _tiny_caffe(mc):
     depth = mc["backbone"]["depth"]
     mc = shrink_model(mc)
     mc["backbone"].update(depth=depth, base_channels=8, style="caffe")
-    mc["neck"]["in_channels"] = [32, 64, 128, 256]
+    if mc.get("neck"):  # C4 and DC5 have none
+        mc["neck"]["in_channels"] = [32, 64, 128, 256]
     heads = mc["roi_head"].get("mask_head") or []
     for head in heads if isinstance(heads, list) else [heads]:
-        head["conv_out_channels"] = 16
+        if head["type"] != "CoarseMaskHead":  # PointRend's downsample conv is 256 wide
+            head["conv_out_channels"] = 16
     return mc
 
 

@@ -527,7 +527,8 @@ def test_builder_builds_full_width_mask_rcnn(dtype, monkeypatch):
     # Mask Scoring R-CNN's MaskIoU head is ported at the JAX package's two FCs
     ("roi_head.mask_iou_head", {"type": "MaskIoUHead", "num_fcs": 3}),
     ("train_cfg.rcnn.mask_size", 56),
-    ("type", "PointRend"),
+    # PointRend is ported (tests/test_torch_point_rend.py); Grid R-CNN is not
+    ("type", "GridRCNN"),
 ])
 def test_builder_rejects_unported_mask_rcnn_values(path, value):
     from boosting_rcnn_tpu_torch.builder import build_detector
