@@ -7,19 +7,23 @@ Ported types: ``FasterRCNN`` and ``MaskRCNN`` with the backbone ``ResNet``
 weight-standardised convs, GCNet's ``ContextBlock`` and
 ``GeneralizedAttention`` plugins, ``frozen_stages``, DCN / DCNv2 stages),
 ``ResNeXt`` (grouped 3x3s, either style, the same norms, convs and
-plugins; its BN frozen) or ``Res2Net`` (deep stem,
-hierarchical splits, DCN / DCNv2 stages); the neck ``PAFPN`` (extra convs
-on output) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
+plugins; its BN frozen), ``Res2Net`` (deep stem,
+hierarchical splits, DCN / DCNv2 stages), ``RegNet`` (the RegNetX archs),
+``ResNeSt`` (split attention; live BN in the syncbn configs) or ``HRNet``
+(W18, W32, W40); the neck ``PAFPN`` (extra convs on output, or by max
+pool) or ``FPN`` (``start_level`` / ``end_level``, extra levels by max
 pool or by convs on the input, lateral or output; GN or frozen BN and
-ConvWS); the RPN
+ConvWS), ``SPPFPN`` (the FPN with SPP laterals), ``FPT`` / ``FPT_lite``
+(attention necks) or ``HRFPN``; the RPN
 ``ATSSRPNHead`` (max-IoU or ATSS assignment, focal or varifocal / IoU /
 GIoU / DIoU / CIoU / EIoU / Focal-EIoU / MSE / BCE losses, on decoded boxes
 or on encoded deltas) or ``RPNHead``
 (one or more 3x3 convs, BCE or focal objectness and smooth L1, a random
 anchor sampler); the RoI head ``ProbRoIHead`` (boosting loss, prior
 fusion, ``reg_norm``), ``BoostRoIHead`` (prior fusion, boosting only where
-its config says ``boost``), ``StandardRoIHead`` (plain cross entropy,
-softmax scores) or ``DynamicRoIHead`` (Dynamic R-CNN: the standard head
+its config says ``boost``), ``ProbPISARoIHead`` (PISA's losses, prior
+fusion), ``StandardRoIHead`` (plain cross entropy or, with
+``train_cfg.rcnn.isr`` / ``carl``, PISA's ISR-P and CARL; softmax scores) or ``DynamicRoIHead`` (Dynamic R-CNN: the standard head
 with an IoU threshold and smooth-L1 beta adapted from
 ``train_cfg.rcnn.dynamic_rcnn``, the ``DynamicRCNNDetector``) or
 ``MaskScoringRoIHead`` (the standard head and a ``MaskIoUHead``), each with a
@@ -54,7 +58,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .models.backbones.hrnet import HRNet
+from .models.backbones.regnet import ARCH_SETTINGS as REGNET_ARCHS
+from .models.backbones.regnet import RegNet
 from .models.backbones.res2net import Res2Net
+from .models.backbones.resnest import ResNeSt
 from .models.backbones.resnet import ResNet
 from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
@@ -69,7 +77,8 @@ from .models.detectors.two_stage import (
     TwoStageNet,
 )
 from .models.layers import set_compute_dtype
-from .models.necks.fpn import FPN, PAFPN
+from .models.necks.fpn import FPN, HRFPN, PAFPN, SPP_TYPES
+from .models.necks.fpt import FPT, FPTLite
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
 from .models.roi_heads.cascade_roi_head import CascadeCfg
 from .models.roi_heads.mask_head import FCNMaskHead, FusedSemanticHead, HTCMaskHead, MaskIoUHead
@@ -145,13 +154,74 @@ def _conv_cfg(cfg: Dict[str, Any], what: str):
     return conv
 
 
+def _zoo_backbone(cfg: Dict[str, Any], gen: torch.Generator):
+    """``RegNet``, ``ResNeSt`` or ``HRNet`` as the JAX builders read them
+    (``builder.py:195-250``): RegNet's ``arch`` by name or as a dict of its
+    parameters matched against the names, ``out_indices``,
+    ``frozen_stages`` and ``norm_eval``; ResNeSt's depth, ``radix``, stem and
+    base widths, ``out_indices``, ``frozen_stages`` (default 1) and
+    ``norm_eval`` (False: live BN, whatever BN type ``norm_cfg`` names);
+    HRNet's width by ``arch`` or by ``extra.stage2.num_channels[0]`` (18,
+    32 or 40; the JAX builder falls back to w32 on another) and
+    ``norm_eval``.  Keys the JAX builders do not read raise where they
+    would change the model (a RegNet ``dcn``), and are accepted where they
+    restate its defaults."""
+    kind = cfg["type"]
+    if kind == "RegNet":
+        # ``depth`` and ``num_stages`` are left from the ResNet base configs
+        _only(cfg, "backbone", ("type", "arch", "out_indices", "frozen_stages", "norm_eval",
+                                "init_cfg", "depth", "num_stages", "dcn", "stage_with_dcn"))
+        if cfg.get("dcn") is not None or any(cfg.get("stage_with_dcn") or ()):
+            # the JAX build_regnet reads neither and builds a plain RegNet
+            raise _unported("RegNet dcn / stage_with_dcn (the JAX package's RegNet has no "
+                            "deformable stage)", (cfg.get("dcn"), cfg.get("stage_with_dcn")))
+        _check(cfg, "num_stages", (4,), 4)
+        arch = cfg.get("arch", "regnetx_3.2gf")
+        if isinstance(arch, dict):
+            name = next((k for k, v in REGNET_ARCHS.items()
+                         if all(abs(v[q] - arch.get(q, -1)) < 1e-6 for q in v)), None)
+            if name is None:
+                raise _unported("RegNet arch", arch)
+            arch = name
+        return RegNet(gen, arch=arch, out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
+                      frozen_stages=cfg.get("frozen_stages", -1),
+                      norm_eval=cfg.get("norm_eval", True))
+    if kind == "ResNeSt":
+        _only(cfg, "backbone", ("type", "depth", "radix", "reduction_factor", "stem_channels",
+                                "base_channels", "out_indices", "frozen_stages", "norm_eval",
+                                "norm_cfg", "init_cfg", "num_stages"))
+        _check(cfg, "reduction_factor", (4,), 4)
+        _check(cfg, "num_stages", (4,), 4)
+        _check({"norm_cfg.type": (cfg.get("norm_cfg") or {}).get("type", "BN")},
+               "norm_cfg.type", ("BN", "SyncBN"))
+        return ResNeSt(gen, depth=cfg.get("depth", 50), radix=cfg.get("radix", 2),
+                       stem_channels=cfg.get("stem_channels", 64),
+                       base_channels=cfg.get("base_channels", 64),
+                       out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
+                       frozen_stages=cfg.get("frozen_stages", 1),
+                       norm_eval=cfg.get("norm_eval", True))
+    _only(cfg, "backbone", ("type", "arch", "extra", "frozen_stages", "norm_eval", "init_cfg"))
+    arch = cfg.get("arch")
+    if arch is None:
+        width = (((cfg.get("extra") or {}).get("stage2") or {}).get("num_channels") or [32])[0]
+        if width not in (18, 32, 40):
+            raise _unported("HRNet extra.stage2.num_channels[0] (the JAX builder builds w32)",
+                            width)
+        arch = f"w{width}"
+    return HRNet(gen, arch=arch, frozen_stages=cfg.get("frozen_stages", -1),
+                 norm_eval=cfg.get("norm_eval", True))
+
+
 def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     """``ResNet``, ``ResNeXt`` (JAX ``build_resnext``'s defaults: depth 101,
     32 groups of base width 4) or ``Res2Net`` (depth 101, 4 scales of base
     width 26).  ResNet and ResNeXt take ``plugins``, ``conv_cfg`` (ConvWS)
     and ``norm_cfg`` (BN / SyncBN / GN); ResNet also ``norm_eval`` (False:
     live BN), which the JAX ``build_resnext`` does not read, so a ResNeXt's
-    BN stays frozen whatever it says (JAX ``builder.py:68-122``)."""
+    BN stays frozen whatever it says (JAX ``builder.py:68-122``); the zoo's
+    ``RegNet``, ``ResNeSt`` and ``HRNet`` by ``_zoo_backbone``."""
+    if cfg.get("type") in ("RegNet", "ResNeSt", "HRNet"):
+        return _zoo_backbone(cfg, gen)
     _check(cfg, "type", ("ResNet", "ResNeXt", "Res2Net"))
     if cfg["type"] == "Res2Net":
         for key in ("plugins", "conv_cfg", "norm_cfg"):
@@ -196,15 +266,36 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
                   **common)
 
 
-def _build_neck(cfg: Dict[str, Any], gen: torch.Generator):
-    _check(cfg, "type", ("PAFPN", "FPN"))
-    if cfg["type"] == "FPN":
+def _build_neck(cfg: Dict[str, Any], gen: torch.Generator, backbone_channels=None):
+    """The neck (JAX ``build_neck``): ``FPN``, ``SPPFPN``, ``PAFPN``,
+    ``FPT``, ``FPT_lite`` or ``HRFPN``; the last three read their input
+    widths from the backbone, as flax infers them (``backbone_channels``;
+    the config's ``in_channels`` otherwise)."""
+    _check(cfg, "type", ("PAFPN", "FPN", "SPPFPN", "FPT", "FPT_lite", "HRFPN"))
+    if cfg["type"] in ("FPT", "FPT_lite", "HRFPN"):
+        in_channels = backbone_channels or cfg.get("in_channels")
+        common = dict(out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5))
+        if cfg["type"] == "HRFPN":
+            _only(cfg, "neck", ("type", "in_channels", "out_channels", "num_outs", "stride"))
+            return HRFPN(gen, in_channels, stride=cfg.get("stride", 1), **common)
+        if cfg["type"] == "FPT":
+            _only(cfg, "neck", ("type", "in_channels", "out_channels", "num_outs",
+                                "fpt_rendering"))
+            return FPT(gen, in_channels, fpt_rendering=cfg.get("fpt_rendering", True), **common)
+        _only(cfg, "neck", ("type", "in_channels", "out_channels", "num_outs", "start_level"))
+        return FPTLite(gen, in_channels, start_level=cfg.get("start_level", 0), **common)
+    if cfg["type"] in ("FPN", "SPPFPN"):
         # no activation, as every ported config's FPN; norms and ConvWS as the
-        # JAX FPN takes them
+        # JAX FPN takes them; the SPP laterals of SPPFPN (its fpn convs take
+        # no conv_cfg)
         _check({"FPN act": cfg.get("act")}, "FPN act", (None,))
         _check(cfg, "add_extra_convs", (False, True, "on_input", "on_lateral", "on_output"),
                False)
-        return FPN(gen, in_channels=cfg["in_channels"],
+        spp = cfg.get("SPP_type", "ASPP") if cfg["type"] == "SPPFPN" else None
+        if spp:
+            _check(cfg, "conv_cfg", (None,))
+            _check({"SPP_type": spp}, "SPP_type", SPP_TYPES)
+        return FPN(gen, in_channels=cfg["in_channels"], spp_type=spp,
                    out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5),
                    start_level=cfg.get("start_level", 0), end_level=cfg.get("end_level", -1),
                    add_extra_convs=cfg.get("add_extra_convs", False),
@@ -213,7 +304,7 @@ def _build_neck(cfg: Dict[str, Any], gen: torch.Generator):
                    no_norm_on_lateral=cfg.get("no_norm_on_lateral", False))
     _check(cfg, "norm_cfg", (None,))
     _check(cfg, "no_norm_on_lateral", (False,), False)
-    _check(cfg, "add_extra_convs", ("on_output",), False)
+    _check(cfg, "add_extra_convs", (False, "on_output"), False)
     _check(cfg, "relu_before_extra_convs", (False,), False)
     return PAFPN(
         gen,
@@ -222,6 +313,7 @@ def _build_neck(cfg: Dict[str, Any], gen: torch.Generator):
         num_outs=cfg.get("num_outs", 5),
         start_level=cfg.get("start_level", 0),
         end_level=cfg.get("end_level", -1),
+        add_extra_convs=cfg.get("add_extra_convs", False),
     )
 
 
@@ -258,7 +350,9 @@ _LOSS_KEYS = {
 
 def _loss(cfg: Dict[str, Any], key: str, types, default=None) -> Dict[str, Any]:
     """The loss config ``cfg[key]``, its type checked against ``types``."""
-    loss = cfg.get(key) or dict(default or {})
+    # a nested ``_delete_`` (the merged config keeps one inside a replaced
+    # dict) is the config system's, not the loss's: the JAX builder ignores it
+    loss = {k: v for k, v in (cfg.get(key) or dict(default or {})).items() if k != "_delete_"}
     if loss.get("type") not in types:
         raise _unported(f"{key}.type", loss.get("type"))
     _only(loss, key, _LOSS_KEYS[loss["type"]])
@@ -615,23 +709,38 @@ def _roi_cfg(roi: Dict[str, Any], train_rcnn: Dict[str, Any],
     _check(roi, "alpha", (0,), 0)
     _check(roi, "reg_norm", ("bbox_num", "mean"), "bbox_num")
     _only(train_rcnn, "train_cfg.rcnn", ("assigner", "sampler", "pos_weight", "debug",
-                                         "mask_size", "mask_thr_binary")
+                                         "mask_size", "mask_thr_binary", "isr", "carl")
           + (("dynamic_rcnn",) if roi["type"] == "DynamicRoIHead" else ())
           + (("point",) if point_rend else ()))
     sampler = train_rcnn.get("sampler", {})
+    # PISA's ScoreHLRSampler is read as the random sampler: the JAX builder
+    # reads its num, pos_fraction, neg_pos_ub and add_gt_as_proposals and
+    # neither its type nor its k and bias (builder.py:2452-2471)
+    hlr = sampler.get("type") == "ScoreHLRSampler"
     _only(sampler, "train_cfg.rcnn.sampler", ("type", "num", "pos_fraction", "neg_pos_ub",
-                                              "add_gt_as_proposals"))
-    _check(sampler, "type", ("RandomSampler",), "RandomSampler")
+                                              "add_gt_as_proposals")
+          + (("k", "bias") if hlr else ()))
+    _check(sampler, "type", ("RandomSampler", "ScoreHLRSampler"), "RandomSampler")
     _check(sampler, "add_gt_as_proposals", (True,), True)
     _check(train_rcnn, "pos_weight", (-1,), -1)
     _check(train_rcnn, "debug", (False,), False)
     # the MaskIoU targets' binarisation (``mask_iou_targets``' fixed 0.5)
     _check(train_rcnn, "mask_thr_binary", (None, 0.5))
     prob_head = roi["type"] == "ProbRoIHead"
+    boost = roi.get("boost", prob_head)
+    pisa = {}
+    for key in ("isr", "carl"):  # PISA's (JAX builder.py:2475-2476)
+        part = train_rcnn.get(key)
+        if part is not None:
+            _only(part, f"train_cfg.rcnn.{key}", ("k", "bias"))
+            if boost:  # the JAX boosting loss reads neither
+                raise _unported(f"train_cfg.rcnn.{key} (beside the boosting loss)", part)
+            pisa[key] = tuple(sorted(part.items()))
     return ProbRoICfg(
-        gamma=roi.get("gamma", 0.1), boost=roi.get("boost", prob_head),
-        prob=roi.get("prob", roi["type"] in ("ProbRoIHead", "BoostRoIHead")),
-        reg_norm=roi.get("reg_norm", "bbox_num"),
+        gamma=roi.get("gamma", 0.1), boost=boost,
+        # the fork's ProbPISARoIHead: PISA's losses, the prior fusion at test
+        prob=roi.get("prob", roi["type"] in ("ProbRoIHead", "BoostRoIHead", "ProbPISARoIHead")),
+        reg_norm=roi.get("reg_norm", "bbox_num"), **pisa,
         num_samples=sampler.get("num", 512), pos_fraction=sampler.get("pos_fraction", 0.25),
         neg_pos_ub=sampler.get("neg_pos_ub", -1),
         **_max_iou_assigner(train_rcnn.get("assigner", {}), (0.5, 0.5, 0.5, False)),
@@ -708,7 +817,7 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
     if isinstance(neck_cfg, list):
         raise _unported("neck (stacked necks)", [n.get("type") for n in neck_cfg])
     if neck_cfg:
-        neck = _build_neck(neck_cfg, gen)
+        neck = _build_neck(neck_cfg, gen, getattr(backbone, "out_channels", None))
         channels = neck_cfg.get("out_channels", 256)
     else:
         # C4 and DC5 (JAX builder.py:2240-2252): no neck, the backbone's one
@@ -744,7 +853,7 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
     point_rend = model_cfg["type"] == "PointRend"
     _check(roi, "type", ("PointRendRoIHead",) if point_rend else (
         "ProbRoIHead", "StandardRoIHead", "BoostRoIHead", "DynamicRoIHead",
-        "MaskScoringRoIHead"))
+        "MaskScoringRoIHead", "ProbPISARoIHead"))
     scoring = model_cfg["type"] == "MaskScoringRCNN"
     if (scoring or point_rend) and not roi.get("mask_head"):
         raise ValueError(f"{model_cfg['type']} needs a mask_head")

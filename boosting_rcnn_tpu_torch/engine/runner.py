@@ -47,7 +47,8 @@ from .eval import run_eval
 from .train import make_optimizer, make_train_step, step_lr_schedule
 
 __all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "test_geometry",
-           "eval_loader", "tta_options", "Trainer", "build_trainer", "train_detector"]
+           "eval_loader", "tta_options", "Trainer", "check_runner", "build_trainer",
+           "train_detector"]
 
 TINY_CANVAS = (128, 160)
 TINY_GN_GROUPS = 8  # divides the shrunk backbone's, neck's and heads' widths
@@ -61,6 +62,15 @@ _UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "lsj_range", "
 # the keys of a ResNeXt or Res2Net backbone that ResNet-18 has no use for
 # (the JAX build_resnet ignores the first three, its BasicBlock the dcn)
 _BIG_BLOCK_KEYS = ("groups", "base_width", "scales", "dcn", "stage_with_dcn")
+
+
+# the zoo's backbones at the tiny size: their changes and stage widths
+# (RegNetX-400MF, HRNet-W18, ResNeSt-50 at a 16-channel stem and width 8)
+_ZOO_TINY = {
+    "RegNet": ({"arch": "regnetx_400mf"}, [32, 64, 160, 384]),
+    "HRNet": ({"arch": "w18"}, [18, 36, 72, 144]),
+    "ResNeSt": ({"depth": 50, "stem_channels": 16, "base_channels": 8}, [32, 64, 128, 256]),
+}
 
 
 def _each(x):
@@ -89,17 +99,25 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     A neck-less config (C4, DC5) keeps its backbone's stages, strides and
     dilations on ResNet-18 at width 8 (the C4 res5 head takes half the
     backbone's output channels as planes); the JAX shrink cannot shrink
-    one.  Other model types raise."""
+    one.  The zoo's backbones keep their kind at their smallest or a
+    narrowed width (``_ZOO_TINY``: RegNetX-400MF, HRNet-W18, ResNeSt-50 at
+    width 8), where the JAX shrink leaves them at full width beside a
+    neck sized for ResNet-18.  Other model types raise."""
     rpn = mc.get("rpn_head", {}).get("type")
     if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc:
         raise NotImplementedError("--tiny shrinks the two-stage configs only")
-    for key in _BIG_BLOCK_KEYS:
-        mc["backbone"].pop(key, None)
-    plugins = bool(mc["backbone"].get("plugins"))
-    mc["backbone"].update(type="ResNet", depth=50 if plugins else 18, base_channels=8)
+    zoo = _ZOO_TINY.get(mc["backbone"].get("type"))
+    if zoo:
+        mc["backbone"].update(zoo[0])
+        in_channels = zoo[1]
+    else:
+        for key in _BIG_BLOCK_KEYS:
+            mc["backbone"].pop(key, None)
+        plugins = bool(mc["backbone"].get("plugins"))
+        mc["backbone"].update(type="ResNet", depth=50 if plugins else 18, base_channels=8)
+        in_channels = [32, 64, 128, 256] if plugins else [8, 16, 32, 64]
     if mc.get("neck"):  # C4 and DC5 have none: their backbone keeps its stages
-        mc["neck"].update(in_channels=[32, 64, 128, 256] if plugins else [8, 16, 32, 64],
-                          out_channels=32)
+        mc["neck"].update(in_channels=in_channels, out_channels=32)
     for part in (mc["backbone"], mc.get("neck") or {}, *_each(mc["roi_head"]["bbox_head"]),
                  *_each(mc["roi_head"].get("mask_head") or [])):
         if (part.get("norm_cfg") or {}).get("type") == "GN":
@@ -212,9 +230,24 @@ class Trainer:
         return self._steps[canvas](batch, generator=self.generator)
 
 
+def check_runner(cfg: Config) -> None:
+    """Raise on an iteration-based schedule (``runner.type='IterBasedRunner'``
+    or ``lr_config.by_epoch=False``): the port trains by epochs, as the JAX
+    package does, and would read its steps as epochs."""
+    runner = cfg.get("runner") or {}
+    if runner.get("type", "EpochBasedRunner") != "EpochBasedRunner":
+        raise NotImplementedError(f"runner.type={runner.get('type')!r} is not ported (the "
+                                  "port trains by epochs, runner.max_epochs)")
+    if not (cfg.get("lr_config") or {}).get("by_epoch", True):
+        raise NotImplementedError("lr_config.by_epoch=False is not ported (the port's step "
+                                  "schedule decays at epochs)")
+
+
 def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) -> Trainer:
     """The config's optimizer and schedule on ``detector``, and a sampler
-    generator seeded from ``seed``."""
+    generator seeded from ``seed``; an iteration-based schedule raises
+    (``check_runner``)."""
+    check_runner(cfg)
     opt = cfg.get("optimizer") or {}
     if str(opt.get("type", "sgd")).lower() != "sgd" or opt.get("nesterov", False):
         raise NotImplementedError(f"optimizer {opt!r} is not ported (SGD with momentum is)")
@@ -260,6 +293,7 @@ def train_detector(cfg, work_dir: Optional[str] = None, *, detector=None, device
 
 def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, tiny,
            fake_data, validate, logger) -> Dict[str, Any]:
+    check_runner(cfg)
     jlog = JsonLogWriter(os.path.join(work_dir, "train.log.json"))
     logger.info(f"env: {collect_env()}")
     cfg.dump(os.path.join(work_dir, "config_dump.py"))

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import FrozenBatchNorm, make_conv, max_pool
+from ..layers import FrozenBatchNorm, avg_pool, make_conv, max_pool
 from .resnet import ARCH_SETTINGS, make_dcn
 
 
@@ -78,10 +78,11 @@ class Bottle2neck(nn.Module):
             outs.append(prev)
         last = splits[-1]
         if self.stage_mode and self.stride > 1:
-            # contiguous first: on a channel slice of a channels-last map the
-            # CUDA avg_pool2d backward of PyTorch 2.11 gives wrong gradients
+            # a contiguous copy (layers.avg_pool): on a channel slice of a
+            # channels-last map the CUDA avg_pool2d backward of PyTorch 2.11
+            # gives wrong gradients
             # (tests/test_torch_cuda.py::test_cuda_res2net_block_gradient_matches_cpu)
-            last = F.avg_pool2d(last.contiguous(), 3, self.stride, 1, count_include_pad=True)
+            last = avg_pool(last, 3, self.stride, 1)
         outs.append(last)
         y = self.bn3(self.conv3(torch.cat(outs, dim=1)))
         identity = x

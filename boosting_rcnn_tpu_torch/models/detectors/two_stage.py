@@ -321,6 +321,14 @@ class TwoStageDetector:
         anchors = self._tensor(anchors)
         feats = self.net.features(self._tensor(batch["images"]))
         cls, reg, iou = self._rpn_flat(feats)
+        if cls.shape[1] != anchors.shape[0]:
+            # HRFPN floors its pooled levels where the anchors ceil the canvas
+            # over their strides: the JAX loss fails to broadcast there too
+            sizes = [tuple(f.shape[-2:]) for f in feats]
+            raise ValueError(
+                f"the RPN levels {sizes} give {cls.shape[1]} anchor positions, the canvas's "
+                f"anchors {anchors.shape[0]} ({self.featmap_sizes(tuple(batch['images'].shape[1:3]))}"
+                "): train on a canvas that the neck's levels divide")
         valid = torch.ones(cls.shape, dtype=torch.bool, device=self.device)
         if self.rpn_type == "rpn":
             losses = rpn_loss(self.rpn_cfg, cls, reg, anchors, valid, gt_bboxes, gt_mask,

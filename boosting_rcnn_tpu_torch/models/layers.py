@@ -53,6 +53,8 @@ __all__ = [
     "make_conv",
     "make_linear",
     "max_pool",
+    "avg_pool",
+    "nearest_resize",
     "bilinear_resize",
 ]
 
@@ -320,20 +322,21 @@ def make_conv_cfg(conv_cfg: Optional[dict], cin: int, cout: int, k: int, stride:
 class ConvModule(nn.Module):
     """conv + optional norm + optional ReLU (mmcv ``ConvModule``, JAX
     ``layers.py:134-191``); the conv has a bias only when there is no norm.
-    Padding is ``(k - 1) // 2`` on each side, as the JAX module's explicit
-    ``(pad, pad)``.  ``conv_cfg`` ``ConvWS`` makes the conv weight-standardised;
+    Padding is ``dilation * (k - 1) // 2`` on each side, as the JAX module's
+    explicit ``(pad, pad)``.  ``conv_cfg`` ``ConvWS`` makes the conv weight-standardised;
     ``norm_cfg`` picks the norm (``make_norm``: GN, LN, or BN as a frozen
     BN).  ``act`` defaults to None here, where the JAX module's defaults to
     ``"relu"``: callers name it."""
 
     def __init__(self, cin: int, cout: int, k: int, gen: torch.Generator,
                  stride: int = 1, norm_cfg: Optional[dict] = None,
-                 act: Optional[str] = None, conv_cfg: Optional[dict] = None):
+                 act: Optional[str] = None, conv_cfg: Optional[dict] = None,
+                 dilation: int = 1):
         super().__init__()
         if act not in (None, "relu"):
             raise NotImplementedError(f"activation {act!r} is not ported")
-        self.conv = make_conv_cfg(conv_cfg, cin, cout, k, stride, (k - 1) // 2,
-                                  norm_cfg is None, gen)
+        self.conv = make_conv_cfg(conv_cfg, cin, cout, k, stride, dilation * (k - 1) // 2,
+                                  norm_cfg is None, gen, dilation=dilation)
         self.norm = make_norm(norm_cfg, cout)
         self.act = act
 
@@ -403,8 +406,51 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.T
     return F.max_pool2d(x, window, stride, padding)
 
 
-def bilinear_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """Average pool counting the padding (flax ``avg_pool``'s and
+    ``F.avg_pool2d``'s default) of a contiguous NCHW copy: on a
+    channels-last map (cuDNN's convolutions give them on the card) the CUDA
+    ``avg_pool2d`` backward of PyTorch 2.11 gives wrong gradients
+    (``backbones/res2net.py``, ``tests/test_torch_cuda.py``)."""
+    return F.avg_pool2d(x.contiguous(), window, stride, padding)
+
+
+def nearest_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Nearest-neighbour resize of an NCHW tensor with half-pixel centres,
-    as ``jax.image.resize(..., "nearest")`` (the FPN top-down upsample), in
-    the input's dtype."""
+    as ``jax.image.resize(..., "nearest")`` (the FPN top-down upsample, the
+    JAX package's ``bilinear_resize``, which is this despite its name; the
+    HRNet fusion), in the input's dtype.  It equals PyTorch's ``"nearest"``
+    only at integer ratios."""
     return F.interpolate(x, size=tuple(out_hw), mode="nearest-exact")
+
+
+def _linear_weights(n_out: int, n_in: int, device, dtype) -> torch.Tensor:
+    """``(n_out, n_in)`` weights of a linear upsampling with half-pixel
+    centres along one axis, computed in float64 on ``device`` (no host copy,
+    no sync) and cast to ``dtype``: output i samples input ``(i + 0.5) *
+    n_in / n_out - 0.5``, clamped at 0, between its two neighbours (the
+    last input repeated past the end)."""
+    f64 = dict(device=device, dtype=torch.float64)
+    src = ((torch.arange(n_out, **f64) + 0.5) * (n_in / n_out) - 0.5).clamp(min=0)
+    lo = src.floor().clamp(max=n_in - 1)
+    hi = (lo + 1).clamp(max=n_in - 1)
+    frac = (src - lo)[:, None]
+    cols = torch.arange(n_in, **f64)
+    return ((1 - frac) * (cols == lo[:, None]) + frac * (cols == hi[:, None])).to(dtype)
+
+
+def bilinear_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear upsampling of an NCHW tensor with half-pixel centres, as
+    ``jax.image.resize(..., "bilinear")`` where it only upsamples (HRFPN):
+    there its triangle kernel's weights, renormalised at the borders, are
+    ``F.interpolate``'s with ``align_corners=False``.  It is applied as
+    JAX's is, one axis after the other, and as two products with those
+    weights in the input's dtype: ``F.interpolate``'s CUDA backward adds
+    with atomics, and the train step must repeat bit for bit (ROADMAP C.2).
+    A smaller output raises: JAX antialiases a downsampling."""
+    (h, w), (hi, wi) = tuple(out_hw), x.shape[-2:]
+    if h < hi or w < wi:
+        raise ValueError(f"bilinear_resize upsamples only: {(hi, wi)} to {(h, w)}")
+    ww = _linear_weights(w, wi, x.device, x.dtype)
+    wh = _linear_weights(h, hi, x.device, x.dtype)
+    return torch.matmul(wh, torch.matmul(x, ww.t()))

@@ -11,8 +11,17 @@ merge, then the bottom-up path (``downsample_{i}`` stride-2 convs,
 the FPN takes a ``norm_cfg`` for every conv (the laterals' not with
 ``no_norm_on_lateral``; GN, or BN as a frozen BN, ``layers.make_norm``) and
 a ``conv_cfg`` (``ConvWS``) for its laterals and output convs, not its extra
-convs, as the JAX FPN (``necks/fpn.py:20-100``); the PAFPN neither.  NCHW in
-and out.
+convs, as the JAX FPN (``necks/fpn.py:20-100``); the PAFPN neither; the
+PAFPN's extra levels by convs on its last output, or by ``max_pool(outs[-1],
+1, 2)`` with ``add_extra_convs=False`` (JAX ``necks/fpn.py:225``).
+
+``SPPFPN`` (the fork's, JAX ``necks/fpn.py:102-222``) is the FPN with each
+lateral 1x1 replaced by an SPP-type block (``SPPLateral``): ``ASPP``,
+``ASPP_share`` (one 3x3 weight and bias at dilations 1, 3, 5 and 7, the
+config's), ``SPP`` or ``RFB``.  ``HRFPN`` (JAX ``necks/fpn.py:371-406``)
+upsamples HRNet's branches bilinearly to the first, concatenates them,
+reduces them by a 1x1 conv and makes ``num_outs`` levels by average pools
+of 2^i, each through a 3x3 conv at ``stride``.  NCHW in and out.
 """
 from __future__ import annotations
 
@@ -22,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import ConvModule, bilinear_resize, max_pool
+from ..layers import (ConvModule, Conv2d, avg_pool, bilinear_resize, lecun_normal_, make_conv,
+                      max_pool, nearest_resize)
 
 
 def _top_down(neck: nn.Module, inputs, start_level: int, used: int):
@@ -30,8 +40,8 @@ def _top_down(neck: nn.Module, inputs, start_level: int, used: int):
     nearest upsample of the one above it."""
     laterals = [getattr(neck, f"lateral_{i}")(inputs[start_level + i]) for i in range(used)]
     for i in range(used - 1, 0, -1):
-        laterals[i - 1] = laterals[i - 1] + bilinear_resize(laterals[i],
-                                                            laterals[i - 1].shape[-2:])
+        laterals[i - 1] = laterals[i - 1] + nearest_resize(laterals[i],
+                                                           laterals[i - 1].shape[-2:])
     return laterals
 
 
@@ -48,7 +58,8 @@ class FPN(nn.Module):
                  out_channels: int = 256, num_outs: int = 5, start_level: int = 0,
                  end_level: int = -1, add_extra_convs=False,
                  relu_before_extra_convs: bool = False, norm_cfg: dict | None = None,
-                 conv_cfg: dict | None = None, no_norm_on_lateral: bool = False):
+                 conv_cfg: dict | None = None, no_norm_on_lateral: bool = False,
+                 spp_type: str | None = None):
         super().__init__()
         if add_extra_convs is True:
             add_extra_convs = "on_input"
@@ -60,10 +71,12 @@ class FPN(nn.Module):
         self.num_outs = num_outs
         self.add_extra_convs = add_extra_convs
         self.relu_before_extra_convs = relu_before_extra_convs
+        lateral_norm = None if no_norm_on_lateral else norm_cfg
         for i in range(used):
-            self.add_module(f"lateral_{i}", ConvModule(
-                in_channels[start_level + i], out_channels, 1, gen, conv_cfg=conv_cfg,
-                norm_cfg=None if no_norm_on_lateral else norm_cfg))
+            cin = in_channels[start_level + i]
+            self.add_module(f"lateral_{i}", SPPLateral(
+                cin, out_channels, gen, spp_type, norm_cfg=lateral_norm) if spp_type else
+                ConvModule(cin, out_channels, 1, gen, conv_cfg=conv_cfg, norm_cfg=lateral_norm))
             self.add_module(f"fpn_conv_{i}", ConvModule(out_channels, out_channels, 3, gen,
                                                         conv_cfg=conv_cfg, norm_cfg=norm_cfg))
         if add_extra_convs:
@@ -92,14 +105,21 @@ class FPN(nn.Module):
 
 
 class PAFPN(nn.Module):
+    """The FPN top-down merge, the bottom-up path, then the extra levels by
+    stride-2 convs on the last output (``add_extra_convs="on_output"``) or
+    by ``max_pool(outs[-1], 1, 2)`` (False)."""
+
     def __init__(self, gen: torch.Generator, in_channels: Sequence[int],
                  out_channels: int = 256, num_outs: int = 5, start_level: int = 0,
-                 end_level: int = -1):
+                 end_level: int = -1, add_extra_convs="on_output"):
         super().__init__()
+        if add_extra_convs not in (False, "on_output"):
+            raise NotImplementedError(f"PAFPN add_extra_convs={add_extra_convs!r} is not ported")
         end = len(in_channels) if end_level == -1 else end_level
         self.start_level = start_level
         self.used = used = end - start_level
         self.num_outs = num_outs
+        self.add_extra_convs = add_extra_convs
         oc = out_channels
         for i in range(used):
             self.add_module(f"lateral_{i}",
@@ -108,7 +128,7 @@ class PAFPN(nn.Module):
         for i in range(used - 1):
             self.add_module(f"downsample_{i}", ConvModule(oc, oc, 3, gen, stride=2))
             self.add_module(f"pafpn_conv_{i}", ConvModule(oc, oc, 3, gen))
-        for i in range(used, num_outs):
+        for i in range(used, num_outs if add_extra_convs else used):
             self.add_module(f"fpn_conv_{i}", ConvModule(oc, oc, 3, gen, stride=2))
 
     def forward(self, inputs):
@@ -120,5 +140,112 @@ class PAFPN(nn.Module):
         outs = [inter[0]] + [getattr(self, f"pafpn_conv_{i - 1}")(inter[i])
                              for i in range(1, used)]
         for i in range(used, self.num_outs):
-            outs.append(getattr(self, f"fpn_conv_{i}")(outs[-1]))
+            outs.append(getattr(self, f"fpn_conv_{i}")(outs[-1]) if self.add_extra_convs
+                        else max_pool(outs[-1], 1, 2, 0))
+        return tuple(outs)
+
+
+SPP_TYPES = ("ASPP", "ASPP_share", "SPP", "RFB")
+
+
+class SPPLateral(nn.Module):
+    """An SPPFPN lateral (JAX ``necks/fpn.py::_SPPLateral``), the ConvModules
+    with a ReLU where the JAX ones take their default:
+
+      * ``ASPP``: a ConvModule a dilation (1x1 at 1, else a 3x3 padded by
+        its dilation; the neck's ``norm_cfg``), concatenated, a 1x1
+        ``fuse`` conv with a bias;
+      * ``ASPP_share``: one 3x3 weight and bias (``shared``) at every
+        dilation, padded by it, no activation, concatenated, ``fuse``;
+      * ``SPP``: a 1x1 ``squeeze`` to half the channels, its max pools of 5,
+        9 and 13 at stride 1, concatenated with it, a 1x1 ``expand``;
+      * ``RFB``: three branches of growing receptive field (``b0_*``,
+        ``b1_*``, ``b2_*``, their last 3x3 dilated by 1, 3 and 5 and
+        without activation), concatenated, a 1x1 ``fuse`` without
+        activation, plus a 1x1 ``shortcut``, then a ReLU."""
+
+    def __init__(self, cin: int, c: int, gen: torch.Generator, spp_type: str = "ASPP",
+                 dilations=(1, 3, 5, 7), norm_cfg: dict | None = None):
+        super().__init__()
+        if spp_type not in SPP_TYPES:
+            raise ValueError(f"unknown SPP_type {spp_type!r}")
+        self.spp_type, self.dilations = spp_type, tuple(dilations)
+        relu = dict(act="relu")
+        if spp_type == "ASPP":
+            for i, d in enumerate(self.dilations):
+                self.add_module(f"aspp_{i}", ConvModule(cin, c, 1 if d == 1 else 3, gen,
+                                                        norm_cfg=norm_cfg, dilation=d, **relu))
+        elif spp_type == "ASPP_share":
+            # he_normal, as the JAX parameter's initialiser; the taps are the
+            # convolution's, applied at each dilation in forward
+            self.shared = Conv2d(cin, c, 3)
+            lecun_normal_(self.shared.weight, cin * 9 // 2, gen)
+            nn.init.zeros_(self.shared.bias)
+        if spp_type.startswith("ASPP"):
+            self.fuse = make_conv(c * len(self.dilations), c, 1, 1, 0, True, gen)
+        elif spp_type == "SPP":
+            self.squeeze = ConvModule(cin, c // 2, 1, gen, **relu)
+            self.expand = ConvModule(c // 2 * 4, c, 1, gen, **relu)
+        else:
+            c_ = max(c // 8, 8)
+            for name, i, o, k, d, act in (
+                    ("b0_0", cin, 2 * c_, 1, 1, relu), ("b0_1", 2 * c_, 2 * c_, 3, 1, {}),
+                    ("b1_0", cin, c_, 1, 1, relu), ("b1_1", c_, 2 * c_, 3, 1, relu),
+                    ("b1_2", 2 * c_, 2 * c_, 3, 3, {}), ("b2_0", cin, c_, 1, 1, relu),
+                    ("b2_1", c_, c_ // 2 * 3, 3, 1, relu),
+                    ("b2_2", c_ // 2 * 3, 2 * c_, 3, 1, relu),
+                    ("b2_3", 2 * c_, 2 * c_, 3, 5, {}), ("fuse", 6 * c_, c, 1, 1, {}),
+                    ("shortcut", cin, c, 1, 1, {})):
+                self.add_module(name, ConvModule(i, o, k, gen, dilation=d, **act))
+
+    def forward(self, x):
+        if self.spp_type == "ASPP":
+            y = torch.cat([getattr(self, f"aspp_{i}")(x) for i in range(len(self.dilations))], 1)
+            return self.fuse(y)
+        if self.spp_type == "ASPP_share":
+            conv = self.shared
+            dt = conv.compute_dtype
+            w, b = conv.weight.to(dt), conv.bias.to(dt)
+            xs = x.to(dt)
+            if dt == torch.float32:
+                branches = [F.conv2d(xs, w, b, 1, d, d) for d in self.dilations]
+            else:  # the bias added to the rounded convolution, as flax adds it
+                branches = [F.conv2d(xs, w, None, 1, d, d) + b[:, None, None]
+                            for d in self.dilations]
+            return self.fuse(torch.cat(branches, 1))
+        if self.spp_type == "SPP":
+            y = self.squeeze(x)
+            y = torch.cat([y] + [max_pool(y, k, 1, k // 2) for k in (5, 9, 13)], 1)
+            return self.expand(y)
+        b0 = self.b0_1(self.b0_0(x))
+        b1 = self.b1_2(self.b1_1(self.b1_0(x)))
+        b2 = self.b2_3(self.b2_2(self.b2_1(self.b2_0(x))))
+        y = self.fuse(torch.cat([b0, b1, b2], 1))
+        return F.relu(y + self.shortcut(x))
+
+
+class HRFPN(nn.Module):
+    """HRNet's neck (JAX ``necks/fpn.py::HRFPN``): the branches ``(B, C_i,
+    H_i, W_i)`` upsampled bilinearly to the first's size, concatenated, a
+    1x1 ``reduction_conv``, then level i an average pool of 2^i (no
+    padding) of it through the 3x3 ``fpn_conv_i`` at ``stride`` (each conv
+    with a bias, no norm, no activation)."""
+
+    def __init__(self, gen: torch.Generator, in_channels: Sequence[int],
+                 out_channels: int = 256, num_outs: int = 5, stride: int = 1):
+        super().__init__()
+        self.num_outs, self.stride = num_outs, stride
+        self.reduction_conv = make_conv(sum(in_channels), out_channels, 1, 1, 0, True, gen)
+        for i in range(num_outs):
+            self.add_module(f"fpn_conv_{i}", make_conv(out_channels, out_channels, 3, stride, 1,
+                                                       True, gen))
+
+    def forward(self, inputs):
+        hw = inputs[0].shape[-2:]
+        x = torch.cat([inputs[0]] + [bilinear_resize(t, hw) for t in inputs[1:]], 1)
+        x = self.reduction_conv(x)
+        outs = []
+        for i in range(self.num_outs):
+            y = x if i == 0 else avg_pool(x, 2 ** i, 2 ** i)
+            outs.append(getattr(self, f"fpn_conv_{i}")(y))
         return tuple(outs)

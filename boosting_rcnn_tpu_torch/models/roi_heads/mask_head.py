@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import losses as L
-from ..layers import (ConvModule, bilinear_resize, lecun_normal_, make_conv,
+from ..layers import (ConvModule, nearest_resize, lecun_normal_, make_conv,
                       make_conv_transpose, make_linear)
 
 
@@ -245,7 +245,7 @@ class FusedSemanticHead(nn.Module):
         x = getattr(self, f"lateral_{self.fusion_level}")(ref)
         for i, f in enumerate(levels):
             if i != self.fusion_level:
-                x = x + bilinear_resize(getattr(self, f"lateral_{i}")(f), ref.shape[-2:])
+                x = x + nearest_resize(getattr(self, f"lateral_{i}")(f), ref.shape[-2:])
         for i in range(self.num_convs):
             x = F.relu(getattr(self, f"conv_{i}")(x))
         embedding = self.conv_embedding(x).permute(0, 2, 3, 1)
@@ -274,7 +274,7 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     """``(B, H, W)`` integer map nearest-resized to ``out_hw`` with
     half-pixel centres, as ``jax.image.resize(x.astype(float32), ...,
     "nearest")`` (the stuff map to the logit grid, JAX ``htc.py:205-215``)."""
-    return bilinear_resize(x[:, None].float(), out_hw)[:, 0].long()
+    return nearest_resize(x[:, None].float(), out_hw)[:, 0].long()
 
 
 @torch.no_grad()

@@ -14,8 +14,16 @@ detached) so that the weighted sum equals the unweighted one, and
 averages over the valid slots; the box loss is summed and averaged over
 the valid slots too, or with ``reg_norm='mean'`` divided by four times the
 positives (at least one).  The builder rejects what is not ported: the
-``quality``, ISR and CARL variants, ``alpha`` and sampling without the gt
-boxes.  ``BoostRoIHead`` is this head with prior fusion and, unless its
+``quality`` variant, ``alpha`` and sampling without the gt boxes.
+
+PISA (JAX ``prob_roi_head.py:257-287``), on the loss without boosting
+(``PISARoIHead``'s configs and the fork's ``ProbPISARoIHead``): ISR-P
+reweights the cross entropy of the positives by the IoU of the current
+decoded predictions (detached) with their gts, and CARL adds
+``loss_carl``, averaged over the valid slots like the other two.  As in
+the JAX package, a slot's gt is its index within its own image, so ISR-P
+groups gt k of one image with gt k of another where their labels agree
+(mmdet offsets each image's gt ids).  ``BoostRoIHead`` is this head with prior fusion and, unless its
 config says ``boost``, no boosting loss, as the JAX builder reads it.
 
 Dynamic R-CNN (JAX ``prob_roi_head.py:344-439``): its detector samples
@@ -36,7 +44,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...ops import box_ops
 from ...ops.assigners import AssignResult, max_iou_assign
+from ...ops.pisa import carl_loss, isr_p_weights
 from ...ops.samplers import random_sample, random_sample_from_uniforms
 from .bbox_head import BBoxHeadCfg, bbox_head_loss, bbox_targets
 
@@ -59,6 +69,10 @@ class ProbRoICfg:
     neg_iou_thr: float = 0.6
     min_pos_iou: float = 0.6
     match_low_quality: bool = False
+    # PISA on the R-CNN stage (the non-boosting loss only): ISR-P's and
+    # CARL's ``k`` and ``bias``, as ``((key, value), ...)`` pairs
+    isr: Optional[tuple] = None
+    carl: Optional[tuple] = None
 
 
 class RoISample(NamedTuple):
@@ -216,17 +230,46 @@ def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tenso
                          beta_override=beta_override, seesaw_counts=seesaw_counts)
     validf = sample.valid.float()
     n_valid = torch.clamp(validf.sum(), min=1.0)
+    extra = {}
     if cfg.boost:
         lw = (1.0 - sample.prior) ** cfg.gamma
         loss_cls = norm_loss(raw["loss_cls"] * validf, lw * validf, n_valid)
     else:
-        loss_cls = (raw["loss_cls"] * validf).sum() / n_valid
+        cls_w = validf
+        pos = sample.is_pos & sample.valid
+        if cfg.isr is not None:
+            isr = dict(cfg.isr)
+            cur_iou = _current_iou(head_cfg, bbox_pred, labels, sample)
+            cls_w = isr_p_weights(labels, sample.gt_idx, cur_iou, validf, pos,
+                                  raw["loss_cls"].detach(), k=isr.get("k", 2.0),
+                                  bias=isr.get("bias", 0.0)) * validf
+        if cfg.carl is not None:
+            carl = dict(cfg.carl)
+            extra["loss_carl"] = carl_loss(cls_score, labels, pos, raw["loss_bbox"],
+                                           k=carl.get("k", 1.0), bias=carl.get("bias", 0.2),
+                                           avg_factor=n_valid)
+        loss_cls = (raw["loss_cls"] * cls_w).sum() / n_valid
     if cfg.reg_norm == "mean":
         loss_bbox = raw["loss_bbox"].sum() / (
             torch.clamp(sample.is_pos.float().sum(), min=1.0) * 4.0)
     else:
         loss_bbox = raw["loss_bbox"].sum() / n_valid
-    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox}
+    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox, **extra}
+
+
+def _current_iou(head_cfg: BBoxHeadCfg, bbox_pred: torch.Tensor, labels: torch.Tensor,
+                 sample: RoISample) -> torch.Tensor:
+    """ISR-P's IoU: each slot's deltas of its label (class-agnostic: its
+    one set), detached, decoded on its RoI, against its matched gt box."""
+    r, c = bbox_pred.shape[0], head_cfg.num_classes
+    pred = bbox_pred.detach()
+    if head_cfg.reg_class_agnostic:
+        pred4 = pred.reshape(r, 4)
+    else:
+        onehot = torch.nn.functional.one_hot(torch.clamp(labels, 0, c - 1).long(), c)
+        pred4 = (pred.reshape(r, c, 4) * onehot.to(pred.dtype)[:, :, None]).sum(1)
+    dec = box_ops.delta2bbox(sample.boxes, pred4, head_cfg.target_means, head_cfg.target_stds)
+    return box_ops.bbox_overlaps_aligned(dec, sample.matched_gt)
 
 
 def prob_fuse_scores(cls_score: torch.Tensor, prior: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,14 @@ a deformable 3x3's ``conv_offset`` (a conv with a bias) and its ``kernel``
 ``WSConv``'s ``kernel``, GroupNorm's and LayerNorm's ``scale`` / ``bias``,
 the ContextBlock's convs and LayerNorms, the GeneralizedAttention's convs,
 its position Denses (``appr_geom_fc_x`` / ``_y``, kernels transposed) and
-its ``appr_bias`` / ``geom_bias`` / ``gamma``, which keep their names.
+its ``appr_bias`` / ``geom_bias`` / ``gamma``, which keep their names;
+and the zoo's necks and backbones: SPPFPN's ``shared_kernel`` /
+``shared_bias`` (to ``shared.weight`` / ``.bias``), FPT's ``gn_conv``
+blocks, ``mix_weight`` and ``gate`` (kept), FPT_lite's attention
+(``query`` / ``key`` / ``value`` kernels ``(in, heads, dim)`` and ``out``'s
+``(heads, dim, out)`` flattened to ``Linear`` weights, their ``(heads,
+dim)`` biases flattened), RegNet's, ResNeSt's and HRNet's convs and BNs
+and HRFPN's convs by the general rules.
 
 Every rule is linear (a transpose or a rename), so the same mapping
 carries a flax *gradient* tree (the ``params`` tree of ``jax.grad``) onto
@@ -88,14 +95,21 @@ def _module_name(m: str) -> str:
     """A flax module name as the port names it: ``Conv_0`` -> ``conv``, a
     cascade's stage head ``bbox_heads_N`` or ``mask_heads_N`` (flax's name
     for a tuple's submodule) -> ``bbox_heads.N`` / ``mask_heads.N`` (an
-    ``nn.ModuleList``)."""
+    ``nn.ModuleList``), an FPT ``gn_conv``'s ``lateral_N_conv`` /
+    ``posthoc_N_gn`` (likewise ``rend1_``, ``rend_adapt_``, ``rend2_``) ->
+    ``lateral_N.conv`` / ``posthoc_N.gn``."""
     stage = re.fullmatch(r"(bbox_heads|mask_heads)_(\d+)", m)
-    return f"{stage[1]}.{stage[2]}" if stage else _MODULE_NAMES.get(m, m)
+    if stage:
+        return f"{stage[1]}.{stage[2]}"
+    gn_conv = re.fullmatch(r"((?:lateral|posthoc|rend1|rend_adapt|rend2)_\d+)_(conv|gn)", m)
+    return f"{gn_conv[1]}.{gn_conv[2]}" if gn_conv else _MODULE_NAMES.get(m, m)
 
 
 def _convert(path: Tuple[str, ...], value: np.ndarray):
     *mods, leaf = path
     mods = [_module_name(m) for m in mods if m != "BatchNorm_0"]
+    if leaf in ("shared_kernel", "shared_bias"):  # SPPFPN's ASPP_share weight set
+        mods, leaf = mods + ["shared"], leaf[len("shared_"):]
     if leaf == "kernel":
         if value.ndim == 4 and mods[-1:] == ["upsample"]:
             value = value[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -103,9 +117,15 @@ def _convert(path: Tuple[str, ...], value: np.ndarray):
             value = value.transpose(3, 2, 0, 1)
         elif value.ndim == 2:
             value = value.T
+        elif value.ndim == 3 and mods[-1:] == ["out"]:  # flax attention (heads, dim, out)
+            value = value.reshape(-1, value.shape[-1]).T
+        elif value.ndim == 3:  # flax attention query / key / value (in, heads, dim)
+            value = value.reshape(value.shape[0], -1).T
         else:
             raise ValueError(f"kernel {'/'.join(path)} has shape {value.shape}")
         leaf = "weight"
+    elif leaf == "bias" and value.ndim == 2:  # flax attention (heads, dim)
+        value = value.reshape(-1)
     elif leaf == "scale" and value.ndim > 0:
         leaf = "weight"
     else:
@@ -211,6 +231,25 @@ def _mask_head(stage) -> str:
     return "mask_head" if stage is None else f"mask_heads.{stage}"
 
 
+def _check_zoo_backbone(state_dict: Dict[str, Any]) -> None:
+    """Raise on an mmdet RegNet, ResNeSt or HRNet backbone (its 3 x 3
+    32-channel stem, its split attention's ``fc1``, its ``transition`` /
+    ``stage`` modules): the JAX package's converter maps none of their keys,
+    and the port's RegNet groups its 3 x 3s as the JAX package's does (by
+    the group width, where mmdet divides the width by it)."""
+    stem = state_dict.get("backbone.conv1.weight")
+    kinds = (("RegNet", stem is not None and tuple(stem.shape) == (32, 3, 3, 3)),
+             ("ResNeSt", any(".conv2.fc1." in k for k in state_dict)),
+             ("HRNet", any(k.startswith(("backbone.transition", "backbone.stage"))
+                           for k in state_dict)))
+    for kind, found in kinds:
+        if found:
+            raise NotImplementedError(
+                f"an mmdet {kind} backbone: the JAX package's converter maps none of its keys "
+                "(tools/convert_torch_weights.py), so its mmdet weights do not load; the "
+                "port's weights are the JAX package's (from_jax_params) or seeded")
+
+
 def from_mmdet_state_dict(state_dict: Dict[str, Any],
                           roi_feat_size: int = 7) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (``TwoStageNet``) from an mmdet two-stage
@@ -254,8 +293,10 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
     no such module).  The JAX package's converter maps one ``mask_head``
     only and drops the per-stage, semantic and MaskIoU keys.  A Seesaw box
     head's ``fc_cls`` (mmdet: the classes plus an objectness pair) raises
-    ``NotImplementedError`` (``_check_cls_rows``)."""
+    ``NotImplementedError`` (``_check_cls_rows``), and so does an mmdet
+    RegNet, ResNeSt or HRNet backbone (``_check_zoo_backbone``)."""
     _check_cls_rows(state_dict)
+    _check_zoo_backbone(state_dict)
     point_rend = sorted(k for k in state_dict if re.match(
         r"roi_head\.(point_head\.|mask_head\.(fcs|fc_logits|downsample_conv)\.)", k))
     if point_rend:

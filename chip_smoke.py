@@ -382,6 +382,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -408,6 +409,8 @@ from boosting_rcnn_tpu_torch.models.roi_heads.cascade_roi_head import (  # noqa:
     refine_boxes,
     stage_head_cfg,
 )
+from boosting_rcnn_tpu_torch.models.necks.fpt import GroundTrans  # noqa: E402
+from boosting_rcnn_tpu_torch.models.roi_heads import prob_roi_head  # noqa: E402
 from boosting_rcnn_tpu_torch.models.roi_heads.prob_roi_head import (  # noqa: E402
     prob_fuse_scores,
 )
@@ -436,9 +439,39 @@ REQUESTS = 3
 TRAIN_BATCH = 4  # the config's samples_per_gpu
 TRAIN_STEPS = 4  # step 0 warms up, steps 1-3 are timed
 GT_PER_IMAGE = 8
+TINY_HW = (128, 160)  # the tiny models' canvas
 MASK_TRAIN_BATCH = 2  # the Mask R-CNN config's samples_per_gpu
 MASK_TRAIN_STEPS = 3  # step 0 warms up, steps 1-2 are timed
 MASK_CROP = 28  # the loader's box-relative gt mask crop (data/loader.py mask_crop_size)
+
+
+class Tiny(NamedTuple):
+    """A tiny model of the card-against-CPU checks and what it needs beside
+    its config: ``config()`` its model config; ``condition(det)`` applied to
+    its seeded weights on every device alike (``build``); ``canvas`` its
+    images' size; ``f32_rule(rep, summary)`` its float32 step rule (None:
+    ``f32_step_rule``); ``predict_reorders``: its predict is held by matched
+    detections (``REORDER_BOX_TOL``).  The checks take a plain config
+    function too (``tiny_of``)."""
+    config: Callable[[], dict]
+    condition: Optional[Callable] = None
+    canvas: Tuple[int, int] = TINY_HW
+    f32_rule: Optional[Callable] = None
+    predict_reorders: bool = False
+
+    @property
+    def name(self) -> str:
+        return self.config.__name__
+
+    def build(self, mc, device=None, seed: int = 0, dtype=torch.float32):
+        det = build(mc, device=device, seed=seed, dtype=dtype)
+        if self.condition is not None:
+            self.condition(det)
+        return det
+
+
+def tiny_of(config) -> Tiny:
+    return config if isinstance(config, Tiny) else Tiny(config)
 STEPS_PER_EPOCH = 1000  # only places the decay epochs (8, 11), far beyond these steps
 ATOL = 1e-5  # forward: float32, kernel and plain version sum in different orders
 BWD_RTOL = 1e-5  # gradient: atol = BWD_RTOL * max|plain|; kernel and plain version sum in other orders
@@ -545,16 +578,16 @@ def read_counts():
     return {name: getattr(wrapper, attr) for name, (wrapper, attr) in counters().items()}
 
 
-def requests(seed: int):
+def requests(seed: int, canvas=CANVAS, img_shape=IMG_SHAPE):
     """Seeded request batches: normalised-image-like noise drawn on the card
     (a host draw of a full-size batch with numpy takes longer than the
     ``predict`` it feeds), the flagship's padded canvas and its valid image
-    shape."""
+    shape (or ``canvas`` and ``img_shape``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for _ in range(REQUESTS):
         yield {
-            "images": torch.randn((BATCH, *CANVAS, 3), generator=gen, device="cuda"),
-            "img_shape": torch.tensor([IMG_SHAPE] * BATCH).cuda(),
+            "images": torch.randn((BATCH, *canvas, 3), generator=gen, device="cuda"),
+            "img_shape": torch.tensor([img_shape] * BATCH).cuda(),
             "scale_factor": torch.ones((BATCH, 4)).cuda(),
         }
 
@@ -579,11 +612,12 @@ def train_batch(seed: int, b: int, canvas, img_shape, n_gt: int, sides=(16.0, 25
     }
 
 
-def check_dets(dets, labels, valid, num_classes: int = 4, max_per_img: int = 100) -> int:
+def check_dets(dets, labels, valid, num_classes: int = 4, max_per_img: int = 100,
+               img_shape=IMG_SHAPE) -> int:
     if not (torch.isfinite(dets).all() and dets.shape == (BATCH, max_per_img, 5)):
         raise AssertionError(f"bad detections: shape {tuple(dets.shape)}")
     boxes = dets[valid][:, :4]
-    h, w = IMG_SHAPE
+    h, w = img_shape
     inside = (boxes[:, 0] >= 0) & (boxes[:, 1] >= 0) & (boxes[:, 2] <= w) & (boxes[:, 3] <= h)
     if not inside.all():
         raise AssertionError("detections outside the image")
@@ -869,7 +903,7 @@ def samples_in_loss(mc) -> bool:
     return is_cascade(mc) or is_dynamic(mc)
 
 
-def tiny_train_inputs(seed: int, mc, anchors):
+def tiny_train_inputs(seed: int, mc, anchors, canvas=TINY_HW):
     """The tiny models' train batch (with gt mask crops for a mask head) and
     the step's keyword arguments, made with numpy so that every device and
     run samples alike: for the plain RPN its anchor sampler's uniforms, for
@@ -878,11 +912,11 @@ def tiny_train_inputs(seed: int, mc, anchors):
     R-CNN its RoI sampler's (over the gt boxes and the train proposals)."""
     masks = bool(mc["roi_head"].get("mask_head"))
     batch = (mask_train_batch if masks else train_batch)(
-        seed, 2, (128, 160), (128.0, 150.0), 5, sides=(12.0, 70.0), **(
+        seed, 2, canvas, (128.0, 150.0), 5, sides=(12.0, 70.0), **(
             {"num_classes": 4} if masks else {}))
     sem = mc["roi_head"].get("semantic_head")
     if sem:
-        batch["gt_semantic_seg"] = stuff_map(seed, 2, (128, 160), sem["num_classes"])
+        batch["gt_semantic_seg"] = stuff_map(seed, 2, canvas, sem["num_classes"])
     kw = {}
     rs = np.random.RandomState(seed)
     if mc["rpn_head"]["type"] == "RPNHead":
@@ -924,11 +958,11 @@ def tiny_mask_gpu_matches_cpu(seed: int, dtype=torch.float32):
     errors."""
     mc = tiny_mask_config()
     rs = np.random.RandomState(seed)
-    batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
+    batch = {"images": rs.randn(2, *TINY_HW, 3).astype(np.float32),
              "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
              "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32)}
     dets = {d: build_detector(mc, device=d, seed=seed, dtype=dtype) for d in ("cpu", "cuda")}
-    anchors, nla = dets["cpu"].anchors_for((128, 160))
+    anchors, nla = dets["cpu"].anchors_for(TINY_HW)
     if dtype == torch.float32:
         outs = {d: [x.cpu() for x in det.predict(batch, anchors, nla)] for d, det in dets.items()}
         (d0, l0, v0, m0), (d1, l1, v1, m1) = outs["cpu"], outs["cuda"]
@@ -973,28 +1007,44 @@ def tiny_gpu_matches_cpu(seed: int, config=tiny_config, mask_ties: float = 0.0) 
     a mask model's masks (and Mask Scoring R-CNN's mask scores) within
     1e-4; with ``mask_ties`` (PointRend's subdivision top-k ties) at most
     that share of the mask cells past 1e-4, each within ``POINT_TIE_ERR``."""
-    mc = config()
+    tiny = tiny_of(config)
+    mc = tiny.config()
     rs = np.random.RandomState(seed)
-    batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
+    batch = {"images": rs.randn(2, *tiny.canvas, 3).astype(np.float32),
              "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
              "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32)}
     outs = []
     for device in ("cpu", "cuda"):
-        det = build(mc, device=device, seed=seed)
-        anchors, nla = det.anchors_for((128, 160))
+        det = tiny.build(mc, device=device, seed=seed)
+        anchors, nla = det.anchors_for(tiny.canvas)
         outs.append([x.cpu() for x in det.predict(batch, anchors, nla)])
     (d0, l0, v0, *m0), (d1, l1, v1, *m1) = outs
+    if tiny.predict_reorders:
+        # the FPT: its neck levels within 1e-5 of the CPU's, and scores a few
+        # ulps apart reorder the kept slots; every detection of the smaller
+        # set is found in the other (its label, its box within 1 px)
+        n, n_min, box_err, score_err = matched_dets(d1, l1, v1, (d0, l0, v0))
+        if not (n == n_min > 0 and box_err <= REORDER_BOX_TOL and score_err <= 1e-5):
+            raise AssertionError(f"tiny {tiny.name}: GPU and CPU detections differ: "
+                                 f"{n} of {n_min} matched, boxes within {box_err:.3g} px, "
+                                 f"scores within {score_err:.3g}")
+        return n
     if not (torch.equal(v0, v1) and torch.equal(l0, l1) and v0.any()):
-        raise AssertionError(f"tiny {config.__name__}: GPU and CPU detections differ")
+        both = v0 & v1
+        raise AssertionError(
+            f"tiny {tiny.name}: GPU and CPU detections differ: valid {int(v0.sum())} / "
+            f"{int(v1.sum())}, {int((both & (l0 != l1)).sum())} labels differ, the first at "
+            f"{[tuple(i) for i in torch.nonzero(both & (l0 != l1))[:3].tolist()]}, boxes and "
+            f"scores of the valid slots within {(d0 - d1)[both].abs().max().item():.3g}")
     err = (d0 - d1).abs().max().item()
     if err > 1e-3:
-        raise AssertionError(f"tiny {config.__name__}: GPU and CPU boxes differ by {err}")
+        raise AssertionError(f"tiny {tiny.name}: GPU and CPU boxes differ by {err}")
     for what, a, b in zip(("masks", "mask scores"), m0, m1):  # within 1e-4
         diff = (a - b).abs()
         past = (diff > 1e-4).float().mean().item() if what == "masks" else 0.0
         err = diff.max().item()
         if (err > 1e-4 and not mask_ties) or past > mask_ties or (past and err > POINT_TIE_ERR):
-            raise AssertionError(f"tiny {config.__name__}: GPU and CPU {what} differ by {err} "
+            raise AssertionError(f"tiny {tiny.name}: GPU and CPU {what} differ by {err} "
                                  f"({past:.3g} of the values past 1e-4)")
     return int(v0.sum())
 
@@ -1016,15 +1066,16 @@ def step_report(seed: int, dtype, config, again: bool = True) -> dict:
     ``shift_invariant``: it shifts every logit of its softmax alike, so its
     gradient is 0 but for rounding (exactly 0 on the card at some blocks,
     where the CPU's moves it by 1e-10)."""
-    mc = config()
+    tiny = tiny_of(config)
+    mc = tiny.config()
     devices = {"cpu": ("cpu", dtype), "cuda": ("cuda", dtype)}
     if again:
         devices["cuda again"] = ("cuda", dtype)
     if dtype != torch.float32:
         devices["cpu float32"] = ("cpu", torch.float32)
-    dets = {k: build(mc, device=d, seed=seed, dtype=t) for k, (d, t) in devices.items()}
-    anchors, nla = dets["cpu"].anchors_for((128, 160))
-    batch, kw = tiny_train_inputs(seed, mc, anchors)
+    dets = {k: tiny.build(mc, device=d, seed=seed, dtype=t) for k, (d, t) in devices.items()}
+    anchors, nla = dets["cpu"].anchors_for(tiny.canvas)
+    batch, kw = tiny_train_inputs(seed, mc, anchors, tiny.canvas)
     sample = None if samples_in_loss(mc) else dets["cpu"].train_sample(
         batch, anchors, nla, generator=torch.Generator().manual_seed(seed))
     p0 = {k: v.detach().clone() for k, v in dets["cpu"].net.named_parameters()}
@@ -1032,7 +1083,7 @@ def step_report(seed: int, dtype, config, again: bool = True) -> dict:
     threads = torch.get_num_threads()
     for device, det in dets.items():
         torch.set_num_threads(1 if device.startswith("cpu") else threads)
-        a, n = det.anchors_for((128, 160))
+        a, n = det.anchors_for(tiny.canvas)
         step = make_train_step(det, a, n, make_optimizer(det.net.parameters(), lambda s: 0.01))
         metrics[device] = {k: float(v) for k, v in step(batch, sample, **kw).items()}
         params[device] = {k: v.detach().cpu() for k, v in det.net.named_parameters()}
@@ -1060,7 +1111,7 @@ def sample_flips(mc, seed: int, dtype, batch, kw) -> list:
     samples = {}
     for device in ("cpu", "cuda"):
         det = build(mc, device=device, seed=seed, dtype=dtype)
-        a, n = det.anchors_for((128, 160))
+        a, n = det.anchors_for(TINY_HW)
         stages = det.stage_samples(batch, a, n, roi_uniforms=kw["roi_uniforms"])
         if "mask_uniforms" in kw:  # HTC's mask branch samples each stage again
             stages += det.mask_samples(batch, a, n, roi_uniforms=kw["roi_uniforms"],
@@ -1146,7 +1197,8 @@ def wrong_k4(scale: float = 1.05, level: int = 0, dtype=BF16):
 
 def step_readings(gpu: str, seeds=tuple(range(7, 17)), dtypes=None, names=None) -> None:
     """``step_summary`` of the tiny models' steps (the flagship, the family's
-    three, Mask R-CNN, the ProbCascade) in both dtypes over ``seeds``,
+    three, Mask R-CNN, the ProbCascade, HTC, the caffe Faster R-CNN, GCNet,
+    MS R-CNN and ``TINY_ZOO``'s five) in both dtypes over ``seeds``,
     printed and not held: the readings that ``f32_step_rule`` and
     ``bf16_step_rule`` are set from (``python3 chip_smoke.py
     --step-readings [f32|bf16] [model ...]``, which picks dtypes and models
@@ -1156,16 +1208,17 @@ def step_readings(gpu: str, seeds=tuple(range(7, 17)), dtypes=None, names=None) 
     models = [(name, config) for name, config in (
         ("flagship", tiny_config), *TINY_FAMILY, ("mask_rcnn", tiny_mask_config),
         ("prob_cascade", tiny_cascade_config), ("htc", tiny_htc_config),
-        ("faster_caffe", tiny_caffe_config), ("gcnet", tiny_norms_config),
-        ("ms_rcnn", tiny_ms_config))
+        ("faster_caffe", tiny_caffe_config), ("gcnet", TINY_NORMS),
+        ("ms_rcnn", tiny_ms_config), *TINY_ZOO)
         if not names or name in names]
     dtypes = dtypes or (torch.float32, BF16)
     for name, config in models:
         for dtype in dtypes:
             for seed in seeds:
                 rep = step_report(seed, dtype, config)
-                if is_cascade(config()):
-                    rep["sample_flips"] = sample_flips(config(), seed, dtype, *rep["inputs"])
+                if is_cascade(tiny_of(config).config()):
+                    rep["sample_flips"] = sample_flips(tiny_of(config).config(), seed, dtype,
+                                                       *rep["inputs"])
                 summary = step_summary(rep)
                 if any(k.endswith(RUNNING) for k in rep["buffers"]["cpu"]):
                     summary["running_stats_of_tol"] = running_stats_share(rep)
@@ -1211,14 +1264,15 @@ def edge_report(seed: int, config) -> dict:
     sign on the other device (a ReLU that passes on one and not the
     other), the layers with the most; and, with a mask head, how many mask
     target cells differ."""
-    mc = config()
+    tiny = tiny_of(config)
+    mc = tiny.config()
     outs, targets = {}, {}
     batch = kw = sample = None
     for device in ("cpu", "cuda"):
-        det = build(mc, device=device, seed=seed)
-        anchors, nla = det.anchors_for((128, 160))
+        det = tiny.build(mc, device=device, seed=seed)
+        anchors, nla = det.anchors_for(tiny.canvas)
         if batch is None:
-            batch, kw = tiny_train_inputs(seed, mc, anchors)
+            batch, kw = tiny_train_inputs(seed, mc, anchors, tiny.canvas)
             sample = None if is_cascade(mc) else det.train_sample(
                 batch, anchors, nla, generator=torch.Generator().manual_seed(seed))
         seen, hooks = outs.setdefault(device, {}), []
@@ -1255,12 +1309,11 @@ def edge_report(seed: int, config) -> dict:
 
 
 def step_rule(rep: dict, summary: dict, config, dtype) -> list:
-    """What a tiny GPU step breaks of its dtype's rule (``f32_step_rule``
-    or ``bf16_step_rule``); an empty list where it holds."""
+    """What a tiny GPU step breaks of its dtype's rule (the model's
+    ``Tiny.f32_rule``, by default ``f32_step_rule``, or ``bf16_step_rule``);
+    an empty list where it holds."""
     if dtype == torch.float32:
-        if config is tiny_norms_config:
-            return live_bn_step_rule(rep, summary)
-        return f32_step_rule(rep, summary)
+        return (tiny_of(config).f32_rule or f32_step_rule)(rep, summary)
     return bf16_step_rule(summary, rep["metrics"], config)
 
 
@@ -1410,7 +1463,7 @@ def tiny_train_gpu_matches_cpu(seed: int, dtype=torch.float32, config=tiny_confi
     broken = step_rule(rep, summary, config, dtype)
     if broken:
         raise AssertionError(f"tiny {'f32' if dtype == torch.float32 else 'bf16'} train step "
-                             f"({config.__name__}): " + "; ".join(broken))
+                             f"({tiny_of(config).name}): " + "; ".join(broken))
     worst = summary["worst_of_f32_tol"][0][1] if dtype == torch.float32 else 0.0
     return metrics["cuda"], worst, rep["repeat"], summary
 
@@ -1458,7 +1511,7 @@ def tiny_bf16_gpu_matches_cpu(seed: int, config=tiny_config):
     errors and the match."""
     mc = config()
     rs = np.random.RandomState(seed)
-    batch = {"images": rs.randn(2, 128, 160, 3).astype(np.float32),
+    batch = {"images": rs.randn(2, *TINY_HW, 3).astype(np.float32),
              "img_shape": np.array([[128.0, 150.0], [116.0, 160.0]], np.float32),
              "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32)}
     dets = {d: build_detector(mc, device=d, seed=seed, dtype=BF16) for d in ("cpu", "cuda")}
@@ -1472,7 +1525,7 @@ def tiny_bf16_gpu_matches_cpu(seed: int, config=tiny_config):
     if not all(levels["cuda"][i].dtype == BF16 for i in range(len(errs))) or \
             max(errs) > BF16_TOL["levels"]:
         raise AssertionError(f"tiny bfloat16 levels: GPU against CPU {errs}")
-    anchors, nla = dets["cpu"].anchors_for((128, 160))
+    anchors, nla = dets["cpu"].anchors_for(TINY_HW)
     img_shape = torch.from_numpy(batch["img_shape"])
     feats, boxes, scores, valid = dets["cpu"].proposals(batch["images"], img_shape, anchors, nla)
     outs = {}
@@ -1495,10 +1548,11 @@ def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool 
     differ.  With ``flagged`` the steps run under
     ``torch.use_deterministic_algorithms``, which raises on an op that has
     no deterministic form."""
-    mc = config()
-    det = build(mc, device="cuda", seed=seed, dtype=dtype)
-    anchors, nla = det.anchors_for((128, 160))
-    batch, kw = tiny_train_inputs(seed, mc, anchors)
+    tiny = tiny_of(config)
+    mc = tiny.config()
+    det = tiny.build(mc, device="cuda", seed=seed, dtype=dtype)
+    anchors, nla = det.anchors_for(tiny.canvas)
+    batch, kw = tiny_train_inputs(seed, mc, anchors, tiny.canvas)
     sample = None if samples_in_loss(mc) else det.train_sample(
         batch, anchors, nla, generator=torch.Generator(device="cuda").manual_seed(seed))
     state = {k: v.clone() for k, v in det.net.state_dict().items()}
@@ -1621,21 +1675,25 @@ def run_steps(step, tb, what: str, steps: int = TRAIN_STEPS):
 
 def check_moved(before, det, what: str, heads=("bbox_head.",)) -> dict:
     """The frozen stem and layer1 bit-identical, every other part (the
-    unfrozen stages, the neck, the RPN and ``heads``) moved."""
+    unfrozen stages, the neck, the RPN and ``heads``) moved; for a backbone
+    without frozen stages (HRNet's) the whole backbone moved."""
+    frozen_stages = getattr(det.net.backbone, "frozen_stages", -1) >= 0
     after = dict(det.net.named_parameters())
     frozen = [k for k in before if k.startswith(("backbone.conv1.", "backbone.bn1.",
-                                                 "backbone.layer1_"))]
-    if not frozen or not all(torch.equal(before[k], after[k]) for k in frozen):
+                                                 "backbone.stem_", "backbone.layer1_"))]
+    if frozen_stages and (not frozen or not all(torch.equal(before[k], after[k])
+                                                for k in frozen)):
         raise AssertionError(f"{what}: a frozen parameter (stem or layer1) moved")
     parts = ("backbone.layer2_", "backbone.layer3_", "backbone.layer4_", "neck.", "rpn.",
-             *heads)
+             *heads) if frozen_stages else ("backbone.", "neck.", "rpn.", *heads)
     # the parts the model has (C4 has no stage 4, C4 and DC5 no neck)
     moved = {p: sum(not torch.equal(before[k], after[k]) for k in before if k.startswith(p))
              for p in parts if any(k.startswith(p) for k in before)}
     if not all(moved.values()):
         raise AssertionError(f"{what}: some part did not move in training: {moved}")
-    say(f"{what}: frozen stem and layer1: {len(frozen)} tensors bit-identical; tensors moved "
-        f"per part: {moved}")
+    say(f"{what}: " + (f"frozen stem and layer1: {len(frozen)} tensors bit-identical; "
+                       if frozen_stages else "no frozen stage; ")
+        + f"tensors moved per part: {moved}")
     return moved
 
 
@@ -2213,6 +2271,7 @@ DCN_PROFILED = "boosting_rcnn_r2_101_dcn_pafpn_mstrain_3x_coco.py"
 FAMILY_STEPS = 3  # X101's train steps: step 0 warms up, steps 1-2 are timed
 FAMILY_BATCH = 2  # the other configs' one step and predict
 OFFSET_SCALE = 0.1  # seeded offset-conv weights: 0.1 of LeCun's scale
+GATE_SCALE = 0.5  # seeded FPT GroundTrans gates
 # a tiny model's bfloat16 step on the GPU is another bfloat16 rounding of
 # the CPU's: over seeds 7-16 on an H100 (``--step-readings``, PERF.md §6)
 # a per-tensor share of the update needed up to 1.61 and the "closer than
@@ -2268,21 +2327,59 @@ def seed_offsets(det, seed: int, scale: float = OFFSET_SCALE) -> int:
     return n
 
 
+def seed_gates(det, seed: int, scale: float = GATE_SCALE) -> int:
+    """Give every FPT ``GroundTrans``'s zero-initialised ``gate`` a seeded
+    value (normal, ``scale``, drawn on the CPU, so every device gets the
+    same), or its attention would reach no output; returns how many.  No-op
+    without an FPT."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    n = 0
+    with torch.no_grad():
+        for m in det.net.modules():
+            if isinstance(m, GroundTrans):
+                m.gate.copy_((torch.randn(1, generator=gen) * scale).to(m.gate.device))
+                n += 1
+    return n
+
+
+def condition_fpt(det) -> None:
+    """An FPT's seeded weights conditioned as the CPU tests condition them
+    (tests/test_torch_necks_fpt.py::condition_fpt): each ``SelfTrans``'s
+    q/k projection 10 times sharper, each ``GroundTrans``'s ``theta`` and
+    ``wz_conv`` biases, ``wz_bn``'s bias and running mean zero.  Otherwise
+    the attention outputs are near-constant maps that the norms after them
+    normalise to their rounding, and the card's and the CPU's detections
+    part on the proposals' order."""
+    with torch.no_grad():
+        for m in det.net.modules():
+            if hasattr(m, "conv_qk"):
+                m.conv_qk.weight.mul_(10)
+            if isinstance(m, GroundTrans):
+                for t in (m.theta.bias, m.wz_conv.bias, m.wz_bn.bias, m.wz_bn.running_mean):
+                    t.zero_()
+
+
 def build(mc, device=None, seed: int = 0, dtype=torch.float32):
-    """``build_detector`` with any deformable conv's offsets seeded
-    (``seed_offsets``); a ``residual_scale`` beside the model's keys (the
-    tiny live-BN model's, ``tiny_norms_config``) scales each bottleneck's
-    last norm."""
-    mc = dict(mc)
-    scale = mc.pop("residual_scale", None)
+    """``build_detector`` with any deformable conv's offsets and any FPT
+    gate seeded (``seed_offsets``, ``seed_gates``)."""
     det = build_detector(mc, device=device, seed=seed, dtype=dtype)
     seed_offsets(det, seed)
-    if scale is not None:
-        with torch.no_grad():
-            for name, m in det.net.backbone.named_modules():
-                if name.endswith(".bn3"):
-                    m.weight.mul_(scale)
+    seed_gates(det, seed)
     return det
+
+
+def damp_residuals(det) -> None:
+    """Each residual block's last norm (a bottleneck's ``bn3``, a basic
+    block's ``bn2``; the backbone's own stem is not a block) scaled by
+    ``TINY_RESIDUAL_SCALE``: the tiny live-BN models' conditioning
+    (tests/test_torch_norm_configs.py::_damped)."""
+    with torch.no_grad():
+        for m in det.net.backbone.children():
+            for block in m.modules():
+                if hasattr(block, "conv3"):
+                    block.bn3.weight.mul_(TINY_RESIDUAL_SCALE)
+                elif hasattr(block, "conv2") and hasattr(block, "bn2"):
+                    block.bn2.weight.mul_(TINY_RESIDUAL_SCALE)
 
 
 def tiny_x101_config():
@@ -3264,10 +3361,10 @@ def dynamic_gpu_matches_cpu(seed: int = 7, steps: int = TINY_DYN_STEPS) -> list:
     equal; the threshold moved at both boundaries."""
     mc = tiny_dynamic_config()
     dets = {d: build(mc, device=d, seed=seed) for d in ("cpu", "cuda")}
-    anchors, nla = dets["cpu"].anchors_for((128, 160))
+    anchors, nla = dets["cpu"].anchors_for(TINY_HW)
     batch, _ = tiny_train_inputs(seed, mc, anchors)
     opts = {d: make_optimizer(det.net.parameters(), lambda s: 0.01) for d, det in dets.items()}
-    steps_ = {d: make_train_step(det, *det.anchors_for((128, 160)), opts[d])
+    steps_ = {d: make_train_step(det, *det.anchors_for(TINY_HW), opts[d])
               for d, det in dets.items()}
     threads = torch.get_num_threads()
     out = []
@@ -3320,7 +3417,7 @@ def fork_tiny() -> dict:
                                  ("cascade_atss", tiny_atss_config))}
     mc = tiny_atss_config()
     det = build(mc, device="cuda", seed=7)
-    anchors, nla = det.anchors_for((128, 160))
+    anchors, nla = det.anchors_for(TINY_HW)
     batch, _ = tiny_train_inputs(7, mc, anchors)
     tiny["cascade_atss"]["atss_positives"] = atss_devices_agree(det, batch, anchors.cpu(), nla)
     del det
@@ -3709,11 +3806,12 @@ def norms_phase(gpu: str) -> dict:
 
 def tiny_norms_config():
     """The main path's model as ``--tiny`` shrinks it (ResNet-50 at width 8,
-    live BN, a ContextBlock in each bottleneck of stages 2-4), each
-    bottleneck's last norm scaled by ``TINY_RESIDUAL_SCALE`` (``build``)."""
-    mc = shrink_model(load_config(NORMS_CONFIG).model.to_dict())
-    mc["residual_scale"] = TINY_RESIDUAL_SCALE
-    return mc
+    live BN, a ContextBlock in each bottleneck of stages 2-4)."""
+    return shrink_model(load_config(NORMS_CONFIG).model.to_dict())
+
+
+# its bottlenecks' last norms damped, its step held by the live-BN rule
+TINY_NORMS = Tiny(tiny_norms_config, condition=damp_residuals, f32_rule=live_bn_step_rule)
 
 
 def norms_tiny() -> dict:
@@ -3726,9 +3824,9 @@ def norms_tiny() -> dict:
     1e-6 of the largest update; the C.2 check of its step in both dtypes,
     every buffer compared."""
     t0 = time.perf_counter()
-    tiny = {"predict_detections": tiny_gpu_matches_cpu(3, tiny_norms_config)}
+    tiny = {"predict_detections": tiny_gpu_matches_cpu(3, TINY_NORMS)}
     walls = {"predict": time.perf_counter() - t0}
-    rep = step_report(7, torch.float32, tiny_norms_config, again=False)  # C.2 holds the repeat
+    rep = step_report(7, torch.float32, TINY_NORMS, again=False)  # C.2 holds the repeat
     walls["f32 step"] = time.perf_counter() - t0 - walls["predict"]
     largest = max(v[1] for v in rep["tensors"].values())
     broken = [f"{k}: card and CPU differ by {v[0]:.3g}"
@@ -3754,7 +3852,7 @@ def norms_tiny() -> dict:
         f"{worst:.3g} times 1e-6 + rtol 1e-4 of the CPU's: {json.dumps(tiny)}")
     out = {"tiny": tiny, "repeat": {}}
     for dtype in (torch.float32, BF16):
-        out["repeat"].update(c2_check("gcnet", tiny_norms_config, dtype))
+        out["repeat"].update(c2_check("gcnet", TINY_NORMS, dtype))
     walls["C.2"] = time.perf_counter() - t0 - sum(walls.values())
     tiny["walls_s"] = walls
     say(f"tiny GCNet checks' walls (s): {walls}")
@@ -4109,7 +4207,8 @@ def mask_side(det) -> int:
 
 
 def run_c4pr(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
-             check: bool = False, timed: bool = False) -> dict:
+             check: bool = False, timed: bool = False, canvas=CANVAS,
+             img_shape=IMG_SHAPE) -> dict:
     """The config at ``path`` (C4 Mask R-CNN, PointRend or DC5 Faster R-CNN)
     at full width in ``dtype`` with seeded random weights: ``n_requests``
     requests of two 800 x 1344 images through ``predict`` (K1 once a
@@ -4124,7 +4223,12 @@ def run_c4pr(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
     proposals, the detections' mask RoIs, the train slots and the step's
     own mask cotangent, and the train sample's time on the host (the train
     proposals' NMS); with ``timed`` the kernels' times at the train slots
-    and K4's RoIs per tile."""
+    and K4's RoIs per tile, and at 14 x 14 (C4's box pool) at the predict
+    proposals too.  ``canvas`` / ``img_shape`` replace the 800 x 1344 canvas.
+    A backbone without frozen stages must move whole (``check_moved``); of
+    a PISA head each step's ISR-P weights are finite and keep the
+    positives' classification-loss sum within ``ISR_SUM_RTOL``, and
+    ``loss_carl`` is finite and positive (``isr_checks``)."""
     name = os.path.relpath(path, os.path.join(REPO, "configs"))
     tag = ("f32 " if dtype == torch.float32 else "bf16 ") + name[:-3]
     sfx = "" if dtype == torch.float32 else "_bf16"
@@ -4138,8 +4242,8 @@ def run_c4pr(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
     strides = net.roi_strides
     r = {"build_s": time.perf_counter() - t0, "route_levels": len(strides),
          "mask_on_shared": net.mask_on_shared}
-    anchors, nla = det.anchors_for(CANVAS)
-    batches = list(requests(seed=43))[:n_requests]
+    anchors, nla = det.anchors_for(canvas)
+    batches = list(requests(43, canvas, img_shape))[:n_requests]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -4163,7 +4267,8 @@ def run_c4pr(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
         raise AssertionError(f"the {tag} predict path ran {ran(counts)}, not {want}")
     r["predict_first_ms"] = predict_ms[0]
     r["predict_ms"] = float(np.mean(predict_ms[1:] or predict_ms))
-    r["detections"] = [check_dets(*x[:3], num_classes=det.bbox_cfg.num_classes) for x in results]
+    r["detections"] = [check_dets(*x[:3], num_classes=det.bbox_cfg.num_classes,
+                                  img_shape=img_shape) for x in results]
     if masks:
         r["mask_side"] = mask_side(det)
         check_masks(results[0][3], 100, r["mask_side"])
@@ -4172,18 +4277,24 @@ def run_c4pr(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
         feats, boxes, scores, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
         route = list(feats[:len(strides)])
         r["box_predict"] = level_kernels(route, boxes, valid, strides, box, dtype, 48,
-                                         f"{tag} box predict shapes", gpu)
+                                         f"{tag} box predict shapes", gpu,
+                                         timed=timed and box == 14)
         if masks:
             dets, _, dvalid = det.roi_predict(feats, boxes, scores, valid, x["img_shape"],
                                               x["scale_factor"])
             mrois = (dets[..., :4] * x["scale_factor"][:, None, :]).contiguous()
+            what = f"{tag} mask predict shapes"
+            if not dvalid.any():  # a random model without a detection: its proposals' boxes
+                n = dets.shape[1]
+                mrois, dvalid = boxes[:, :n].contiguous(), valid[:, :n]
+                what += " (no detection: the first proposals)"
             r["mask_predict"] = level_kernels(route, mrois, dvalid, strides, msz, dtype, 49,
-                                              f"{tag} mask predict shapes", gpu)
+                                              what, gpu)
             del dets, dvalid, mrois
         del feats, boxes, scores, valid, route
     del results
     make_batch = mask_train_batch if masks else train_batch
-    tb = make_batch(9, FAMILY_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE,
+    tb = make_batch(9, FAMILY_BATCH, canvas, img_shape, GT_PER_IMAGE,
                     num_classes=det.bbox_cfg.num_classes)
     step, tb, sample0 = train_setup(det, anchors, nla, path, tb)
     if check:
@@ -4193,9 +4304,11 @@ def run_c4pr(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1,
             f"{det.train_proposal_cfg.nms_pre} over {anchors.shape[0]} anchors, sampling) "
             f"{r['train_sample_ms']:.1f} ms on the host's clock ({gpu})")
     before = {k: v.detach().clone() for k, v in net.named_parameters()}
-    with mask_cotangents(net, msz) as seen:
+    with mask_cotangents(net, msz) as seen, isr_watch() as isr:
         metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train", n_steps)
     r["train_counts"] = counts
+    if det.roi_cfg.isr is not None:
+        r["isr"] = isr_checks(isr, metrics, n_steps, tag)
     want = {}
     for size in (box, msz) if masks else (box,):
         for kernel in ("roi_align_fwd", "roi_align_bwd", "roi_tile_keys"):
@@ -4335,6 +4448,263 @@ def c4_pointrend_tiny() -> dict:
             out["repeat"].update(c2_check(name, config, dtype))
     tiny["wall_s"] = time.perf_counter() - t0
     return out
+
+
+# --------------------------------------------------- pisa + zoo backbones
+PISA_PROB_CONFIG = os.path.join(REPO, "configs/pisa/pisa_prob_faster_rcnn_r50_fpn_1x_coco.py")
+REGNET_CONFIG = os.path.join(REPO, "configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py")
+FPT_CONFIG = os.path.join(REPO, "configs/fpt/faster_rcnn_r50_fpt_1x_coco.py")
+HRNET_CONFIG = os.path.join(REPO, "configs/hrnet/faster_rcnn_hrnetv2p_w32_1x_coco.py")
+RESNEST_CONFIG = os.path.join(
+    REPO, "configs/resnest/mask_rcnn_s50_fpn_syncbn-backbone+head_mstrain_1x_coco.py")
+# the phase's bfloat16 configs, one predict and one step each
+ZOO_BF16 = {
+    "pisa_mask_rcnn": "configs/pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py",
+    "sppfpn": "configs/faster_rcnn/faster_rcnn_r50_sppfpn_1x_coco.py",
+    "fpt": "configs/fpt/faster_rcnn_r50_fpt_1x_coco.py",
+    "fpt_lite": "configs/fpt/faster_rcnn_r50_fptlite_1x_coco.py",
+    "pafpn": "configs/pafpn/faster_rcnn_r50_pafpn_1x_coco.py",
+    "resnest_mask_rcnn": "configs/resnest/mask_rcnn_s50_fpn_syncbn-backbone+head_mstrain_1x_coco.py",
+    "hrnet_w32": "configs/hrnet/faster_rcnn_hrnetv2p_w32_1x_coco.py",
+}
+ZOO_STEPS = 3  # the PISA-prob and RegNet train steps: step 0 warms up, steps 1-2 are timed
+# HRFPN pools its last level to floor(800 / 64) = 12 rows where the anchors
+# take ceil: the JAX loss fails to broadcast there, and so does the port's
+# (named); 768 x 1344, the nearest canvas that 64 divides, trains
+HRNET_CANVAS = (768, 1344)
+HRNET_IMG_SHAPE = (768.0, 1333.0)
+ISR_SUM_RTOL = 1e-5  # ISR-P keeps the positives' cross-entropy sum
+HRNET_TENSOR_TOL = 40.0  # the tiny HRNet's f32 per-tensor bound (hrnet_step_rule)
+RESNEST_TENSOR_TOL = 10.0  # the tiny ResNeSt's (resnest_step_rule)
+# the tiny FPT's predict on the card against the CPU: its boxes within (read
+# 4.0e-4-1.1e-3 px over seeds 3-8 on an NVIDIA H100 80GB HBM3 at 700 W)
+REORDER_BOX_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def isr_watch():
+    """Record, at each call of ``prob_roi_loss``'s ISR-P, whether its
+    weights are finite, the positives' cross-entropy sum before and after
+    (float64 sums on the card), and the positives' count; yields the list
+    of those 4-vectors (tensors on the card, read after the steps)."""
+    seen, orig = [], prob_roi_head.isr_p_weights
+
+    def watched(labels, gt_ids, ious, label_weights, pos_mask, pos_loss_cls, k=2.0, bias=0.0):
+        w = orig(labels, gt_ids, ious, label_weights, pos_mask, pos_loss_cls, k=k, bias=bias)
+        posf, loss = pos_mask.double(), pos_loss_cls.detach().double()
+        seen.append(torch.stack([torch.isfinite(w).all().double(),
+                                 (loss * label_weights.double() * posf).sum(),
+                                 (loss * w.detach().double() * posf).sum(), posf.sum()]))
+        return w
+
+    prob_roi_head.isr_p_weights = watched
+    try:
+        yield seen
+    finally:
+        prob_roi_head.isr_p_weights = orig
+
+
+def isr_checks(seen, metrics, n_steps: int, tag: str) -> dict:
+    """Each of the ``n_steps`` steps called ISR-P once, its weights finite,
+    the positives' cross-entropy sum kept within ``ISR_SUM_RTOL``, positives
+    present; each step's ``loss_carl`` finite and positive."""
+    vals = [v.tolist() for v in seen]
+    if len(vals) != n_steps:
+        raise AssertionError(f"{tag}: ISR-P ran {len(vals)} times in {n_steps} steps")
+    errs = []
+    for i, (finite, before, after, n_pos) in enumerate(vals):
+        err = abs(after - before) / max(abs(before), 1e-30)
+        errs.append(err)
+        if not (finite == 1.0 and n_pos > 0 and err <= ISR_SUM_RTOL):
+            raise AssertionError(f"{tag} step {i}: ISR-P weights finite {bool(finite)}, "
+                                 f"{n_pos:.0f} positives, their cross-entropy sum {before} -> "
+                                 f"{after} ({err:.3g} relative)")
+    carl = [m["loss_carl"] for m in metrics]
+    if not all(math.isfinite(c) and c > 0 for c in carl):
+        raise AssertionError(f"{tag}: loss_carl not finite and positive: {carl}")
+    say(f"{tag}: ISR-P in each step: weights finite, {[int(v[3]) for v in vals]} positives, their "
+        f"cross-entropy sum kept within {max(errs):.3g} (<= {ISR_SUM_RTOL}); loss_carl {carl}")
+    return {"positives": [int(v[3]) for v in vals], "sum_rel_err": max(errs), "loss_carl": carl}
+
+
+def pisa_backbones_phase(gpu: str) -> dict:
+    """The phase "pisa + backbones" at full width: the fork's PISA-prob
+    Faster R-CNN (ATSS RPN, ``ProbPISARoIHead``, ISR-P and CARL, the box
+    path at 7) and the RegNetX-3.2GF Mask R-CNN (grouped convs, 7 and 14)
+    in float32 and bfloat16, ``REQUESTS`` requests and ``ZOO_STEPS`` steps;
+    then in bfloat16 one request and one step each of ``ZOO_BF16`` (PISA
+    Mask R-CNN, SPPFPN, FPT and FPT_lite with their peaks, PAFPN with its
+    extra levels by max pool, ResNeSt-50 Mask R-CNN with live BN, HRNet-W32
+    Faster R-CNN on ``HRNET_CANVAS``); every path's launches exact and K1
+    and K4 held against their plain versions on its levels, RoIs and
+    cotangents; each PISA step's ISR-P and CARL checked (``isr_checks``).
+    Its tiny checks are ``pisa_backbones_tiny``'s."""
+    t0 = time.perf_counter()
+    out = {"pisa_prob": {d: run_c4pr(PISA_PROB_CONFIG, d, gpu, REQUESTS, ZOO_STEPS, check=True)
+                         for d in (torch.float32, BF16)},
+           "regnet": {d: run_c4pr(REGNET_CONFIG, d, gpu, REQUESTS, ZOO_STEPS, check=True)
+                      for d in (torch.float32, BF16)},
+           "bf16": {}}
+    for name, path in ZOO_BF16.items():
+        kw = {}
+        if name.startswith("hrnet"):
+            kw.update(canvas=HRNET_CANVAS, img_shape=HRNET_IMG_SHAPE)
+        r = out["bf16"][name] = run_c4pr(os.path.join(REPO, path), BF16, gpu, check=True, **kw)
+        if name.startswith("fpt"):
+            say(f"{name} bf16 at 800 x 1344, batch 2 ({gpu}): peak {r['predict_peak']:.2f} GiB "
+                f"in predict, {r['train_peak']:.2f} GiB in the train step (of 80)")
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase pisa + backbones: {out['wall_s']:.1f} s")
+    return out
+
+
+def _tiny_two_stage(mc, in_channels, mask: bool = False):
+    """The tiny heads of the CPU tests on a config whose backbone gives
+    ``in_channels``: neck and RPN 32, FC 16 (and mask convs 16), 4 classes,
+    the detectors harness's proposal and sample counts."""
+    mc["neck"].update(in_channels=in_channels, out_channels=32)
+    mc["rpn_head"].update(in_channels=32, feat_channels=32)
+    if mc["rpn_head"]["type"] == "ATSSRPNHead":
+        mc["rpn_head"]["stacked_convs"] = 2
+    roi = mc["roi_head"]
+    roi["bbox_roi_extractor"]["out_channels"] = 32
+    roi["bbox_head"].update(in_channels=32, fc_out_channels=16, num_classes=4)
+    if mask:
+        roi["mask_roi_extractor"]["out_channels"] = 32
+        roi["mask_head"].update(in_channels=32, conv_out_channels=16, num_classes=4)
+    mc["train_cfg"]["rpn_proposal"].update(nms_pre=200, max_per_img=64)
+    mc["train_cfg"]["rcnn"]["sampler"]["num"] = 32
+    mc["test_cfg"]["rpn"].update(nms_pre=100, max_per_img=32)
+    return mc
+
+
+def tiny_pisa_prob_config():
+    """The fork's PISA-prob model at the CPU tests' size (ResNet-18 at width
+    8; tests/test_torch_pisa.py)."""
+    mc = load_config(PISA_PROB_CONFIG).model.to_dict()
+    mc["backbone"].update(depth=18, base_channels=8)
+    return _tiny_two_stage(mc, [8, 16, 32, 64])
+
+
+def tiny_regnet_config():
+    """The RegNet Mask R-CNN on RegNetX-400MF (tests/test_torch_zoo_backbones.py)."""
+    mc = load_config(REGNET_CONFIG).model.to_dict()
+    mc["backbone"]["arch"] = "regnetx_400mf"
+    return _tiny_two_stage(mc, [32, 64, 160, 384], mask=True)
+
+
+def tiny_resnest_config():
+    """The ResNeSt-50 Mask R-CNN at a 16-channel stem and width 8, live BN
+    (tests/test_torch_zoo_backbones.py)."""
+    mc = load_config(RESNEST_CONFIG).model.to_dict()
+    mc["backbone"].update(stem_channels=16, base_channels=8)
+    return _tiny_two_stage(mc, [32, 64, 128, 256], mask=True)
+
+
+def tiny_fpt_config():
+    """The FPT Faster R-CNN on ResNet-18 at width 8 (FPT width 4)."""
+    mc = load_config(FPT_CONFIG).model.to_dict()
+    mc["backbone"].update(depth=18, base_channels=8)
+    return _tiny_two_stage(mc, [8, 16, 32, 64])
+
+
+def tiny_hrnet_config():
+    """The HRNet Faster R-CNN on HRNet-W18."""
+    mc = load_config(HRNET_CONFIG).model.to_dict()
+    mc["backbone"]["arch"] = "w18"
+    return _tiny_two_stage(mc, [18, 36, 72, 144])
+
+
+# the split attention's live BN over its pooled map, at the tiny batch of 2
+# two values a channel: its scale damped as the CPU tests damp it
+# (tests/test_torch_zoo_backbones.py::SPLAT_SCALE, where the readings are)
+SPLAT_SCALE = 1e-3
+
+
+def condition_resnest(det) -> None:
+    """``damp_residuals``, and each split attention's ``bn1`` scale times
+    ``SPLAT_SCALE``."""
+    damp_residuals(det)
+    with torch.no_grad():
+        for name, m in det.net.backbone.named_modules():
+            if name.endswith("conv2.bn1"):
+                m.weight.mul_(SPLAT_SCALE)
+
+
+def condition_hrnet(det) -> None:
+    """``damp_residuals``, and the RPN's and the box head's regression
+    weights times 0.1: random blocks that add as much as their shortcut
+    grow HRNet's activations through its fusions (its losses 1e2-1e3), and
+    random deltas of a few box sizes turn its rounding into boxes 2-5e-3 px
+    apart (the CPU tests damp both alike, tests/test_torch_zoo_hrnet.py)."""
+    damp_residuals(det)
+    with torch.no_grad():
+        for w in (det.net.rpn.rpn_reg.weight, det.net.bbox_head.fc_reg.weight):
+            w.mul_(0.1)
+
+
+def resnest_step_rule(rep: dict, summary: dict) -> list:
+    """``f32_step_rule`` at ``RESNEST_TENSOR_TOL``.  The tiny ResNeSt's f32
+    step on the card (its pooled-map BN damped, ``condition_resnest``) read
+    over seeds 7-16 (``--step-readings f32 resnest``; an NVIDIA H100 80GB
+    HBM3 at 700 W): the losses within 7.3e-7 of the CPU's, the gradient norm
+    within 2.2e-7, the median tensor within 5.6e-6 of its update and each
+    tensor within 0.86-4.70 times the per-tensor bound, the worst always a
+    split attention's ``bn1`` scale (its gradient comes through that BN of
+    two values a channel), at 9 seeds; at seed 9 one block sits at a float32
+    edge (189 times, the median 6.8e-3), as seeds 1 and 3 of the CPU test
+    do.  Level 0's K4 gradient x 1.05 read 53.6 times the bound, a median
+    of 0.039 and the gradient norm 6.6e-3 apart."""
+    return f32_step_rule(rep, summary, tensor_tol=RESNEST_TENSOR_TOL)
+
+
+def hrnet_step_rule(rep: dict, summary: dict) -> list:
+    """``f32_step_rule`` at ``HRNET_TENSOR_TOL``: HRNet-W18's ~70 layers
+    and 8 fusion modules read 0.73-18.0 times the per-tensor bound over
+    seeds 7-12 (medians up to 1.8e-4 of the update, the gradient norm
+    within 4.2e-5; an NVIDIA H100 80GB HBM3 at 700 W), past
+    ``F32_TENSOR_TOL`` at 4 of 6 seeds."""
+    return f32_step_rule(rep, summary, tensor_tol=HRNET_TENSOR_TOL)
+
+
+TINY_ZOO = (("pisa_prob", Tiny(tiny_pisa_prob_config)),
+            ("regnet", Tiny(tiny_regnet_config)),
+            ("resnest", Tiny(tiny_resnest_config, condition_resnest,
+                             f32_rule=resnest_step_rule)),
+            # its f32 step over seeds 7-16 (the H100 above): the gradient
+            # norm within 5.3e-4, the median within 2.2e-3 of its update,
+            # each tensor within 22.2 times the bound; level 0's K4 gradient
+            # x 1.05 read the gradient norm 4.2% apart and a median of 0.044
+            ("fpt", Tiny(tiny_fpt_config, condition_fpt, f32_rule=live_bn_step_rule,
+                         predict_reorders=True)),
+            # HRFPN's levels need a canvas that 64 divides
+            ("hrnet", Tiny(tiny_hrnet_config, condition_hrnet, canvas=(128, 192),
+                           f32_rule=hrnet_step_rule)))
+
+
+def pisa_backbones_tiny() -> dict:
+    """The phase "pisa + backbones"'s checks without timings: each tiny
+    model's ``predict`` on the card against the CPU; the PISA-prob and
+    RegNet models' float32 steps by ``f32_step_rule`` and bfloat16 steps by
+    the bfloat16 rule; the ResNeSt model's float32 step by
+    ``resnest_step_rule``, the FPT model's (live BN) by
+    ``live_bn_step_rule``, the HRNet model's by ``hrnet_step_rule`` on a 128
+    x 192 canvas; the C.2 check of each model's step in both dtypes."""
+    t0 = time.perf_counter()
+    tiny, repeat = {}, {}
+    for name, config in TINY_ZOO:
+        tiny[name] = {"predict_detections": tiny_gpu_matches_cpu(3, config)}
+        dtypes = (torch.float32, BF16) if name in ("pisa_prob", "regnet") else (torch.float32,)
+        for dtype in dtypes:
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            m, worst, _, summary = tiny_train_gpu_matches_cpu(7, dtype, config)
+            tiny[name][tag] = {"loss": m["loss"], "worst_of_tolerance": worst, **summary}
+        for dtype in (torch.float32, BF16):
+            repeat.update(c2_check(name, config, dtype))
+        say(f"tiny {name}: GPU predict matches CPU predict, its steps hold their rules: "
+            f"{json.dumps(tiny[name])}")
+    tiny["wall_s"] = time.perf_counter() - t0
+    return {"tiny": tiny, "repeat": repeat}
 
 
 # ------------------------------------------------------------ entry points
@@ -4886,10 +5256,11 @@ def main(argv) -> int:
     e2e_child = argv[1:] if argv[:1] == ["--e2e-child"] and len(argv) == 4 else None
     if readings is None and e2e_child is None and argv not in (
             [], ["--cascade"], ["--htc"], ["--mask-entry"], ["--fork-heads"], ["--tta-caffe"],
-            ["--norms-plugins"], ["--heads-scoring"], ["--c4-pointrend"]):
+            ["--norms-plugins"], ["--heads-scoring"], ["--c4-pointrend"],
+            ["--pisa-backbones"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
               "--cascade | --htc | --mask-entry | --fork-heads | --tta-caffe | --norms-plugins "
-              "| --heads-scoring | --c4-pointrend]", file=sys.stderr)
+              "| --heads-scoring | --c4-pointrend | --pisa-backbones]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4948,6 +5319,10 @@ def main(argv) -> int:
     if argv == ["--c4-pointrend"]:
         c4_pointrend_phase(gpu)
         c4_pointrend_tiny()
+        return 0
+    if argv == ["--pisa-backbones"]:
+        pisa_backbones_phase(gpu)
+        pisa_backbones_tiny()
         return 0
     if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
         mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
@@ -5017,6 +5392,10 @@ def main(argv) -> int:
     # -------------------------------------------------------- c4 + pointrend
     c4pr = c4_pointrend_phase(gpu)
     phase_done("c4 + pointrend")
+
+    # ------------------------------------------------------ pisa + backbones
+    pbb = pisa_backbones_phase(gpu)
+    phase_done("pisa + backbones")
 
 
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
@@ -5115,6 +5494,7 @@ def main(argv) -> int:
         norms.update(norms_tiny())
         heads.update(heads_tiny())
         c4pr.update(c4_pointrend_tiny())
+        pbb.update(pisa_backbones_tiny())
 
         # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
         repeat_report = {}
@@ -5129,6 +5509,7 @@ def main(argv) -> int:
         repeat_report.update(norms["repeat"])
         repeat_report.update(heads["repeat"])
         repeat_report.update(c4pr["repeat"])
+        repeat_report.update(pbb["repeat"])
         phase_done("tiny models and C.2, beside the e2e trainings")
         torch.set_num_threads(threads)
         e2e[BF16] = finish_e2e(*children[0])
@@ -5232,6 +5613,11 @@ def main(argv) -> int:
                for model in ("c4", "point_rend") for d, r in c4pr[model].items()},
             "dc5_bf16": c4pr_summary(c4pr["dc5"]),
             "tiny": c4pr["tiny"], "wall_s": c4pr["wall_s"]},
+        "pisa_backbones": {
+            **{f"{model}_{'f32' if d == torch.float32 else 'bf16'}": c4pr_summary(r)
+               for model in ("pisa_prob", "regnet") for d, r in pbb[model].items()},
+            "bf16_configs": {n: c4pr_summary(r) for n, r in pbb["bf16"].items()},
+            "tiny": pbb["tiny"], "wall_s": pbb["wall_s"]},
         "mask_entry": mask_entry,
         "phase_walls_s": walls,
         "wall_s": time.perf_counter() - t_start}))
@@ -5282,7 +5668,12 @@ def main(argv) -> int:
         (f"{model}_{part}", {k: sum(r[f"{part}_counts"][k] for r in c4pr[model].values())
                              for k in counters()})
         for model in ("c4", "point_rend") for part in ("predict", "train")] + [
-        (f"dc5_{part}", c4pr["dc5"][f"{part}_counts"]) for part in ("predict", "train")]
+        (f"dc5_{part}", c4pr["dc5"][f"{part}_counts"]) for part in ("predict", "train")] + [
+        (f"{model}_{part}", {k: sum(r[f"{part}_counts"][k] for r in pbb[model].values())
+                             for k in counters()})
+        for model in ("pisa_prob", "regnet") for part in ("predict", "train")] + [
+        (f"zoo_bf16_{name}_{part}", r[f"{part}_counts"])
+        for name, r in pbb["bf16"].items() for part in ("predict", "train")]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
                + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}
@@ -5328,7 +5719,10 @@ def main(argv) -> int:
     c4pr_shapes = {}
     for model, d, run in [("c4", d, r) for d, r in c4pr["c4"].items()] + [
             ("point_rend", d, r) for d, r in c4pr["point_rend"].items()] + [
-            ("dc5", BF16, c4pr["dc5"])]:
+            ("dc5", BF16, c4pr["dc5"])] + [
+            (model, d, r) for model in ("pisa_prob", "regnet")
+            for d, r in pbb[model].items()] + [
+            (name, BF16, r) for name, r in pbb["bf16"].items()]:
         sfx = "" if d == torch.float32 else "_bf16"
         box, msz = 14 if model == "c4" else 7, 14
         for key, size in (("box_predict", box), ("box_train", box), ("mask_predict", msz),
@@ -5346,7 +5740,8 @@ def main(argv) -> int:
                         "levels": run[key]["levels"], "call_ms": t["call"],
                         "kernel_ms": t["kernel"], "plain_ms": t["plain"],
                         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-                        **({"tile_spread": run[key]["spread"]} if part == "bwd" else {})}
+                        **({"tile_spread": run[key]["spread"]}
+                           if part == "bwd" and "spread" in run[key] else {})}
     for record in records:
         if record["name"] in c4pr_shapes:
             record["one_level_shapes"] = c4pr_shapes[record["name"]]

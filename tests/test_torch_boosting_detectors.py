@@ -96,9 +96,9 @@ def _random_variables(shapes, rs):
         lambda p, s: np.asarray(leaf(p, s), np.float32), shapes)
 
 
-def _batch(rs, num_classes):
+def _batch(rs, num_classes, canvas=CANVAS):
     """Two images with 6 gt slots each, boxes of sides 12-70 px inside the
-    valid shape (the second image's last slot padded)."""
+    valid shape (the second image's last slot padded), on ``canvas``."""
     img_shape = np.array([[128.0, 150.0], [116.0, 160.0]], np.float32)
     gts = np.zeros((2, 6, 4), np.float32)
     for i, (h, w) in enumerate(img_shape):
@@ -109,7 +109,7 @@ def _batch(rs, num_classes):
     gt_mask[1, 5] = False
     gts[1, 5] = 0.0
     return {
-        "images": (rs.rand(2, *CANVAS, 3) * 2.0 - 1.0).astype(np.float32),
+        "images": (rs.rand(2, *canvas, 3) * 2.0 - 1.0).astype(np.float32),
         "img_shape": img_shape,
         "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32),
         "gt_bboxes": gts,
@@ -118,38 +118,40 @@ def _batch(rs, num_classes):
     }
 
 
-def _rpn_uniforms(rng, num_anchors):
-    """The uniforms of JAX's plain ``rpn_loss`` under ``loss(..., rng)``
-    (``tests/test_torch_mask_rcnn.py``)."""
+def _rpn_uniforms(rng, num_anchors, images: int = 2):
+    """The uniforms of JAX's plain ``rpn_loss`` under ``loss(..., rng)`` for
+    a batch of ``images`` (``tests/test_torch_mask_rcnn.py``)."""
     rpn_rng, _ = jax.random.split(rng)
     out = []
-    for key in jax.random.split(rpn_rng, 2):
+    for key in jax.random.split(rpn_rng, images):
         kp, kn = jax.random.split(key)
         out.append([np.asarray(jax.random.uniform(k, (num_anchors,))) for k in (kp, kn)])
     return np.asarray(out, np.float32)
 
 
-def run_pair(make_cfg, seed: int = 0):
+def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1):
     """Both packages on ``make_cfg(load_config(...))``'s model (the JAX
     package's and the port's config readers each read the file) through
     predict, the loss, its gradients and two train steps on the same
-    weights, batch, samples and RPN draws, drawn from ``seed``."""
+    weights, batch, samples and RPN draws, drawn from ``seed``, on
+    ``canvas``; the JAX optimizer masks the parameters of the backbone's
+    ``frozen_stages``."""
     mc = make_cfg(jax_load_config)
     num_classes = mc["roi_head"]["bbox_head"]["num_classes"]
     jdet = jax_build(mc, dtype=jnp.float32)
-    shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), CANVAS))
+    shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), canvas))
     rs = np.random.RandomState(seed)
     variables = _random_variables(shapes, rs)
-    batch = _batch(rs, num_classes)
+    batch = _batch(rs, num_classes, canvas)
     jv = jax.tree.map(jnp.asarray, variables)
     jb = jax.tree.map(jnp.asarray, batch)
-    anchors, nla = jdet.anchors_for(CANVAS)
+    anchors, nla = jdet.anchors_for(canvas)
     rng = jax.random.PRNGKey(3)
 
     tdet, tdet_train = (build_detector(make_cfg(load_config), device="cpu") for _ in range(2))
     for det in (tdet, tdet_train):
         det.net.load_state_dict(from_jax_params(variables), strict=True)
-    t_anchors, t_nla = tdet.anchors_for(CANVAS)
+    t_anchors, t_nla = tdet.anchors_for(canvas)
     assert t_nla == nla
     plain_rpn = tdet.rpn_type == "rpn"
     n_anchors = anchors.shape[0]
@@ -178,7 +180,7 @@ def run_pair(make_cfg, seed: int = 0):
 
     kw = dict(decay_epochs=(1,), warmup_iters=2, warmup_ratio=0.5)  # lr 0.01, then 0.0015
     j_sched, t_sched = (m.step_lr_schedule(0.02, 1, **kw) for m in (j_train, t_train))
-    tx = j_train.make_optimizer(j_sched, params=jv["params"], frozen_stages=1)
+    tx = j_train.make_optimizer(j_sched, params=jv["params"], frozen_stages=frozen_stages)
     state = j_train.create_train_state(jv, tx)
     j_step = jax.jit(j_train.make_train_step(jdet, anchors, nla, proposal_mode="external"))
     t_step = t_train.make_train_step(
@@ -194,7 +196,8 @@ def run_pair(make_cfg, seed: int = 0):
         steps.append((from_jax_params(jax.tree.map(np.asarray, state.params)),
                       {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()},
                       j_metrics, t_metrics))
-    return dict(jdet=jdet, tdet=tdet, batch=batch, j_pred=j_pred, t_pred=t_pred,
+    return dict(jdet=jdet, tdet=tdet, batch=batch, variables=variables, j_pred=j_pred,
+                t_pred=t_pred,
                 sample0=sample0, j_losses=j_losses, t_losses=t_losses,
                 j_grads=from_jax_params(jax.tree.map(np.asarray, j_grads)), t_grads=t_grads,
                 p0=p0, steps=steps)
@@ -229,14 +232,18 @@ def check_losses(run, names):
     assert np.asarray(run["sample0"].is_pos).sum() > 4
 
 
-def check_gradients(run):
+def check_gradients(run, frozen_names=FROZEN):
+    """Every gradient within the harness's tolerance; the parameters whose
+    names start with ``frozen_names`` (the frozen stages) get none in the
+    port and zeros in the JAX package, and there is at least one unless
+    ``frozen_names`` is empty."""
     t_grads, j_grads = run["t_grads"], run["j_grads"]
     assert set(t_grads) == set(j_grads)
     g_max = max(g.abs().max().item() for g in j_grads.values())
     frozen = 0
     for name, ref in j_grads.items():
         got = t_grads[name]
-        if name.startswith(FROZEN):
+        if frozen_names and name.startswith(frozen_names):
             frozen += 1
             assert got is None, name
             assert not ref.any(), name
@@ -245,10 +252,10 @@ def check_gradients(run):
         np.testing.assert_allclose(got.numpy(), ref.reshape(got.shape).numpy(), rtol=0,
                                    atol=1e-3 * ref.abs().max().item() + 1e-6 * g_max,
                                    err_msg=name)
-    assert frozen > 0
+    assert frozen > 0 or not frozen_names
 
 
-def check_step(run, step, names, min_moved: int = 50):
+def check_step(run, step, names, min_moved: int = 50, frozen_names=FROZEN):
     j_params, t_params, j_metrics, t_metrics = run["steps"][step]
     for k in ("loss", "grad_norm", *names):
         np.testing.assert_allclose(float(t_metrics[k]), float(j_metrics[k]), rtol=1e-4,
@@ -257,7 +264,7 @@ def check_step(run, step, names, min_moved: int = 50):
     for name, ref in j_params.items():
         got, p0 = t_params[name], run["p0"][name]
         ref = ref.reshape(got.shape)
-        if name.startswith(FROZEN):
+        if frozen_names and name.startswith(frozen_names):
             assert torch.equal(got, p0) and torch.equal(ref, p0), name
             continue
         delta = (ref - p0).abs().max().item()

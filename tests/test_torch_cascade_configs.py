@@ -3,11 +3,12 @@ width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
 ones and the Cascade Mask R-CNN ones on the ported backbones build
-(``BUILDS``, 22 + 35 files, the ensemble configs' ATSS and RetinaNet-style
-RPNs, the caffe-style ResNets and the Seesaw loss among them; files with the same model,
-such as a 1x and a 20e schedule, are built once); every other one raises
-``NotImplementedError`` naming what is missing (``_reason``): DetectoRS,
-HRNet, RegNet, ResNeSt and SABL heads.  Each built one is
+(``BUILDS``, 27 + 45 files, the ensemble configs' ATSS and RetinaNet-style
+RPNs, the caffe-style ResNets, the Seesaw loss and
+HRNet, RegNet and ResNeSt among them; files with the same model, such as
+a 1x and a 20e schedule, are built once); every other one raises
+``NotImplementedError`` naming what is missing (``_reason``): DetectoRS and
+SABL heads.  Each built one is
 checked against its config: one class-agnostic stage head per stage, the
 IoU ladder, the stage loss weights, boosting and fusion for
 ``ProbCascadeRoIHead`` only, the ensemble configs' RPN (its type, ATSS
@@ -89,6 +90,16 @@ BUILDS = {
         "random_seesaw_loss_mstrain", "random_seesaw_loss_normed_mask_mstrain",
         "sample1e-3_seesaw_loss_mstrain", "sample1e-3_seesaw_loss_normed_mask_mstrain",
         "seesaw_loss_random")),
+    # the zoo's backbones: HRNet with HRFPN, RegNet, ResNeSt
+    *(f"hrnet/cascade_{kind}_hrnetv2p_{w}_20e_coco.py" for kind in ("rcnn", "mask_rcnn")
+      for w in ("w18", "w32", "w40")),
+    *(f"regnet/cascade_mask_rcnn_regnetx-{a}_fpn_mstrain_3x_coco.py"
+      for a in ("400MF", "800MF", "1.6GF", "3.2GF", "4GF")),
+    *(f"resnest/cascade_{m}.py" for m in (
+        "rcnn_s50_fpn_syncbn-backbone+head_mstrain-range_1x_coco",
+        "rcnn_s101_fpn_syncbn-backbone+head_mstrain-range_1x_coco",
+        "mask_rcnn_s50_fpn_syncbn-backbone+head_mstrain_1x_coco",
+        "mask_rcnn_s101_fpn_syncbn-backbone+head_mstrain_1x_coco")),
 }
 
 
@@ -99,9 +110,7 @@ def _names():
 
 def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
-    for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet"),
-                      ("resnest/", "ResNeSt"), ("sabl/", "SABLHead"),
-                      ("regnet/", "RegNet")):
+    for key, what in (("detectors/", "DetectoRS_ResNet"), ("sabl/", "SABLHead")):
         if name.startswith(key):
             return what
     raise AssertionError(f"{name}: no expected reason")

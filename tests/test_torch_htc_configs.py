@@ -1,10 +1,10 @@
 """Which HTC configs the PyTorch port builds, on the CPU, at full width
 (no JAX): the probe of ``tests/test_torch_cascade_configs.py`` over every
 config file named ``*htc*``, each a ``HybridTaskCascade``.  Those on the
-ported backbones build (``BUILDS``, 9 files; a model shared by several
-files is built once); every other one raises ``NotImplementedError``
-naming what is missing: DetectoRS's recursive backbone and switchable
-atrous convs, or HRNet.  Each built one is checked against its config:
+ported backbones build (``BUILDS``, 13 files, HRNet's among them; a
+model shared by several files is built once); every other one
+raises ``NotImplementedError`` naming what is missing: DetectoRS's
+recursive backbone and switchable atrous convs.  Each built one is checked against its config:
 one mask head per stage, interleaved, with information flow (a
 ``conv_res`` in the heads after the first), and the semantic head where
 the config has one (183 stuff classes, its embedding pooled at stride 8).
@@ -35,6 +35,9 @@ BUILDS = {
     "htc/htc_x101_64x4d_fpn_16x1_20e_coco.py",
     "htc/htc_x101_64x4d_fpn_dconv_c3-c5_mstrain_400_1400_16x1_20e_coco.py",
     "hrnet/htc_x101_64x4d_fpn_16x1_28e_coco.py", "res2net/htc_r2_101_fpn_20e_coco.py",
+    # HRNet with HRFPN
+    "hrnet/htc_hrnetv2p_w18_20e_coco.py", "hrnet/htc_hrnetv2p_w32_20e_coco.py",
+    "hrnet/htc_hrnetv2p_w40_20e_coco.py", "hrnet/htc_hrnetv2p_w40_28e_coco.py",
 }
 
 
@@ -45,7 +48,7 @@ def _names():
 
 def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
-    for key, what in (("detectors/", "DetectoRS_ResNet"), ("hrnet/", "HRNet")):
+    for key, what in (("detectors/", "DetectoRS_ResNet"),):
         if name.startswith(key):
             return what
     raise AssertionError(f"{name}: no expected reason")

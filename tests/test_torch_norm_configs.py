@@ -134,29 +134,30 @@ def _model(name):
     return lambda load: tiny_norms(load(config_path(name)).model.to_dict())
 
 
-def _batch(rs, masks: bool):
-    """Two images with 6 gt slots each, boxes of sides 12-70 px (the second
-    image's last slot padded), and each gt an ellipse crop for a mask head."""
-    img_shape = np.array([[128.0, 150.0], [116.0, 160.0]], np.float32)
-    gts = np.zeros((2, 6, 4), np.float32)
+def _batch(rs, masks: bool, images: int = 2):
+    """``images`` (an even count) images with 6 gt slots each, boxes of
+    sides 12-70 px (the last image's last slot padded), and each gt an
+    ellipse crop for a mask head."""
+    img_shape = np.array([[128.0, 150.0], [116.0, 160.0]] * (images // 2), np.float32)
+    gts = np.zeros((images, 6, 4), np.float32)
     for i, (h, w) in enumerate(img_shape):
         wh = rs.uniform(12, 70, (6, 2))
         xy = rs.uniform(0, 1, (6, 2)) * ([w, h] - wh)
         gts[i] = np.concatenate([xy, xy + wh], -1)
-    gt_mask = np.ones((2, 6), bool)
-    gt_mask[1, 5] = False
-    gts[1, 5] = 0.0
+    gt_mask = np.ones((images, 6), bool)
+    gt_mask[-1, 5] = False
+    gts[-1, 5] = 0.0
     batch = {
-        "images": (rs.rand(2, *CANVAS, 3) * 2.0 - 1.0).astype(np.float32),
+        "images": (rs.rand(images, *CANVAS, 3) * 2.0 - 1.0).astype(np.float32),
         "img_shape": img_shape,
-        "scale_factor": np.array([[1.0] * 4, [1.25] * 4], np.float32),
+        "scale_factor": np.array([[1.0] * 4, [1.25] * 4] * (images // 2), np.float32),
         "gt_bboxes": gts,
-        "gt_labels": rs.randint(0, 4, (2, 6)).astype(np.int32),
+        "gt_labels": rs.randint(0, 4, (images, 6)).astype(np.int32),
         "gt_mask": gt_mask,
     }
     if masks:
         batch["gt_mask_crops"] = np.stack([np.stack([_ellipse(rs) for _ in range(6)])
-                                           for _ in range(2)])
+                                           for _ in range(images)])
     return batch
 
 
@@ -194,17 +195,18 @@ def _damped(variables):
     return variables
 
 
-def run_live(make_cfg, seed: int = 0):
+def run_live(make_cfg, seed: int = 0, images: int = 2, damped=_damped):
     """Both packages on ``make_cfg``'s tiny model: predict, the loss with
     live norms, its gradients and the statistics it moved, then two train
-    steps, on the same weights, batch, samples and RPN draws."""
+    steps, on the same weights (the harness's random variables through
+    ``damped``), batch of ``images``, samples and RPN draws."""
     mc = make_cfg(jax_load_config)
     masks = bool(mc["roi_head"].get("mask_head"))
     jdet = jax_build(mc, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), CANVAS))
     rs = np.random.RandomState(seed)
-    variables = _damped(_random_variables(shapes, rs))
-    batch = _batch(rs, masks)
+    variables = damped(_random_variables(shapes, rs))
+    batch = _batch(rs, masks, images)
     jv = jax.tree.map(jnp.asarray, variables)
     jb = jax.tree.map(jnp.asarray, batch)
     anchors, nla = jdet.anchors_for(CANVAS)
@@ -233,7 +235,7 @@ def run_live(make_cfg, seed: int = 0):
     (_, (j_losses, j_stats)), j_grads = grad_fn(jv["params"], stats0, sample0, rng)
     with t_train.live_norms(tdet.net):
         t_losses = tdet.loss(batch, t_anchors, t_nla, sample=tuple(np.array(x) for x in sample0),
-                             rpn_uniforms=_rpn_uniforms(rng, n_anchors))
+                             rpn_uniforms=_rpn_uniforms(rng, n_anchors, images))
     sum(t_losses.values()).backward()
     t_grads = {k: (None if p.grad is None else p.grad.clone())
                for k, p in tdet.net.named_parameters()}
@@ -261,7 +263,8 @@ def run_live(make_cfg, seed: int = 0):
         j_metrics = {"loss": total, **{n: jnp.sum(v) for n, v in losses.items()},
                      "grad_norm": grad_norm}
         t_metrics = t_step(batch, tuple(np.array(x) for x in sample),
-                           rpn_uniforms=_rpn_uniforms(jax.random.fold_in(rng, k), n_anchors))
+                           rpn_uniforms=_rpn_uniforms(jax.random.fold_in(rng, k), n_anchors,
+                                                        images))
         steps.append((from_jax_params(jax.tree.map(np.asarray, state.params)),
                       {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()},
                       j_metrics, t_metrics,
