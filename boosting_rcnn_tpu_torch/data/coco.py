@@ -82,8 +82,7 @@ class CocoDataset:
         self.img_prefix = img_prefix
         self.seg_prefix = seg_prefix
         self.test_mode = test_mode
-        with open(ann_file) as f:
-            coco = json.load(f)
+        coco = self._read_annotations(ann_file)
 
         cats = sorted(coco.get("categories", []), key=lambda c: c["id"])
         if classes is not None:
@@ -128,6 +127,11 @@ class CocoDataset:
         # aspect-ratio group flag: 1 where w / h > 1 (the landscape bucket)
         self.flags = np.array([1 if d["width"] / d["height"] > 1 else 0
                                for d in self.data_infos], np.uint8)
+
+    @staticmethod
+    def _read_annotations(ann_file: str) -> dict:
+        with open(ann_file) as f:
+            return json.load(f)
 
     def __len__(self):
         return len(self.data_infos)

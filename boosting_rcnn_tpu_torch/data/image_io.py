@@ -1,15 +1,18 @@
 """Image files to BGR uint8 arrays, as ``cv2.imread(path, IMREAD_COLOR)``
 gives them (the JAX package's ``data/pipeline.py::load_image``).
 
-Binary PPM (``P6``) and PGM (``P5``) with a maximum value of 255 decode
-with numpy alone; every other format goes through ``cv2`` where it
-imports, else PIL where it imports, else the call raises naming the
-format.  Lossless formats decode to the same bytes by either route.
+Binary PPM (``P6``) and PGM (``P5``) with a maximum value of 255, and
+8-bit non-interlaced PNG (grayscale, RGB, RGBA, gray with alpha; zlib and
+the five row filters) decode with numpy alone, as ``cv2.imread`` gives
+them (gray repeated, alpha dropped, BGR); every other format goes through
+``cv2`` where it imports, else PIL where it imports, else the call raises
+naming the format.  Lossless formats decode to the same bytes by any
+route.
 
 ``load_png_gray`` reads the 8-bit grayscale PNG stuff maps of
 ``seg_prefix`` (COCO-stuff's ``stuffthingmaps`` layout) with zlib and
 numpy alone, as ``cv2.imread(path, IMREAD_GRAYSCALE)`` gives them, and
-``write_png_gray`` writes them.
+``write_png_gray`` writes them; ``write_png`` writes gray or RGB.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["load_image", "write_ppm", "load_png_gray", "write_png_gray"]
+__all__ = ["load_image", "write_ppm", "load_png_gray", "write_png", "write_png_gray"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_COLOR_TYPES = {0: "grayscale", 2: "RGB", 3: "palette", 4: "grayscale with alpha",
@@ -65,9 +68,13 @@ def load_image(path: str) -> np.ndarray:
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
-        magic = f.read(2)
-    if magic in (b"P5", b"P6"):
+        magic = f.read(8)
+    if magic[:2] in (b"P5", b"P6"):
         return _read_netpbm(path)
+    if magic == PNG_SIGNATURE:
+        png = _png_header(path)
+        if _decodes_with_numpy(*png[2:5]):
+            return _png_to_bgr(_png_samples(path, png))
     try:
         import cv2
     except ImportError:
@@ -191,12 +198,12 @@ def _unfilter_diagonals(types: np.ndarray, raw: np.ndarray, prior: np.ndarray) -
     return padded(skewed)[1:, 1:].astype(np.uint8)
 
 
-def load_png_gray(path: str) -> np.ndarray:
-    """The ``(H, W)`` uint8 pixels of an 8-bit grayscale, non-interlaced PNG
-    (colour type 0, any of the five filter types); other PNGs raise,
-    naming their type.  Rows from the first Average or Paeth row to the
-    last are decoded along diagonals (``_unfilter_diagonals``), the others
-    a row at a time."""
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # 8-bit colour types numpy decodes
+
+
+def _png_header(path: str):
+    """``(width, height, depth, colour type, interlace, zlib stream)`` of a
+    PNG file."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
@@ -210,31 +217,73 @@ def load_png_gray(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     w, h, depth, color, _, _, interlace = header
+    return w, h, depth, color, interlace, b"".join(idat)
+
+
+def _decodes_with_numpy(depth: int, color: int, interlace: int) -> bool:
+    return depth == 8 and color in _PNG_CHANNELS and not interlace
+
+
+def _unfilter_plane(types: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """One byte plane ``(h, w)`` with its rows' PNG filters undone: rows from
+    the first Average or Paeth row to the last along diagonals
+    (``_unfilter_diagonals``), the others a row at a time."""
+    h, w = rows.shape
+    slow = np.flatnonzero(types >= 3)
+    first, last = (int(slow[0]), int(slow[-1]) + 1) if slow.size else (h, h)
+    out = np.zeros((h, w), np.uint8)
+    prior = out[0]
+    for y in range(first):
+        out[y] = prior = _unfilter_row(int(types[y]), rows[y], prior)
+    if slow.size:
+        out[first:last] = _unfilter_diagonals(types[first:last], rows[first:last], prior)
+        prior = out[last - 1]
+    for y in range(last, h):
+        out[y] = prior = _unfilter_row(int(types[y]), rows[y], prior)
+    return out
+
+
+def _png_samples(path: str, png) -> np.ndarray:
+    """The ``(H, W, C)`` uint8 samples of the PNG whose ``_png_header`` is
+    ``png``, an 8-bit non-interlaced one of colour type 0, 2, 4 or 6 (any
+    of the five filter types): each of the ``C`` interleaved byte planes is
+    unfiltered on its own, a byte's left neighbour being the pixel before
+    it."""
+    w, h, depth, color, interlace, stream = png
+    c = _PNG_CHANNELS[color]
+    rows = np.frombuffer(zlib.decompress(stream), np.uint8)
+    if rows.size != h * (w * c + 1):
+        raise ValueError(f"{path}: {rows.size} bytes of scanlines for {w} x {h} x {c}")
+    rows = rows.reshape(h, w * c + 1)
+    types = rows[:, 0].astype(np.int32)
+    if types.max(initial=0) > 4:
+        raise ValueError(f"{path}: PNG filter type {types.max()} is not one of 0-4")
+    planes = rows[:, 1:].reshape(h, w, c)
+    return np.stack([_unfilter_plane(types, np.ascontiguousarray(planes[..., k]))
+                     for k in range(c)], axis=-1)
+
+
+def load_png_gray(path: str) -> np.ndarray:
+    """The ``(H, W)`` uint8 pixels of an 8-bit grayscale, non-interlaced PNG
+    (colour type 0, any of the five filter types); other PNGs raise,
+    naming their type."""
+    png = _png_header(path)
+    _, _, depth, color, interlace, _ = png
     if color != 0 or depth != 8:
         kind = _PNG_COLOR_TYPES.get(color, f"colour type {color}")
         raise ValueError(f"{path}: a {depth}-bit {kind} PNG (colour type {color}); only 8-bit "
                          f"grayscale (colour type 0) decodes without cv2 or PIL")
     if interlace:
         raise ValueError(f"{path}: an interlaced PNG; only non-interlaced ones decode")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != h * (w + 1):
-        raise ValueError(f"{path}: {rows.size} bytes of scanlines for {w} x {h}")
-    rows = rows.reshape(h, w + 1)
-    types = rows[:, 0].astype(np.int32)
-    if types.max(initial=0) > 4:
-        raise ValueError(f"{path}: PNG filter type {types.max()} is not one of 0-4")
-    slow = np.flatnonzero(types >= 3)
-    first, last = (int(slow[0]), int(slow[-1]) + 1) if slow.size else (h, h)
-    out = np.zeros((h, w), np.uint8)
-    prior = out[0]
-    for y in range(first):
-        out[y] = prior = _unfilter_row(int(types[y]), rows[y, 1:], prior)
-    if slow.size:
-        out[first:last] = _unfilter_diagonals(types[first:last], rows[first:last, 1:], prior)
-        prior = out[last - 1]
-    for y in range(last, h):
-        out[y] = prior = _unfilter_row(int(types[y]), rows[y, 1:], prior)
-    return out
+    return _png_samples(path, png)[..., 0]
+
+
+def _png_to_bgr(px: np.ndarray) -> np.ndarray:
+    """``cv2.imread(..., IMREAD_COLOR)``'s BGR of decoded PNG samples: gray
+    repeated, alpha dropped."""
+    if px.shape[2] <= 2:
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., 2::-1])
 
 
 def _filter_row(ftype: int, row: np.ndarray, prior: np.ndarray) -> np.ndarray:
@@ -257,23 +306,38 @@ def _filter_row(ftype: int, row: np.ndarray, prior: np.ndarray) -> np.ndarray:
     return ((r - pred) & 255).astype(np.uint8)
 
 
-def write_png_gray(path: str, img: np.ndarray, filters=(0,)) -> None:
-    """Write an ``(H, W)`` uint8 image as an 8-bit grayscale PNG; row ``y``
-    takes the filter type ``filters[y % len(filters)]`` (0-4)."""
+def write_png(path: str, img: np.ndarray, filters=(0,)) -> None:
+    """Write an ``(H, W)`` uint8 image as 8-bit grayscale PNG, or an ``(H,
+    W, 3)`` BGR one as 8-bit RGB (the byte order ``cv2.imwrite`` writes);
+    row ``y`` takes the filter type ``filters[y % len(filters)]`` (0-4)."""
     img = np.ascontiguousarray(img, np.uint8)
-    h, w = img.shape
-    prior = np.zeros(w, np.uint8)
-    scan = bytearray()
-    for y in range(h):
-        ftype = int(filters[y % len(filters)])
-        scan.append(ftype)
-        scan += _filter_row(ftype, img[y], prior).tobytes()
-        prior = img[y]
+    planes = [img] if img.ndim == 2 else [img[..., 2], img[..., 1], img[..., 0]]
+    h, w = planes[0].shape
+    if all(int(f) == 0 for f in filters):  # no filter: the rows as they are, a 0 byte each
+        rows = np.stack(planes, axis=-1).reshape(h, -1)
+        scan = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    else:
+        priors = [np.zeros(w, np.uint8) for _ in planes]
+        scan = bytearray()
+        for y in range(h):
+            ftype = int(filters[y % len(filters)])
+            scan.append(ftype)
+            # a byte's left neighbour is the pixel before it: filter each plane, interleave
+            rows = [_filter_row(ftype, pl[y], pr) for pl, pr in zip(planes, priors)]
+            scan += np.stack(rows, axis=-1).tobytes()
+            priors = [pl[y] for pl in planes]
 
     def chunk(kind: bytes, payload: bytes) -> bytes:
         return (struct.pack(">I", len(payload)) + kind + payload
                 + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
 
+    color = 0 if img.ndim == 2 else 2
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(bytes(scan))) + chunk(b"IEND", b""))
+        f.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(bytes(scan), 1)) + chunk(b"IEND", b""))
+
+
+def write_png_gray(path: str, img: np.ndarray, filters=(0,)) -> None:
+    """Write an ``(H, W)`` uint8 image as an 8-bit grayscale PNG; row ``y``
+    takes the filter type ``filters[y % len(filters)]`` (0-4)."""
+    write_png(path, np.asarray(img, np.uint8).reshape(np.shape(img)[:2]), filters)

@@ -23,13 +23,24 @@ a batch also carries the instances' box-relative ``gt_mask_crops`` ``(B,
 max_gt, 112, 112)`` uint8, rasterised from their polygons or uncompressed
 RLE; with ``with_semantic`` the stuff maps of the dataset's
 ``seg_prefix`` as ``gt_semantic_seg`` ``(B, ceil(H / stride), ceil(W /
-stride))`` int32 (255 ignored).  The JAX loader's other augmentations are
-not ported (``engine/runner.py`` rejects a config that asks for one).
+stride))`` int32 (255 ignored).
+
+Train-time augmentations, on the host before the fused resize, drawn from
+the image's stream in the JAX loader's order: ``instaboost`` (with masks;
+``data/instaboost.py``), then ``albu`` (``data/albu.py``), then the flip,
+then either ``lsj_range`` (``data/transforms.py``; the fused resize then
+keeps the jittered image's size) or the multi-scale short side.  Each
+turns a stuff map into a full-ignore one.  ``aug_seconds`` sums each
+augmentation's host time and ``aug_images`` counts the images through
+them.  The JAX loader's mosaic, mixup, AutoAugment, SSD chain, domain
+labels, jigsaw and DGaug are not ported (``engine/runner.py`` rejects a
+config that asks for one).
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -59,6 +70,9 @@ class DetDataLoader:
         with_semantic: bool = False,
         semantic_stride: int = 8,
         img_norm: Optional[Dict] = None,  # dict(mean=, std=, to_rgb=)
+        lsj_range: Optional[Tuple[float, float]] = None,
+        albu: Optional[Dict] = None,  # dict(transforms=[...], min_visibility=)
+        instaboost: Optional[Dict] = None,  # InstaBoost's keyword arguments
         device="cpu",
     ):
         self.ds = dataset
@@ -74,6 +88,11 @@ class DetDataLoader:
         self.with_masks = with_masks
         self.with_semantic = with_semantic
         self.semantic_stride = semantic_stride
+        self.lsj_range = tuple(lsj_range) if (lsj_range and train) else None
+        self.albu = albu if train else None
+        self.instaboost = instaboost if train else None
+        self.aug_seconds = {"instaboost": 0.0, "albu": 0.0, "lsj": 0.0}
+        self.aug_images = 0
         self.device = torch.device(device)
         img_norm = img_norm or {}
         self.norm_mean = np.asarray(img_norm.get("mean", DEFAULT_MEAN), np.float32)
@@ -112,26 +131,74 @@ class DetDataLoader:
         bs = self.batch_size
         return [(idx[b * bs:(b + 1) * bs], None) for b in range(len(idx) // bs)]
 
+    @property
+    def _augmenting(self) -> bool:
+        return bool(self.instaboost or self.albu or self.lsj_range)
+
     def _draw(self, rng: np.random.RandomState):
-        """One image's random draws, in the JAX loader's order: the flip,
-        then the multi-scale short side (None without ``mstrain_range``)."""
+        """One image's random draws without augmentations, in the JAX
+        loader's order: the flip, then the multi-scale short side (None
+        without ``mstrain_range``)."""
         flip = rng.rand() < self.flip_prob
         short = None
         if self.mstrain_range is not None and self.train:
             short = int(rng.randint(self.mstrain_range[0], self.mstrain_range[1] + 1))
         return flip, short
 
-    def _load(self, i: int, rng: np.random.RandomState) -> Dict[str, object]:
+    def _augment(self, i: int, rng: np.random.RandomState) -> Dict[str, object]:
+        """Image ``i`` loaded and augmented: the arguments of its
+        ``preprocess`` but for the normalisation's."""
         info = self.ds.data_infos[i]
         segs = info.get("segmentations") if self.with_masks else None
         sem = self.ds.semantic_map(i) if self.with_semantic else None
         img = load_image(self.ds.img_path(i))
-        flip, short = self._draw(rng)
+        bboxes, labels = info["bboxes"], info["labels"]
+        if self.instaboost and segs is not None:
+            from .instaboost import instaboost
+
+            t0 = time.perf_counter()
+            img, bboxes, segs = instaboost(img, bboxes, labels, segs, rng, **self.instaboost)
+            self.aug_seconds["instaboost"] += time.perf_counter() - t0
+            if sem is not None:  # pasted pixels: the raster no longer holds
+                sem = np.full(img.shape[:2], 255, np.int32)
+        if self.albu:
+            from .albu import apply_albu
+
+            t0 = time.perf_counter()
+            img, bboxes, labels, segs = apply_albu(
+                img, bboxes, labels, segs, self.albu.get("transforms", []), rng,
+                min_visibility=self.albu.get("min_visibility", 0.0))
+            self.aug_seconds["albu"] += time.perf_counter() - t0
+            if sem is not None:
+                sem = np.full(img.shape[:2], 255, np.int32)
+        flip = rng.rand() < self.flip_prob
         canvas = self.canvas if self.ds.flags[i] == 1 else self.canvas_portrait
-        return preprocess(img, info["bboxes"], info["labels"], canvas=canvas, scale=self.scale,
-                          flip=flip, max_gt=self.max_gt, mean=self.norm_mean,
-                          std=self.norm_std, to_rgb=self.norm_to_rgb,
-                          short_side_override=short, segmentations=segs, semantic_map=sem,
+        scale, short = self.scale, None
+        if self.lsj_range is not None:
+            from .transforms import large_scale_jitter
+
+            t0 = time.perf_counter()
+            img, bboxes, labels, segs = large_scale_jitter(img, bboxes, labels, segs, rng,
+                                                           canvas, self.lsj_range)
+            self.aug_seconds["lsj"] += time.perf_counter() - t0
+            scale = (max(img.shape[:2]), min(img.shape[:2]))  # the fused resize keeps it
+            if sem is not None:
+                sem = np.full(img.shape[:2], 255, np.int32)
+        elif self.mstrain_range is not None and self.train:
+            short = int(rng.randint(self.mstrain_range[0], self.mstrain_range[1] + 1))
+        if self._augmenting:
+            self.aug_images += 1
+        return dict(img=img, bboxes=bboxes, labels=labels, segmentations=segs,
+                    semantic_map=sem, flip=flip, canvas=canvas, scale=scale,
+                    short_side_override=short)
+
+    def _load(self, i: int, rng: np.random.RandomState) -> Dict[str, object]:
+        a = self._augment(i, rng)
+        return preprocess(a["img"], a["bboxes"], a["labels"], canvas=a["canvas"],
+                          scale=a["scale"], flip=a["flip"], max_gt=self.max_gt,
+                          mean=self.norm_mean, std=self.norm_std, to_rgb=self.norm_to_rgb,
+                          short_side_override=a["short_side_override"],
+                          segmentations=a["segmentations"], semantic_map=a["semantic_map"],
                           semantic_stride=self.semantic_stride, device=self.device)
 
     def __len__(self):
@@ -142,13 +209,14 @@ class DetDataLoader:
 
     def epoch_iter(self, epoch: int, start: int = 0) -> Iterator[Dict[str, object]]:
         """The batches of ``epoch`` from its batch ``start`` on (the skipped
-        batches' random draws are made, not their images), made by a
-        prefetch thread."""
+        batches' random draws are made, and with augmentations, whose draws
+        depend on the images, their images are loaded and augmented too),
+        made by a prefetch thread."""
         batches = self._batches(epoch)
         rng = np.random.RandomState(self.seed * 1000 + epoch)
         for take, _ in batches[:start]:
-            for _ in take:
-                self._draw(rng)
+            for i in take:  # augmentations draw by the image's content: replay them
+                self._augment(int(i), rng) if self._augmenting else self._draw(rng)
         batches = batches[start:]
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()

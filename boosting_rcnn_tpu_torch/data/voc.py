@@ -10,7 +10,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["VOC_CLASSES", "VOCDataset"]
+__all__ = ["VOC_CLASSES", "VOCDataset", "WIDER_CLASSES", "WIDERFaceDataset"]
 
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -86,3 +86,15 @@ class VOCDataset:
             stats = CocoStyleEval(anns, results, len(self.CLASSES)).summarize()
             out.update(bbox_mAP=stats["AP"], bbox_mAP_50=stats["AP50"])
         return out
+
+
+WIDER_CLASSES = ("face",)
+
+
+class WIDERFaceDataset(VOCDataset):
+    """WIDER Face in the VOC layout (XML annotations, one ``face`` class),
+    as the JAX package reads it: images at ``JPEGImages/<id>.jpg``."""
+
+    def __init__(self, ann_file: str, img_prefix: str, **kwargs):
+        kwargs.setdefault("classes", WIDER_CLASSES)
+        super().__init__(ann_file=ann_file, img_prefix=img_prefix, **kwargs)

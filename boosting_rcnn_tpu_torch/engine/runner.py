@@ -6,7 +6,9 @@ mask and HTC ones too, to ResNet-18 at width 8 on a 128 x 160 canvas),
 its compute dtype (``compute_dtype``), the train dataset and loader
 (``data.train``, batch ``samples_per_gpu``; with the instances' mask crops
 for a model with a mask head, with the stuff maps of ``seg_prefix`` for
-one with a semantic head),
+one with a semantic head; the pipeline's ``lsj_range``, ``albu`` and
+``instaboost`` augmentations; a wrapped set's pipeline is the one inside
+it),
 SGD with momentum, weight decay and the gradient clip
 (``optimizer``, ``optimizer_config``), the step schedule with linear
 warmup (``lr_config``, epochs from ``runner.max_epochs``), checkpoints
@@ -46,17 +48,19 @@ from .checkpoint import restore_checkpoint, save_checkpoint
 from .eval import run_eval
 from .train import make_optimizer, make_train_step, step_lr_schedule
 
-__all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "test_geometry",
-           "eval_loader", "tta_options", "Trainer", "check_runner", "build_trainer",
-           "train_detector"]
+__all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "check_data",
+           "train_loader", "test_geometry", "eval_loader", "tta_options", "Trainer",
+           "check_runner", "check_schedule", "build_trainer", "train_detector"]
 
 TINY_CANVAS = (128, 160)
 TINY_GN_GROUPS = 8  # divides the shrunk backbone's, neck's and heads' widths
 # hooks whose work the loop does by construction
 _INHERENT_HOOKS = ("NumClassCheckHook", "CheckInvalidLossHook")
 # the JAX loader's augmentations and extra targets that the port's loader lacks
-_UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "lsj_range", "ssd_aug",
-                      "albu", "instaboost", "domain_file", "jigsaw", "dgaug")
+_UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "ssd_aug", "domain_file",
+                      "jigsaw", "dgaug")
+# the loader's train-time augmentations, read from the pipeline
+_AUGMENTATIONS = ("lsj_range", "albu", "instaboost")
 
 
 # the keys of a ResNeXt or Res2Net backbone that ResNet-18 has no use for
@@ -165,8 +169,19 @@ def _num_classes(mc: Dict[str, Any]) -> int:
     return _each(mc["roi_head"]["bbox_head"])[0].get("num_classes", 80)
 
 
+def _split_pipeline(split_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """A split's pipeline: its wrapped set's (the first of a
+    ``ConcatDataset``'s) with the split's own keys over it (a caffe strong
+    baseline sets its ``img_norm`` on the ``RepeatDataset``).  The JAX
+    ``tools/train.py`` reads the split's own pipeline only, and so trains a
+    wrapped set at the default pipeline: at (800, 1344) without LSJ for the
+    strong baselines, without the multi-scale range for LVIS."""
+    inner = split_cfg.get("dataset") or (split_cfg.get("datasets") or [None])[0]
+    return {**(_split_pipeline(inner) if inner else {}), **(split_cfg.get("pipeline") or {})}
+
+
 def _pipeline(data_cfg: Dict[str, Any], split: str, tiny: bool):
-    pipeline = data_cfg[split].get("pipeline", {}) or {}
+    pipeline = _split_pipeline(data_cfg[split])
     for key in _UNPORTED_PIPELINE:
         value = pipeline.get(key) or data_cfg[split].get(key)
         if value:
@@ -174,6 +189,51 @@ def _pipeline(data_cfg: Dict[str, Any], split: str, tiny: bool):
                                       f"to PyTorch yet")
     canvas = TINY_CANVAS if tiny else tuple(pipeline.get("canvas", (800, 1344)))
     return pipeline, canvas
+
+
+def check_data(cfg: Config) -> None:
+    """Raise where the train split asks for a pipeline option the port
+    lacks (``_UNPORTED_PIPELINE``) or a dataset type ``build_dataset`` does
+    not take; reads the configs only."""
+    data_cfg = cfg.data.to_dict()
+    _pipeline(data_cfg, "train", False)
+
+    def types(c):
+        yield c.get("type", "CocoDataset")
+        for inner in ([c["dataset"]] if c.get("dataset") else []) + list(c.get("datasets") or []):
+            yield from types(inner)
+
+    from ..data.builder import DATASET_TYPES
+
+    for split in ("train", "val", "test"):
+        for t in types(data_cfg.get(split) or {}):
+            if t not in DATASET_TYPES:
+                raise NotImplementedError(f"dataset type {t!r} is not ported to PyTorch yet")
+
+
+def _targets(mc: Dict[str, Any]) -> Dict[str, bool]:
+    """The mask heads' gt crops and the semantic head's stuff maps."""
+    roi = mc.get("roi_head") or {}
+    return {"with_masks": bool(roi.get("mask_head")),
+            "with_semantic": bool(roi.get("semantic_head"))}
+
+
+def train_loader(cfg: Config, mc: Dict[str, Any], device, seed: int = 0,
+                 tiny: bool = False) -> DetDataLoader:
+    """The train loader of ``data.train`` for the model config ``mc``: batch
+    ``samples_per_gpu``, the pipeline's canvas, scale, flip, ``max_gt``,
+    multi-scale range, ``img_norm`` and augmentations, with the targets
+    ``mc``'s heads train on."""
+    data_cfg = cfg.data.to_dict()
+    pipeline, canvas = _pipeline(data_cfg, "train", tiny)
+    return DetDataLoader(
+        build_dataset(data_cfg["train"]), batch_size=data_cfg.get("samples_per_gpu", 2),
+        canvas=canvas, scale=tuple(pipeline.get("scale", (1333, 800))), train=True,
+        flip_prob=pipeline.get("flip_prob", 0.5), max_gt=pipeline.get("max_gt", 100),
+        seed=seed, mstrain_range=pipeline.get("mstrain_range"),
+        semantic_stride=pipeline.get("semantic_stride", 8),
+        img_norm=pipeline.get("img_norm", cfg.get("img_norm")), device=device,
+        **{k: pipeline.get(k) for k in _AUGMENTATIONS}, **_targets(mc))
 
 
 def test_geometry(cfg: Config, tiny: bool = False):
@@ -243,10 +303,10 @@ def check_runner(cfg: Config) -> None:
                                   "schedule decays at epochs)")
 
 
-def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) -> Trainer:
-    """The config's optimizer and schedule on ``detector``, and a sampler
-    generator seeded from ``seed``; an iteration-based schedule raises
-    (``check_runner``)."""
+def check_schedule(cfg: Config) -> None:
+    """Raise on what the port's optimizer and schedule do not take: an
+    iteration-based schedule (``check_runner``), another optimizer than SGD
+    with momentum, another lr policy than the step one."""
     check_runner(cfg)
     opt = cfg.get("optimizer") or {}
     if str(opt.get("type", "sgd")).lower() != "sgd" or opt.get("nesterov", False):
@@ -254,6 +314,15 @@ def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) ->
     lrc = cfg.get("lr_config") or {}
     if lrc.get("policy", "step") != "step":
         raise NotImplementedError(f"lr_config policy {lrc.get('policy')!r} is not ported")
+
+
+def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) -> Trainer:
+    """The config's optimizer and schedule on ``detector``, and a sampler
+    generator seeded from ``seed``; what the port does not take raises
+    (``check_schedule``)."""
+    check_schedule(cfg)
+    opt = cfg.get("optimizer") or {}
+    lrc = cfg.get("lr_config") or {}
     sched = step_lr_schedule(opt.get("lr", 0.02), steps_per_epoch,
                              decay_epochs=lrc.get("step", [8, 11]),
                              warmup_iters=lrc.get("warmup_iters", 500),
@@ -274,7 +343,8 @@ def train_detector(cfg, work_dir: Optional[str] = None, *, detector=None, device
     """Train the config's detector (or ``detector``, with its weights, when
     given) and return a summary: ``steps``, ``images``, ``train_s``,
     ``images_per_s`` (loading included), ``loader_wait_s`` and
-    ``loader_wait_share``, ``last_metrics``, ``checkpoints``, ``eval``, and
+    ``loader_wait_share``, ``aug_seconds`` (the augmentations' host time,
+    by name) and ``aug_images``, ``last_metrics``, ``checkpoints``, ``eval``, and
     the ``trainer`` (its detector, optimizer and generator), which a
     caller may step on.
 
@@ -293,7 +363,9 @@ def train_detector(cfg, work_dir: Optional[str] = None, *, detector=None, device
 
 def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, tiny,
            fake_data, validate, logger) -> Dict[str, Any]:
-    check_runner(cfg)
+    check_schedule(cfg)
+    if not fake_data:
+        check_data(cfg)
     jlog = JsonLogWriter(os.path.join(work_dir, "train.log.json"))
     logger.info(f"env: {collect_env()}")
     cfg.dump(os.path.join(work_dir, "config_dump.py"))
@@ -311,30 +383,19 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
             raise NotImplementedError(f"custom hook {hook.get('type')!r} is not ported")
 
     data_cfg = cfg.data.to_dict()
-    batch = data_cfg.get("samples_per_gpu", 2)
     pipeline, canvas = _pipeline(data_cfg, "train", tiny)
     val_ds = None
-    # the mask heads' gt crops and the semantic head's stuff maps
-    roi = mc.get("roi_head") or {}
-    targets = {"with_masks": bool(roi.get("mask_head")),
-               "with_semantic": bool(roi.get("semantic_head"))}
-    semantic_stride = pipeline.get("semantic_stride", 8)
     if fake_data:
-        loader = FakeDetLoader(batch, canvas, _num_classes(mc), num_batches=max_iters or 10,
-                               seed=seed, semantic_stride=semantic_stride, device=device,
-                               **targets)
+        loader = FakeDetLoader(data_cfg.get("samples_per_gpu", 2), canvas, _num_classes(mc),
+                               num_batches=max_iters or 10, seed=seed,
+                               semantic_stride=pipeline.get("semantic_stride", 8), device=device,
+                               **_targets(mc))
     else:
-        train_ds = build_dataset(data_cfg["train"])
-        loader = DetDataLoader(
-            train_ds, batch_size=batch, canvas=canvas,
-            scale=tuple(pipeline.get("scale", (1333, 800))), train=True,
-            flip_prob=pipeline.get("flip_prob", 0.5), max_gt=pipeline.get("max_gt", 100),
-            seed=seed, mstrain_range=pipeline.get("mstrain_range"),
-            semantic_stride=semantic_stride,
-            img_norm=pipeline.get("img_norm", cfg.get("img_norm")), device=device, **targets)
-        logger.info(f"train dataset: {len(train_ds)} imgs, {len(loader)} steps/epoch")
+        loader = train_loader(cfg, mc, device, seed=seed, tiny=tiny)
+        logger.info(f"train dataset: {len(loader.ds)} imgs, {len(loader)} steps/epoch")
         if validate:
             val_ds = build_dataset(data_cfg["val"], test_mode=True)
+    batch = loader.batch_size
     steps_per_epoch = max(len(loader), 1)
     max_epochs = (cfg.get("runner") or {}).get("max_epochs", 12)
     trainer = build_trainer(cfg, detector, steps_per_epoch, seed)
@@ -419,6 +480,8 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
             summary["eval"].append({"epoch": epoch + 1, **metrics, **stats})
         if stop:
             break
+    summary["aug_seconds"] = dict(getattr(loader, "aug_seconds", {}))
+    summary["aug_images"] = getattr(loader, "aug_images", 0)
     summary["images_per_s"] = summary["images"] / max(summary["train_s"], 1e-9)
     summary["loader_wait_share"] = summary["loader_wait_s"] / max(summary["train_s"], 1e-9)
     summary["trainer"] = trainer

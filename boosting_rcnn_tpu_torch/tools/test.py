@@ -10,6 +10,9 @@ Evaluates every image of ``data.test`` once and prints the metrics as one
 json line: ``bbox_mAP``... and, with ``--eval segm`` for a mask model,
 ``segm_mAP``, ``segm_mAP_50``, ``segm_mAP_75``, ``segm_mAP_s``,
 ``segm_mAP_m`` and ``segm_mAP_l``.  ``--out`` writes the boxes only.
+The metrics are the test set's own: LVIS's federated ``bbox_mAP``,
+Cityscapes' ``cityscapes`` (mask AP; with ``--out x.json`` the official
+instance dump goes to ``x_cityscapes/``), VOC's ``mAP``.
 ``--tta`` evaluates with flip test-time augmentation at the test
 pipeline's short side, or at each short side of ``--tta-scales``
 (``engine.eval.run_eval_tta``; the long side is the pipeline scale's
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Optional, Sequence
 
 from ..apis import init_detector
@@ -80,7 +84,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         logger.info(f"wrote {args.out}")
     metrics = {}
     if args.eval:
-        metrics = ds.evaluate(results, metric=args.eval, classwise=args.classwise)
+        kwargs = {}
+        if "cityscapes" in args.eval and args.out:  # the official instance dump beside --out
+            kwargs["outfile_prefix"] = os.path.splitext(args.out)[0] + "_cityscapes"
+        metrics = ds.evaluate(results, metric=args.eval, classwise=args.classwise, **kwargs)
         logger.info(f"eval: {metrics}")
         print(json.dumps({k: v for k, v in metrics.items() if k != "classwise"}), flush=True)
     return {**metrics, "eval_stats": stats, "num_results": len(results)}

@@ -336,6 +336,21 @@ batch 8 with the batch-2 learning rate and warmup scaled linearly, K1 and
 K4 at 7 and 14 once a step, to bbox and segm mAP at least 0.8.  It prints the loader's
 wait share, images/s, peaks and the mAPs.
 
+Then the phase "datasets + augmentations" (``data_aug_phase``): sets from
+the port's generators (LVIS v1 past 1 / oversample_thr records, shapes
+COCO, a VOC2007 + VOC2012 pair, Cityscapes PNG frames at 2048 x 1024) and,
+at full width from ``init_detector``'s seeded weights through
+``train_detector`` and the test CLI: the LVIS v1 Mask R-CNN R50 under
+``ClassBalancedDataset`` in both dtypes (3 steps at batch 2; then the
+bfloat16 model's federated AP at 300 detections an image), and in bfloat16 2 steps each of
+the InstaBoost Cascade Mask R-CNN, the Albu Mask R-CNN, the LSJ strong
+baseline (1024 x 1024, batch 8, ``RepeatDataset``, live SyncBN), the
+VOC0712 Faster R-CNN (then VOC mAP) and the Cityscapes Mask R-CNN (1024 x
+2048, then the ``cityscapes`` metric and its dump); every path's K1 and
+K4 launched and held against their plain versions at the poolings it
+made; each path prints its step ms, peak, images/s with loading, the
+loader's wait share and the augmentations' host ms an image.
+
 In the whole run the order is: the flagship and Mask R-CNN, the boosting
 family, "cascade", "htc", "fork heads", "tta + caffe", "norms + plugins", "heads + scoring"
 and "c4 + pointrend" at full width
@@ -344,8 +359,8 @@ time: they share the card); then the two
 host-bound bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
 in child processes on the same card (``--e2e-child``, each with its own
 launch counts, read and checked in the child, on 2 PyTorch threads), and
-the parent meanwhile runs, on the host's other threads, the entry points
-and "mask entry" at full width (their images/s and wait shares are taken
+the parent meanwhile runs, on the host's other threads, the entry points,
+"mask entry" and "datasets + augmentations" at full width (their images/s and wait shares are taken
 beside the children), the float32 e2e and every tiny-model check (GPU
 against CPU, the step rules' teeth, C.2; the ProbCascade's, HTC's, the
 fork heads', "tta + caffe"'s, "norms + plugins"'s, "heads + scoring"'s and "c4 + pointrend"'s
@@ -362,9 +377,10 @@ only prints the tiny models' GPU-against-CPU train steps over ten seeds
 float32 edge reports, and the rules on deliberately wrong steps
 (``--step-readings f32 htc`` picks a dtype and models); ``--cascade``,
 ``--htc``, ``--fork-heads``, ``--tta-caffe``, ``--norms-plugins``,
-``--heads-scoring``, ``--c4-pointrend`` and ``--mask-entry`` run only the
-phase "cascade", "htc", "fork heads", "tta + caffe", "norms + plugins",
-"heads + scoring", "c4 + pointrend" or "mask entry"
+``--heads-scoring``, ``--c4-pointrend``, ``--pisa-backbones``, ``--data-aug``
+and ``--mask-entry`` run only the phase "cascade", "htc", "fork heads",
+"tta + caffe", "norms + plugins", "heads + scoring", "c4 + pointrend",
+"pisa + backbones", "datasets + augmentations" or "mask entry"
 (the last with 12
 full-width steps a model and nothing beside them, then its e2e in the
 child process).
@@ -398,7 +414,13 @@ from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.data.coco import CocoDataset  # noqa: E402
 from boosting_rcnn_tpu_torch.data.image_io import write_png_gray  # noqa: E402
 from boosting_rcnn_tpu_torch.data.pipeline import rescale_size  # noqa: E402
-from boosting_rcnn_tpu_torch.data.synthetic import generate  # noqa: E402
+from boosting_rcnn_tpu_torch.data.builder import build_dataset  # noqa: E402
+from boosting_rcnn_tpu_torch.data.synthetic import (  # noqa: E402
+    generate,
+    generate_cityscapes,
+    generate_lvis,
+    generate_voc,
+)
 from boosting_rcnn_tpu_torch.engine.checkpoint import restore_checkpoint  # noqa: E402
 from boosting_rcnn_tpu_torch.engine.runner import build_trainer, shrink_model  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors import two_stage  # noqa: E402
@@ -5185,6 +5207,248 @@ def mask_entry_phase(gpu: str, steps: int) -> dict:
     return out
 
 
+# ------------------------------------------------- datasets + augmentations
+LVIS_CONFIG = os.path.join(REPO, "configs/lvis/mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py")
+# the phase's bfloat16 paths: (config, train steps, the test CLI's --eval or None)
+DATA_AUG_BF16 = {
+    "instaboost_cascade_mask_rcnn": (
+        "configs/instaboost/cascade_mask_rcnn_r50_fpn_instaboost_4x_coco.py", 2, None),
+    "albu_mask_rcnn": ("configs/albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py", 2, None),
+    "lsj_mask_rcnn": (
+        "configs/strong_baselines/mask_rcnn_r50_fpn_syncbn-all_rpn-2conv_lsj_100e_coco.py",
+        2, None),
+    "voc0712_faster_rcnn": ("configs/pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py", 2, ["mAP"]),
+    "cityscapes_mask_rcnn": ("configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py", 2,
+                             ["cityscapes"]),
+}
+LVIS_STEPS = 3
+# LVIS train records: past 1 / oversample_thr (1e-3), so that the rarest
+# categories, in one image each, get repeat factors above 1
+LVIS_TRAIN_RECORDS = 1100
+
+
+def data_aug_sets(root: str) -> dict:
+    """The phase's sets under ``root``, from the port's generators, each
+    train split one epoch of its paths' steps where it can be (so that the
+    loader stops with the run): LVIS v1 (``LVIS_TRAIN_RECORDS`` 80 x 64
+    frames, 4 val), shapes COCO (4 train 640 x 480 frames, x 4 under LSJ's
+    ``RepeatDataset``, 2 val), a VOC2007 + VOC2012 pair (2 trainval frames
+    each at 500 x 375, 2 test), Cityscapes (2 + 1 PNG frames at 2048 x
+    1024)."""
+    sets = {k: os.path.join(root, k) for k in ("lvis", "coco", "voc", "cityscapes")}
+    generate_lvis(sets["lvis"], n_train=LVIS_TRAIN_RECORDS, n_val=4, seed=1, frame=(80, 64))
+    generate(sets["coco"], n_train=4, n_val=2, seed=2, frame_sizes=[(640, 480)],
+             object_scale=0.3)
+    generate_voc(sets["voc"], n_train=2, n_test=2, seed=3, frame=(500, 375))
+    generate_cityscapes(sets["cityscapes"], n_train=2, n_val=1, seed=4)
+    return sets
+
+
+def point_data(ds: dict, sets: dict, train: bool) -> dict:
+    """A dataset config (and each one it wraps) pointed at ``sets``."""
+    for inner in ([ds["dataset"]] if ds.get("dataset") else []) + list(ds.get("datasets") or []):
+        point_data(inner, sets, train)
+    t = ds.get("type", "CocoDataset")
+    split = "train" if train else "val"
+    if t == "LVISV1Dataset":
+        ds.update(ann_file=f"{sets['lvis']}/annotations/lvis_v1_{split}.json",
+                  img_prefix=sets["lvis"])
+    elif t == "CityscapesDataset":
+        ds.update(ann_file=f"{sets['cityscapes']}/annotations/instancesonly_filtered_gtFine_"
+                           f"{split}.json", img_prefix=f"{sets['cityscapes']}/leftImg8bit/{split}")
+    elif t == "VOCDataset":
+        year = "2012" if "2012" in ds["ann_file"] else "2007"
+        ds.update(ann_file=f"{sets['voc']}/VOC{year}/ImageSets/Main/"
+                           f"{'trainval' if train else 'test'}.txt",
+                  img_prefix=f"{sets['voc']}/VOC{year}")
+    elif "ann_file" in ds:
+        ds.update(ann_file=f"{sets['coco']}/{split}.json", img_prefix=f"{sets['coco']}/{split}")
+    return ds
+
+
+@contextlib.contextmanager
+def pool_watch():
+    """Inside the block, every detector's last RoI pooling at each pooled
+    size, with a gradient (train) and without (predict), keyed ``(size,
+    grad)``: its route levels, RoIs, valid slots and strides (detached) and,
+    once the backward has run, the train one's cotangent (``"g"``)."""
+    seen, orig = {}, two_stage.TwoStageNet._pool
+
+    def spy(self, feats, rois, roi_valid, size):
+        out = orig(self, feats, rois, roi_valid, size)
+        entry = {"levels": [f.detach() for f in feats[:len(self.roi_strides)]],
+                 "rois": rois.detach(), "valid": roi_valid.detach(),
+                 "strides": self.roi_strides}
+        seen[(size, out.requires_grad)] = entry
+        if out.requires_grad:
+            out.register_hook(lambda g, e=entry: e.update(g=g.detach()))
+        return out
+
+    two_stage.TwoStageNet._pool = spy
+    try:
+        yield seen
+    finally:
+        two_stage.TwoStageNet._pool = orig
+
+
+def watched_kernels(seen: dict, dtype, what: str, seed: int) -> dict:
+    """K1 and K4 against their plain versions at each pooling ``pool_watch``
+    saw: the train ones with the step's own cotangent, the predict ones
+    with a cotangent drawn on the card."""
+    out = {}
+    for (size, grad), e in sorted(seen.items()):
+        g = e.get("g")
+        if g is None:
+            gen = torch.Generator(device="cuda").manual_seed(seed + size)
+            g = torch.randn((e["rois"].shape[0] * e["rois"].shape[1], size, size,
+                             e["levels"][0].shape[-1]), generator=gen, device="cuda")
+        part = f"{'train' if grad else 'predict'}_{size}"
+        out[part] = kernels_vs_plain(e["levels"], e["rois"], e["valid"], e["strides"], g, dtype,
+                                     f"{what} {part} shapes")
+    return out
+
+
+def data_aug_launches(counts, dtype, what: str, mask: bool, train: bool) -> None:
+    """K1 (and on a train path K4 and the tile keys) of ``dtype`` at 7, and
+    at 14 for a mask model, each launched; none of the other dtype's."""
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    kernels = ["roi_align_fwd"] + (["roi_align_bwd"] if train else [])
+    want = [k + sfx + o for k in kernels for o in ("", "_o14")[:1 + mask]]
+    if train:
+        want += ["roi_tile_keys" + o for o in ("", "_o14")[:1 + mask]]
+    missing = [k for k in want if not counts.get(k)]
+    foreign = [k for k, n in counts.items() if n and k.startswith(("roi_align_fwd", "roi_align_bwd"))
+               and ("_bf16" in k) != (dtype == BF16)]
+    if missing or foreign:
+        raise AssertionError(f"{what}: kernels not launched {missing}, of the other dtype "
+                             f"{foreign} ({ran(counts)})")
+
+
+def data_aug_path(name: str, config: str, sets: dict, dtype, gpu: str, steps: int, work: str,
+                  metric=None, lvis: bool = False) -> dict:
+    """One path of the phase: ``config`` at full width in ``dtype`` from
+    ``init_detector``'s seeded weights, its splits on ``sets``, ``steps``
+    steps through ``train_detector`` (the counts set to 0 before, read
+    after; the loader's augmentations and wrappers as the config sets
+    them), then, with ``metric``, the test CLI's ``--eval`` of it on the
+    test split from the checkpoint (counts again); K1 and K4 held against
+    their plain versions at each pooling the paths made."""
+    tag = ("f32 " if dtype == torch.float32 else "bf16 ") + name
+    t_path = time.perf_counter()
+    cfg = load_config(config)
+    for split in ("train", "val", "test"):
+        point_data(cfg._data["data"][split], sets, split == "train")
+    cfg.merge_from_options({"model.backbone.init_cfg": "None", "log_config.interval": 1,
+                            "compute_dtype": "float32" if dtype == torch.float32
+                            else "bfloat16"})
+    t0 = time.perf_counter()
+    handle = init_detector(cfg, device="cuda", seed=61)
+    mask = handle.detector.net.mask_head is not None
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with pool_watch() as seen:
+        reset_counts()
+        summary = train_detector(handle, os.path.join(work, name), max_iters=steps,
+                                 validate=False)
+        train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    data_aug_launches(train_counts, dtype, f"{tag} train", mask, True)
+    loss = summary["last_metrics"]["loss"]
+    if summary["steps"] != steps or not math.isfinite(loss):
+        raise AssertionError(f"{tag}: {summary['steps']} steps, loss {loss}")
+    ckpt = summary["checkpoints"][-1]
+    aug_ms = {k: v * 1e3 / max(summary["aug_images"], 1) for k, v in
+              summary["aug_seconds"].items() if v}
+    r = {"build_s": build_s, "steps": steps, "batch": summary["images"] // steps,
+         "step_ms": summary["train_s"] * 1e3 / steps, "train_peak_gib": peak,
+         "train_images_per_s": summary["images_per_s"],
+         "loader_wait_share": summary["loader_wait_share"],
+         "aug_images": summary["aug_images"], "aug_host_ms_per_image": aug_ms,
+         "loss": loss, "train_counts": ran(train_counts),
+         "check_train": watched_kernels(seen, dtype, f"{tag}", 70)}
+    del handle, summary, seen
+    torch.cuda.empty_cache()
+    if metric:
+        test = cfg._data["data"]["test"]
+        opts = {"data.test.ann_file": test["ann_file"], "data.test.img_prefix": test["img_prefix"],
+                "model.backbone.init_cfg": "None",
+                "compute_dtype": "float32" if dtype == torch.float32 else "bfloat16"}
+        out_json = os.path.join(work, f"{name}.json")
+        torch.cuda.synchronize()
+        with pool_watch() as seen:
+            reset_counts()
+            metrics = test_cli([config, ckpt, "--device", "cuda", "--eval", *metric,
+                                *(["--out", out_json] if "cityscapes" in metric else []),
+                                *cli_options(opts)])
+            eval_counts = read_counts()
+        data_aug_launches(eval_counts, dtype, f"{tag} eval", mask, False)
+        r["eval"] = {k: v for k, v in metrics.items() if k not in ("classwise", "eval_stats")}
+        r["eval_images_per_s"] = metrics["eval_stats"]["images_per_s"]
+        r["eval_counts"] = ran(eval_counts)
+        r["check_eval"] = watched_kernels(seen, dtype, f"{tag} eval", 71)
+        stats = [v for k, v in r["eval"].items() if k != "num_results"]
+        if not (stats and all(0.0 <= v <= 1.0 for v in stats)):
+            raise AssertionError(f"{tag} test CLI: {r['eval']}")
+        if "cityscapes" in metric:
+            dump = os.path.splitext(out_json)[0] + "_cityscapes"
+            txt = [f for f in os.listdir(dump) if f.endswith("_pred.txt")]
+            lines = sum(len(open(os.path.join(dump, f)).read().splitlines()) for f in txt)
+            pngs = [f for f in os.listdir(dump) if f.endswith(".png")]
+            if len(txt) != metrics["num_results"] or lines != len(pngs):
+                raise AssertionError(f"{tag}: the cityscapes dump holds {len(txt)} txt files "
+                                     f"({lines} lines) and {len(pngs)} masks")
+            r["cityscapes_dump"] = {"txt": len(txt), "masks": len(pngs)}
+        del seen
+    say(f"{tag} ({gpu}): " + json.dumps({k: v for k, v in r.items()
+                                          if not k.startswith("check_")}))
+    if lvis:  # the long tail: the class-balanced set repeats its rarest images
+        ds = build_dataset(cfg.data.to_dict()["train"])
+        r["class_balanced"] = {"records": len(ds.dataset), "images": len(ds)}
+        if not len(ds) > len(ds.dataset):
+            raise AssertionError(f"{tag}: ClassBalancedDataset repeated no image")
+    torch.cuda.empty_cache()
+    r["wall_s"] = time.perf_counter() - t_path
+    say(f"{tag}: {r['wall_s']:.1f} s of the phase"
+        + (f"; ClassBalancedDataset {r['class_balanced']}" if lvis else ""))
+    return r
+
+
+def data_aug_phase(gpu: str) -> dict:
+    """The phase "datasets + augmentations" at full width, through
+    ``train_detector`` and the test CLI on the port's generated sets: the
+    LVIS v1 Mask R-CNN R50 under ``ClassBalancedDataset`` in float32 and
+    bfloat16, ``LVIS_STEPS`` steps at batch 2 each, then the bfloat16 one's
+    federated AP at 300 detections an image; in bfloat16 ``DATA_AUG_BF16``'s InstaBoost
+    Cascade Mask R-CNN, Albu Mask R-CNN, LSJ strong baseline (1024 x 1024,
+    batch 8, ``RepeatDataset``, live SyncBN), VOC0712 Faster R-CNN (VOC mAP)
+    and Cityscapes Mask R-CNN (1024 x 2048, the ``cityscapes`` metric and
+    its dump).  Every path's K1 and K4 launched and held against their
+    plain versions (``data_aug_path``)."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_aug_")
+    out = {}
+    try:
+        sets = data_aug_sets(os.path.join(work, "sets"))
+        out["sets_s"] = time.perf_counter() - t0
+        say(f"data + augmentation sets written in {out['sets_s']:.1f} s: LVIS v1 "
+            f"{LVIS_TRAIN_RECORDS} + 4, shapes COCO 4 + 2, VOC 2 + 2 (a year) + 2, Cityscapes "
+            f"2 + 1 at 2048 x 1024")
+        for dtype in (torch.float32, BF16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            out[f"lvis_{tag}"] = data_aug_path("lvis_mask_rcnn", LVIS_CONFIG, sets, dtype, gpu,
+                                               LVIS_STEPS, work,
+                                               ["bbox"] if dtype == BF16 else None, lvis=True)
+        for name, (config, steps, metric) in DATA_AUG_BF16.items():
+            out[name] = data_aug_path(name, os.path.join(REPO, config), sets, BF16, gpu, steps,
+                                      work, metric)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase datasets + augmentations: {out['wall_s']:.1f} s")
+    return out
+
+
 def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list:
     """The ``{"kernels": [...]}`` records of one dtype's kernels at one
     pooled size (``o``: '' for 7 x 7, '_o14' for 14 x 14): K1, K4 and their
@@ -5257,10 +5521,11 @@ def main(argv) -> int:
     if readings is None and e2e_child is None and argv not in (
             [], ["--cascade"], ["--htc"], ["--mask-entry"], ["--fork-heads"], ["--tta-caffe"],
             ["--norms-plugins"], ["--heads-scoring"], ["--c4-pointrend"],
-            ["--pisa-backbones"]):
+            ["--pisa-backbones"], ["--data-aug"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
               "--cascade | --htc | --mask-entry | --fork-heads | --tta-caffe | --norms-plugins "
-              "| --heads-scoring | --c4-pointrend | --pisa-backbones]", file=sys.stderr)
+              "| --heads-scoring | --c4-pointrend | --pisa-backbones | --data-aug]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5323,6 +5588,9 @@ def main(argv) -> int:
     if argv == ["--pisa-backbones"]:
         pisa_backbones_phase(gpu)
         pisa_backbones_tiny()
+        return 0
+    if argv == ["--data-aug"]:
+        data_aug_phase(gpu)
         return 0
     if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
         mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
@@ -5424,6 +5692,10 @@ def main(argv) -> int:
         # --------- mask entry: masks and stuff maps through the loader, segm
         mask_entry = mask_entry_phase(gpu, MASK_ENTRY_STEPS)
         phase_done("mask entry, beside the e2e trainings")
+
+        # ---- datasets + augmentations: LVIS, wrappers, InstaBoost, Albu, LSJ
+        data_aug = data_aug_phase(gpu)
+        phase_done("datasets + augmentations, beside the e2e trainings")
         e2e[torch.float32] = e2e_trains(torch.float32, gpu, synth, work)
 
         # -------------------------------------------- tiny flagship, GPU vs CPU
@@ -5619,6 +5891,8 @@ def main(argv) -> int:
             "bf16_configs": {n: c4pr_summary(r) for n, r in pbb["bf16"].items()},
             "tiny": pbb["tiny"], "wall_s": pbb["wall_s"]},
         "mask_entry": mask_entry,
+        "data_aug": {k: ({kk: vv for kk, vv in v.items() if not kk.startswith("check_")}
+                         if isinstance(v, dict) else v) for k, v in data_aug.items()},
         "phase_walls_s": walls,
         "wall_s": time.perf_counter() - t_start}))
     records = (kernel_records(r32, torch.float32, box=m32) + kernel_records(r16, BF16, box=m16)
@@ -5673,7 +5947,10 @@ def main(argv) -> int:
                              for k in counters()})
         for model in ("pisa_prob", "regnet") for part in ("predict", "train")] + [
         (f"zoo_bf16_{name}_{part}", r[f"{part}_counts"])
-        for name, r in pbb["bf16"].items() for part in ("predict", "train")]
+        for name, r in pbb["bf16"].items() for part in ("predict", "train")] + [
+        (f"data_aug_{name}_{part}", r[f"{part}_counts"])
+        for name, r in data_aug.items() if isinstance(r, dict)
+        for part in ("train", "eval") if f"{part}_counts" in r]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
                + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}
@@ -5714,6 +5991,17 @@ def main(argv) -> int:
                            "bound_ms": x["timed"][part]["bound"][0],
                            **({"tile_spread": x["spread"]} if part == "bwd" else {})}
                     for path, x in (("predict", runs_[0]), ("train", runs_[1]))}
+    # ... and every path of "datasets + augmentations" at its own poolings
+    for name, r in data_aug.items():
+        if not isinstance(r, dict):
+            continue
+        sfx = "" if name == "lvis_f32" else "_bf16"
+        for check in (r.get("check_train", {}), r.get("check_eval", {})):
+            for part, c in check.items():
+                o = "_o14" if part.endswith("_14") else ""
+                for kernel in ("fwd", "bwd"):
+                    key = f"roi_align_{kernel}{sfx}{o}"
+                    more_errs[key] = max(more_errs.get(key, 0.0), c[kernel][0])
     # ... and the C4, PointRend and DC5 paths: every check, and the times
     # on the one 1024- or 2048-channel level at the train slots
     c4pr_shapes = {}

@@ -130,18 +130,25 @@ def test_load_image_matches_cv2(tmp_path):
 
 
 def test_load_image_without_cv2(tmp_path, monkeypatch):
-    """PNG through PIL where cv2 does not import; PPM by numpy alone; with
-    neither library a PNG raises naming its format."""
-    pytest.importorskip("PIL")
+    """PPM, and the PNGs numpy decodes, by numpy alone; another PNG (a
+    palette one) through PIL where cv2 does not import; with neither
+    library a JPEG raises naming its format."""
+    pil = pytest.importorskip("PIL.Image")
     img = np.random.RandomState(2).randint(0, 256, (7, 5, 3)).astype(np.uint8)
     cv2.imwrite(str(tmp_path / "c.png"), img)
+    cv2.imwrite(str(tmp_path / "c.jpg"), img)
     write_ppm(str(tmp_path / "a.ppm"), img)
+    pil.fromarray(img[..., ::-1]).convert("P").save(str(tmp_path / "p.png"))
+    with pil.open(str(tmp_path / "p.png")) as im:
+        palette_ref = np.asarray(im.convert("RGB"))[..., ::-1]
     monkeypatch.setitem(sys.modules, "cv2", None)
     np.testing.assert_array_equal(load_image(str(tmp_path / "c.png")), img)
+    np.testing.assert_array_equal(load_image(str(tmp_path / "p.png")), palette_ref)
     monkeypatch.setitem(sys.modules, "PIL", None)
     np.testing.assert_array_equal(load_image(str(tmp_path / "a.ppm")), img)
-    with pytest.raises(RuntimeError, match=r"\.png images needs cv2 or PIL"):
-        load_image(str(tmp_path / "c.png"))
+    np.testing.assert_array_equal(load_image(str(tmp_path / "c.png")), img)
+    with pytest.raises(RuntimeError, match=r"\.jpg images needs cv2 or PIL"):
+        load_image(str(tmp_path / "c.jpg"))
 
 
 def _same_sample(got, ref, with_images=True):
