@@ -19,6 +19,7 @@ from .data.image_io import load_image
 from .data.pipeline import collate, preprocess
 from .engine import runner
 from .engine.checkpoint import checkpoint_meta, load_params
+from .weights import nest_backbone
 
 __all__ = ["DetectorHandle", "init_detector", "inference_detector", "set_random_seed",
            "train_detector"]
@@ -65,7 +66,7 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     if checkpoint:
         # an mmdet file holds no Dynamic R-CNN state: the head keeps its initial one
         state = {k: v for k, v in det.net.state_dict().items() if ".dyn_" in k}
-        det.net.load_state_dict({**state, **load_params(checkpoint)})
+        det.net.load_state_dict({**state, **nest_backbone(load_params(checkpoint), det.net)})
         meta = checkpoint_meta(checkpoint)
     data = cfg.get("data") or {}
     classes = (data.get("test") or {}).get("classes") or meta.get("classes") or None

@@ -41,6 +41,12 @@ head per stage; ``HybridTaskCascade`` and a ``CascadeRCNN`` with a
 ``mask_head`` (Cascade Mask R-CNN) build the HTC detector as the JAX
 ``build_htc`` does: the box cascade, one FCN or HTC mask head per stage
 (``conv_res`` under information flow) and HTC's ``FusedSemanticHead``.
+The fork's domain-generalisation types build as Faster R-CNN with their
+extra parts (JAX ``builder.py:2397-2427``): ``DGFasterRCNN`` (a domain
+classifier; ``num_domains``, ``total_img``), ``JiGENFasterRCNN`` (a
+jigsaw classifier; ``jig_classes``), ``DGaugFasterRCNN`` (trains on the
+loader's style-transferred view) and ``EMAFasterRCNN`` (an FP-EMAU over
+the neck; ``k``), with the backbone ``HiddenMixupResNet`` around a ResNet.
 The ``train_cfg`` is read as the JAX builder reads it.
 Any type or value the port does not implement raises
 ``NotImplementedError`` naming it.
@@ -67,6 +73,13 @@ from .models.backbones.resnet import ResNet
 from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
 from .models.detectors.cascade import CascadeDetector, CascadeNet
+from .models.detectors.dg import (
+    DGaugFasterRCNNDetector,
+    DGFasterRCNNDetector,
+    DomainClassifier,
+    JiGENFasterRCNNDetector,
+    JigsawClassifier,
+)
 from .models.detectors.htc import HTCDetector, HTCNet
 from .models.detectors.point_rend import PointRendDetector
 from .models.detectors.two_stage import (
@@ -85,6 +98,7 @@ from .models.roi_heads.mask_head import FCNMaskHead, FusedSemanticHead, HTCMaskH
 from .models.roi_heads.point_rend import CoarseMaskHead, MaskPointHead, PointRendCfg
 from .models.roi_heads.prob_roi_head import ProbRoICfg
 from .models.roi_heads.res5_head import Res5BBoxHead
+from .models.thesis_extras import FPEMAU, HiddenMixupResNet
 from .ops.anchors import AnchorGenerator
 
 __all__ = ["COMPUTE_DTYPES", "build_detector", "resolve_device"]
@@ -222,6 +236,10 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     ``RegNet``, ``ResNeSt`` and ``HRNet`` by ``_zoo_backbone``."""
     if cfg.get("type") in ("RegNet", "ResNeSt", "HRNet"):
         return _zoo_backbone(cfg, gen)
+    if cfg.get("type") == "HiddenMixupResNet":
+        # the DG configs' two-view backbone around the config's ResNet (JAX
+        # builder.py:93-101)
+        return HiddenMixupResNet(_build_backbone(dict(cfg, type="ResNet"), gen))
     _check(cfg, "type", ("ResNet", "ResNeXt", "Res2Net"))
     if cfg["type"] == "Res2Net":
         for key in ("plugins", "conv_cfg", "norm_cfg"):
@@ -800,7 +818,10 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
                          f"{' or '.join(map(str, COMPUTE_DTYPES))}")
     device = resolve_device(device)
     _check(model_cfg, "type", ("FasterRCNN", "MaskRCNN", "MaskScoringRCNN", "PointRend",
-                               "CascadeRCNN") + _HTC_TYPES)
+                               "CascadeRCNN") + _HTC_TYPES + tuple(_DG_TYPES))
+    for key in ("num_domains", "total_img", "jig_classes", "k"):
+        if key in model_cfg and key not in _DG_TYPES.get(model_cfg["type"], ()):
+            raise _unported(f"{model_cfg['type']} {key}", model_cfg[key])
     roi = model_cfg["roi_head"]
     # the JAX builder sends HTC and a CascadeRCNN with a mask head (Cascade
     # Mask R-CNN) to build_htc
@@ -880,13 +901,18 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
             _check(train_rcnn, key, (None,))
         _check(roi, "mask_iou_head", (None,))
 
+    dg_kw = _dg_parts(model_cfg, backbone, channels, gen)
+    if dg_kw and (point_rend or dynamic or not neck):
+        raise _unported(f"{model_cfg['type']} with a {roi['type']}"
+                        f"{'' if neck else ' and no neck'}", model_cfg["type"])
     net = TwoStageNet(backbone, neck, rpn_module, bbox_module, mask_head=mask_module,
                       mask_roi_out_size=mask_out_size, mask_iou_head=iou_module,
                       mask_on_shared=bool(roi.get("shared_head") and mask_module is not None),
-                      point_head=point_module, **roi_kw)
+                      point_head=point_module, **roi_kw, **dg_kw)
     set_compute_dtype(net, dtype)
     det_cls = (PointRendDetector if point_rend else
-               DynamicRCNNDetector if dynamic else TwoStageDetector)
+               DynamicRCNNDetector if dynamic else
+               _DG_DETECTORS.get(model_cfg["type"], TwoStageDetector))
     return det_cls(
         net, ag, rpn_cfg=rpn_cfg, roi_cfg=roi_cfg, bbox_cfg=bbox_cfg, device=device,
         train_proposal_cfg=_proposal_cfg(train_cfg.get("rpn_proposal") or {}, 4000, 2000),
@@ -894,6 +920,35 @@ def build_detector(model_cfg: Dict[str, Any], device=None, seed: int = 0,
         rcnn_test_cfg=rcnn_test,
         rpn_type=rpn_type, **det_kw,
     )
+
+
+# the fork's DG and EMA detectors, each with the model keys it reads
+_DG_TYPES = {"DGFasterRCNN": ("num_domains", "total_img"),
+             "JiGENFasterRCNN": ("jig_classes",), "DGaugFasterRCNN": (),
+             "EMAFasterRCNN": ("k",)}
+_DG_DETECTORS = {"DGFasterRCNN": DGFasterRCNNDetector,
+                 "JiGENFasterRCNN": JiGENFasterRCNNDetector,
+                 "DGaugFasterRCNN": DGaugFasterRCNNDetector}
+
+
+def _dg_parts(model_cfg: Dict[str, Any], backbone, channels: int, gen: torch.Generator):
+    """``TwoStageNet``'s ``domain_head`` / ``jig_head`` / ``emau`` for the DG
+    and EMA detector types (JAX ``builder.py:2397-2421``): DANN's
+    ``DomainClassifier`` on the backbone's second output (``num_domains``
+    2, ``total_img`` 56064), JiGEN's ``JigsawClassifier`` on its last
+    (``jig_classes`` 31), EMAFasterRCNN's ``FPEMAU`` over the neck's
+    ``channels`` (``k`` 64)."""
+    t = model_cfg["type"]
+    if t == "DGFasterRCNN":
+        return {"domain_head": DomainClassifier(
+            backbone.out_channels[1], gen, num_domains=model_cfg.get("num_domains", 2),
+            total_img=float(model_cfg.get("total_img", 56064)))}
+    if t == "JiGENFasterRCNN":
+        return {"jig_head": JigsawClassifier(backbone.out_channels[-1], gen,
+                                             jig_classes=model_cfg.get("jig_classes", 31))}
+    if t == "EMAFasterRCNN":
+        return {"emau": FPEMAU(channels, model_cfg.get("k", 64), gen)}
+    return {}
 
 
 def _res5_head(roi: Dict[str, Any], channels: int, gen: torch.Generator):

@@ -32,9 +32,29 @@ then either ``lsj_range`` (``data/transforms.py``; the fused resize then
 keeps the jittered image's size) or the multi-scale short side.  Each
 turns a stuff map into a full-ignore one.  ``aug_seconds`` sums each
 augmentation's host time and ``aug_images`` counts the images through
-them.  The JAX loader's mosaic, mixup, AutoAugment, SSD chain, domain
-labels, jigsaw and DGaug are not ported (``engine/runner.py`` rejects a
-config that asks for one).
+them.  The JAX loader's mosaic, mixup, AutoAugment and SSD chain are not
+ported (``engine/runner.py`` rejects a config that asks for one).
+
+The domain-generalisation targets (JAX ``loader.py:76-99``, ``:256-306``):
+``domain_file`` (``data/suodac.py``) gives every sample its one-hot
+``domain_label``; in train mode ``dgaug`` stylises each image toward a
+donor of its domain (the first image of each domain in dataset order,
+downscaled ``[::4, ::4]``; without domains one of the first four images,
+drawn) and preprocesses it again with the same geometry into ``img_aug``,
+and ``jigsaw`` (the number of permutation classes) cuts the normalised
+canvas into 3 x 3 tiles of its largest part that 3 divides and permutes
+them by one of a fixed table (``RandomState(0)``'s permutations, id 0 the
+identity), as ``img_puzzle`` with the one-hot ``jig_labels``.  The puzzle
+is cut from the preprocessed tensor on ``device``, as the JAX loader cuts
+it from its normalised canvas.  Their draws follow the image's flip and
+multi-scale draw: the donor (without domains), the blend's Beta, the
+permutation.
+
+``num_shards`` / ``shard_id`` shard the train batches for data-parallel
+training (JAX ``loader.py:340-355``): every shard orders the epoch alike
+(each bucket padded to whole batches of ``batch_size * num_shards``),
+shard ``k`` takes batch slot ``b * num_shards + k``, and its draws come
+from ``RandomState(seed * 1000 + epoch + shard_id)``.
 """
 from __future__ import annotations
 
@@ -48,10 +68,39 @@ import torch
 
 from .image_io import load_image
 from .pipeline import DEFAULT_MEAN, DEFAULT_STD, collate, preprocess
+from .suodac import DomainMap
 
-__all__ = ["DetDataLoader", "FakeDetLoader"]
+__all__ = ["DetDataLoader", "FakeDetLoader", "jigsaw_permutations", "jigsaw_puzzle"]
 
 PREFETCH = 4  # batches made ahead by the worker thread
+
+
+def jigsaw_permutations(n: int) -> np.ndarray:
+    """``(n, 9)``: the identity, then distinct permutations of the 3 x 3
+    tiles drawn from ``RandomState(0)`` (the JAX loader's table)."""
+    prng = np.random.RandomState(0)
+    perms = [np.arange(9)]
+    seen = {tuple(perms[0])}
+    while len(perms) < n:
+        p = prng.permutation(9)
+        if tuple(p) not in seen:
+            seen.add(tuple(p))
+            perms.append(p)
+    return np.stack(perms)
+
+
+def jigsaw_puzzle(image: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    """``image`` ``(H, W, C)`` with the 3 x 3 tiles of its top-left ``(H //
+    3 * 3, W // 3 * 3)`` part placed by ``perm`` (tile ``k`` of the puzzle
+    is tile ``perm[k]`` of the image); the rest as it is."""
+    h3, w3 = image.shape[0] // 3 * 3, image.shape[1] // 3 * 3
+    th, tw, c = h3 // 3, w3 // 3, image.shape[2]
+    tiles = image[:h3, :w3].reshape(3, th, 3, tw, c).permute(0, 2, 1, 3, 4).reshape(9, th, tw, c)
+    idx = torch.as_tensor(np.asarray(perm), dtype=torch.int64, device=image.device)
+    puzzle = image.clone()
+    puzzle[:h3, :w3] = tiles[idx].reshape(3, 3, th, tw, c).permute(0, 2, 1, 3, 4).reshape(
+        h3, w3, c)
+    return puzzle
 
 
 class DetDataLoader:
@@ -73,6 +122,11 @@ class DetDataLoader:
         lsj_range: Optional[Tuple[float, float]] = None,
         albu: Optional[Dict] = None,  # dict(transforms=[...], min_visibility=)
         instaboost: Optional[Dict] = None,  # InstaBoost's keyword arguments
+        domain_file: Optional[str] = None,
+        jigsaw: Optional[int] = None,  # JiGEN's permutation classes
+        dgaug: bool = False,
+        num_shards: int = 1,
+        shard_id: int = 0,
         device="cpu",
     ):
         self.ds = dataset
@@ -93,6 +147,13 @@ class DetDataLoader:
         self.instaboost = instaboost if train else None
         self.aug_seconds = {"instaboost": 0.0, "albu": 0.0, "lsj": 0.0}
         self.aug_images = 0
+        self.domain_map = DomainMap(domain_file) if domain_file else None
+        self.jig_perms = jigsaw_permutations(jigsaw) if (jigsaw and train) else None
+        self.dgaug = bool(dgaug and train)
+        self._style_donors = None
+        self.num_shards, self.shard_id = num_shards, shard_id
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not one of {num_shards} shards")
         self.device = torch.device(device)
         img_norm = img_norm or {}
         self.norm_mean = np.asarray(img_norm.get("mean", DEFAULT_MEAN), np.float32)
@@ -104,7 +165,7 @@ class DetDataLoader:
         shuffled and padded to whole batches with its first images."""
         rng = np.random.RandomState(self.seed + epoch)
         order = []
-        bs = self.batch_size
+        bs = self.batch_size * self.num_shards
         for flag in (1, 0):
             idx = np.where(self.ds.flags == flag)[0]
             rng.shuffle(idx)
@@ -128,8 +189,9 @@ class DetDataLoader:
         if not self.train:
             return list(self._test_batches())
         idx = self._epoch_indices(epoch)
-        bs = self.batch_size
-        return [(idx[b * bs:(b + 1) * bs], None) for b in range(len(idx) // bs)]
+        bs, ns = self.batch_size, self.num_shards
+        return [(idx[(b * ns + self.shard_id) * bs:][:bs], None)
+                for b in range(len(idx) // (bs * ns))]
 
     @property
     def _augmenting(self) -> bool:
@@ -194,18 +256,65 @@ class DetDataLoader:
 
     def _load(self, i: int, rng: np.random.RandomState) -> Dict[str, object]:
         a = self._augment(i, rng)
-        return preprocess(a["img"], a["bboxes"], a["labels"], canvas=a["canvas"],
-                          scale=a["scale"], flip=a["flip"], max_gt=self.max_gt,
-                          mean=self.norm_mean, std=self.norm_std, to_rgb=self.norm_to_rgb,
-                          short_side_override=a["short_side_override"],
-                          segmentations=a["segmentations"], semantic_map=a["semantic_map"],
-                          semantic_stride=self.semantic_stride, device=self.device)
+        geometry = dict(canvas=a["canvas"], scale=a["scale"], flip=a["flip"],
+                        max_gt=self.max_gt, mean=self.norm_mean, std=self.norm_std,
+                        to_rgb=self.norm_to_rgb, short_side_override=a["short_side_override"],
+                        device=self.device)
+        out = preprocess(a["img"], a["bboxes"], a["labels"], segmentations=a["segmentations"],
+                         semantic_map=a["semantic_map"], semantic_stride=self.semantic_stride,
+                         **geometry)
+        domain = None
+        if self.domain_map is not None:
+            domain = self.domain_map.one_hot(self.ds.img_path(i))
+            out["domain_label"] = domain
+        if self.dgaug:
+            from .style_transfer import stylize
+
+            donors = self._style_donor_list()
+            donor = int(np.argmax(domain)) if domain is not None else int(rng.randint(len(donors)))
+            content = a["img"][..., ::-1].astype(np.float64) / 255.0
+            aug = stylize(content, donors[donor % len(donors)], rng=rng)
+            img_aug = (np.clip(aug, 0, 1) * 255.0 + 0.5).astype(np.uint8)[..., ::-1]
+            out["img_aug"] = preprocess(img_aug, a["bboxes"], a["labels"], **geometry)["images"]
+        if self.jig_perms is not None:
+            jid = int(rng.randint(len(self.jig_perms)))
+            out["img_puzzle"] = jigsaw_puzzle(out["images"], self.jig_perms[jid])
+            out["jig_labels"] = np.eye(len(self.jig_perms), dtype=np.float32)[jid]
+        return out
+
+    def _replay_targets(self, rng: np.random.RandomState) -> None:
+        """The draws of ``dgaug`` and ``jigsaw`` that ``_load`` makes after an
+        image's flip and side, for a skipped image (none depends on it)."""
+        if self.dgaug:
+            if self.domain_map is None:
+                rng.randint(min(4, len(self.ds.data_infos)))
+            rng.beta(2.0, 2.0)
+        if self.jig_perms is not None:
+            rng.randint(len(self.jig_perms))
+
+    def _style_donor_list(self):
+        """The style donors, loaded once: each domain's first image in dataset
+        order (image 0 for a domain without one), or without domains the
+        first four images; each ``[::4, ::4]``, RGB float64 in [0, 1]."""
+        if self._style_donors is None:
+            if self.domain_map is not None:
+                first = {}
+                for i in range(len(self.ds.data_infos)):
+                    p = self.ds.img_path(i)
+                    first.setdefault(int(np.argmax(self.domain_map.one_hot(p))), p)
+                paths = [first.get(d, self.ds.img_path(0))
+                         for d in range(self.domain_map.num_domains)]
+            else:
+                paths = [self.ds.img_path(i) for i in range(min(4, len(self.ds.data_infos)))]
+            self._style_donors = [load_image(p)[::4, ::4, ::-1].astype(np.float64) / 255.0
+                                  for p in paths]
+        return self._style_donors
 
     def __len__(self):
         if not self.train:
             bs = self.batch_size
             return sum(-(-int((self.ds.flags == f).sum()) // bs) for f in (1, 0))
-        return len(self._epoch_indices(0)) // self.batch_size
+        return len(self._epoch_indices(0)) // (self.batch_size * self.num_shards)
 
     def epoch_iter(self, epoch: int, start: int = 0) -> Iterator[Dict[str, object]]:
         """The batches of ``epoch`` from its batch ``start`` on (the skipped
@@ -213,10 +322,11 @@ class DetDataLoader:
         depend on the images, their images are loaded and augmented too),
         made by a prefetch thread."""
         batches = self._batches(epoch)
-        rng = np.random.RandomState(self.seed * 1000 + epoch)
+        rng = np.random.RandomState(self.seed * 1000 + epoch + self.shard_id)
         for take, _ in batches[:start]:
             for i in take:  # augmentations draw by the image's content: replay them
                 self._augment(int(i), rng) if self._augmenting else self._draw(rng)
+                self._replay_targets(rng)
         batches = batches[start:]
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
@@ -264,13 +374,17 @@ class FakeDetLoader:
     ``with_masks`` a 28 x 28 circle crop for every slot, with
     ``with_semantic`` a stuff map at ``1 / semantic_stride`` of the canvas
     (2-4 horizontal stripes of classes ``num_classes`` to ``num_classes +
-    7``, each gt box painted with its label).  The draws are the JAX
-    loader's, in its order, so the two give equal batches for a seed."""
+    7``, each gt box painted with its label); with ``num_domains`` a
+    drawn one-hot ``domain_label`` an image, with ``jigsaw`` the images
+    upside down as ``img_puzzle`` and a drawn one-hot ``jig_labels``.  The
+    draws are the JAX loader's, in its order, so the two give equal batches
+    for a seed."""
 
     def __init__(self, batch_size: int, canvas: Tuple[int, int], num_classes: int,
                  max_gt: int = 20, seed: int = 0, num_batches: int = 10,
                  with_masks: bool = False, with_semantic: bool = False,
-                 semantic_stride: int = 8, device="cpu"):
+                 semantic_stride: int = 8, num_domains: int = 0, jigsaw: int = 0,
+                 device="cpu"):
         self.batch_size = batch_size
         self.canvas = tuple(canvas)
         self.num_classes = num_classes
@@ -280,6 +394,7 @@ class FakeDetLoader:
         self.with_masks = with_masks
         self.with_semantic = with_semantic
         self.semantic_stride = semantic_stride
+        self.num_domains, self.jigsaw = num_domains, jigsaw
         self.device = torch.device(device)
 
     def __len__(self):
@@ -335,6 +450,14 @@ class FakeDetLoader:
                 batch["gt_mask_crops"] = np.broadcast_to(circle, (b, g, s, s)).copy()
             if self.with_semantic:
                 batch["gt_semantic_seg"] = self._semantic(rng, boxes, labels, n)
+            if self.num_domains > 0:
+                batch["domain_label"] = np.eye(self.num_domains, dtype=np.float32)[
+                    rng.randint(0, self.num_domains, size=b)]
+            if self.jigsaw > 0:
+                batch["jig_labels"] = np.eye(self.jigsaw, dtype=np.float32)[
+                    rng.randint(0, self.jigsaw, size=b)]
             if k < start:
                 continue
+            if self.jigsaw > 0:
+                batch["img_puzzle"] = torch.from_numpy(images[:, ::-1].copy()).to(self.device)
             yield dict(images=torch.from_numpy(images).to(self.device), **batch)

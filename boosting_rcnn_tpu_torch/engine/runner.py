@@ -24,6 +24,16 @@ resumes at the next batch of that epoch.
 It logs the losses, learning rate, gradient norm, images per second
 (loading included) and the share of wall time spent waiting on the loader.
 
+Data-parallel training (JAX ``tools/train.py:117-131, :208-209, :447``):
+``train_detector`` joins the process group that the environment names
+(``parallel/mesh.py::init_distributed``), shards the train loader by rank,
+logs the ranks' averaged losses, and leaves the logs and checkpoints to
+rank 0 (the others wait at a barrier).  Every rank evaluates, as every JAX
+process does (``tools/train.py:467``), so the barrier never waits out an
+evaluation.  The DG configs'
+loader targets (``domain_file``, from the pipeline or ``data.train``,
+``jigsaw``, ``dgaug``) are read from the split.
+
 Not ported: the multi-step dispatch, the compile cache and device-put
 helpers (TPU dispatch and relay work-arounds), and the ``outside_grad`` /
 ``stale`` proposal modes.
@@ -38,7 +48,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..builder import build_detector
+from ..builder import build_detector, resolve_device
 from ..config import Config, load_config
 from ..data.builder import build_dataset
 from ..data.loader import DetDataLoader, FakeDetLoader
@@ -46,7 +56,9 @@ from ..utils.logging import JsonLogWriter, collect_env, get_root_logger, log_to_
 from ..weights import load_pretrained
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .eval import run_eval
-from .train import make_optimizer, make_train_step, step_lr_schedule
+from ..parallel.mesh import (barrier, cluster_spec_from_env, init_distributed, is_main, local_device,
+                             rank, world_size)
+from .train import aux_parameters, make_optimizer, make_train_step, step_lr_schedule
 
 __all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "check_data",
            "train_loader", "test_geometry", "eval_loader", "tta_options", "Trainer",
@@ -57,8 +69,7 @@ TINY_GN_GROUPS = 8  # divides the shrunk backbone's, neck's and heads' widths
 # hooks whose work the loop does by construction
 _INHERENT_HOOKS = ("NumClassCheckHook", "CheckInvalidLossHook")
 # the JAX loader's augmentations and extra targets that the port's loader lacks
-_UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "ssd_aug", "domain_file",
-                      "jigsaw", "dgaug")
+_UNPORTED_PIPELINE = ("mosaic_prob", "mixup_prob", "autoaugment", "ssd_aug")
 # the loader's train-time augmentations, read from the pipeline
 _AUGMENTATIONS = ("lsj_range", "albu", "instaboost")
 
@@ -106,7 +117,10 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     one.  The zoo's backbones keep their kind at their smallest or a
     narrowed width (``_ZOO_TINY``: RegNetX-400MF, HRNet-W18, ResNeSt-50 at
     width 8), where the JAX shrink leaves them at full width beside a
-    neck sized for ResNet-18.  Other model types raise."""
+    neck sized for ResNet-18; ``HiddenMixupResNet`` (DGaug's) stays one,
+    around ResNet-18 at width 8, where the JAX shrink leaves it at
+    ResNet-50 beside the shrunk neck, which then fails to build.  Other
+    model types raise."""
     rpn = mc.get("rpn_head", {}).get("type")
     if rpn not in ("ATSSRPNHead", "RPNHead") or "roi_head" not in mc:
         raise NotImplementedError("--tiny shrinks the two-stage configs only")
@@ -118,7 +132,10 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
         for key in _BIG_BLOCK_KEYS:
             mc["backbone"].pop(key, None)
         plugins = bool(mc["backbone"].get("plugins"))
-        mc["backbone"].update(type="ResNet", depth=50 if plugins else 18, base_channels=8)
+        # HiddenMixupResNet keeps its kind around the small ResNet
+        kind = "HiddenMixupResNet" if mc["backbone"].get("type") == "HiddenMixupResNet" \
+            else "ResNet"
+        mc["backbone"].update(type=kind, depth=50 if plugins else 18, base_channels=8)
         in_channels = [32, 64, 128, 256] if plugins else [8, 16, 32, 64]
     if mc.get("neck"):  # C4 and DC5 have none: their backbone keeps its stages
         mc["neck"].update(in_channels=in_channels, out_channels=32)
@@ -180,6 +197,14 @@ def _split_pipeline(split_cfg: Dict[str, Any]) -> Dict[str, Any]:
     return {**(_split_pipeline(inner) if inner else {}), **(split_cfg.get("pipeline") or {})}
 
 
+def _dg_targets(pipeline: Dict[str, Any], split_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The loader's domain-generalisation targets: ``domain_file`` from the
+    pipeline, else the split (the SUODAC base sets it on ``data.train``, as
+    JAX ``tools/train.py:224-226`` reads it), ``jigsaw`` and ``dgaug``."""
+    return dict(domain_file=pipeline.get("domain_file") or split_cfg.get("domain_file"),
+                jigsaw=pipeline.get("jigsaw"), dgaug=bool(pipeline.get("dgaug", False)))
+
+
 def _pipeline(data_cfg: Dict[str, Any], split: str, tiny: bool):
     pipeline = _split_pipeline(data_cfg[split])
     for key in _UNPORTED_PIPELINE:
@@ -219,15 +244,17 @@ def _targets(mc: Dict[str, Any]) -> Dict[str, bool]:
 
 
 def train_loader(cfg: Config, mc: Dict[str, Any], device, seed: int = 0,
-                 tiny: bool = False) -> DetDataLoader:
+                 tiny: bool = False, num_shards: int = 1, shard_id: int = 0) -> DetDataLoader:
     """The train loader of ``data.train`` for the model config ``mc``: batch
-    ``samples_per_gpu``, the pipeline's canvas, scale, flip, ``max_gt``,
-    multi-scale range, ``img_norm`` and augmentations, with the targets
+    ``samples_per_gpu`` (a shard's, of ``num_shards``), the pipeline's
+    canvas, scale, flip, ``max_gt``, multi-scale range, ``img_norm``,
+    augmentations and domain-generalisation targets, with the targets
     ``mc``'s heads train on."""
     data_cfg = cfg.data.to_dict()
     pipeline, canvas = _pipeline(data_cfg, "train", tiny)
     return DetDataLoader(
         build_dataset(data_cfg["train"]), batch_size=data_cfg.get("samples_per_gpu", 2),
+        num_shards=num_shards, shard_id=shard_id, **_dg_targets(pipeline, data_cfg["train"]),
         canvas=canvas, scale=tuple(pipeline.get("scale", (1333, 800))), train=True,
         flip_prob=pipeline.get("flip_prob", 0.5), max_gt=pipeline.get("max_gt", 100),
         seed=seed, mstrain_range=pipeline.get("mstrain_range"),
@@ -331,7 +358,8 @@ def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) ->
     optimizer = make_optimizer(detector.net.parameters(), sched,
                                momentum=opt.get("momentum", 0.9),
                                weight_decay=opt.get("weight_decay", 1e-4),
-                               grad_clip_norm=clip.get("max_norm"))
+                               grad_clip_norm=clip.get("max_norm"),
+                               aux_params=aux_parameters(detector.net))
     generator = torch.Generator(device=detector.device).manual_seed(seed + 1)
     return Trainer(detector, optimizer, generator)
 
@@ -350,12 +378,31 @@ def train_detector(cfg, work_dir: Optional[str] = None, *, detector=None, device
 
     The device is ``device``, else the GPU (raises without one); a given
     ``detector`` brings its own.  ``work_dir`` defaults to
-    ``work_dirs/<config name>``; the log goes there too."""
+    ``work_dirs/<config name>``; the log goes there too.
+
+    Data-parallel (``parallel/mesh.py``): where the environment names a
+    group (``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``, or
+    Slurm's), every process joins it, trains on its shard of each global
+    batch (``samples_per_gpu`` images a rank; ``--fake-data`` gives every
+    rank the same noise batches, as the JAX tool does) on its card
+    (``mesh.local_device``, unless ``device`` is given; NCCL joins the
+    ranks on cards, gloo those on the CPU), and logs the ranks' averaged
+    losses; every rank evaluates, rank 0 alone writes the logs and
+    checkpoints, the others wait at a barrier."""
     cfg = _load(cfg)
+    if detector is not None:
+        device = detector.device
+    elif cluster_spec_from_env() is not None and str(device or "cuda") == "cuda":
+        device = local_device()  # the rank's own card
+    device = resolve_device(device)
+    init_distributed(device)
     name = os.path.splitext(os.path.basename(cfg.filename or "config"))[0]
     work_dir = work_dir or os.path.join("work_dirs", name)
-    os.makedirs(work_dir, exist_ok=True)
     logger = get_root_logger()
+    if not is_main():
+        return _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters,
+                      tiny, fake_data, validate, logger)
+    os.makedirs(work_dir, exist_ok=True)
     with log_to_file(logger, os.path.join(work_dir, "train.log")):
         return _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters,
                       tiny, fake_data, validate, logger)
@@ -366,9 +413,11 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
     check_schedule(cfg)
     if not fake_data:
         check_data(cfg)
-    jlog = JsonLogWriter(os.path.join(work_dir, "train.log.json"))
-    logger.info(f"env: {collect_env()}")
-    cfg.dump(os.path.join(work_dir, "config_dump.py"))
+    main = is_main()
+    jlog = JsonLogWriter(os.path.join(work_dir, "train.log.json")) if main else None
+    if main:
+        logger.info(f"env: {collect_env()}")
+        cfg.dump(os.path.join(work_dir, "config_dump.py"))
 
     mc = model_config(cfg, tiny)
     if detector is None:
@@ -386,12 +435,18 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
     pipeline, canvas = _pipeline(data_cfg, "train", tiny)
     val_ds = None
     if fake_data:
+        # JAX tools/train.py:189-192: the DG detectors' fake targets
         loader = FakeDetLoader(data_cfg.get("samples_per_gpu", 2), canvas, _num_classes(mc),
                                num_batches=max_iters or 10, seed=seed,
                                semantic_stride=pipeline.get("semantic_stride", 8), device=device,
+                               num_domains=(mc.get("num_domains", 2)
+                                            if mc.get("type") == "DGFasterRCNN" else 0),
+                               jigsaw=(mc.get("jig_classes", 31)
+                                       if mc.get("type") == "JiGENFasterRCNN" else 0),
                                **_targets(mc))
     else:
-        loader = train_loader(cfg, mc, device, seed=seed, tiny=tiny)
+        loader = train_loader(cfg, mc, device, seed=seed, tiny=tiny, num_shards=world_size(),
+                              shard_id=rank())
         logger.info(f"train dataset: {len(loader.ds)} imgs, {len(loader)} steps/epoch")
         if validate:
             val_ds = build_dataset(data_cfg["val"], test_mode=True)
@@ -444,9 +499,10 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
                 m.update(epoch=epoch, iter=it, lr=sched(trainer.optimizer.step_count - 1),
                          time=elapsed / (steps + 1), data_time=wait / (steps + 1))
                 summary["last_metrics"] = m
-                logger.info(f"Epoch [{epoch}][{it}/{steps_per_epoch}] " + " ".join(
-                    f"{k}: {v:.4f}" for k, v in m.items() if k not in ("epoch", "iter")))
-                jlog.write({"mode": "train", **m})
+                if main:
+                    logger.info(f"Epoch [{epoch}][{it}/{steps_per_epoch}] " + " ".join(
+                        f"{k}: {v:.4f}" for k, v in m.items() if k not in ("epoch", "iter")))
+                    jlog.write({"mode": "train", **m})
             it += 1
             steps += 1
             if max_iters and total_steps >= max_iters:
@@ -461,12 +517,12 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
                     f"{steps * batch / max(epoch_s, 1e-9):.2f} img/s, "
                     f"loader wait {wait / max(epoch_s, 1e-9):.1%}")
         meta = {"classes": classes, "config": name}
-        if it < steps_per_epoch:  # stopped inside the epoch: resume at its next batch
+        if main and it < steps_per_epoch:  # stopped inside the epoch: resume at its next batch
             summary["checkpoints"].append(save_checkpoint(
                 os.path.join(work_dir, f"iter_{total_steps}"), detector.net, trainer.optimizer,
                 total_steps, meta={"epoch": epoch, "iter": it, **meta},
                 generator=trainer.generator))
-        elif (epoch + 1) % ckpt_interval == 0 or epoch + 1 == max_epochs or stop:
+        elif main and ((epoch + 1) % ckpt_interval == 0 or epoch + 1 == max_epochs or stop):
             summary["checkpoints"].append(save_checkpoint(
                 os.path.join(work_dir, f"epoch_{epoch + 1}"), detector.net, trainer.optimizer,
                 total_steps, meta={"epoch": epoch + 1, **meta}, generator=trainer.generator))
@@ -475,9 +531,11 @@ def _train(cfg, name, work_dir, detector, device, seed, resume_from, max_iters, 
             results = run_eval(detector, eval_loader(cfg, val_ds, device, tiny, "val"),
                                logger=logger, stats=stats)
             metrics = val_ds.evaluate(results, metric=evaluation.get("metric", "bbox"))
-            logger.info(f"Epoch [{epoch}] eval: {metrics}")
-            jlog.write({"mode": "val", "epoch": epoch, **metrics})
+            if main:
+                logger.info(f"Epoch [{epoch}] eval: {metrics}")
+                jlog.write({"mode": "val", "epoch": epoch, **metrics})
             summary["eval"].append({"epoch": epoch + 1, **metrics, **stats})
+        barrier()  # the other ranks wait for rank 0's checkpoint
         if stop:
             break
     summary["aug_seconds"] = dict(getattr(loader, "aug_seconds", {}))

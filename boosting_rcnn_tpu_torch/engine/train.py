@@ -31,6 +31,13 @@ every checkpoint).  Metrics carry the JAX names: ``loss``, each loss, and
 ``grad_norm`` (the norm before clipping).  The step runs on the detector's device, in the detector's
 compute dtype; the parameters and their gradients stay float32.
 
+Under data-parallel training (``parallel/mesh.py``) each rank runs the
+step on its slice of the global batch: the loss's batch normalisers are
+the global ones, the gradients are averaged over the ranks before the
+clip (one all-reduce over a flat buffer), so the clip sees the global
+gradient as the JAX step's does, and the metrics are the ranks' means
+(the global batch's losses).
+
 The step is bitwise repeatable on the GPU, as the JAX step is on the TPU:
 it pins cuDNN to deterministic algorithms (``cudnn.deterministic`` on,
 ``cudnn.benchmark`` off) for its own duration, and the port's train path
@@ -47,8 +54,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["step_lr_schedule", "Optimizer", "make_optimizer", "deterministic_cudnn",
-           "live_norms", "make_train_step"]
+from ..parallel.mesh import average_gradients, reduce_metrics
+
+__all__ = ["step_lr_schedule", "Optimizer", "make_optimizer", "aux_parameters",
+           "deterministic_cudnn", "live_norms", "make_train_step"]
 
 
 def step_lr_schedule(
@@ -76,49 +85,94 @@ def step_lr_schedule(
     return sched
 
 
+AUX_LR = 1e-3  # the DG classifiers' Adam (JAX engine/train.py:151-166)
+AUX_CLIP = 0.1
+AUX_HEADS = ("domain_head", "jig_head")
+
+
+def _sq_norm(grads) -> torch.Tensor:
+    return sum(torch.sum(g * g) for g in grads)  # leaf by leaf, as optax
+
+
+def _clip_(grads, norm: torch.Tensor, max_norm: float) -> None:
+    """optax ``clip_by_global_norm``: ``(g / norm) * max_norm`` where
+    ``norm >= max_norm``, ``(g / 1) * 1 == g`` elsewhere; no host sync."""
+    clip = norm >= max_norm
+    torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
+    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
+
+
+def aux_parameters(net: torch.nn.Module):
+    """The parameters of the DG detectors' classifiers (``domain_head``,
+    ``jig_head``), which train in the optimizer's auxiliary group."""
+    return [p for name in AUX_HEADS if getattr(net, name, None) is not None
+            for p in getattr(net, name).parameters()]
+
+
 class Optimizer:
     """Global-norm clip, then SGD with weight decay and momentum, with the
-    learning rate from ``lr_schedule(step)``."""
+    learning rate from ``lr_schedule(step)``.  ``aux_params`` (the DG
+    classifiers', ``aux_parameters``) form a group of their own, as the JAX
+    package's ``optax.multi_transform`` routes them: a global-norm clip at
+    0.1 over their gradients alone, then Adam at 1e-3 without weight decay;
+    the main clip, weight decay and SGD see only the other parameters."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], lr_schedule: Callable[[int], float],
                  momentum: float = 0.9, weight_decay: float = 1e-4,
-                 grad_clip_norm: Optional[float] = 35.0):
-        self.params = [p for p in params if p.requires_grad]
+                 grad_clip_norm: Optional[float] = 35.0,
+                 aux_params: Sequence[torch.nn.Parameter] = ()):
+        self.aux_params = [p for p in aux_params if p.requires_grad]
+        aux = {id(p) for p in self.aux_params}
+        self.params = [p for p in params if p.requires_grad and id(p) not in aux]
         self.lr_schedule = lr_schedule
         self.grad_clip_norm = grad_clip_norm
         self.step_count = 0
         self.sgd = torch.optim.SGD(self.params, lr=lr_schedule(0), momentum=momentum,
                                    weight_decay=weight_decay)
+        self.adam = torch.optim.Adam(self.aux_params, lr=AUX_LR) if self.aux_params else None
 
     def state_dict(self) -> dict:
-        """The step count and the SGD state (its momentum buffers)."""
-        return {"step_count": self.step_count, "sgd": self.sgd.state_dict()}
+        """The step count and the SGD state (its momentum buffers), and the
+        auxiliary group's Adam state where there is one."""
+        state = {"step_count": self.step_count, "sgd": self.sgd.state_dict()}
+        if self.adam is not None:
+            state["adam"] = self.adam.state_dict()
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.step_count = int(state["step_count"])
         self.sgd.load_state_dict(state["sgd"])
+        if self.adam is not None:
+            self.adam.load_state_dict(state["adam"])
 
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
+        if self.adam is not None:
+            self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
-        """Clip, update, count.  Returns the gradient norm before the clip.
-        A trainable parameter without a gradient gets a zero one, so that
-        weight decay and momentum move it as optax would."""
-        for p in self.params:
+        """Clip, update, count.  Returns the gradient norm before the clip,
+        over every trainable parameter's gradient (the auxiliary group's
+        too).  A trainable parameter without a gradient gets a zero one, so
+        that weight decay and momentum move it as optax would."""
+        for p in self.params + self.aux_params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))  # leaf by leaf, as optax
+        sq = _sq_norm(grads)
+        norm = torch.sqrt(sq)
         if self.grad_clip_norm is not None:
-            clip = norm >= self.grad_clip_norm
-            # (g / norm) * max_norm where the clip acts, (g / 1) * 1 == g elsewhere
-            torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
-            torch._foreach_mul_(grads, torch.where(clip, self.grad_clip_norm, 1.0))
+            _clip_(grads, norm, self.grad_clip_norm)
         lr = self.lr_schedule(self.step_count)
         for group in self.sgd.param_groups:
             group["lr"] = lr
         self.sgd.step()
+        if self.adam is not None:
+            aux_grads = [p.grad for p in self.aux_params]
+            aux_sq = _sq_norm(aux_grads)
+            _clip_(aux_grads, torch.sqrt(aux_sq), AUX_CLIP)
+            self.adam.step()
+            norm = torch.sqrt(sq + aux_sq)
         self.step_count += 1
         return norm
 
@@ -129,11 +183,13 @@ def make_optimizer(
     momentum: float = 0.9,
     weight_decay: float = 1e-4,
     grad_clip_norm: Optional[float] = 35.0,
+    aux_params: Sequence[torch.nn.Parameter] = (),
 ) -> Optimizer:
     """SGD with momentum, L2 weight decay and a global-norm clip (the
     reference's ``optimizer_config``: ``grad_clip`` max_norm 35; None
-    clips nothing), over the parameters that require a gradient."""
-    return Optimizer(params, lr_schedule, momentum, weight_decay, grad_clip_norm)
+    clips nothing), over the parameters that require a gradient but
+    ``aux_params``, which train in the auxiliary group (``Optimizer``)."""
+    return Optimizer(params, lr_schedule, momentum, weight_decay, grad_clip_norm, aux_params)
 
 
 @contextlib.contextmanager
@@ -194,10 +250,11 @@ def make_train_step(
                                    sample=sample, rpn_uniforms=rpn_uniforms, **kw)
         total = sum(v.sum() for v in losses.values())
         total.backward()
+        average_gradients(optimizer.params + optimizer.aux_params)  # before the clip
         grad_norm = optimizer.step()
         detector.update_state()
         metrics = {"loss": total.detach(), **{k: v.detach().sum() for k, v in losses.items()}}
         metrics["grad_norm"] = grad_norm.detach()
-        return metrics
+        return reduce_metrics(metrics)
 
     return train_step

@@ -49,6 +49,7 @@ from ...ops import losses as L
 from ...ops.assigners import atss_assign, max_iou_assign
 from ...ops.nms import batched_nms_padded
 from ...ops.topk import select_topk
+from ...parallel.mesh import global_count
 from ..layers import ConvModule, Scale, make_conv
 
 PRIOR_BIAS = -4.595  # rpn_cls bias init: prior probability 0.01
@@ -258,7 +259,8 @@ def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.T
                                 num_level_anchors)
                for i in range(b)]
     pos, label_weights, bbox_targets = (torch.stack(x) for x in zip(*targets))
-    num_total = torch.clamp(pos.float().sum(), min=1.0)
+    # normalisers over the global batch (JAX atss_rpn_head.py:289-290, :377-379)
+    num_total = global_count(pos.float().sum())
 
     anchors_b = anchors.expand(b, a, 4)
     if cfg.loss_cls_type == "varifocal":
@@ -305,7 +307,7 @@ def atss_rpn_loss(cfg: ATSSRPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.T
         flat_pred = bbox_preds.reshape(-1, 4)
         flat_t = torch.where(pos_flat, bbox_targets.reshape(-1, 4), flat_pred)
         loss_box = box_loss(flat_pred, flat_t, weight=w[:, None].expand(-1, 4), avg_factor=1.0)
-    loss_bbox = loss_box * cfg.loss_bbox_weight / torch.clamp(iou_target.sum(), min=1.0)
+    loss_bbox = loss_box * cfg.loss_bbox_weight / global_count(iou_target.sum())
 
     loss_rpn_iou = L.binary_cross_entropy_loss(
         iou_logits.reshape(-1), iou_target, weight=posf, avg_factor=num_total,

@@ -30,6 +30,7 @@ from ...ops import box_ops
 from ...ops import losses as L
 from ...ops.assigners import max_iou_assign
 from ...ops.samplers import random_sample, random_sample_from_uniforms
+from ...parallel.mesh import global_count
 from ..layers import make_conv
 from .atss_rpn_head import level_topk_nms
 
@@ -140,7 +141,7 @@ def rpn_loss(cfg: RPNCfg, cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
                                None if uniforms is None else uniforms[i])
                    for i in range(b)]
     pos, weight, box_t = (torch.stack(x) for x in zip(*targets))
-    num_total = torch.clamp(weight.sum(), min=1.0)
+    num_total = global_count(weight.sum())  # over the global batch
     if cfg.loss_cls_type == "focal":
         # weighted by the sampled anchors (JAX rpn_head.py:115-124)
         loss_cls = L.sigmoid_focal_loss(

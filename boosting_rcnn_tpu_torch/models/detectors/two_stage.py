@@ -30,6 +30,17 @@ each slot weighted by its validity, JAX ``two_stage.py:501-516``); those
 counts are stored by ``update_state``, so a ``loss`` call alone leaves the
 buffer as it was.
 
+The fork's domain-generalisation detectors (``dg.py``) and
+``EMAFasterRCNN`` use the net's ``domain_head``, ``jig_head`` and
+``emau`` slots (JAX ``two_stage.py:104-136``): ``features`` passes the
+neck's levels through the FP-EMAU where there is one, ``features_dg``
+branches the domain classifier off the backbone's second output,
+``jig_out`` classifies the puzzle view's last output, and ``loss`` takes
+its features and auxiliary losses from ``_extract_for_loss`` (the
+subclasses' hook).  Under data-parallel training (``parallel/mesh.py``)
+the samplers that draw from ``generator`` draw the global batch's
+uniforms and keep this rank's images' (``rank_draws``).
+
 ``rpn_type`` picks the RPN: ``"atss_rpn"`` (the flagship's ATSS RPN head,
 with its IoU branch) or ``"rpn"`` (the plain RPN head of Faster and Mask
 R-CNN, no IoU branch).
@@ -75,6 +86,7 @@ from ...ops.anchors import AnchorGenerator
 from ...ops.box_ops import bbox_overlaps, clip_boxes, delta2bbox, hflip_boxes
 from ...ops.nms import multiclass_nms_padded, nms_padded
 from ...ops.roi_align_kernel import batched_multilevel_roi_align
+from ...parallel.mesh import rank_draws, world_size
 from ..dense_heads.atss_rpn_head import (
     ATSSRPNCfg,
     atss_rpn_loss,
@@ -134,10 +146,17 @@ class TwoStageNet(nn.Module):
                  roi_out_size: int = 7, roi_sample_num: int = 2,
                  roi_finest_scale: int = 56, mask_head: Optional[nn.Module] = None,
                  mask_roi_out_size: int = 14, mask_iou_head: Optional[nn.Module] = None,
-                 mask_on_shared: bool = False, point_head: Optional[nn.Module] = None):
+                 mask_on_shared: bool = False, point_head: Optional[nn.Module] = None,
+                 emau: Optional[nn.Module] = None, domain_head: Optional[nn.Module] = None,
+                 jig_head: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
+        # EMAFasterRCNN's FP-EMAU over the neck levels; the DG detectors'
+        # domain and jigsaw classifiers (models/detectors/dg.py)
+        self.emau = emau
+        self.domain_head = domain_head
+        self.jig_head = jig_head
         self.rpn = rpn
         self.bbox_head = bbox_head
         self.mask_head = mask_head
@@ -154,10 +173,28 @@ class TwoStageNet(nn.Module):
         """``(B, H, W, 3)`` images -> neck levels, each ``(B, H, W, C)``;
         without a neck (C4, DC5: the JAX builder's ``_IdentityNeck``) the
         backbone's outputs."""
-        outs = self.backbone(_nchw(images))
+        return self._neck(self.backbone(_nchw(images)))
+
+    def _neck(self, outs) -> Tuple[torch.Tensor, ...]:
+        """The backbone's NCHW outputs through the neck and the FP-EMAU
+        (where they are) -> NHWC levels."""
         if self.neck is not None:
             outs = self.neck(outs)
+        if self.emau is not None:
+            outs, _ = self.emau(outs)
         return tuple(_nhwc(x) for x in outs)
+
+    def features_dg(self, images: torch.Tensor):
+        """DGFasterRCNN's features (JAX ``TwoStageNet.features_dg``): the
+        levels, and the domain classifier's prediction from the backbone's
+        stage-2 output, branched off before the neck."""
+        outs = self.backbone(_nchw(images))
+        return self._neck(outs), self.domain_head(outs[1])
+
+    def jig_out(self, images: torch.Tensor) -> torch.Tensor:
+        """JiGEN's permutation prediction from the backbone's last output
+        of the puzzle view."""
+        return self.jig_head(self.backbone(_nchw(images))[-1])
 
     def rpn_out(self, feats: Sequence[torch.Tensor]):
         """Per-level ``(B, H, W, C)`` features -> per-level NCHW
@@ -283,6 +320,10 @@ class TwoStageDetector:
         detector's when None); fields ``(B, R, ...)``.  Given ``uniforms``
         ``(B, 2, G + P)`` rank the candidates instead of draws."""
         gt_bboxes, gt_mask, gt_labels = self._gt(batch)
+        if uniforms is None and world_size() > 1:
+            # the global batch's draws, this rank's images kept
+            uniforms = rank_draws(generator, (2, gt_bboxes.shape[1] + prop_boxes.shape[1]),
+                                  prop_boxes.shape[0], self.device)
         if uniforms is not None:
             uniforms = self._tensor(uniforms)
         per_image = [
@@ -295,23 +336,26 @@ class TwoStageDetector:
 
     @torch.no_grad()
     def sample_from_rpn_outs(self, rpn_outs, batch, anchors, num_level_anchors,
-                             generator: Optional[torch.Generator] = None) -> RoISample:
+                             generator: Optional[torch.Generator] = None,
+                             uniforms=None) -> RoISample:
         """Train-config proposals from flat RPN outputs ``(cls, reg, iou)``,
-        then RoI sampling; no gradient."""
+        then RoI sampling (ranked by ``uniforms`` ``(B, 2, G + P)`` where
+        given); no gradient."""
         cls, reg, iou = (None if x is None else x.detach() for x in rpn_outs)
         boxes, scores, valid = self._proposals(
             cls, reg, iou, anchors, num_level_anchors, batch["img_shape"],
             self.train_proposal_cfg)
-        return self._vmap_sample(boxes, scores, valid, batch, generator)
+        return self._vmap_sample(boxes, scores, valid, batch, generator, uniforms=uniforms)
 
     @torch.no_grad()
     def train_sample(self, batch, anchors, num_level_anchors,
-                     generator: Optional[torch.Generator] = None) -> RoISample:
+                     generator: Optional[torch.Generator] = None, uniforms=None) -> RoISample:
         """A forward without gradient to the train ``RoISample``, for the
-        ``external`` train step."""
+        ``external`` train step (the sampler's draws from ``generator``, or
+        ``uniforms`` ``(B, 2, G + P)``)."""
         feats = self.net.features(self._tensor(batch["images"]))
         return self.sample_from_rpn_outs(self._rpn_flat(feats), batch, anchors,
-                                         num_level_anchors, generator)
+                                         num_level_anchors, generator, uniforms)
 
     def _rpn_losses(self, batch, anchors, num_level_anchors,
                     generator: Optional[torch.Generator] = None, rpn_uniforms=None):
@@ -319,7 +363,7 @@ class TwoStageDetector:
         losses of a batch (``loss``'s first part)."""
         gt_bboxes, gt_mask, _ = self._gt(batch)
         anchors = self._tensor(anchors)
-        feats = self.net.features(self._tensor(batch["images"]))
+        feats, aux_losses = self._extract_for_loss(batch)
         cls, reg, iou = self._rpn_flat(feats)
         if cls.shape[1] != anchors.shape[0]:
             # HRFPN floors its pooled levels where the anchors ceil the canvas
@@ -330,6 +374,9 @@ class TwoStageDetector:
                 f"anchors {anchors.shape[0]} ({self.featmap_sizes(tuple(batch['images'].shape[1:3]))}"
                 "): train on a canvas that the neck's levels divide")
         valid = torch.ones(cls.shape, dtype=torch.bool, device=self.device)
+        if self.rpn_type == "rpn" and rpn_uniforms is None and world_size() > 1:
+            rpn_uniforms = rank_draws(generator, (2, anchors.shape[0]), cls.shape[0],
+                                      self.device)
         if self.rpn_type == "rpn":
             losses = rpn_loss(self.rpn_cfg, cls, reg, anchors, valid, gt_bboxes, gt_mask,
                               generator=generator,
@@ -338,12 +385,18 @@ class TwoStageDetector:
         else:
             losses = atss_rpn_loss(self.rpn_cfg, cls, reg, iou, anchors, valid,
                                    gt_bboxes, gt_mask, num_level_anchors)
+        losses.update(aux_losses)
         return feats, (cls, reg, iou), losses
+
+    def _extract_for_loss(self, batch):
+        """The train forward's features and its auxiliary losses (none here;
+        the DG detectors branch theirs off, ``dg.py``)."""
+        return self.net.features(self._tensor(batch["images"])), {}
 
     def loss(self, batch, anchors, num_level_anchors,
              generator: Optional[torch.Generator] = None,
              sample: Optional[RoISample] = None,
-             rpn_uniforms=None) -> Dict[str, torch.Tensor]:
+             rpn_uniforms=None, roi_uniforms=None) -> Dict[str, torch.Tensor]:
         """Forward and losses of a padded batch on the detector's device.
 
         ``batch``: ``images`` ``(B, H, W, 3)``, ``gt_bboxes`` ``(B, G, 4)``,
@@ -354,14 +407,16 @@ class TwoStageDetector:
         ``generator`` drives the samplers (the plain RPN's anchor sampler,
         then the RoI sampler).  A given ``sample`` (fields ``(B, R, ...)``)
         skips the proposals and the RoI sampling; given ``rpn_uniforms``
-        ``(B, 2, A)`` rank the plain RPN's anchors instead of draws.
-        Returns the five losses (ATSS RPN: ``loss_rpn_cls``,
+        ``(B, 2, A)`` rank the plain RPN's anchors instead of draws, and
+        given ``roi_uniforms`` ``(B, 2, G + P)`` the RoI sampler's
+        candidates.  Returns the five losses (ATSS RPN: ``loss_rpn_cls``,
         ``loss_rpn_bbox``, ``loss_rpn_iou``, ``loss_cls``, ``loss_bbox``;
         plain RPN: the first two, the R-CNN's two and ``loss_mask``)."""
         return self._losses(batch, anchors, num_level_anchors, generator, sample,
-                            rpn_uniforms)[0]
+                            rpn_uniforms, roi_uniforms)[0]
 
-    def _losses(self, batch, anchors, num_level_anchors, generator, sample, rpn_uniforms):
+    def _losses(self, batch, anchors, num_level_anchors, generator, sample, rpn_uniforms,
+                roi_uniforms=None):
         """``loss``'s losses, and the features, the ``RoISample`` (fields
         ``(B, R, ...)``) and the mask logits of its slots (None without a
         mask loss) that they came from."""
@@ -370,7 +425,7 @@ class TwoStageDetector:
         gt_bboxes = self._tensor(batch["gt_bboxes"])
         if sample is None:
             sample = self.sample_from_rpn_outs((cls, reg, iou), batch, anchors,
-                                               num_level_anchors, generator)
+                                               num_level_anchors, generator, roi_uniforms)
         else:
             sample = RoISample(*(torch.as_tensor(x, device=self.device) for x in sample))
         cls_s, reg_s = self.net.roi_out(feats, sample.boxes.float(), sample.valid.bool())

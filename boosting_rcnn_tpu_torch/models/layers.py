@@ -20,7 +20,11 @@ float32 every cast is a no-op.
 statistics and moves its running averages, in ``eval()`` mode it uses the
 running averages.  The detectors keep their networks in ``eval()``; the
 train step switches them to ``train()`` for its loss forward, as the JAX
-step applies the net with a mutable ``batch_stats`` there.
+step applies the net with a mutable ``batch_stats`` there.  Under
+data-parallel training it is SyncBN: the batch mean and ``E[x^2]`` are
+averaged over the ranks (with their gradient) before the variance, as
+the JAX step's global batch gives them, and the running averages move by
+the global statistics.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.deform_conv import deform_conv2d, split_modulated_offset
+from ..parallel.mesh import differentiable_mean
 
 __all__ = [
     "Conv2d",
@@ -228,7 +233,12 @@ class LiveBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = _fast_stats(x, (0, 2, 3))
+            # SyncBN: the mean and E[x^2] over the data-parallel ranks' global
+            # batch (equal shapes on every rank; the identity for one process)
+            xf = x.float()
+            mean = differentiable_mean(xf.mean((0, 2, 3), keepdim=True))
+            ex2 = differentiable_mean((xf * xf).mean((0, 2, 3), keepdim=True))
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.flatten())

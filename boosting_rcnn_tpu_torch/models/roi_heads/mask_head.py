@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import losses as L
+from ...parallel.mesh import global_count
 from ..layers import (ConvModule, nearest_resize, lecun_normal_, make_conv,
                       make_conv_transpose, make_linear)
 
@@ -332,5 +333,5 @@ def mask_loss(mask_logits: torch.Tensor, mask_targets: torch.Tensor, labels: tor
     logits = (mask_logits * onehot[:, None, None, :]).sum(-1)
     elem = L.binary_cross_entropy_loss(logits, mask_targets, reduction="none")
     posf = pos_mask.float()
-    num = torch.clamp(posf.sum(), min=1.0)
+    num = global_count(posf.sum())  # over the global batch
     return (elem * posf[:, None, None]).sum() / (num * m * m) * loss_weight

@@ -48,6 +48,7 @@ from ...ops import box_ops
 from ...ops.assigners import AssignResult, max_iou_assign
 from ...ops.pisa import carl_loss, isr_p_weights
 from ...ops.samplers import random_sample, random_sample_from_uniforms
+from ...parallel.mesh import all_reduce_mean, global_count
 from .bbox_head import BBoxHeadCfg, bbox_head_loss, bbox_targets
 
 
@@ -205,8 +206,9 @@ def norm_loss(loss: torch.Tensor, weights: torch.Tensor, avg_factor) -> torch.Te
     """Boosting renormalisation (reference ``norm_loss:151``): rescale the
     weights so that the weighted loss sums to the unweighted sum, with the
     rescaled weights detached, then average."""
-    denom = (weights * loss).sum()
-    scale = loss.sum() / torch.where(denom == 0, torch.ones_like(denom), denom)
+    # both sums over the global batch (their ratio: means over the ranks)
+    denom = all_reduce_mean((weights * loss).sum())
+    scale = all_reduce_mean(loss.sum()) / torch.where(denom == 0, torch.ones_like(denom), denom)
     return (loss * (weights * scale).detach()).sum() / avg_factor
 
 
@@ -229,7 +231,7 @@ def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tenso
                          bbox_t, bbox_w, reduction_override="none",
                          beta_override=beta_override, seesaw_counts=seesaw_counts)
     validf = sample.valid.float()
-    n_valid = torch.clamp(validf.sum(), min=1.0)
+    n_valid = global_count(validf.sum())  # over the global batch
     extra = {}
     if cfg.boost:
         lw = (1.0 - sample.prior) ** cfg.gamma
@@ -250,8 +252,7 @@ def prob_roi_loss(cfg: ProbRoICfg, head_cfg: BBoxHeadCfg, cls_score: torch.Tenso
                                            avg_factor=n_valid)
         loss_cls = (raw["loss_cls"] * cls_w).sum() / n_valid
     if cfg.reg_norm == "mean":
-        loss_bbox = raw["loss_bbox"].sum() / (
-            torch.clamp(sample.is_pos.float().sum(), min=1.0) * 4.0)
+        loss_bbox = raw["loss_bbox"].sum() / (global_count(sample.is_pos.float().sum()) * 4.0)
     else:
         loss_bbox = raw["loss_bbox"].sum() / n_valid
     return {"loss_cls": loss_cls, "loss_bbox": loss_bbox, **extra}

@@ -16,6 +16,15 @@ semantic head on the 8-bit PNG stuff maps of ``data.train.seg_prefix``.  Checkpo
 ``<work-dir>/epoch_<n>``, or ``<work-dir>/iter_<step>`` where ``--iters``
 stops the run inside an epoch (default work dir ``work_dirs/<config
 name>``); ``--resume-from`` either continues at its next batch.
+
+Data-parallel training: start one process per card with
+``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=r`` (or under
+Slurm's ``srun``, which sets ``SLURM_NTASKS`` / ``SLURM_PROCID`` /
+``SLURM_STEP_NODELIST``); each trains on its shard of every global batch
+of N times ``samples_per_gpu`` on its card (``cuda:LOCAL_RANK``, or
+``SLURM_LOCALID``, else the process id modulo the host's cards) over NCCL,
+or on the CPU over gloo with ``--device cpu``, as one process on the whole
+batch would; every rank evaluates, rank 0 writes the logs and checkpoints.
 """
 from __future__ import annotations
 

@@ -44,7 +44,12 @@ blocks, ``mix_weight`` and ``gate`` (kept), FPT_lite's attention
 (``query`` / ``key`` / ``value`` kernels ``(in, heads, dim)`` and ``out``'s
 ``(heads, dim, out)`` flattened to ``Linear`` weights, their ``(heads,
 dim)`` biases flattened), RegNet's, ResNeSt's and HRNet's convs and BNs
-and HRFPN's convs by the general rules.
+and HRFPN's convs by the general rules; and the fork's domain-generalisation
+parts by the same rules: the DANN ``domain_head`` (``conv1``, ``conv2``,
+``fc``) with its images-seen ``count``, JiGEN's ``jig_head.fc``, the
+FP-EMAU's ``emau.conv1`` / ``conv2`` / ``bn2`` with its basis ``mu``
+(``batch_stats`` entries keep their names, as the modules' buffers), and
+``HiddenMixupResNet``'s ResNet under ``backbone.resnet``.
 
 Every rule is linear (a transpose or a rename), so the same mapping
 carries a flax *gradient* tree (the ``params`` tree of ``jax.grad``) onto
@@ -64,7 +69,11 @@ is the first FC after the RoI pool, whose input mmdet flattens from
 ``(C, 7, 7)`` and the port from ``(7, 7, C)``; the mask head's transposed
 conv is PyTorch's on both sides and stays as it is.  ``load_pretrained``
 applies a backbone ``init_cfg=dict(type="Pretrained", checkpoint=...)``
-from a local file; nothing is fetched.
+from a local file; nothing is fetched.  ``nest_backbone`` moves a plain
+ResNet's ``backbone.*`` keys under ``backbone.resnet.*`` for a
+``HiddenMixupResNet`` (the JAX converter's ``_merge_backbone_subtree``);
+the DG heads' mmdet keys (``domain_cls.*``, ``jig_cls.*``, ``emau.*``)
+raise, as the JAX converter maps none of them.
 """
 from __future__ import annotations
 
@@ -76,7 +85,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax_params", "from_torchvision_resnet", "from_mmdet_state_dict",
-           "read_state_dict", "load_pretrained"]
+           "read_state_dict", "load_pretrained", "nest_backbone"]
 
 _MODULE_NAMES = {"Conv_0": "conv", "WSConv_0": "conv", "GroupNorm_0": "norm",
                  "FrozenBatchNorm_0": "norm", "LayerNorm_0": "norm"}
@@ -297,6 +306,11 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
     RegNet, ResNeSt or HRNet backbone (``_check_zoo_backbone``)."""
     _check_cls_rows(state_dict)
     _check_zoo_backbone(state_dict)
+    dg = sorted(k for k in state_dict if k.startswith(("domain_cls.", "jig_cls.", "emau.")))
+    if dg:
+        raise NotImplementedError(
+            f"{dg} are keys of the fork's DG classifiers or FP-EMAU; the JAX package's "
+            "converter maps none of them, so their mmdet weights do not load")
     point_rend = sorted(k for k in state_dict if re.match(
         r"roi_head\.(point_head\.|mask_head\.(fcs|fc_logits|downsample_conv)\.)", k))
     if point_rend:
@@ -369,6 +383,18 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
     return out
 
 
+def nest_backbone(state: Dict[str, torch.Tensor], net: torch.nn.Module
+                  ) -> Dict[str, torch.Tensor]:
+    """``state`` with a plain ResNet's ``backbone.*`` keys moved under
+    ``backbone.resnet.*`` where ``net``'s backbone wraps its ResNet there
+    (``HiddenMixupResNet``); as it is otherwise."""
+    if getattr(net.backbone, "resnet", None) is None:
+        return state
+    return {("backbone.resnet." + k[len("backbone."):]
+             if k.startswith("backbone.") and not k.startswith("backbone.resnet.") else k): v
+            for k, v in state.items()}
+
+
 def read_state_dict(path: str) -> Dict[str, Any]:
     """The ``state_dict`` of a PyTorch checkpoint file (mmdet and mmcv nest
     it under ``"state_dict"``), read on the CPU."""
@@ -391,7 +417,7 @@ def load_pretrained(net: torch.nn.Module, init_cfg: Dict[str, Any]) -> str:
     sd = read_state_dict(path)
     if any(k.startswith("backbone.") for k in sd):
         sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
-    weights = from_torchvision_resnet(sd)
+    weights = nest_backbone(from_torchvision_resnet(sd), net)
     own = {k for k in net.state_dict() if k.startswith("backbone.")}
     # a plugin (GCNet's ContextBlock, GeneralizedAttention) is not in an
     # ImageNet ResNet: it keeps its seeded weights, as mmdet initialises it

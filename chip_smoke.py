@@ -351,9 +351,27 @@ K4 launched and held against their plain versions at the poolings it
 made; each path prints its step ms, peak, images/s with loading, the
 loader's wait share and the augmentations' host ms an image.
 
+Then the phase "dg + data-parallel" (``dg_parallel_phase``): at full
+width from seeded weights, SUODAC's batch of 4, ``DGFasterRCNN`` in both
+dtypes (3 requests, 3 steps) and JiGEN, DGaug and EMA Faster R-CNN in
+bfloat16 (1 request, 2 steps), each with its DG targets; each step moves
+every tensor of the classifiers' Adam group, advances the domain
+``count`` by 4 and moves EMA's ``mu``; K1 and K4 once a path's call,
+exact, and held against their plain versions at the predict proposals and
+the train slots; the SUODAC Faster R-CNN, DGaug and JiGEN configs through
+the train CLI (2 steps each, the loader's ``domain_label`` / ``img_aug`` /
+``img_puzzle`` from a generated set and its ``domains.json``; the loaders'
+host ms an image) and the Faster R-CNN's checkpoint through the test CLI;
+and two gloo ranks on the one card (``--dp-child``, started at the
+phase's beginning), each the full-width float32 flagship on 2 images,
+held by ``f32_step_rule`` against one process on the 4 and each rank's
+two steps from one state bit-identical.  Its tiny checks
+(``dg_parallel_tiny``: the four tiny models GPU against CPU, C.2) run
+with the others.
+
 In the whole run the order is: the flagship and Mask R-CNN, the boosting
-family, "cascade", "htc", "fork heads", "tta + caffe", "norms + plugins", "heads + scoring"
-and "c4 + pointrend" at full width
+family, "cascade", "htc", "fork heads", "tta + caffe", "norms + plugins", "heads + scoring",
+"c4 + pointrend", "pisa + backbones" and "dg + data-parallel" at full width
 (full-width work beside the children delays them by about its own
 time: they share the card); then the two
 host-bound bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
@@ -363,8 +381,8 @@ the parent meanwhile runs, on the host's other threads, the entry points,
 "mask entry" and "datasets + augmentations" at full width (their images/s and wait shares are taken
 beside the children), the float32 e2e and every tiny-model check (GPU
 against CPU, the step rules' teeth, C.2; the ProbCascade's, HTC's, the
-fork heads', "tta + caffe"'s, "norms + plugins"'s, "heads + scoring"'s and "c4 + pointrend"'s
-too), none of which
+fork heads', "tta + caffe"'s, "norms + plugins"'s, "heads + scoring"'s, "c4 + pointrend"'s,
+"pisa + backbones"' and "dg + data-parallel"'s too), none of which
 is timed, then waits
 for the children.
 
@@ -377,10 +395,10 @@ only prints the tiny models' GPU-against-CPU train steps over ten seeds
 float32 edge reports, and the rules on deliberately wrong steps
 (``--step-readings f32 htc`` picks a dtype and models); ``--cascade``,
 ``--htc``, ``--fork-heads``, ``--tta-caffe``, ``--norms-plugins``,
-``--heads-scoring``, ``--c4-pointrend``, ``--pisa-backbones``, ``--data-aug``
-and ``--mask-entry`` run only the phase "cascade", "htc", "fork heads",
+``--heads-scoring``, ``--c4-pointrend``, ``--pisa-backbones``, ``--data-aug``,
+``--dg-parallel`` and ``--mask-entry`` run only the phase "cascade", "htc", "fork heads",
 "tta + caffe", "norms + plugins", "heads + scoring", "c4 + pointrend",
-"pisa + backbones", "datasets + augmentations" or "mask entry"
+"pisa + backbones", "datasets + augmentations", "dg + data-parallel" or "mask entry"
 (the last with 12
 full-width steps a model and nothing beside them, then its e2e in the
 child process).
@@ -437,10 +455,13 @@ from boosting_rcnn_tpu_torch.models.roi_heads.prob_roi_head import (  # noqa: E4
     prob_fuse_scores,
 )
 from boosting_rcnn_tpu_torch.engine.train import (  # noqa: E402
+    aux_parameters,
     make_optimizer,
     make_train_step,
     step_lr_schedule,
 )
+from boosting_rcnn_tpu_torch.data.loader import jigsaw_permutations, jigsaw_puzzle  # noqa: E402
+from boosting_rcnn_tpu_torch.engine import runner  # noqa: E402
 from boosting_rcnn_tpu_torch.tools.test import main as test_cli  # noqa: E402
 from boosting_rcnn_tpu_torch.tools.train import main as train_cli  # noqa: E402
 from boosting_rcnn_tpu_torch.ops import roi_align  # noqa: E402
@@ -939,6 +960,7 @@ def tiny_train_inputs(seed: int, mc, anchors, canvas=TINY_HW):
     sem = mc["roi_head"].get("semantic_head")
     if sem:
         batch["gt_semantic_seg"] = stuff_map(seed, 2, canvas, sem["num_classes"])
+    batch.update(dg_targets(mc, batch["images"], np.random.RandomState(seed + 100)))
     kw = {}
     rs = np.random.RandomState(seed)
     if mc["rpn_head"]["type"] == "RPNHead":
@@ -1106,7 +1128,8 @@ def step_report(seed: int, dtype, config, again: bool = True) -> dict:
     for device, det in dets.items():
         torch.set_num_threads(1 if device.startswith("cpu") else threads)
         a, n = det.anchors_for(tiny.canvas)
-        step = make_train_step(det, a, n, make_optimizer(det.net.parameters(), lambda s: 0.01))
+        step = make_train_step(det, a, n, make_optimizer(det.net.parameters(), lambda s: 0.01,
+                                                         aux_params=aux_parameters(det.net)))
         metrics[device] = {k: float(v) for k, v in step(batch, sample, **kw).items()}
         params[device] = {k: v.detach().cpu() for k, v in det.net.named_parameters()}
         buffers[device] = {k: v.detach().cpu() for k, v in det.net.named_buffers()}
@@ -1659,7 +1682,8 @@ def train_setup(det, anchors, nla, config: str = CONFIG, tb=None):
                                 warmup_ratio=lr_cfg["warmup_ratio"])
     clip = (cfg.get("optimizer_config") or {}).get("grad_clip")
     optimizer = make_optimizer(det.net.parameters(), schedule, opt_cfg["momentum"],
-                               opt_cfg["weight_decay"], clip["max_norm"] if clip else None)
+                               opt_cfg["weight_decay"], clip["max_norm"] if clip else None,
+                               aux_params=aux_parameters(det.net))
     step = make_train_step(det, anchors, nla, optimizer)
     if tb is None:
         tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
@@ -1700,7 +1724,10 @@ def check_moved(before, det, what: str, heads=("bbox_head.",)) -> dict:
     unfrozen stages, the neck, the RPN and ``heads``) moved; for a backbone
     without frozen stages (HRNet's) the whole backbone moved."""
     frozen_stages = getattr(det.net.backbone, "frozen_stages", -1) >= 0
-    after = dict(det.net.named_parameters())
+    # HiddenMixupResNet (DGaug's) holds its ResNet under backbone.resnet
+    before = {k.replace("backbone.resnet.", "backbone."): v for k, v in before.items()}
+    after = {k.replace("backbone.resnet.", "backbone."): v
+             for k, v in det.net.named_parameters()}
     frozen = [k for k in before if k.startswith(("backbone.conv1.", "backbone.bn1.",
                                                  "backbone.stem_", "backbone.layer1_"))]
     if frozen_stages and (not frozen or not all(torch.equal(before[k], after[k])
@@ -5448,6 +5475,445 @@ def data_aug_phase(gpu: str) -> dict:
     say(f"phase datasets + augmentations: {out['wall_s']:.1f} s")
     return out
 
+# ------------------------------------------------------ dg + data-parallel
+DG_CONFIGS = {
+    "dg": os.path.join(REPO, "configs/suodac/dg_faster_rcnn_r50_fpn_1x.py"),
+    "jigen": os.path.join(REPO, "configs/suodac/jigen_faster_rcnn_r50_fpn_1x.py"),
+    "dgaug": os.path.join(REPO, "configs/suodac/DMC_faster_rcnn_r50_fpn_1x.py"),
+    "ema": os.path.join(REPO, "configs/roiattention/EMAfaster_rcnn_r50_fpn_1x_coco.py")}
+SUODAC_CONFIG = os.path.join(REPO, "configs/suodac/faster_rcnn_r50_fpn_1x.py")
+DG_BATCH = 4  # SUODAC's samples_per_gpu
+DG_STEPS = 3  # DGFasterRCNN's steps and requests in each dtype
+DG_OTHER_STEPS = 2  # JiGEN's, DGaug's and EMA's (bf16, one request)
+DG_AUX_HEADS = ("domain_head.", "jig_head.")
+SUODAC_FRAMES = ((720, 405), (586, 480))  # UTDAC-sized frames, small enough for DGaug's host work
+DP_WORLD = 2
+DP_BATCH = 4  # the flagship's samples_per_gpu: 2 images a rank
+DP_CHILD_TIMEOUT_S = 300
+
+
+def dg_targets(mc, images, rs) -> dict:
+    """The DG detectors' train targets for ``images`` (numpy or a tensor,
+    ``(B, H, W, 3)``), drawn from ``rs``: DANN's one-hot ``domain_label``,
+    JiGEN's ``img_puzzle`` (each image's tiles permuted by a drawn entry of
+    the loader's table) and one-hot ``jig_labels``, DGaug's ``img_aug`` (the
+    images dimmed and noised, a stand-in for the loader's style transfer);
+    nothing for another type."""
+    t, b = mc.get("type"), images.shape[0]
+    out = {}
+    if t == "DGFasterRCNN":
+        n = mc.get("num_domains", 2)
+        out["domain_label"] = np.eye(n, dtype=np.float32)[rs.randint(0, n, b)]
+    if t in ("JiGENFasterRCNN", "DGaugFasterRCNN"):
+        imgs = torch.as_tensor(images)
+    if t == "JiGENFasterRCNN":
+        perms = jigsaw_permutations(mc.get("jig_classes", 31))
+        ids = rs.randint(0, len(perms), b)
+        out["img_puzzle"] = torch.stack([jigsaw_puzzle(imgs[i], perms[j])
+                                         for i, j in enumerate(ids)])
+        out["jig_labels"] = np.eye(len(perms), dtype=np.float32)[ids]
+    if t == "DGaugFasterRCNN":
+        gen = torch.Generator(device=imgs.device).manual_seed(int(rs.randint(1 << 30)))
+        out["img_aug"] = imgs * 0.8 + 0.1 * torch.randn(imgs.shape, generator=gen,
+                                                        device=imgs.device)
+    return out
+
+
+def dg_state(det) -> dict:
+    """The DG detectors' carried state: the domain classifier's images-seen
+    ``count`` and the FP-EMAU's basis ``mu``, where the model has them."""
+    net = det.net
+    return {k: v.detach().clone() for k, v in (
+        ("count", getattr(net.domain_head, "count", None)),
+        ("mu", getattr(net.emau, "mu", None))) if v is not None}
+
+
+def run_dg(path: str, dtype, gpu: str, n_requests: int, n_steps: int) -> dict:
+    """The DG or EMA config at ``path`` at full width in ``dtype`` with
+    seeded random weights: ``n_requests`` requests of two 800 x 1344 images
+    through ``predict`` (K1 once a request), then ``n_steps`` train steps at
+    SUODAC's batch of 4 with the model's DG targets (K1, K4 and the tile
+    keys once a step), counts set to 0 before each path and read after,
+    exact; valid detections; finite, positive losses (``loss_domain`` /
+    ``loss_jig`` among them); each step moves every tensor of the
+    classifiers' Adam group, advances the domain ``count`` by the batch and
+    moves EMA's ``mu``; the frozen stages bit-identical and every other part
+    moved; K1 and K4 against their plain versions at the predict proposals
+    and at the train slots."""
+    name = os.path.relpath(path, os.path.join(REPO, "configs"))[:-3]
+    tag = ("f32 " if dtype == torch.float32 else "bf16 ") + name
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    mc = load_config(path).model.to_dict()
+    t0 = time.perf_counter()
+    det = build(mc, seed=0, dtype=dtype)
+    net, strides = det.net, det.net.roi_strides
+    r = {"build_s": time.perf_counter() - t0}
+    anchors, nla = det.anchors_for(CANVAS)
+    batches = list(requests(61))[:n_requests]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    predict_ms, results = [], []
+    for x in batches:
+        t0 = time.perf_counter()
+        results.append(det.predict(x, anchors, nla))
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    r["predict_counts"] = counts = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    if ran(counts) != {f"roi_align_fwd{sfx}": n_requests}:
+        raise AssertionError(f"the {tag} predict path ran {ran(counts)}")
+    r["predict_first_ms"] = predict_ms[0]
+    r["predict_ms"] = float(np.mean(predict_ms[1:] or predict_ms))
+    r["detections"] = [check_dets(*x[:3], num_classes=det.bbox_cfg.num_classes)
+                       for x in results]
+    x = batches[0]
+    feats, boxes, _, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
+    r["box_predict"] = level_kernels(list(feats[:len(strides)]), boxes, valid, strides, 7,
+                                     dtype, 62, f"{tag} box predict shapes", gpu)
+    del feats, boxes, valid, results
+    tb = train_batch(63, DG_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE,
+                     num_classes=det.bbox_cfg.num_classes)
+    tb.update(dg_targets(mc, tb["images"], np.random.RandomState(64)))
+    step, tb, sample0 = train_setup(det, anchors, nla, path, tb)
+    aux = [(k, p) for k, p in net.named_parameters() if k.startswith(DG_AUX_HEADS)]
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, step_ms, state_moves = [], [], []
+    for i in range(n_steps):
+        aux0, state0 = {k: p.detach().clone() for k, p in aux}, dg_state(det)
+        t0 = time.perf_counter()
+        m = step(tb, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        state = dg_state(det)
+        still = [k for k, p in aux if torch.equal(p, aux0[k])]
+        if still:
+            raise AssertionError(f"{tag} step {i}: the Adam group left {still} where they were")
+        if "count" in state and float(state["count"]) != float(state0["count"]) + DG_BATCH:
+            raise AssertionError(f"{tag} step {i}: count {float(state0['count'])} -> "
+                                 f"{float(state['count'])}, not by the batch {DG_BATCH}")
+        if "mu" in state and torch.equal(state["mu"], state0["mu"]):
+            raise AssertionError(f"{tag} step {i}: the FP-EMAU's mu did not move")
+        state_moves.append({k: (float(v) if k == "count" else
+                                (v - state0[k]).abs().max().item()) for k, v in state.items()})
+        if not all(math.isfinite(v) for v in metrics[-1].values()) or not all(
+                metrics[-1][k] > 0 for k in metrics[-1] if k.startswith("loss")):
+            raise AssertionError(f"{tag} step {i}: metrics {metrics[-1]}")
+    r["train_counts"] = counts = read_counts()
+    r["train_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    want = {f"roi_align_fwd{sfx}": n_steps, f"roi_align_bwd{sfx}": n_steps,
+            "roi_tile_keys": n_steps}
+    if ran(counts) != want:
+        raise AssertionError(f"the {tag} train path ran {ran(counts)}, not {want}")
+    aux_heads = tuple(h for h in DG_AUX_HEADS if any(k.startswith(h) for k, _ in aux))
+    extra = ("emau.",) if net.emau is not None else ()
+    r["moved"] = check_moved(before, det, f"{tag} train", ("bbox_head.",) + aux_heads + extra)
+    r["train_first_ms"], r["train_ms"] = step_ms[0], float(np.mean(step_ms[1:] or step_ms))
+    r["losses"], r["state_moves"] = metrics[-1], state_moves
+    with torch.no_grad():
+        feats = net.features(tb["images"])
+    r["box_train"] = level_kernels(list(feats[:len(strides)]), sample0.boxes, sample0.valid,
+                                   strides, 7, dtype, 65, f"{tag} box train shapes", gpu)
+    say(f"{tag} ({gpu}): predict of {BATCH} images {predict_ms[0]:.0f} ms first call"
+        + (f", {r['predict_ms']:.1f} ms after" if n_requests > 1 else "")
+        + f", {r['detections']} valid detections; train step at batch {DG_BATCH} "
+        f"{step_ms[0]:.0f} ms first" + (f", {r['train_ms']:.1f} ms after" if n_steps > 1 else "")
+        + f", peak {r['train_peak']:.2f} GiB; losses {metrics[-1]}; the carried state by step "
+        f"{state_moves}; launches {ran(r['predict_counts'])} / {ran(counts)}")
+    del det, step, tb, before, feats
+    torch.cuda.empty_cache()
+    return r
+
+
+def suodac_set(root: str) -> str:
+    """A COCO-format SUODAC-like set (8 train, 4 val frames of UTDAC's
+    smaller sizes) with a ``domains.json`` of two water types; returns the
+    domain file's path."""
+    generate(root, n_train=8, n_val=4, seed=3, frame_sizes=SUODAC_FRAMES, object_scale=0.3)
+    with open(os.path.join(root, "train.json")) as f:
+        stems = [im["file_name"].rsplit(".", 1)[0] for im in json.load(f)["images"]]
+    path = os.path.join(root, "domains.json")
+    with open(path, "w") as f:
+        json.dump({"clear": stems[::2], "murky": stems[1::2]}, f)
+    return path
+
+
+def suodac_entry(gpu: str, work: str) -> dict:
+    """The SUODAC configs through the train CLI at full width in bfloat16 on
+    ``suodac_set``'s frames with their domain file: the Faster R-CNN (the
+    loader's ``domain_label``), DGaug's (``img_aug``) and JiGEN's
+    (``img_puzzle``) 2 steps each, the counts exact, finite losses (the
+    total positive);
+    the test CLI's bbox mAP from the Faster R-CNN's checkpoint; and the
+    host milliseconds an image of the DGaug and jigsaw loaders' targets
+    (the loader's own ``_load`` of each train image)."""
+    root = os.path.join(work, "suodac")
+    domains = suodac_set(root)
+    opts = data_options(root, BF16, **{"data.train.domain_file": domains,
+                                       "log_config.interval": 1})
+    out = {}
+    for name, config in (("faster_rcnn", SUODAC_CONFIG), ("dgaug", DG_CONFIGS["dgaug"]),
+                         ("jigen", DG_CONFIGS["jigen"])):
+        wd = os.path.join(work, "suodac_" + name)
+        torch.cuda.synchronize()
+        reset_counts()
+        summary = train_cli([config, "--work-dir", wd, "--iters", "2", "--no-validate",
+                             "--device", "cuda", *cli_options(opts)])
+        counts = ran(read_counts())
+        want = {"roi_align_fwd_bf16": 2, "roi_align_bwd_bf16": 2, "roi_tile_keys": 2}
+        m = summary["last_metrics"]
+        # an RPN sample without a positive gives a box loss of 0
+        if counts != want or summary["steps"] != 2 or not m["loss"] > 0 or not all(
+                math.isfinite(v) and v >= 0 for k, v in m.items() if k.startswith("loss")):
+            raise AssertionError(f"SUODAC {name} train CLI: {summary['steps']} steps, counts "
+                                 f"{counts}, metrics {m}")
+        cfg = load_config(config)
+        cfg.merge_from_options(opts)
+        loader = runner.train_loader(cfg, runner.model_config(cfg), "cuda", seed=0)
+        rng = np.random.RandomState(0)
+        t0 = time.perf_counter()
+        sample = [loader._load(i, rng) for i in range(len(loader.ds))]
+        torch.cuda.synchronize()
+        keys = sorted(set(sample[0]) & {"domain_label", "img_aug", "img_puzzle", "jig_labels"})
+        out[name] = {"images_per_s": summary["images_per_s"], "losses": m, "counts": counts,
+                     "loader_ms_per_image": (time.perf_counter() - t0) * 1e3 / len(sample),
+                     "targets": keys, "checkpoint": summary["checkpoints"][-1]}
+        say(f"SUODAC {name} through the train CLI ({gpu}): {out[name]}")
+    if out["faster_rcnn"]["targets"] != ["domain_label"] or "img_aug" not in out["dgaug"][
+            "targets"] or "img_puzzle" not in out["jigen"]["targets"]:
+        raise AssertionError(f"SUODAC loaders' targets: { {k: v['targets'] for k, v in out.items()} }")
+    reset_counts()
+    metrics = test_cli([SUODAC_CONFIG, out["faster_rcnn"]["checkpoint"], "--device", "cuda",
+                        "--eval", "bbox", *cli_options(opts)])
+    if metrics.get("num_results") != 4 or not isinstance(metrics.get("bbox_mAP"), float) or \
+            not ran(read_counts()).get("roi_align_fwd_bf16"):
+        raise AssertionError(f"SUODAC test CLI: {metrics}, {ran(read_counts())}")
+    out["test_bbox_mAP"] = metrics["bbox_mAP"]
+    say(f"SUODAC Faster R-CNN test CLI ({gpu}): {metrics['num_results']} results, bbox mAP "
+        f"{metrics['bbox_mAP']:.4f} (random weights, 2 steps)")
+    return out
+
+
+def dp_inputs(work: str) -> str:
+    """The data-parallel check's train batch of ``DP_BATCH``, written for
+    the ranks."""
+    path = os.path.join(work, "dp_inputs.pt")
+    torch.save({"batch": train_batch(71, DP_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)}, path)
+    return path
+
+
+def dp_step(inputs: dict, part: slice):
+    """One flagship float32 train step at full width from the seeded state
+    on the images ``part`` of the batch (lr 0.01), the RoI sampler ranking
+    by seeded uniforms of the whole batch: metrics (with the step's ms on
+    the host's clock, ``step_ms``), parameters, launch counts."""
+    det = build_detector(load_config(CONFIG).model.to_dict(), device="cuda", seed=0)
+    anchors, nla = det.anchors_for(CANVAS)
+    step = make_train_step(det, anchors, nla, make_optimizer(det.net.parameters(),
+                                                             lambda s: 0.01))
+    tb = {k: torch.as_tensor(v[part]).cuda() for k, v in inputs["batch"].items()}
+    slots = GT_PER_IMAGE + det.train_proposal_cfg.max_per_img
+    roi_u = np.random.RandomState(72).rand(DP_BATCH, 2, slots).astype(np.float32)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(tb, roi_uniforms=roi_u[part])
+    torch.cuda.synchronize()
+    m = {k: float(v) for k, v in m.items()}
+    return ({**m, "step_ms": (time.perf_counter() - t0) * 1e3},
+            {k: v.detach().cpu() for k, v in det.net.named_parameters()}, ran(read_counts()))
+
+
+def dp_child(rank: int, work: str) -> int:
+    """A rank of the data-parallel check (``--dp-child``): joins the gloo
+    group of ``DP_WORLD`` on the one card, runs ``dp_step`` on its images
+    twice from the same state, and writes both results."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "dp_rdv"),
+                            world_size=DP_WORLD, rank=rank)
+    try:
+        inputs = torch.load(os.path.join(work, "dp_inputs.pt"), weights_only=False)
+        n = DP_BATCH // DP_WORLD
+        runs = [dp_step(inputs, slice(rank * n, (rank + 1) * n)) for _ in range(2)]
+        torch.save(runs, os.path.join(work, f"dp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_dp(work: str) -> list:
+    """The ``DP_WORLD`` ranks as child processes on the card."""
+    dp_inputs(work)
+    procs = []
+    for rank in range(DP_WORLD):
+        log = os.path.join(work, f"dp_rank{rank}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-child", str(rank), work],
+                stdout=f, stderr=subprocess.STDOUT, cwd=REPO), log))
+    return procs
+
+
+def finish_dp(procs, work: str, gpu: str) -> dict:
+    """Wait for the ranks; hold rank 0's step against one process on the
+    whole batch by ``f32_step_rule`` (the metrics and the parameters), each
+    rank's two steps from one state bit-identical, both ranks' parameters
+    equal, K1, K4 and the tile keys once a step on each rank."""
+    for proc, log in procs:
+        try:
+            rc = proc.wait(timeout=DP_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p, _ in procs:
+                p.kill()
+            raise
+        if rc != 0:
+            with open(log) as f:
+                raise AssertionError(f"data-parallel rank failed (rc {rc}): {f.read()[-3000:]}")
+    ranks = [torch.load(os.path.join(work, f"dp_rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    inputs = torch.load(os.path.join(work, "dp_inputs.pt"), weights_only=False)
+    t0 = time.perf_counter()
+    single = dp_step(inputs, slice(0, DP_BATCH))
+    p0 = {k: v.detach().cpu() for k, v in build_detector(
+        load_config(CONFIG).model.to_dict(), device="cpu", seed=0).net.named_parameters()}
+    (m_dp, params_dp, counts), again = ranks[0]
+    want = {"roi_align_fwd": 1, "roi_align_bwd": 1, "roi_tile_keys": 1}
+    for r, runs in enumerate(ranks):
+        for m, params, c in runs:
+            if c != want:
+                raise AssertionError(f"data-parallel rank {r}: launches {c}, not {want}")
+        differ = [k for k in runs[0][1] if not torch.equal(runs[0][1][k], runs[1][1][k])]
+        if differ or any(runs[0][0][k] != runs[1][0][k] for k in runs[0][0] if k != "step_ms"):
+            raise AssertionError(f"data-parallel rank {r}: two steps from one state differ in "
+                                 f"{differ[:6]}")
+        if any(not torch.equal(runs[0][1][k], params_dp[k]) for k in params_dp):
+            raise AssertionError(f"data-parallel rank {r}'s parameters differ from rank 0's")
+    tensors = {k: ((params_dp[k] - ref).abs().max().item(), (ref - p0[k]).abs().max().item(),
+                   ref.abs().max().item(), math.inf, (params_dp[k] - p0[k]).abs().max().item())
+               for k, ref in single[1].items()}
+    step_ms = {"ranks": [runs[1][0]["step_ms"] for runs in ranks],
+               "one_process": single[0].pop("step_ms")}
+    m_dp = {k: v for k, v in m_dp.items() if k != "step_ms"}
+    rep = {"metrics": {"cpu": single[0], "cuda": m_dp}, "tensors": tensors}
+    summary = step_summary(rep)
+    broken = f32_step_rule(rep, summary)
+    if broken:
+        raise AssertionError("2 ranks against one process on the card: " + "; ".join(broken))
+    rank_counts = {k: sum(runs[0][2].get(k, 0) for runs in ranks) for k in want}
+    out = {"loss": {"ranks": m_dp["loss"], "one_process": single[0]["loss"]},
+           "rank_counts": rank_counts,
+           "grad_norm": {"ranks": m_dp["grad_norm"], "one_process": single[0]["grad_norm"]},
+           "worst_of_f32_tol": summary["worst_of_f32_tol"][0][1],
+           "median_of_update": summary["median_of_update"], "repeat_identical": True,
+           "step_ms": step_ms,
+           "reference_s": time.perf_counter() - t0}
+    say(f"data-parallel ({gpu}): {DP_WORLD} gloo ranks on the card, the full-width f32 flagship "
+        f"at {DP_BATCH // DP_WORLD} images each, against one process on {DP_BATCH}: {out}")
+    return out
+
+
+def dg_parallel_phase(gpu: str) -> dict:
+    """The phase "dg + data-parallel": ``DGFasterRCNN`` at full width in
+    float32 and bfloat16 (``DG_STEPS`` requests and steps), JiGEN, DGaug and
+    EMA Faster R-CNN in bfloat16 (one request, ``DG_OTHER_STEPS`` steps),
+    each by ``run_dg``; the SUODAC configs through the train and test CLIs
+    (``suodac_entry``); and 2 gloo ranks on the one card against one process
+    (``start_dp`` / ``finish_dp``: NCCL takes one rank a device), the ranks
+    running beside the rest of the phase.  Its tiny checks are
+    ``dg_parallel_tiny``'s."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dg_")
+    procs = start_dp(work)
+    try:
+        out = {"dg": {d: run_dg(DG_CONFIGS["dg"], d, gpu, DG_STEPS, DG_STEPS)
+                      for d in (torch.float32, BF16)}}
+        for name in ("jigen", "dgaug", "ema"):
+            out[name] = run_dg(DG_CONFIGS[name], BF16, gpu, 1, DG_OTHER_STEPS)
+        out["suodac"] = suodac_entry(gpu, work)
+        out["data_parallel"] = finish_dp(procs, work, gpu)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase dg + data-parallel: {out['wall_s']:.1f} s")
+    return out
+
+
+def _tiny_dg(name: str, **model):
+    def config():
+        mc = load_config(DG_CONFIGS[name]).model.to_dict()
+        mc.update(model)
+        mc["backbone"]["init_cfg"] = None
+        return shrink_model(mc)
+    config.__name__ = f"tiny_{name}_config"
+    return config
+
+
+DG_MU_BF16_SHARE = 0.01  # of its move in the step: the tiny bf16 EMA's mu, GPU against CPU
+# the tiny models that also predict and take C.2's repeat check: JiGEN's and
+# DGaug's predict and step ops are DANN's Faster R-CNN's but their branch
+DG_TINY_FULL = ("dg", "ema")
+
+
+def tiny_mu0(config) -> torch.Tensor:
+    """The tiny model's seeded ``mu`` before its step (the seed
+    ``step_report`` builds with)."""
+    return build(config(), device="cpu", seed=7).net.emau.mu.detach().cpu()
+
+
+TINY_DG = (("dg", _tiny_dg("dg", total_img=16)), ("jigen", _tiny_dg("jigen")),
+           ("dgaug", _tiny_dg("dgaug")), ("ema", _tiny_dg("ema", k=16)))
+
+
+def dg_parallel_tiny() -> dict:
+    """The tiny DG and EMA models (``--tiny``'s shrink): one train step on
+    the GPU against the CPU in both dtypes, by ``f32_step_rule`` /
+    ``bf16_step_rule``, the carried state (``count``, ``mu``) after the
+    step within 1e-6 of the CPU's (in bfloat16 ``mu`` within
+    ``DG_MU_BF16_SHARE`` of its move); DANN's and EMA's (``DG_TINY_FULL``)
+    predict too, and C.2 in both dtypes."""
+    out = {"tiny": {}, "repeat": {}}
+    t0 = time.perf_counter()
+    for name, config in TINY_DG:
+        out["tiny"][name] = {}
+        if name in DG_TINY_FULL:
+            out["tiny"][name]["predict_detections"] = tiny_gpu_matches_cpu(3, config)
+        for dtype in (torch.float32, BF16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            rep = step_report(7, dtype, config, again=False)
+            summary = step_summary(rep)
+            broken = step_rule(rep, summary, config, dtype)
+            for key in ("domain_head.count", "emau.mu"):
+                if key in rep["buffers"]["cpu"]:
+                    got, ref = rep["buffers"]["cuda"][key], rep["buffers"]["cpu"][key]
+                    err = (got - ref).abs().max().item()
+                    # bf16: the E/M runs on the bf16 conv's output, its
+                    # rounding the card's and the CPU's own
+                    tol = 1e-6 if dtype == torch.float32 or key.endswith("count") else (
+                        DG_MU_BF16_SHARE * (ref - tiny_mu0(config)).abs().max().item())
+                    if not err <= tol:
+                        broken.append(f"{key}: GPU and CPU differ by {err:.3g} (> {tol:.3g})")
+            if broken:
+                raise AssertionError(f"tiny {tag} {name} train step: " + "; ".join(broken))
+            out["tiny"][name][tag] = {"loss": rep["metrics"]["cuda"]["loss"],
+                                      "median_of_update": summary["median_of_update"]}
+            if name in DG_TINY_FULL:
+                out["repeat"].update(c2_check(f"dg {name}", config, dtype))
+        say(f"tiny {name}: on the GPU against the CPU: {out['tiny'][name]}")
+    out["tiny"]["wall_s"] = time.perf_counter() - t0
+    say(f"dg + data-parallel tiny checks: {out['tiny']['wall_s']:.1f} s")
+    return out
+
+
 
 def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list:
     """The ``{"kernels": [...]}`` records of one dtype's kernels at one
@@ -5518,18 +5984,23 @@ def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list
 def main(argv) -> int:
     readings = argv[1:] if argv[:1] == ["--step-readings"] else None
     e2e_child = argv[1:] if argv[:1] == ["--e2e-child"] and len(argv) == 4 else None
-    if readings is None and e2e_child is None and argv not in (
+    dp_rank = argv[1:] if argv[:1] == ["--dp-child"] and len(argv) == 3 else None
+    if readings is None and e2e_child is None and dp_rank is None and argv not in (
             [], ["--cascade"], ["--htc"], ["--mask-entry"], ["--fork-heads"], ["--tta-caffe"],
             ["--norms-plugins"], ["--heads-scoring"], ["--c4-pointrend"],
-            ["--pisa-backbones"], ["--data-aug"]):
+            ["--pisa-backbones"], ["--data-aug"], ["--dg-parallel"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
               "--cascade | --htc | --mask-entry | --fork-heads | --tta-caffe | --norms-plugins "
-              "| --heads-scoring | --c4-pointrend | --pisa-backbones | --data-aug]",
-              file=sys.stderr)
+              "| --heads-scoring | --c4-pointrend | --pisa-backbones | --data-aug "
+              "| --dg-parallel]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if dp_rank is not None:  # the parent built the kernels
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return dp_child(int(dp_rank[0]), dp_rank[1])
     if e2e_child is not None:  # the parent built the kernels
         torch.set_num_threads(E2E_CHILD_THREADS)
         torch.backends.cudnn.allow_tf32 = False
@@ -5591,6 +6062,10 @@ def main(argv) -> int:
         return 0
     if argv == ["--data-aug"]:
         data_aug_phase(gpu)
+        return 0
+    if argv == ["--dg-parallel"]:
+        dg_parallel_phase(gpu)
+        dg_parallel_tiny()
         return 0
     if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
         mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
@@ -5664,6 +6139,10 @@ def main(argv) -> int:
     # ------------------------------------------------------ pisa + backbones
     pbb = pisa_backbones_phase(gpu)
     phase_done("pisa + backbones")
+
+    # ------------------------------------------------------ dg + data-parallel
+    dgp = dg_parallel_phase(gpu)
+    phase_done("dg + data-parallel")
 
 
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
@@ -5767,6 +6246,7 @@ def main(argv) -> int:
         heads.update(heads_tiny())
         c4pr.update(c4_pointrend_tiny())
         pbb.update(pisa_backbones_tiny())
+        dgp.update(dg_parallel_tiny())
 
         # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
         repeat_report = {}
@@ -5782,6 +6262,7 @@ def main(argv) -> int:
         repeat_report.update(heads["repeat"])
         repeat_report.update(c4pr["repeat"])
         repeat_report.update(pbb["repeat"])
+        repeat_report.update(dgp["repeat"])
         phase_done("tiny models and C.2, beside the e2e trainings")
         torch.set_num_threads(threads)
         e2e[BF16] = finish_e2e(*children[0])
@@ -5890,6 +6371,12 @@ def main(argv) -> int:
                for model in ("pisa_prob", "regnet") for d, r in pbb[model].items()},
             "bf16_configs": {n: c4pr_summary(r) for n, r in pbb["bf16"].items()},
             "tiny": pbb["tiny"], "wall_s": pbb["wall_s"]},
+        "dg_parallel": {
+            **{f"dg_{'f32' if d == torch.float32 else 'bf16'}": c4pr_summary(r)
+               for d, r in dgp["dg"].items()},
+            **{f"{name}_bf16": c4pr_summary(dgp[name]) for name in ("jigen", "dgaug", "ema")},
+            "suodac": dgp["suodac"], "data_parallel": dgp["data_parallel"],
+            "tiny": dgp["tiny"], "wall_s": dgp["wall_s"]},
         "mask_entry": mask_entry,
         "data_aug": {k: ({kk: vv for kk, vv in v.items() if not kk.startswith("check_")}
                          if isinstance(v, dict) else v) for k, v in data_aug.items()},
@@ -5950,7 +6437,14 @@ def main(argv) -> int:
         for name, r in pbb["bf16"].items() for part in ("predict", "train")] + [
         (f"data_aug_{name}_{part}", r[f"{part}_counts"])
         for name, r in data_aug.items() if isinstance(r, dict)
-        for part in ("train", "eval") if f"{part}_counts" in r]
+        for part in ("train", "eval") if f"{part}_counts" in r] + [
+        (f"dg_{part}", {k: sum(r[f"{part}_counts"][k] for r in dgp["dg"].values())
+                        for k in counters()}) for part in ("predict", "train")] + [
+        (f"{name}_{part}", dgp[name][f"{part}_counts"])
+        for name in ("jigen", "dgaug", "ema") for part in ("predict", "train")] + [
+        (f"suodac_{name}_train", r["counts"])
+        for name, r in dgp["suodac"].items() if isinstance(r, dict) and "counts" in r] + [
+        ("data_parallel_ranks_train", dgp["data_parallel"]["rank_counts"])]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
                + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}
@@ -5991,6 +6485,13 @@ def main(argv) -> int:
                            "bound_ms": x["timed"][part]["bound"][0],
                            **({"tile_spread": x["spread"]} if part == "bwd" else {})}
                     for path, x in (("predict", runs_[0]), ("train", runs_[1]))}
+    # ... and the DG and EMA models' box proposals and train slots
+    for d, r in [*dgp["dg"].items()] + [(BF16, dgp[n]) for n in ("jigen", "dgaug", "ema")]:
+        sfx = "" if d == torch.float32 else "_bf16"
+        for key in ("box_predict", "box_train"):
+            for part in ("fwd", "bwd"):
+                name = f"roi_align_{part}{sfx}"
+                more_errs[name] = max(more_errs.get(name, 0.0), r[key]["check"][part][0])
     # ... and every path of "datasets + augmentations" at its own poolings
     for name, r in data_aug.items():
         if not isinstance(r, dict):

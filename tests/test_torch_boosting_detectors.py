@@ -22,7 +22,9 @@ tests/test_torch_train.py and tests/test_torch_flagship.py:
     ``1e-6 * max|g|`` of the network; frozen parameters (the stem and stage
     1) get none in the port and zeros in the JAX package;
   * the parameters after 1 and 2 SGD steps of JAX
-    ``make_train_step(proposal_mode="external")`` and the port's step:
+    ``make_train_step(proposal_mode="external")``'s step (its gradient
+    part on the compiled loss gradient above, then the update) and the
+    port's step:
     within ``1e-3 * max|p - p0|`` plus ``1e-7 * max|p|`` of the tensor,
     frozen ones bit-identical; the metrics rtol 1e-4.
 """
@@ -37,6 +39,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -129,13 +132,16 @@ def _rpn_uniforms(rng, num_anchors, images: int = 2):
     return np.asarray(out, np.float32)
 
 
-def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1):
+def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1, targets=None,
+             predict: bool = True):
     """Both packages on ``make_cfg(load_config(...))``'s model (the JAX
     package's and the port's config readers each read the file) through
-    predict, the loss, its gradients and two train steps on the same
-    weights, batch, samples and RPN draws, drawn from ``seed``, on
-    ``canvas``; the JAX optimizer masks the parameters of the backbone's
-    ``frozen_stages``."""
+    predict (unless not ``predict``), the loss, its gradients and two
+    train steps on the same weights, batch, samples and RPN draws, drawn
+    from ``seed``, on ``canvas``; ``targets(rs, batch)`` adds keys to the
+    batch; the JAX optimizer masks the parameters of the backbone's
+    ``frozen_stages``.  The buffers after each step are kept too (JAX's
+    ``batch_stats`` through ``from_jax_params``, the port's)."""
     mc = make_cfg(jax_load_config)
     num_classes = mc["roi_head"]["bbox_head"]["num_classes"]
     jdet = jax_build(mc, dtype=jnp.float32)
@@ -143,6 +149,8 @@ def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1):
     rs = np.random.RandomState(seed)
     variables = _random_variables(shapes, rs)
     batch = _batch(rs, num_classes, canvas)
+    if targets is not None:
+        batch.update(targets(rs, batch))
     jv = jax.tree.map(jnp.asarray, variables)
     jb = jax.tree.map(jnp.asarray, batch)
     anchors, nla = jdet.anchors_for(canvas)
@@ -159,19 +167,24 @@ def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1):
     def uniforms(key):
         return {"rpn_uniforms": _rpn_uniforms(key, n_anchors)} if plain_rpn else {}
 
-    j_pred = jax.jit(lambda v, b: jdet.predict(v, b, anchors, nla))(jv, jb)
-    t_pred = tdet.predict(batch, t_anchors, t_nla)
+    j_pred = t_pred = None
+    if predict:
+        j_pred = jax.jit(lambda v, b: jdet.predict(v, b, anchors, nla))(jv, jb)
+        t_pred = tdet.predict(batch, t_anchors, t_nla)
 
     sample_fn = jax.jit(lambda v, r: jdet.train_sample(v, r, jb, anchors, nla))
     sample0 = sample_fn(jv, rng)
 
-    def j_loss(params, sample):
-        losses = jdet.loss({"params": params, "batch_stats": jv["batch_stats"]}, rng, jb,
-                           anchors, nla, sample=sample)
-        return sum(losses.values()), losses
+    # JAX make_train_step(proposal_mode="external")'s ``_grad_part``, one
+    # compiled loss gradient serving the loss check and both steps (the
+    # models here hold no live statistics: the mutable loss is the loss)
+    def j_loss(params, stats, sample, key):
+        losses, new_stats = j_train.loss_with_live_bn(
+            jdet, {"params": params, "batch_stats": stats}, key, jb, anchors, nla, sample=sample)
+        return sum(losses.values()), (losses, new_stats)
 
-    (_, j_losses), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
-        jv["params"], sample0)
+    grad_fn = jax.jit(jax.value_and_grad(j_loss, has_aux=True))
+    (_, (j_losses, _)), j_grads = grad_fn(jv["params"], jv["batch_stats"], sample0, rng)
     t_losses = tdet.loss(batch, t_anchors, t_nla, sample=tuple(np.array(x) for x in sample0),
                          **uniforms(rng))
     sum(t_losses.values()).backward()
@@ -182,25 +195,34 @@ def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1):
     j_sched, t_sched = (m.step_lr_schedule(0.02, 1, **kw) for m in (j_train, t_train))
     tx = j_train.make_optimizer(j_sched, params=jv["params"], frozen_stages=frozen_stages)
     state = j_train.create_train_state(jv, tx)
-    j_step = jax.jit(j_train.make_train_step(jdet, anchors, nla, proposal_mode="external"))
+    apply_fn = jax.jit(lambda st, g, ns: (st.apply_gradients(g).replace(
+        batch_stats=jax.lax.stop_gradient(ns)), optax.global_norm(g)))
     t_step = t_train.make_train_step(
         tdet_train, t_anchors, t_nla,
-        t_train.make_optimizer(tdet_train.net.parameters(), t_sched))
+        t_train.make_optimizer(tdet_train.net.parameters(), t_sched,
+                               aux_params=t_train.aux_parameters(tdet_train.net)))
     p0 = {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()}
-    steps = []
+    steps, buffers = [], []
     for k in range(2):
         sample = sample_fn({"params": state.params, "batch_stats": state.batch_stats}, rng)
-        state, j_metrics = j_step(state, jb, rng, sample)
+        (total, (losses, new_stats)), grads = grad_fn(
+            state.params, state.batch_stats, sample, jax.random.fold_in(rng, state.step))
+        state, grad_norm = apply_fn(state, grads, new_stats)
+        j_metrics = {"loss": total, **{n: jnp.sum(v) for n, v in losses.items()},
+                     "grad_norm": grad_norm}
         t_metrics = t_step(batch, tuple(np.array(x) for x in sample),
                            **uniforms(jax.random.fold_in(rng, k)))
         steps.append((from_jax_params(jax.tree.map(np.asarray, state.params)),
                       {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()},
                       j_metrics, t_metrics))
+        buffers.append((from_jax_params({"params": {}, "batch_stats": jax.tree.map(
+            np.asarray, state.batch_stats)}),
+            {k: v.clone() for k, v in tdet_train.net.named_buffers()}))
     return dict(jdet=jdet, tdet=tdet, batch=batch, variables=variables, j_pred=j_pred,
                 t_pred=t_pred,
                 sample0=sample0, j_losses=j_losses, t_losses=t_losses,
                 j_grads=from_jax_params(jax.tree.map(np.asarray, j_grads)), t_grads=t_grads,
-                p0=p0, steps=steps)
+                p0=p0, steps=steps, buffers=buffers)
 
 
 @pytest.fixture(autouse=True, scope="module")

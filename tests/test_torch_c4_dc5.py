@@ -297,6 +297,8 @@ def fast_init(monkeypatch):
     checks read structure, never weights)."""
     for module in (t_layers, t_plugins):
         monkeypatch.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
+    for name in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+        monkeypatch.setattr(torch.nn.init, name, lambda tensor, *a, **k: tensor)
 
 
 # ------------------------------------------------------------------ modules

@@ -98,6 +98,8 @@ def seeded_init_skipped():
     with pytest.MonkeyPatch.context() as mp:
         for module in (t_layers, t_plugins):
             mp.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
+        for name in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+            mp.setattr(torch.nn.init, name, lambda tensor, *a, **k: tensor)
         yield
 
 

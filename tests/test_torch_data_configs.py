@@ -5,10 +5,11 @@ VOC0712, 1 Albu), on the CPU and without JAX.
 Each config, its ``data.*`` paths pointed at a set from the port's
 generators, passes the runner's data, pipeline, optimizer and schedule
 checks, and its train loader (``--tiny``'s canvas, no model built) gives a
-first batch.  The SUODAC Faster R-CNN still raises, naming
-``domain_file``.  Then one tiny end-to-end run: a shrunk LVIS Mask R-CNN
-under ``ClassBalancedDataset``, with InstaBoost and Albu on, takes 2
-steps through ``train_detector``, and the test CLI gives its federated AP.
+first batch.  The SUODAC Faster R-CNN, once refused for its
+``domain_file``, passes them and gives ``domain_label``.  Then one tiny
+end-to-end run: a shrunk LVIS Mask R-CNN under ``ClassBalancedDataset``,
+with InstaBoost and Albu on, takes 2 steps through ``train_detector``,
+and the test CLI gives its federated AP.
 """
 import json
 import os
@@ -139,10 +140,26 @@ def test_config_passes_the_runner_checks(name, sets):
         assert runner.compute_dtype(cfg) == torch.bfloat16
 
 
-def test_suodac_still_raises_naming_domain_file():
-    cfg = load_config(os.path.join(REPO, "configs/suodac/faster_rcnn_r50_fpn_1x.py"))
-    with pytest.raises(NotImplementedError, match="domain_file"):
-        runner.check_data(cfg)
+def test_suodac_still_raises_naming_domain_file(sets, tmp_path):
+    """Once the config the runner refused for its ``domain_file``: the
+    SUODAC Faster R-CNN now passes the runner's checks, and its train loader
+    reads ``data.train.domain_file`` and gives each image its one-hot
+    ``domain_label``."""
+    cfg = _config("suodac/faster_rcnn_r50_fpn_1x.py", sets)
+    with open(os.path.join(sets, "coco", "train.json")) as f:
+        stems = [im["file_name"].rsplit(".", 1)[0] for im in json.load(f)["images"]]
+    domains = str(tmp_path / "domains.json")
+    with open(domains, "w") as f:
+        json.dump({"clear": stems[::2], "murky": stems[1::2]}, f)
+    cfg._data["data"]["train"]["domain_file"] = domains
+    runner.check_schedule(cfg)
+    runner.check_data(cfg)
+    mc = runner.model_config(cfg)
+    loader = runner.train_loader(cfg, mc, "cpu", seed=0, tiny=True)
+    batch = next(iter(loader.epoch_iter(0)))
+    assert batch["domain_label"].shape == (loader.batch_size, 2)
+    assert batch["domain_label"].dtype == np.float32
+    np.testing.assert_array_equal(batch["domain_label"].sum(1), 1.0)
 
 
 def test_unported_dataset_type_raises_naming_it():

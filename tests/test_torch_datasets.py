@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -37,6 +38,17 @@ CANVAS = (64, 80)
 IMAGE_TOL = 1e-4
 INFO_KEYS = ("id", "filename", "width", "height", "bboxes", "labels", "bboxes_ignore",
              "segmentations")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

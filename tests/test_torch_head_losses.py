@@ -336,6 +336,8 @@ def fast_init(monkeypatch):
     skip = lambda weight, fan_in, gen: None  # noqa: E731
     monkeypatch.setattr(t_layers, "lecun_normal_", skip)
     monkeypatch.setattr(t_plugins, "lecun_normal_", skip)
+    for name in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+        monkeypatch.setattr(torch.nn.init, name, lambda tensor, *a, **k: tensor)
 
 
 def _head_files():

@@ -32,6 +32,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -45,6 +46,17 @@ from boosting_rcnn_tpu_torch.data import pipeline as t_pipeline  # noqa: E402
 from boosting_rcnn_tpu_torch.data.image_io import load_png_gray, write_png_gray  # noqa: E402
 
 POLYGONS_PER_KIND = 90
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _star(rs, c, r, n, concave):

@@ -59,6 +59,17 @@ CANVAS = (96, 128)
 STRIDES = (4, 8, 16, 32, 64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x, dtype=None):
     t = torch.from_numpy(np.array(jnp.asarray(x).astype(jnp.float32)))
     return t if dtype is None else t.to(dtype)
@@ -481,7 +492,12 @@ def test_builder_builds_full_width_mask_rcnn(dtype, monkeypatch):
     levels; the plain RPN's and StandardRoIHead's train configs; on the
     GPU unless ``device='cpu'`` (none here: it raises)."""
     from boosting_rcnn_tpu_torch.builder import build_detector
+    from boosting_rcnn_tpu_torch.models import layers as t_layers
 
+    # the seeded draws skipped (the checks read structure, never weights)
+    monkeypatch.setattr(t_layers, "lecun_normal_", lambda weight, fan_in, gen: None)
+    for init in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+        monkeypatch.setattr(torch.nn.init, init, lambda tensor, *a, **k: tensor)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_detector(_mask_cfg(tiny=False), dtype=dtype)

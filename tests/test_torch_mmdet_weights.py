@@ -59,6 +59,17 @@ FLAGSHIP = os.path.join(REPO, "configs/boosting_rcnn/boosting_rcnn_r50_pafpn_1x_
 MASK = os.path.join(REPO, "configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randomize(module, seed):
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():

@@ -450,6 +450,8 @@ def test_neck_configs_build(name, monkeypatch):
     """Each neck config builds at full width (the seeded initialisation
     skipped), its neck of its kind."""
     monkeypatch.setattr(t_layers, "lecun_normal_", lambda weight, fan_in, gen: None)
+    for init in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+        monkeypatch.setattr(torch.nn.init, init, lambda tensor, *a, **k: tensor)
     det = build_detector(load_config(config_path(name)).model.to_dict(), device="cpu")
     neck = det.net.neck
     want = {FPT_CONFIG: t_fpt.FPT, NECK_CONFIGS[1]: t_fpt.FPTLite, NECK_CONFIGS[2]: t_fpn.FPN,

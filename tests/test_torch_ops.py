@@ -44,6 +44,17 @@ from boosting_rcnn_tpu_torch.ops.topk import select_topk  # noqa: E402
 STRIDES = (8, 16, 32, 64, 128)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.asarray(x))
 

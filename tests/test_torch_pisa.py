@@ -312,6 +312,8 @@ def test_pisa_configs_build(name, monkeypatch):
     from boosting_rcnn_tpu_torch.models import layers as t_layers
 
     monkeypatch.setattr(t_layers, "lecun_normal_", lambda weight, fan_in, gen: None)
+    for init in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+        monkeypatch.setattr(torch.nn.init, init, lambda tensor, *a, **k: tensor)
     mc = load_config(config_path(name)).model.to_dict()
     if name == PISA_PROB:
         assert "_delete_" in mc["rpn_head"]["loss_bbox"]

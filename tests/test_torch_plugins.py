@@ -31,6 +31,17 @@ from boosting_rcnn_tpu_torch.models import plugins as t_plugins  # noqa: E402
 from boosting_rcnn_tpu_torch.models.backbones.resnet import Bottleneck  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(jm, tm, x, rs, grad=True):
     """``jm`` and ``tm`` (loaded from ``jm``'s random variables) on ``x``:
     outputs and, under a random cotangent, the input gradients."""

@@ -56,6 +56,17 @@ VIEWS = (((128, 160), [[128.0, 150.0], [116.0, 160.0]], [1.0, 1.25]),
          ((96, 128), [[96.0, 112.0], [87.0, 120.0]], [0.75, 0.9375]))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny(name: str, load):
     mc = shrink_model(load(config_path(name)).model.to_dict())
     nms = mc["test_cfg"]["rcnn"]["nms"]

@@ -27,6 +27,7 @@ os.environ["JAX_COMPILATION_CACHE_DIR"] = ""  # no compile-cache writes
 
 import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -48,6 +49,17 @@ from test_torch_tta import FLAGSHIP, pair, tiny  # noqa: E402
 
 SCALES = (96, 128)
 LONG_SIDE = 160
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def same_results(got, ref):

@@ -13,12 +13,24 @@ import os
 import sys
 
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_torch_tta import check_flip, check_multi, pair  # noqa: E402
 
 SOFT_NMS = "boosting_rcnn/boosting_rcnn_x101_pafpn_mstrain_3x_coco.py"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread: beside the suite's other pytest
+    workers, torch's default of a thread a core oversubscribes the host
+    (this file's cases ran several times slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

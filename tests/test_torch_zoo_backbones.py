@@ -442,6 +442,8 @@ def fast_init(monkeypatch):
     """Full-width builds skip the seeded LeCun initialisation (the checks
     read structure only)."""
     monkeypatch.setattr(t_layers, "lecun_normal_", lambda weight, fan_in, gen: None)
+    for name in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
+        monkeypatch.setattr(torch.nn.init, name, lambda tensor, *a, **k: tensor)
 
 
 @pytest.mark.parametrize("name,kind,channels", [
