@@ -64,12 +64,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .models.backbones.detectors_resnet import DetectoRSResNet
 from .models.backbones.hrnet import HRNet
 from .models.backbones.regnet import ARCH_SETTINGS as REGNET_ARCHS
 from .models.backbones.regnet import RegNet
 from .models.backbones.res2net import Res2Net
 from .models.backbones.resnest import ResNeSt
 from .models.backbones.resnet import ResNet
+from .models.backbones.swin import SwinTransformer
 from .models.dense_heads.atss_rpn_head import ATSSRPNCfg, ATSSRPNConvs
 from .models.dense_heads.rpn_head import RPNCfg, RPNConvs
 from .models.detectors.cascade import CascadeDetector, CascadeNet
@@ -90,7 +92,7 @@ from .models.detectors.two_stage import (
     TwoStageNet,
 )
 from .models.layers import set_compute_dtype
-from .models.necks.fpn import FPN, HRFPN, PAFPN, SPP_TYPES
+from .models.necks.fpn import FPN, HRFPN, PAFPN, RFP, SPP_TYPES
 from .models.necks.fpt import FPT, FPTLite
 from .models.roi_heads.bbox_head import BBoxHeadCfg, ConvFCBBoxHead
 from .models.roi_heads.cascade_roi_head import CascadeCfg
@@ -226,6 +228,63 @@ def _zoo_backbone(cfg: Dict[str, Any], gen: torch.Generator):
                  norm_eval=cfg.get("norm_eval", True))
 
 
+_DETECTORS_KEYS = ("type", "depth", "base_channels", "sac", "stage_with_sac", "out_indices",
+                   "frozen_stages", "norm_eval", "output_img", "num_stages", "style", "norm_cfg",
+                   "init_cfg")
+
+
+def _detectors_backbone(cfg: Dict[str, Any], gen: torch.Generator,
+                        rfp_inplanes: Optional[int] = None):
+    """``DetectoRS_ResNet`` as the JAX ``build_detectors_resnet`` reads it
+    (``builder.py:146-162``): depth (50, 101), ``base_channels``, SAC in the
+    stages of ``stage_with_sac`` unless ``sac`` is None, ``out_indices``,
+    ``frozen_stages`` (default 1), ``norm_eval`` (False: live BN) and
+    ``output_img``.  ``sac`` is ``dict(type="SAC", use_deform=...)``, its
+    ``use_deform`` read as the JAX module reads it, not at all (ROADMAP
+    C.5).  The ResNet base keys it does not read raise unless they restate
+    what it builds (four stages, the pytorch style, BN); ``init_cfg`` is the
+    runner's (``weights.load_pretrained``).  ``rfp_inplanes`` (the RFP's
+    feedback backbone, built by ``_build_neck``) adds the ``rfp_conv`` of
+    stages 2-4 and leaves the frozen stages' parameters trainable, as the
+    JAX optimizer's mask leaves them."""
+    _only(cfg, "backbone", _DETECTORS_KEYS)
+    _check(cfg, "num_stages", (4,), 4)
+    _check(cfg, "style", ("pytorch",), "pytorch")
+    _check({"norm_cfg.type": (cfg.get("norm_cfg") or {}).get("type", "BN")}, "norm_cfg.type",
+           ("BN", "SyncBN"))
+    sac = cfg.get("sac")
+    if sac is not None:
+        _only(sac, "backbone.sac", ("type", "use_deform"))
+        _check(sac, "type", ("SAC",))
+    stages = tuple(cfg.get("stage_with_sac", (False, True, True, True))) if sac is not None \
+        else (False,) * 4
+    return DetectoRSResNet(gen, depth=cfg.get("depth", 50),
+                           base_channels=cfg.get("base_channels", 64), sac_stages=stages,
+                           out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
+                           frozen_stages=cfg.get("frozen_stages", 1),
+                           norm_eval=cfg.get("norm_eval", True),
+                           output_img=cfg.get("output_img", False), rfp_inplanes=rfp_inplanes,
+                           freeze=rfp_inplanes is None)
+
+
+def _swin_backbone(cfg: Dict[str, Any], gen: torch.Generator):
+    """``SwinTransformer`` as the JAX ``build_swin`` reads it
+    (``builder.py:267-281``): ``embed_dims``, ``depths``, ``num_heads``,
+    ``window_size``, ``patch_size``, ``mlp_ratio``, ``out_indices`` and
+    ``frozen_stages``, which the JAX module ignores and so does the port's.
+    mmdet's other Swin keys (``qkv_bias``, ``drop_path_rate``,
+    ``use_abs_pos_embed``, ...) raise."""
+    _only(cfg, "backbone", ("type", "embed_dims", "depths", "num_heads", "window_size",
+                            "patch_size", "mlp_ratio", "out_indices", "frozen_stages"))
+    return SwinTransformer(gen, embed_dims=cfg.get("embed_dims", 96),
+                           depths=tuple(cfg.get("depths", (2, 2, 6, 2))),
+                           num_heads=tuple(cfg.get("num_heads", (3, 6, 12, 24))),
+                           window_size=cfg.get("window_size", 7),
+                           patch_size=cfg.get("patch_size", 4),
+                           mlp_ratio=cfg.get("mlp_ratio", 4.0),
+                           out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))))
+
+
 def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     """``ResNet``, ``ResNeXt`` (JAX ``build_resnext``'s defaults: depth 101,
     32 groups of base width 4) or ``Res2Net`` (depth 101, 4 scales of base
@@ -236,6 +295,10 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
     ``RegNet``, ``ResNeSt`` and ``HRNet`` by ``_zoo_backbone``."""
     if cfg.get("type") in ("RegNet", "ResNeSt", "HRNet"):
         return _zoo_backbone(cfg, gen)
+    if cfg.get("type") == "DetectoRS_ResNet":
+        return _detectors_backbone(cfg, gen)
+    if cfg.get("type") == "SwinTransformer":
+        return _swin_backbone(cfg, gen)
     if cfg.get("type") == "HiddenMixupResNet":
         # the DG configs' two-view backbone around the config's ResNet (JAX
         # builder.py:93-101)
@@ -286,10 +349,31 @@ def _build_backbone(cfg: Dict[str, Any], gen: torch.Generator):
 
 def _build_neck(cfg: Dict[str, Any], gen: torch.Generator, backbone_channels=None):
     """The neck (JAX ``build_neck``): ``FPN``, ``SPPFPN``, ``PAFPN``,
-    ``FPT``, ``FPT_lite`` or ``HRFPN``; the last three read their input
-    widths from the backbone, as flax infers them (``backbone_channels``;
-    the config's ``in_channels`` otherwise)."""
-    _check(cfg, "type", ("PAFPN", "FPN", "SPPFPN", "FPT", "FPT_lite", "HRFPN"))
+    ``FPT``, ``FPT_lite``, ``HRFPN`` or ``RFP``; the FPT, FPT_lite and
+    HRFPN read their input widths from the backbone, as flax infers them
+    (``backbone_channels``; the config's ``in_channels`` otherwise).  The
+    RFP reads the keys the JAX ``build_neck`` reads (``builder.py:353-370``):
+    ``in_channels``, ``out_channels``, ``num_outs``, ``rfp_steps``,
+    ``aspp_out_channels`` and ``rfp_backbone`` (a ``DetectoRS_ResNet``
+    without ``output_img``; its ``rfp_inplanes`` and ``pretrained``
+    dropped, the ASPP's width taken for it); ``aspp_dilations`` only at the
+    JAX module's (1, 3, 6, 1), which the JAX builder does not pass on."""
+    _check(cfg, "type", ("PAFPN", "FPN", "SPPFPN", "FPT", "FPT_lite", "HRFPN", "RFP"))
+    if cfg["type"] == "RFP":
+        _only(cfg, "neck", ("type", "in_channels", "out_channels", "num_outs", "rfp_steps",
+                            "aspp_out_channels", "aspp_dilations", "rfp_backbone"))
+        _check({"aspp_dilations": tuple(cfg.get("aspp_dilations", (1, 3, 6, 1)))},
+               "aspp_dilations", ((1, 3, 6, 1),))
+        bb = {k: v for k, v in (cfg.get("rfp_backbone") or {}).items()
+              if k not in ("pretrained", "rfp_inplanes")}
+        bb.setdefault("type", "DetectoRS_ResNet")
+        _check(bb, "type", ("DetectoRS_ResNet",))
+        bb["output_img"] = False
+        aspp = cfg.get("aspp_out_channels", 64)
+        return RFP(gen, tuple(cfg.get("in_channels", (256, 512, 1024, 2048))),
+                   _detectors_backbone(bb, gen, rfp_inplanes=4 * aspp),
+                   out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5),
+                   rfp_steps=cfg.get("rfp_steps", 2), aspp_out_channels=aspp)
     if cfg["type"] in ("FPT", "FPT_lite", "HRFPN"):
         in_channels = backbone_channels or cfg.get("in_channels")
         common = dict(out_channels=cfg.get("out_channels", 256), num_outs=cfg.get("num_outs", 5))

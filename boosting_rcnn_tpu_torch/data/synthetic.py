@@ -118,9 +118,14 @@ def _annotation(ann_id: int, image_id: int, category_id: int, obj) -> dict:
 
 def generate(out_dir: str, n_train: int = 200, n_val: int = 50, seed: int = 0,
              frame_sizes: Optional[Sequence[Tuple[int, int]]] = None,
-             n_portrait: int = 0, object_scale: float = 1.0) -> None:
+             n_portrait: int = 0, object_scale: float = 1.0,
+             classes: Sequence[str] = CLASSES) -> None:
     """Write ``train/``, ``val/`` (PPM images) and ``train.json``,
-    ``val.json`` (COCO format) under ``out_dir``."""
+    ``val.json`` (COCO format) under ``out_dir``; the categories are named
+    ``classes`` (a dataset type's, such as Brackish's), whose first four
+    the four shapes are."""
+    if len(classes) < len(CLASSES):
+        raise ValueError(f"{len(classes)} class names for {len(CLASSES)} shapes")
     frame_sizes = list(frame_sizes or [(IMG_W, IMG_H)])
     rng = np.random.RandomState(seed)
     for split, n in (("train", n_train), ("val", n_val)):
@@ -138,7 +143,7 @@ def generate(out_dir: str, n_train: int = 200, n_val: int = 50, seed: int = 0,
             write_ppm(os.path.join(img_dir, fn), img)
             images.append(dict(id=i + 1, file_name=fn, width=fw, height=fh))
         coco = dict(images=images, annotations=annotations,
-                    categories=[dict(id=c + 1, name=name) for c, name in enumerate(CLASSES)])
+                    categories=[dict(id=c + 1, name=name) for c, name in enumerate(classes)])
         with open(os.path.join(out_dir, f"{split}.json"), "w") as f:
             json.dump(coco, f)
 

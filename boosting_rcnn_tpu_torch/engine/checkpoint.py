@@ -4,7 +4,7 @@
 A checkpoint is a directory: ``state.pth`` holds the model's
 ``state_dict`` (its buffers too, Dynamic R-CNN's adaptive state among
 them), the optimizer's state (its step count and SGD momentum
-buffers), the step and, when given, the sampler generator's state;
+buffers or AdamW moments), the step and, when given, the sampler generator's state;
 ``meta.json`` holds the caller's meta (epoch, classes, config) with the
 step and the port's version.  A restored model, optimizer and generator
 continue bit for bit where the saved ones were.

@@ -9,8 +9,8 @@ for a model with a mask head, with the stuff maps of ``seg_prefix`` for
 one with a semantic head; the pipeline's ``lsj_range``, ``albu`` and
 ``instaboost`` augmentations; a wrapped set's pipeline is the one inside
 it),
-SGD with momentum, weight decay and the gradient clip
-(``optimizer``, ``optimizer_config``), the step schedule with linear
+SGD with momentum and weight decay, or AdamW (the Swin configs'), and the
+gradient clip (``optimizer``, ``optimizer_config``), the step schedule with linear
 warmup (``lr_config``, epochs from ``runner.max_epochs``), checkpoints
 every ``checkpoint_config.interval`` epochs and evaluation every
 ``evaluation.interval`` epochs on ``data.val``.  Each canvas (landscape,
@@ -58,11 +58,12 @@ from .checkpoint import restore_checkpoint, save_checkpoint
 from .eval import run_eval
 from ..parallel.mesh import (barrier, cluster_spec_from_env, init_distributed, is_main, local_device,
                              rank, world_size)
-from .train import aux_parameters, make_optimizer, make_train_step, step_lr_schedule
+from .train import OPT_TYPES, aux_parameters, make_optimizer, make_train_step, step_lr_schedule
 
 __all__ = ["TINY_CANVAS", "shrink_model", "compute_dtype", "model_config", "check_data",
            "train_loader", "test_geometry", "eval_loader", "tta_options", "Trainer",
-           "check_runner", "check_schedule", "build_trainer", "train_detector"]
+           "check_runner", "check_schedule", "config_optimizer", "build_trainer",
+           "train_detector"]
 
 TINY_CANVAS = (128, 160)
 TINY_GN_GROUPS = 8  # divides the shrunk backbone's, neck's and heads' widths
@@ -80,11 +81,15 @@ _BIG_BLOCK_KEYS = ("groups", "base_width", "scales", "dcn", "stage_with_dcn")
 
 
 # the zoo's backbones at the tiny size: their changes and stage widths
-# (RegNetX-400MF, HRNet-W18, ResNeSt-50 at a 16-channel stem and width 8)
+# (RegNetX-400MF, HRNet-W18, ResNeSt-50 at a 16-channel stem and width 8,
+# DetectoRS ResNet-50 at width 8, Swin at 16 dims with one shifted block)
 _ZOO_TINY = {
     "RegNet": ({"arch": "regnetx_400mf"}, [32, 64, 160, 384]),
     "HRNet": ({"arch": "w18"}, [18, 36, 72, 144]),
     "ResNeSt": ({"depth": 50, "stem_channels": 16, "base_channels": 8}, [32, 64, 128, 256]),
+    "DetectoRS_ResNet": ({"depth": 50, "base_channels": 8}, [32, 64, 128, 256]),
+    "SwinTransformer": ({"embed_dims": 16, "depths": (2, 1, 1, 1), "num_heads": (1, 2, 4, 8)},
+                        [16, 32, 64, 128]),
 }
 
 
@@ -117,7 +122,11 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     one.  The zoo's backbones keep their kind at their smallest or a
     narrowed width (``_ZOO_TINY``: RegNetX-400MF, HRNet-W18, ResNeSt-50 at
     width 8), where the JAX shrink leaves them at full width beside a
-    neck sized for ResNet-18; ``HiddenMixupResNet`` (DGaug's) stays one,
+    neck sized for ResNet-18; DetectoRS's ResNet-50 and the RFP's feedback
+    copy go to width 8 (as the JAX package's own tests shrink them,
+    ``tests/test_all_configs_forward.py:89-92``), Swin to 16 dims, heads
+    (1, 2, 4, 8) and depths (2, 1, 1, 1), so that a shifted block runs
+    (the JAX tests' depths are all 1); ``HiddenMixupResNet`` (DGaug's) stays one,
     around ResNet-18 at width 8, where the JAX shrink leaves it at
     ResNet-50 beside the shrunk neck, which then fails to build.  Other
     model types raise."""
@@ -128,6 +137,8 @@ def shrink_model(mc: Dict[str, Any]) -> Dict[str, Any]:
     if zoo:
         mc["backbone"].update(zoo[0])
         in_channels = zoo[1]
+        if (mc.get("neck") or {}).get("type") == "RFP":  # its feedback backbone too
+            mc["neck"]["rfp_backbone"].update(zoo[0])
     else:
         for key in _BIG_BLOCK_KEYS:
             mc["backbone"].pop(key, None)
@@ -330,22 +341,30 @@ def check_runner(cfg: Config) -> None:
                                   "schedule decays at epochs)")
 
 
+def _opt_type(cfg: Config) -> str:
+    return str((cfg.get("optimizer") or {}).get("type", "sgd")).lower()
+
+
 def check_schedule(cfg: Config) -> None:
     """Raise on what the port's optimizer and schedule do not take: an
     iteration-based schedule (``check_runner``), another optimizer than SGD
-    with momentum, another lr policy than the step one."""
+    with momentum or AdamW (JAX ``make_optimizer``'s two), another lr policy
+    than the step one."""
     check_runner(cfg)
     opt = cfg.get("optimizer") or {}
-    if str(opt.get("type", "sgd")).lower() != "sgd" or opt.get("nesterov", False):
-        raise NotImplementedError(f"optimizer {opt!r} is not ported (SGD with momentum is)")
+    if _opt_type(cfg) not in OPT_TYPES or opt.get("nesterov", False):
+        raise NotImplementedError(f"optimizer {opt!r} is not ported (SGD with momentum and "
+                                  "AdamW are)")
     lrc = cfg.get("lr_config") or {}
     if lrc.get("policy", "step") != "step":
         raise NotImplementedError(f"lr_config policy {lrc.get('policy')!r} is not ported")
 
 
-def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) -> Trainer:
-    """The config's optimizer and schedule on ``detector``, and a sampler
-    generator seeded from ``seed``; what the port does not take raises
+def config_optimizer(cfg: Config, detector, steps_per_epoch: int):
+    """The config's optimizer and schedule on ``detector`` (JAX
+    ``make_optimizer`` with the config's ``optimizer.type``: the JAX
+    ``tools/train.py`` passes no ``opt_type`` and would train an ``adamw``
+    config with SGD, ROADMAP C.4); what the port does not take raises
     (``check_schedule``)."""
     check_schedule(cfg)
     opt = cfg.get("optimizer") or {}
@@ -355,11 +374,17 @@ def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) ->
                              warmup_iters=lrc.get("warmup_iters", 500),
                              warmup_ratio=lrc.get("warmup_ratio", 0.001))
     clip = (cfg.get("optimizer_config") or {}).get("grad_clip") or {}
-    optimizer = make_optimizer(detector.net.parameters(), sched,
-                               momentum=opt.get("momentum", 0.9),
-                               weight_decay=opt.get("weight_decay", 1e-4),
-                               grad_clip_norm=clip.get("max_norm"),
-                               aux_params=aux_parameters(detector.net))
+    return make_optimizer(detector.net.parameters(), sched,
+                          momentum=opt.get("momentum", 0.9),
+                          weight_decay=opt.get("weight_decay", 1e-4),
+                          grad_clip_norm=clip.get("max_norm"),
+                          aux_params=aux_parameters(detector.net), opt_type=_opt_type(cfg))
+
+
+def build_trainer(cfg: Config, detector, steps_per_epoch: int, seed: int = 0) -> Trainer:
+    """The config's optimizer and schedule on ``detector``
+    (``config_optimizer``), and a sampler generator seeded from ``seed``."""
+    optimizer = config_optimizer(cfg, detector, steps_per_epoch)
     generator = torch.Generator(device=detector.device).manual_seed(seed + 1)
     return Trainer(detector, optimizer, generator)
 

@@ -15,6 +15,15 @@ Frozen parameters (``requires_grad=False``: the frozen backbone stages)
 get no gradient and are not in the optimizer, so they never move, as the
 JAX package's zeroed updates leave them.
 
+``opt_type="adamw"`` (the Swin configs' ``optimizer=dict(type="adamw")``,
+JAX ``make_optimizer(opt_type="adamw")``) replaces the weight decay and SGD
+by optax's ``adamw``: b1 0.9, b2 0.999, eps 1e-8 outside the square root,
+the bias-corrected moments, then the decoupled decay ``weight_decay * p``
+added to every trainable parameter's update (no mask), then the update
+times ``-lr``; its arithmetic is optax's, op by op, over ``torch._foreach``
+lists (float32 scalars as optax casts them), and its moments and count are
+in ``state_dict()``.
+
 ``make_train_step`` returns ``train_step(batch, sample=None, generator=None,
 rpn_uniforms=None, roi_uniforms=None) -> metrics``.  Without a ``sample``
 it computes the proposals and samples the RoIs inside the step (the JAX
@@ -56,7 +65,7 @@ import torch
 
 from ..parallel.mesh import average_gradients, reduce_metrics
 
-__all__ = ["step_lr_schedule", "Optimizer", "make_optimizer", "aux_parameters",
+__all__ = ["step_lr_schedule", "AdamW", "Optimizer", "make_optimizer", "aux_parameters",
            "deterministic_cudnn", "live_norms", "make_train_step"]
 
 
@@ -109,9 +118,54 @@ def aux_parameters(net: torch.nn.Module):
             for p in getattr(net, name).parameters()]
 
 
+OPT_TYPES = ("sgd", "adamw")
+ADAMW_B1, ADAMW_B2, ADAMW_EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
+
+
+class AdamW:
+    """optax ``adamw(lr, b1, b2, eps, eps_root=0, weight_decay)`` on
+    ``params``: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``,
+    ``u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p`` (the
+    bias corrections in float32), ``p += -lr * u``."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter], weight_decay: float):
+        self.params, self.weight_decay = list(params), weight_decay
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.mu = [t.to(p.device).clone() for t, p in zip(state["mu"], self.params)]
+        self.nu = [t.to(p.device).clone() for t, p in zip(state["nu"], self.params)]
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        grads = [p.grad for p in self.params]
+        self.count += 1
+        f32 = np.float32
+        bc1 = float(f32(1) - f32(ADAMW_B1) ** f32(self.count))
+        bc2 = float(f32(1) - f32(ADAMW_B2) ** f32(self.count))
+        mu = torch._foreach_mul(grads, 1 - ADAMW_B1)
+        torch._foreach_add_(mu, torch._foreach_mul(self.mu, ADAMW_B1))
+        nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - ADAMW_B2)
+        torch._foreach_add_(nu, torch._foreach_mul(self.nu, ADAMW_B2))
+        self.mu, self.nu = mu, nu
+        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(den, ADAMW_EPS)
+        update = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        torch._foreach_add_(update, torch._foreach_mul(self.params, self.weight_decay))
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(self.params, update)
+
+
 class Optimizer:
-    """Global-norm clip, then SGD with weight decay and momentum, with the
-    learning rate from ``lr_schedule(step)``.  ``aux_params`` (the DG
+    """Global-norm clip, then SGD with weight decay and momentum (or, with
+    ``opt_type="adamw"``, ``AdamW``), with the learning rate from
+    ``lr_schedule(step)``.  ``aux_params`` (the DG
     classifiers', ``aux_parameters``) form a group of their own, as the JAX
     package's ``optax.multi_transform`` routes them: a global-norm clip at
     0.1 over their gradients alone, then Adam at 1e-3 without weight decay;
@@ -120,35 +174,50 @@ class Optimizer:
     def __init__(self, params: Sequence[torch.nn.Parameter], lr_schedule: Callable[[int], float],
                  momentum: float = 0.9, weight_decay: float = 1e-4,
                  grad_clip_norm: Optional[float] = 35.0,
-                 aux_params: Sequence[torch.nn.Parameter] = ()):
+                 aux_params: Sequence[torch.nn.Parameter] = (), opt_type: str = "sgd"):
+        if opt_type not in OPT_TYPES:
+            raise NotImplementedError(f"optimizer type {opt_type!r} is not ported "
+                                      f"(the port takes {', '.join(OPT_TYPES)})")
         self.aux_params = [p for p in aux_params if p.requires_grad]
         aux = {id(p) for p in self.aux_params}
         self.params = [p for p in params if p.requires_grad and id(p) not in aux]
         self.lr_schedule = lr_schedule
         self.grad_clip_norm = grad_clip_norm
+        self.opt_type = opt_type
         self.step_count = 0
-        self.sgd = torch.optim.SGD(self.params, lr=lr_schedule(0), momentum=momentum,
-                                   weight_decay=weight_decay)
+        self.sgd = self.adamw = None
+        if opt_type == "adamw":
+            self.adamw = AdamW(self.params, weight_decay)
+        else:
+            self.sgd = torch.optim.SGD(self.params, lr=lr_schedule(0), momentum=momentum,
+                                       weight_decay=weight_decay)
         self.adam = torch.optim.Adam(self.aux_params, lr=AUX_LR) if self.aux_params else None
 
     def state_dict(self) -> dict:
-        """The step count and the SGD state (its momentum buffers), and the
-        auxiliary group's Adam state where there is one."""
-        state = {"step_count": self.step_count, "sgd": self.sgd.state_dict()}
+        """The step count and the SGD state (its momentum buffers) or the
+        AdamW moments, and the auxiliary group's Adam state where there is
+        one."""
+        state = {"step_count": self.step_count}
+        if self.sgd is not None:
+            state["sgd"] = self.sgd.state_dict()
+        else:
+            state["adamw"] = self.adamw.state_dict()
         if self.adam is not None:
             state["adam"] = self.adam.state_dict()
         return state
 
     def load_state_dict(self, state: dict) -> None:
         self.step_count = int(state["step_count"])
-        self.sgd.load_state_dict(state["sgd"])
+        if self.sgd is not None:
+            self.sgd.load_state_dict(state["sgd"])
+        else:
+            self.adamw.load_state_dict(state["adamw"])
         if self.adam is not None:
             self.adam.load_state_dict(state["adam"])
 
     def zero_grad(self) -> None:
-        self.sgd.zero_grad(set_to_none=True)
-        if self.adam is not None:
-            self.adam.zero_grad(set_to_none=True)
+        for p in self.params + self.aux_params:
+            p.grad = None
 
     def step(self) -> torch.Tensor:
         """Clip, update, count.  Returns the gradient norm before the clip,
@@ -164,9 +233,12 @@ class Optimizer:
         if self.grad_clip_norm is not None:
             _clip_(grads, norm, self.grad_clip_norm)
         lr = self.lr_schedule(self.step_count)
-        for group in self.sgd.param_groups:
-            group["lr"] = lr
-        self.sgd.step()
+        if self.sgd is not None:
+            for group in self.sgd.param_groups:
+                group["lr"] = lr
+            self.sgd.step()
+        else:
+            self.adamw.step(lr)
         if self.adam is not None:
             aux_grads = [p.grad for p in self.aux_params]
             aux_sq = _sq_norm(aux_grads)
@@ -184,12 +256,15 @@ def make_optimizer(
     weight_decay: float = 1e-4,
     grad_clip_norm: Optional[float] = 35.0,
     aux_params: Sequence[torch.nn.Parameter] = (),
+    opt_type: str = "sgd",
 ) -> Optimizer:
-    """SGD with momentum, L2 weight decay and a global-norm clip (the
-    reference's ``optimizer_config``: ``grad_clip`` max_norm 35; None
-    clips nothing), over the parameters that require a gradient but
-    ``aux_params``, which train in the auxiliary group (``Optimizer``)."""
-    return Optimizer(params, lr_schedule, momentum, weight_decay, grad_clip_norm, aux_params)
+    """SGD with momentum and L2 weight decay, or AdamW (``opt_type``), and
+    a global-norm clip (the reference's ``optimizer_config``: ``grad_clip``
+    max_norm 35; None clips nothing), over the parameters that require a
+    gradient but ``aux_params``, which train in the auxiliary group
+    (``Optimizer``)."""
+    return Optimizer(params, lr_schedule, momentum, weight_decay, grad_clip_norm, aux_params,
+                     opt_type)
 
 
 @contextlib.contextmanager

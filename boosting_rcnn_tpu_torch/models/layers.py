@@ -195,12 +195,12 @@ class FrozenBatchNorm(nn.Module):
 
 
 def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
-               bias: torch.Tensor, eps: float) -> torch.Tensor:
+               bias: torch.Tensor, eps: float, shape=(-1, 1, 1)) -> torch.Tensor:
     """``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32 on an
-    NCHW ``x``, the statistics broadcastable against it, cast once to
-    ``x.dtype`` (flax ``_normalize``)."""
-    mul = torch.rsqrt(var + eps) * weight[:, None, None]
-    return ((x.float() - mean) * mul + bias[:, None, None]).to(x.dtype)
+    NCHW ``x`` (channels-last with ``shape`` ``(-1,)``), the statistics
+    broadcastable against it, cast once to ``x.dtype`` (flax ``_normalize``)."""
+    mul = torch.rsqrt(var + eps) * weight.reshape(shape)
+    return ((x.float() - mean) * mul + bias.reshape(shape)).to(x.dtype)
 
 
 def _fast_stats(x: torch.Tensor, dims):
@@ -279,17 +279,19 @@ class LayerNorm(nn.Module):
     """LayerNorm over the channels of an NCHW map, eps 1e-6 (flax
     ``nn.LayerNorm``'s default, over its last axis: a ContextBlock's
     ``[planes, 1, 1]`` and a ConvModule's ``LN``), each pixel on its own: float32 statistics as
-    ``E[x^2] - E[x]^2`` and affine map, cast once to the input's dtype."""
+    ``E[x^2] - E[x]^2`` and affine map, cast once to the input's dtype.
+    With ``channels_last`` over the last axis (Swin's tokens)."""
 
-    def __init__(self, channels: int, eps: float = 1e-6):
+    def __init__(self, channels: int, eps: float = 1e-6, channels_last: bool = False):
         super().__init__()
         self.eps = eps
+        self.dim, self.shape = (-1, (-1,)) if channels_last else (1, (-1, 1, 1))
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = _fast_stats(x, 1)
-        return _normalize(x, mean, var, self.weight, self.bias, self.eps)
+        mean, var = _fast_stats(x, self.dim)
+        return _normalize(x, mean, var, self.weight, self.bias, self.eps, self.shape)
 
 
 BN_TYPES = ("BN", "SyncBN", "FrozenBN")

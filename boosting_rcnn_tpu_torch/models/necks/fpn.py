@@ -21,7 +21,11 @@ lateral 1x1 replaced by an SPP-type block (``SPPLateral``): ``ASPP``,
 config's), ``SPP`` or ``RFB``.  ``HRFPN`` (JAX ``necks/fpn.py:371-406``)
 upsamples HRNet's branches bilinearly to the first, concatenates them,
 reduces them by a 1x1 conv and makes ``num_outs`` levels by average pools
-of 2^i, each through a 3x3 conv at ``stride``.  NCHW in and out.
+of 2^i, each through a 3x3 conv at ``stride``.  ``RFP`` (DetectoRS's
+Recursive Feature Pyramid, JAX ``necks/fpn.py:565-638``) runs one FPN on
+the backbone's levels, feeds the ASPP of levels 1-3 back through its own
+feedback backbone, runs the same FPN again and blends the two pyramids
+by a sigmoid gate.  NCHW in and out.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.losses import sigmoid
 from ..layers import (ConvModule, Conv2d, avg_pool, bilinear_resize, lecun_normal_, make_conv,
                       max_pool, nearest_resize)
 
@@ -249,3 +254,50 @@ class HRFPN(nn.Module):
             y = x if i == 0 else avg_pool(x, 2 ** i, 2 ** i)
             outs.append(getattr(self, f"fpn_conv_{i}")(y))
         return tuple(outs)
+
+
+class RFP(nn.Module):
+    """The Recursive Feature Pyramid on ``(img, C2..C5)`` from a
+    ``DetectoRSResNet(output_img=True)``: the FPN (``fpn``; extra levels by
+    max pool) on C2-C5, then ``rfp_steps - 1`` times: levels 1-3 each
+    through the shared ASPP (``aspp_conv{i}``: a 1x1 at dilation 1, else a
+    3x3 padded by its dilation, each with a bias and a ReLU; the last
+    branch a 1x1 on the level's spatial mean, broadcast), concatenated, go
+    to stages 2-4 of ``rfp_backbone`` run on the image again, the same FPN
+    runs on its outputs (so the FPN's gradient is the sum over its calls),
+    and each new level ``n`` replaces the old ``o`` by ``s * n + (1 - s) *
+    o`` with ``s`` the sigmoid (``losses.sigmoid``) of the zero-initialised
+    1x1 ``rfp_weight`` on ``n``.  One feedback backbone serves every step (ARCHITECTURE.md
+    deviation 9; exact at the configs' ``rfp_steps=2``)."""
+
+    def __init__(self, gen: torch.Generator, in_channels: Sequence[int], rfp_backbone: nn.Module,
+                 out_channels: int = 256, num_outs: int = 5, rfp_steps: int = 2,
+                 aspp_out_channels: int = 64, aspp_dilations=(1, 3, 6, 1)):
+        super().__init__()
+        self.rfp_steps, self.dilations = rfp_steps, tuple(aspp_dilations)
+        self.fpn = FPN(gen, in_channels, out_channels, num_outs)
+        for i, d in enumerate(self.dilations):
+            k = 3 if d > 1 else 1
+            self.add_module(f"aspp_conv{i}", make_conv(out_channels, aspp_out_channels, k, 1,
+                                                       d if d > 1 else 0, True, gen, dilation=d))
+        self.rfp_weight = make_conv(out_channels, 1, 1, 1, 0, True, gen)
+        nn.init.zeros_(self.rfp_weight.weight)
+        self.rfp_backbone = rfp_backbone
+
+    def aspp(self, t: torch.Tensor) -> torch.Tensor:
+        last = len(self.dilations) - 1
+        outs = [F.relu(getattr(self, f"aspp_conv{i}")(
+            t.float().mean((2, 3), keepdim=True).to(t.dtype) if i == last else t))
+            for i in range(last + 1)]
+        outs[-1] = outs[-1].expand_as(outs[-2])
+        return torch.cat(outs, 1)
+
+    def forward(self, inputs):
+        img, feats = inputs[0], tuple(inputs[1:])
+        x = list(self.fpn(feats))
+        for _ in range(self.rfp_steps - 1):
+            rfp_feats = [None] + [self.aspp(x[i]) for i in range(1, 4)]
+            x_new = self.fpn(self.rfp_backbone(img, rfp_feats=rfp_feats))
+            gates = [sigmoid(self.rfp_weight(n)) for n in x_new]
+            x = [s * n + (1 - s) * o for s, n, o in zip(gates, x_new, x)]
+        return tuple(x)

@@ -49,7 +49,16 @@ parts by the same rules: the DANN ``domain_head`` (``conv1``, ``conv2``,
 ``fc``) with its images-seen ``count``, JiGEN's ``jig_head.fc``, the
 FP-EMAU's ``emau.conv1`` / ``conv2`` / ``bn2`` with its basis ``mu``
 (``batch_stats`` entries keep their names, as the modules' buffers), and
-``HiddenMixupResNet``'s ResNet under ``backbone.resnet``.
+``HiddenMixupResNet``'s ResNet under ``backbone.resnet``; and DetectoRS
+and Swin: an ``SAConv``'s ``aws_gamma`` / ``aws_beta`` ``(1, 1, 1, C)`` and
+``weight_diff`` (HWIO) to ``(C, 1, 1, 1)`` and OIHW, its ``pre_context`` /
+``switch`` / ``post_context`` convs and a block's ``rfp_conv`` by the
+general rules, the RFP's ``fpn``, ``aspp_conv{i}``, ``rfp_weight`` and its
+feedback backbone under ``neck.rfp_backbone``; Swin's ``patch_embed``
+(conv), ``patch_norm``, each block's ``norm1`` / ``norm2``, ``attn.qkv`` /
+``attn.proj`` / ``mlp_fc1`` / ``mlp_fc2`` (Dense kernels transposed), its
+``relative_position_bias_table`` (kept), ``merge{s}.norm`` /
+``.reduction`` and ``out_norm{s}``.
 
 Every rule is linear (a transpose or a rename), so the same mapping
 carries a flax *gradient* tree (the ``params`` tree of ``jax.grad``) onto
@@ -73,7 +82,11 @@ from a local file; nothing is fetched.  ``nest_backbone`` moves a plain
 ResNet's ``backbone.*`` keys under ``backbone.resnet.*`` for a
 ``HiddenMixupResNet`` (the JAX converter's ``_merge_backbone_subtree``);
 the DG heads' mmdet keys (``domain_cls.*``, ``jig_cls.*``, ``emau.*``)
-raise, as the JAX converter maps none of them.
+raise, as the JAX converter maps none of them.  An mmdet Swin backbone
+loads as the JAX ``convert_swin_backbone`` maps it (``_swin_backbone``:
+PatchMerging's 4C channels permuted from ``nn.Unfold``'s order to the
+port's); its ``absolute_pos_embed`` raises, and so do DetectoRS's SAC and
+RFP keys, which the JAX converter names none of.
 """
 from __future__ import annotations
 
@@ -87,6 +100,8 @@ import torch
 __all__ = ["from_jax_params", "from_torchvision_resnet", "from_mmdet_state_dict",
            "read_state_dict", "load_pretrained", "nest_backbone"]
 
+# SAConv's (1, 1, 1, C) standardisation affine and (3, 3, I, C) weight_diff
+_OIHW_LEAVES = ("aws_gamma", "aws_beta", "weight_diff")
 _MODULE_NAMES = {"Conv_0": "conv", "WSConv_0": "conv", "GroupNorm_0": "norm",
                  "FrozenBatchNorm_0": "norm", "LayerNorm_0": "norm"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -119,7 +134,9 @@ def _convert(path: Tuple[str, ...], value: np.ndarray):
     mods = [_module_name(m) for m in mods if m != "BatchNorm_0"]
     if leaf in ("shared_kernel", "shared_bias"):  # SPPFPN's ASPP_share weight set
         mods, leaf = mods + ["shared"], leaf[len("shared_"):]
-    if leaf == "kernel":
+    if leaf in _OIHW_LEAVES:  # SAConv's HWIO-shaped parameters
+        value = value.transpose(3, 2, 0, 1)
+    elif leaf == "kernel":
         if value.ndim == 4 and mods[-1:] == ["upsample"]:
             value = value[::-1, ::-1].transpose(2, 3, 0, 1)
         elif value.ndim == 4:
@@ -249,14 +266,94 @@ def _check_zoo_backbone(state_dict: Dict[str, Any]) -> None:
     stem = state_dict.get("backbone.conv1.weight")
     kinds = (("RegNet", stem is not None and tuple(stem.shape) == (32, 3, 3, 3)),
              ("ResNeSt", any(".conv2.fc1." in k for k in state_dict)),
-             ("HRNet", any(k.startswith(("backbone.transition", "backbone.stage"))
-                           for k in state_dict)))
+             ("HRNet", any(re.match(r"backbone\.(transition|stage\d)", k) for k in state_dict)))
     for kind, found in kinds:
         if found:
             raise NotImplementedError(
                 f"an mmdet {kind} backbone: the JAX package's converter maps none of its keys "
                 "(tools/convert_torch_weights.py), so its mmdet weights do not load; the "
                 "port's weights are the JAX package's (from_jax_params) or seeded")
+
+
+# mmcv's SAConv2d (``weight_gamma`` / ``weight_beta`` buffers, ``switch``,
+# the contexts, the deformable ``offset_s`` / ``offset_l``), DetectoRS's
+# ``rfp_conv`` and the RFP neck's ``rfp_modules`` / ``rfp_aspp`` / ``rfp_weight``
+_DETECTORS_KEY = re.compile(
+    r"^(backbone\..*\.(weight_diff|weight_gamma|weight_beta|switch\.|pre_context\.|"
+    r"post_context\.|offset_s\.|offset_l\.|rfp_conv\.)|neck\.rfp_)")
+
+
+def _check_detectors(state_dict: Dict[str, Any]) -> None:
+    """Raise on DetectoRS's SAC and RFP keys, naming them."""
+    keys = sorted(k for k in state_dict if _DETECTORS_KEY.match(k))
+    if keys:
+        raise NotImplementedError(
+            f"{keys[:6]}{' ...' if len(keys) > 6 else ''} ({len(keys)} keys) are keys of "
+            "DetectoRS's SAC convs and RFP neck; the JAX package's converter maps none of them "
+            "(tools/convert_torch_weights.py), so DetectoRS's mmdet weights do not load")
+
+
+def swin_merge_perm(c: int) -> np.ndarray:
+    """``perm`` with ``ours[o] = mmdet[perm[o]]`` over PatchMerging's 4C
+    channels: mmdet's ``nn.Unfold`` orders them ``c * 4 + (ky * 2 + kx)``,
+    the port as ``[x00, x10, x01, x11]`` blocks of C (JAX
+    ``convert_torch_weights.py::_swin_merge_perm``)."""
+    kmap = {0: 0, 1: 2, 2: 1, 3: 3}  # block -> unfold's (ky * 2 + kx)
+    return np.asarray([ch * 4 + kmap[blk] for blk in range(4) for ch in range(c)], np.int64)
+
+
+_SWIN_BLOCK = {"norm1": "norm1", "norm2": "norm2", "attn.w_msa.qkv": "attn.qkv",
+               "attn.w_msa.proj": "attn.proj", "ffn.layers.0.0": "mlp_fc1",
+               "ffn.layers.1": "mlp_fc2"}
+
+
+def _swin_backbone(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``backbone.*`` of the port's Swin from an mmdet Swin backbone state
+    dict (its keys without ``backbone.``), as the JAX
+    ``convert_swin_backbone`` maps it (``tools/convert_torch_weights.py:149-247``):
+
+      patch_embed.projection / .norm            -> patch_embed / patch_norm
+      stages.S.blocks.B.{norm1,norm2}           -> stageS_blockB.{norm1,norm2}
+      stages.S.blocks.B.attn.w_msa.{qkv,proj}   -> stageS_blockB.attn.{qkv,proj}
+      stages.S.blocks.B.attn.w_msa.relative_position_bias_table -> ....attn.(the same)
+      stages.S.blocks.B.ffn.layers.0.0 / .1     -> stageS_blockB.mlp_fc1 / mlp_fc2
+      stages.S.downsample.{norm,reduction}      -> mergeS.{norm,reduction}, 4C permuted
+      norm{I}                                   -> out_norm{I}
+
+    ``relative_position_index`` buffers are skipped (the port computes
+    them); ``absolute_pos_embed`` raises ``NotImplementedError``, any other
+    key ``ValueError``."""
+    out = {}
+    for key, value in sd.items():
+        t = _port_tensor(value)
+        m = re.fullmatch(r"stages\.(\d+)\.blocks\.(\d+)\.(.+)\.(weight|bias)", key)
+        if key == "absolute_pos_embed":
+            raise NotImplementedError(
+                "absolute_pos_embed (use_abs_pos_embed=True) is not part of the Swin-T/S/B "
+                "detection configs; the JAX converter and the port's Swin have none")
+        if key.endswith("relative_position_index"):
+            continue
+        if key.startswith("patch_embed."):
+            name = key.replace("projection.", "").replace("patch_embed.norm.", "patch_norm.")
+        elif re.fullmatch(r"norm\d+\.(weight|bias)", key):
+            name = "out_" + key
+        elif m and m[3] in _SWIN_BLOCK:
+            name = f"stage{m[1]}_block{m[2]}.{_SWIN_BLOCK[m[3]]}.{m[4]}"
+        elif re.fullmatch(r"stages\.\d+\.blocks\.\d+\.attn\.w_msa\."
+                          r"relative_position_bias_table", key):
+            name = re.sub(r"stages\.(\d+)\.blocks\.(\d+)\.attn\.w_msa\.",
+                          r"stage\1_block\2.attn.", key)
+        else:
+            d = re.fullmatch(r"stages\.(\d+)\.downsample\.(norm|reduction)\.(weight|bias)", key)
+            if not d:
+                raise ValueError(f"mmdet Swin key {key!r} has no counterpart in the port")
+            name = f"merge{d[1]}.{d[2]}.{d[3]}"
+            if d[2] == "reduction":  # (2C, 4C): its input columns permuted
+                t = t[:, torch.from_numpy(swin_merge_perm(t.shape[1] // 4))].contiguous()
+            else:
+                t = t[torch.from_numpy(swin_merge_perm(t.shape[0] // 4))].contiguous()
+        out["backbone." + name] = t
+    return out
 
 
 def from_mmdet_state_dict(state_dict: Dict[str, Any],
@@ -303,9 +400,12 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
     only and drops the per-stage, semantic and MaskIoU keys.  A Seesaw box
     head's ``fc_cls`` (mmdet: the classes plus an objectness pair) raises
     ``NotImplementedError`` (``_check_cls_rows``), and so does an mmdet
-    RegNet, ResNeSt or HRNet backbone (``_check_zoo_backbone``)."""
+    RegNet, ResNeSt or HRNet backbone (``_check_zoo_backbone``), and
+    DetectoRS's SAC and RFP keys (``_check_detectors``).  An mmdet Swin
+    backbone (``patch_embed.projection.*``) maps by ``_swin_backbone``."""
     _check_cls_rows(state_dict)
     _check_zoo_backbone(state_dict)
+    _check_detectors(state_dict)
     dg = sorted(k for k in state_dict if k.startswith(("domain_cls.", "jig_cls.", "emau.")))
     if dg:
         raise NotImplementedError(
@@ -319,7 +419,8 @@ def from_mmdet_state_dict(state_dict: Dict[str, Any],
             "the JAX package's converter maps neither, so PointRend's mmdet weights do not load")
     backbone = {k[len("backbone."):]: v for k, v in state_dict.items()
                 if k.startswith("backbone.")}
-    out = from_torchvision_resnet(backbone)
+    swin = any(k.startswith("patch_embed.projection") for k in backbone)
+    out = _swin_backbone(backbone) if swin else from_torchvision_resnet(backbone)
     rules = [
         (r"neck\.(\w+_convs)\.(\d+)\.conv\.(weight|bias)",
          lambda m: f"neck.{_NECK[m[1]].format(m[2])}.conv.{m[3]}" if m[1] in _NECK else None),

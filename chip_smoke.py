@@ -369,9 +369,28 @@ two steps from one state bit-identical.  Its tiny checks
 (``dg_parallel_tiny``: the four tiny models GPU against CPU, C.2) run
 with the others.
 
+Then the phase "detectors + swin" (``detectors_swin_phase``): at full
+width from seeded weights on 800 x 1344 canvases, the DetectoRS Cascade
+R-CNN (SAC stages, the RFP neck with its feedback ResNet-50, 2000 RoIs a
+stage) and the Swin-T Mask R-CNN (AdamW) in both dtypes (3 requests of 2
+images, 3 steps at batch 2), and in bfloat16 one request and one step each
+of the DetectoRS HTC R50 and R101, the SAC-only Cascade R-CNN, the RFP-only
+HTC and the Swin-S Mask R-CNN (``run_dswin``: each path's launches exact,
+K1 and K4 at 7 and 14 held against their plain versions at the predict
+proposals and detections and at stage 0's train slots, on the pyramid and
+HTC's semantic level); then the fork's Brackish and TrashCan DetectoRS
+configs through the train CLI (2 bfloat16 steps) and the test CLI on
+generated sets of their frame sizes (1920 x 1080, 480 x 270) and class
+names (``detectors_swin_entry``, in the whole run beside the e2e trainings).
+Its tiny checks (``detectors_swin_tiny``: the tiny DetectoRS and
+Swin models GPU against CPU and C.2, the Swin model's with AdamW; an
+``SAConv`` at full width on a channels-last map against the CPU; AdamW
+on the card against the CPU and through its ``state_dict``) run with the
+others.
+
 In the whole run the order is: the flagship and Mask R-CNN, the boosting
 family, "cascade", "htc", "fork heads", "tta + caffe", "norms + plugins", "heads + scoring",
-"c4 + pointrend", "pisa + backbones" and "dg + data-parallel" at full width
+"c4 + pointrend", "pisa + backbones", "dg + data-parallel" and "detectors + swin" at full width
 (full-width work beside the children delays them by about its own
 time: they share the card); then the two
 host-bound bfloat16 e2e trainings (the flagship's and the tiny Mask R-CNN's) start
@@ -382,7 +401,7 @@ the parent meanwhile runs, on the host's other threads, the entry points,
 beside the children), the float32 e2e and every tiny-model check (GPU
 against CPU, the step rules' teeth, C.2; the ProbCascade's, HTC's, the
 fork heads', "tta + caffe"'s, "norms + plugins"'s, "heads + scoring"'s, "c4 + pointrend"'s,
-"pisa + backbones"' and "dg + data-parallel"'s too), none of which
+"pisa + backbones"', "dg + data-parallel"'s and "detectors + swin"'s too), none of which
 is timed, then waits
 for the children.
 
@@ -396,9 +415,10 @@ float32 edge reports, and the rules on deliberately wrong steps
 (``--step-readings f32 htc`` picks a dtype and models); ``--cascade``,
 ``--htc``, ``--fork-heads``, ``--tta-caffe``, ``--norms-plugins``,
 ``--heads-scoring``, ``--c4-pointrend``, ``--pisa-backbones``, ``--data-aug``,
-``--dg-parallel`` and ``--mask-entry`` run only the phase "cascade", "htc", "fork heads",
-"tta + caffe", "norms + plugins", "heads + scoring", "c4 + pointrend",
-"pisa + backbones", "datasets + augmentations", "dg + data-parallel" or "mask entry"
+``--dg-parallel``, ``--detectors-swin`` and ``--mask-entry`` run only the phase "cascade",
+"htc", "fork heads", "tta + caffe", "norms + plugins", "heads + scoring", "c4 + pointrend",
+"pisa + backbones", "datasets + augmentations", "dg + data-parallel", "detectors + swin" or
+"mask entry"
 (the last with 12
 full-width steps a model and nothing beside them, then its e2e in the
 child process).
@@ -429,7 +449,11 @@ from boosting_rcnn_tpu_torch import cuda_build  # noqa: E402
 from boosting_rcnn_tpu_torch.apis import init_detector, train_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
-from boosting_rcnn_tpu_torch.data.coco import CocoDataset  # noqa: E402
+from boosting_rcnn_tpu_torch.data.coco import (  # noqa: E402
+    BRACKISH_CLASSES,
+    TRASHCAN_INSTANCE_CLASSES,
+    CocoDataset,
+)
 from boosting_rcnn_tpu_torch.data.image_io import write_png_gray  # noqa: E402
 from boosting_rcnn_tpu_torch.data.pipeline import rescale_size  # noqa: E402
 from boosting_rcnn_tpu_torch.data.builder import build_dataset  # noqa: E402
@@ -444,6 +468,10 @@ from boosting_rcnn_tpu_torch.engine.runner import build_trainer, shrink_model  #
 from boosting_rcnn_tpu_torch.models.detectors import two_stage  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.two_stage import DynamicRCNNDetector  # noqa: E402
+from boosting_rcnn_tpu_torch.models.backbones.detectors_resnet import (  # noqa: E402
+    DetectoRSResNet,
+    SAConv,
+)
 from boosting_rcnn_tpu_torch.models.layers import DeformConv  # noqa: E402
 from boosting_rcnn_tpu_torch.models.roi_heads.cascade_roi_head import (  # noqa: E402
     refine_boxes,
@@ -458,7 +486,6 @@ from boosting_rcnn_tpu_torch.engine.train import (  # noqa: E402
     aux_parameters,
     make_optimizer,
     make_train_step,
-    step_lr_schedule,
 )
 from boosting_rcnn_tpu_torch.data.loader import jigsaw_permutations, jigsaw_puzzle  # noqa: E402
 from boosting_rcnn_tpu_torch.engine import runner  # noqa: E402
@@ -494,13 +521,15 @@ class Tiny(NamedTuple):
     its seeded weights on every device alike (``build``); ``canvas`` its
     images' size; ``f32_rule(rep, summary)`` its float32 step rule (None:
     ``f32_step_rule``); ``predict_reorders``: its predict is held by matched
-    detections (``REORDER_BOX_TOL``).  The checks take a plain config
-    function too (``tiny_of``)."""
+    detections (``REORDER_BOX_TOL``); ``opt_type``: the optimizer of its C.2
+    check (``repeatable_step``; the step rules' steps are SGD's).  The checks
+    take a plain config function too (``tiny_of``)."""
     config: Callable[[], dict]
     condition: Optional[Callable] = None
     canvas: Tuple[int, int] = TINY_HW
     f32_rule: Optional[Callable] = None
     predict_reorders: bool = False
+    opt_type: str = "sgd"
 
     @property
     def name(self) -> str:
@@ -1107,7 +1136,8 @@ def step_report(seed: int, dtype, config, again: bool = True) -> dict:
     GPU runs gave the same bits (None without ``again``, which skips the
     second); each run's buffers after its step.  A ContextBlock's
     attention-pooling bias (``SHIFT_INVARIANT``) is reported apart, under
-    ``shift_invariant``: it shifts every logit of its softmax alike, so its
+    ``shift_invariant``, and so is SAC's switch bias (``ULP_STEP``), under
+    ``ulp_steps``: it shifts every logit of its softmax alike, so its
     gradient is 0 but for rounding (exactly 0 on the card at some blocks,
     where the CPU's moves it by 1e-10)."""
     tiny = tiny_of(config)
@@ -1143,8 +1173,9 @@ def step_report(seed: int, dtype, config, again: bool = True) -> dict:
     repeat = (all(torch.equal(params["cuda"][k], params["cuda again"][k]) for k in params["cuda"])
               if again else None)
     shift = {k: tensors.pop(k) for k in list(tensors) if k.endswith(SHIFT_INVARIANT)}
+    ulp = {k: tensors.pop(k) for k in list(tensors) if k.endswith(ULP_STEP)}
     return {"metrics": metrics, "tensors": tensors, "repeat": repeat, "inputs": (batch, kw),
-            "buffers": buffers, "shift_invariant": shift}
+            "buffers": buffers, "shift_invariant": shift, "ulp_steps": ulp}
 
 
 def sample_flips(mc, seed: int, dtype, batch, kw) -> list:
@@ -1353,13 +1384,29 @@ def edge_report(seed: int, config) -> dict:
     return report
 
 
+# SAC's switch bias (1.0 at the start, one value a conv, its gradient a sum
+# over the map of terms that cancel): the tiny DetectoRS model's step moves
+# it by 3-165 float32 ulps on the CPU (seed 7), in bfloat16 by 4-168 with
+# the CPU's float32 step 1-36 ulps away, so whether a device's bf16 step
+# moves it at all is rounding (the card's one step was 20 ulps from the
+# CPU's on an H100).  Held within ULP_STEP_ULPS ulps of the CPU's in
+# float32; in bfloat16 reported apart, unheld
+ULP_STEP = "conv2.switch.bias"
+ULP_STEP_ULPS = 16
+
+
 def step_rule(rep: dict, summary: dict, config, dtype) -> list:
     """What a tiny GPU step breaks of its dtype's rule (the model's
-    ``Tiny.f32_rule``, by default ``f32_step_rule``, or ``bf16_step_rule``);
-    an empty list where it holds."""
-    if dtype == torch.float32:
-        return (tiny_of(config).f32_rule or f32_step_rule)(rep, summary)
-    return bf16_step_rule(summary, rep["metrics"], config)
+    ``Tiny.f32_rule``, by default ``f32_step_rule``, or ``bf16_step_rule``),
+    and in float32 each ``ulp_steps`` tensor past ``ULP_STEP_ULPS`` float32
+    ulps of its largest value from the CPU's; an empty list where it
+    holds."""
+    if dtype != torch.float32:
+        return bf16_step_rule(summary, rep["metrics"], config)
+    broken = [f"{name}: GPU {err:.3g} from the CPU (> {ULP_STEP_ULPS} ulps of {top:.6g})"
+              for name, (err, _, top, _, _) in rep.get("ulp_steps", {}).items()
+              if err > ULP_STEP_ULPS * float(np.spacing(np.float32(top)))]
+    return broken + (tiny_of(config).f32_rule or f32_step_rule)(rep, summary)
 
 
 # a tiny model's float32 step on the GPU sums in other orders than the
@@ -1586,11 +1633,11 @@ def tiny_bf16_gpu_matches_cpu(seed: int, config=tiny_config):
 
 def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool = False,
                     config=tiny_config):
-    """Two tiny train steps (of the model of ``config``) on the GPU from one
-    saved state, on the same batch, ``RoISample`` and RPN draws: whether
-    the metrics, every gradient, every parameter and every buffer (Dynamic
-    R-CNN's state among them) are bit-identical, and how many tensors
-    differ.  With ``flagged`` the steps run under
+    """Two tiny train steps (of the model of ``config``, with its
+    ``opt_type``) on the GPU from one saved state, on the same batch,
+    ``RoISample`` and RPN draws: whether the metrics, every gradient, every
+    parameter and every buffer (Dynamic R-CNN's state among them) and
+    AdamW's moments are bit-identical, and how many tensors differ.  With ``flagged`` the steps run under
     ``torch.use_deterministic_algorithms``, which raises on an op that has
     no deterministic form."""
     tiny = tiny_of(config)
@@ -1606,10 +1653,13 @@ def repeatable_step(seed: int, dtype, deterministic: bool = True, flagged: bool 
     try:
         for _ in range(2):
             det.net.load_state_dict(state)
-            opt = make_optimizer(det.net.parameters(), lambda s: 0.01)
+            opt = make_optimizer(det.net.parameters(), lambda s: 0.01, opt_type=tiny.opt_type)
             metrics = make_train_step(det, anchors, nla, opt, deterministic=deterministic)(
                 batch, sample, **kw)
-            runs.append({**{f"metric {k}": v for k, v in metrics.items()},
+            moments = {} if opt.adamw is None else {
+                f"adamw {m} {i}": t.clone() for m in ("mu", "nu")
+                for i, t in enumerate(getattr(opt.adamw, m))}
+            runs.append({**moments, **{f"metric {k}": v for k, v in metrics.items()},
                          **{f"grad {k}": p.grad.clone() for k, p in det.net.named_parameters()
                             if p.grad is not None},
                          **{f"param {k}": p.detach().clone()
@@ -1671,20 +1721,14 @@ def profile(fn, what: str) -> str:
 
 def train_setup(det, anchors, nla, config: str = CONFIG, tb=None):
     """The config's optimizer and schedule on ``det`` (its gradient clip,
-    or none), its train step (cuDNN pinned), the seeded train batch on the
+    or none; ``runner.config_optimizer``: SGD, or AdamW for Swin), its
+    train step (cuDNN pinned; ``step.optimizer``), the seeded train batch on the
     card (the flagship's unless ``tb`` is given) and the RoIs that step 0
     samples (the same weights and sampler seed; None for a cascade, which
     samples its stages inside the step)."""
-    cfg = load_config(config)
-    opt_cfg, lr_cfg = cfg.get("optimizer"), cfg.get("lr_config")
-    schedule = step_lr_schedule(opt_cfg["lr"], STEPS_PER_EPOCH, lr_cfg["step"],
-                                warmup_iters=lr_cfg["warmup_iters"],
-                                warmup_ratio=lr_cfg["warmup_ratio"])
-    clip = (cfg.get("optimizer_config") or {}).get("grad_clip")
-    optimizer = make_optimizer(det.net.parameters(), schedule, opt_cfg["momentum"],
-                               opt_cfg["weight_decay"], clip["max_norm"] if clip else None,
-                               aux_params=aux_parameters(det.net))
+    optimizer = runner.config_optimizer(load_config(config), det, STEPS_PER_EPOCH)
     step = make_train_step(det, anchors, nla, optimizer)
+    step.optimizer = optimizer
     if tb is None:
         tb = train_batch(4, TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE)
     tb = {k: torch.as_tensor(v).cuda() for k, v in tb.items()}
@@ -5915,6 +5959,425 @@ def dg_parallel_tiny() -> dict:
 
 
 
+# ----------------------------------------------------------- detectors + swin
+DETECTORS_CONFIG = os.path.join(REPO, "configs/detectors/detectors_cascade_rcnn_r50_1x_coco.py")
+SWIN_CONFIG = os.path.join(REPO, "configs/swin/mask_rcnn_swin-t-p4-w7_fpn_1x_coco.py")
+# each one predict and one train step in bfloat16
+DSWIN_BF16 = {n: os.path.join(REPO, "configs", p) for n, p in (
+    ("detectors_htc_r50", "detectors/detectors_htc_r50_1x_coco.py"),
+    ("detectors_htc_r101", "detectors/detectors_htc_r101_20e_coco.py"),
+    ("cascade_sac", "detectors/cascade_rcnn_r50_sac_1x_coco.py"),
+    ("htc_rfp", "detectors/htc_r50_rfp_1x_coco.py"),
+    ("swin_s", "swin/mask_rcnn_swin-s-p4-w7_fpn_ms-crop-3x_coco.py"))}
+DSWIN_STEPS = 3  # the DetectoRS Cascade's and Swin-T's: step 0 warms up, 1-2 are timed
+# the fork's underwater DetectoRS configs through the CLIs: their sets' frame
+# sizes (W, H) and class names, and the generated shapes' scale there
+UNDERWATER = {
+    "brackish": ("detectors/detectors_cascade_rcnn_r50_1x_brackish.py", (1920, 1080),
+                 BRACKISH_CLASSES, 0.3),
+    "trashcan": ("detectors/detectors_cascade_rcnn_r50_1x_trashcanins.py", (480, 270),
+                 TRASHCAN_INSTANCE_CLASSES, 0.6)}
+SACONV_SHAPE = (2, 256, 100, 168)  # stage 3's first SAC input at 800 x 1344 (stride 2)
+SACONV_TOL = 1e-4  # of the largest value: cuDNN and the CPU sum a 3x3 of 256 in other orders
+ADAMW_CARD_RTOL = 1e-6
+
+
+def _dswin_layout(det):
+    """(stages, HTC with a semantic head, with masks) of ``det``."""
+    net = det.net
+    sem = getattr(net, "semantic_head", None) is not None
+    masks = bool(getattr(net, "mask_heads", None)) or getattr(net, "mask_head", None) is not None
+    return stage_count(det), sem, masks
+
+
+def run_dswin(path: str, dtype, gpu: str, n_requests: int = 1, n_steps: int = 1) -> dict:
+    """The config at ``path`` (a DetectoRS Cascade R-CNN or HTC, or a Swin
+    Mask R-CNN) at full width in ``dtype`` with seeded random weights:
+    ``n_requests`` requests of two 800 x 1344 images through ``predict``
+    (K1 at 7 once a stage, on the pyramid and on HTC's semantic level; at
+    14 once, on each), then ``n_steps`` train steps at the config's batch of
+    2 with the config's optimizer and schedule (AdamW for Swin) on gt boxes
+    with ellipse masks and, for HTC, a stuff map (K1, K4 and the tile keys
+    once a stage and level at 7, and at 14 for the mask branches), each path
+    with the counts set to 0 before and read after, exact; valid detections,
+    masks in [0, 1], finite and positive losses, the frozen stem and stage 1
+    bit-identical and every other part moved (the RFP's feedback backbone
+    under ``neck.``); K1 and K4 at 7 and 14 against their plain versions at
+    the predict proposals and detections and at stage 0's train slots, on
+    the pyramid and on HTC's semantic level; the times and peaks.  A
+    DetectoRS model's residual blocks are damped (``condition_detectors``)."""
+    name = os.path.relpath(path, os.path.join(REPO, "configs"))
+    tag = ("f32 " if dtype == torch.float32 else "bf16 ") + name[:-3]
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    mc = load_config(path).model.to_dict()
+    t0 = time.perf_counter()
+    det = build(mc, seed=0, dtype=dtype)
+    net = det.net
+    if isinstance(net.backbone, DetectoRSResNet):
+        condition_detectors(det)
+    n, sem, masks = _dswin_layout(det)
+    levels = 2 if sem else 1  # HTC pools the pyramid and the semantic level
+    strides = net.roi_strides
+    r = {"build_s": time.perf_counter() - t0, "stages": n, "semantic": sem,
+         "params_m": sum(p.numel() for p in net.parameters()) / 1e6, "checks": {}}
+    anchors, nla = det.anchors_for(CANVAS)
+    batches = list(requests(47))[:n_requests]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    predict_ms, results = [], []
+    for x in batches:
+        t1 = time.perf_counter()
+        results.append(det.predict(x, anchors, nla))
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t1) * 1e3)
+    r["predict_counts"] = read_counts()
+    r["predict_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    want = {f"roi_align_fwd{sfx}": n * levels * n_requests}
+    if masks:
+        want[f"roi_align_fwd{sfx}_o14"] = levels * n_requests
+    if ran(r["predict_counts"]) != want:
+        raise AssertionError(f"the {tag} predict path ran {ran(r['predict_counts'])}, not {want}")
+    r["predict_first_ms"] = predict_ms[0]
+    r["predict_ms"] = float(np.mean(predict_ms[1:] or predict_ms))
+    r["detections"] = [check_dets(*x[:3], num_classes=det.bbox_cfg.num_classes,
+                                  max_per_img=det.rcnn_test_cfg.max_per_img) for x in results]
+    if masks:
+        for x in results:
+            check_masks(x[3])
+    del results
+    x = batches[0]
+    with torch.no_grad():
+        feats, boxes, scores, valid = det.proposals(x["images"], x["img_shape"], anchors, nla)
+        route = list(feats[:len(strides)])
+        kw = {}
+        if sem:
+            kw["sem_feat"] = net.semantic_out(feats)[1]
+        r["checks"]["box_predict"] = (7, level_kernels(
+            route, boxes, valid, strides, 7, dtype, 48, f"{tag} box predict shapes", gpu))
+        if sem:
+            r["checks"]["sem_box_predict"] = (7, semantic_kernels(
+                kw["sem_feat"], boxes, valid, 7, dtype, 49, f"{tag} predict proposals", gpu))
+        if masks:
+            dets, _, dvalid = det.roi_predict(feats, boxes, scores, valid, x["img_shape"],
+                                              x["scale_factor"], **kw)
+            mrois = (dets[..., :4] * x["scale_factor"][:, None, :]).contiguous()
+            what = "mask predict shapes"
+            if not dvalid.any():  # a random model without a detection: its proposals' boxes
+                mrois, dvalid = boxes[:, :dets.shape[1]].contiguous(), valid[:, :dets.shape[1]]
+                what += " (no detection: the first proposals)"
+            r["checks"]["mask_predict"] = (14, level_kernels(
+                route, mrois, dvalid, strides, 14, dtype, 50, f"{tag} {what}", gpu))
+            if sem:
+                r["checks"]["sem_mask_predict"] = (14, semantic_kernels(
+                    kw["sem_feat"], mrois, dvalid, 14, dtype, 51, f"{tag} semantic {what}",
+                    gpu))
+            del dets, dvalid, mrois
+    del feats, boxes, scores, valid, route, kw
+    classes = det.bbox_cfg.num_classes
+    if sem:
+        tb = htc_train_batch(9, MASK_TRAIN_BATCH, mc["roi_head"]["semantic_head"]["num_classes"])
+    else:
+        tb = (mask_train_batch if masks else train_batch)(
+            9, MASK_TRAIN_BATCH, CANVAS, IMG_SHAPE, GT_PER_IMAGE, num_classes=classes)
+    step, tb, sample0 = train_setup(det, anchors, nla, path, tb)
+    r["optimizer"] = step.optimizer.opt_type
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    metrics, step_ms, counts, r["train_peak"] = run_steps(step, tb, f"{tag} train", n_steps)
+    r["train_counts"] = counts
+    k7 = (n * levels if n > 1 else 1) * n_steps
+    want = {f"roi_align_fwd{sfx}": k7, f"roi_align_bwd{sfx}": k7, "roi_tile_keys": k7}
+    if masks:
+        k14 = (n * levels if n > 1 else 1) * n_steps
+        want.update({f"roi_align_fwd{sfx}_o14": k14, f"roi_align_bwd{sfx}_o14": k14,
+                     "roi_tile_keys_o14": k14})
+    if ran(counts) != want:
+        raise AssertionError(f"the {tag} train path ran {ran(counts)}, not {want}")
+    heads = (tuple(f"bbox_heads.{i}." for i in range(n)) if n > 1 else ("bbox_head.",)) + (
+        (tuple(f"mask_heads.{i}." for i in range(n)) if n > 1 else ("mask_head.",))
+        if masks else ()) + (("semantic_head.",) if sem else ())
+    r["moved"] = check_moved(before, det, f"{tag} train", heads)
+    del before
+    r["train_first_ms"], r["train_ms"] = step_ms[0], float(np.mean(step_ms[1:] or step_ms))
+    r["losses"] = metrics[-1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        feats = net.features(tb["images"])
+        route = list(feats[:len(strides)])
+        s0 = det.stage_samples(tb, anchors, nla, generator=gen)[0] if n > 1 else sample0
+        m0 = det.mask_samples(tb, anchors, nla, generator=gen)[0] if n > 1 and masks else s0
+        r["checks"]["box_train"] = (7, level_kernels(
+            route, s0.boxes, s0.valid, strides, 7, dtype, 52, f"{tag} box train shapes", gpu))
+        if masks:
+            r["checks"]["mask_train"] = (14, level_kernels(
+                route, m0.boxes, m0.valid & m0.is_pos, strides, 14, dtype, 53,
+                f"{tag} mask train shapes", gpu))
+        if sem:
+            sem_feat = net.semantic_out(feats)[1]
+            r["checks"]["sem_box_train"] = (7, semantic_kernels(
+                sem_feat, s0.boxes, s0.valid, 7, dtype, 54, f"{tag} stage-0 train slots", gpu))
+            r["checks"]["sem_mask_train"] = (14, semantic_kernels(
+                sem_feat, m0.boxes, m0.valid & m0.is_pos, 14, dtype, 55,
+                f"{tag} stage-0 mask slots", gpu))
+    say(f"{tag} ({gpu}): built in {r['build_s']:.1f} s ({r['params_m']:.1f} M parameters, "
+        f"{n} stage(s){', semantic level' if sem else ''}); predict of {BATCH} images "
+        f"{predict_ms[0]:.0f} ms first call"
+        + (f", {r['predict_ms']:.1f} ms after" if n_requests > 1 else "")
+        + f", {r['detections']} valid detections, peak {r['predict_peak']:.2f} GiB; "
+        f"{r['optimizer']} train step at batch {MASK_TRAIN_BATCH} {step_ms[0]:.0f} ms first"
+        + (f", {r['train_ms']:.1f} ms after" if n_steps > 1 else "")
+        + f", peak {r['train_peak']:.2f} GiB; launches {ran(r['predict_counts'])} / "
+        f"{ran(counts)}")
+    del det, step, tb, feats, route
+    torch.cuda.empty_cache()
+    return r
+
+
+def underwater_entry(gpu: str, work: str) -> dict:
+    """The Brackish and TrashCan DetectoRS Cascade R-CNNs through the train
+    CLI at full width in bfloat16, 2 steps each, on sets of their datasets'
+    frame sizes and class names (``UNDERWATER``; 4 train and 2 val frames):
+    the counts exact (K1, K4 and the tile keys once a stage and step),
+    finite losses; then the test CLI's bbox mAP from each checkpoint (K1
+    once a stage)."""
+    out = {}
+    for name, (config, frame, classes, scale) in UNDERWATER.items():
+        path = os.path.join(REPO, "configs", config)
+        root = os.path.join(work, name)
+        generate(root, n_train=4, n_val=2, seed=5, frame_sizes=[frame], object_scale=scale,
+                 classes=classes)
+        opts = data_options(root, BF16, **{"log_config.interval": 1})
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = train_cli([path, "--work-dir", os.path.join(work, name + "_wd"), "--iters",
+                             "2", "--no-validate", "--device", "cuda", *cli_options(opts)])
+        train_s = time.perf_counter() - t0
+        counts = ran(read_counts())
+        want = {"roi_align_fwd_bf16": 6, "roi_align_bwd_bf16": 6, "roi_tile_keys": 6}
+        m = summary["last_metrics"]
+        if counts != want or summary["steps"] != 2 or not m["loss"] > 0 or not all(
+                math.isfinite(v) and v >= 0 for k, v in m.items() if k.startswith("loss")):
+            raise AssertionError(f"{name} train CLI: {summary['steps']} steps, counts {counts}, "
+                                 f"metrics {m}")
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = test_cli([path, summary["checkpoints"][-1], "--device", "cuda", "--eval",
+                            "bbox", *cli_options(opts)])
+        eval_counts = ran(read_counts())
+        if metrics.get("num_results") != 2 or not isinstance(metrics.get("bbox_mAP"), float) \
+                or eval_counts != {"roi_align_fwd_bf16": 3}:
+            raise AssertionError(f"{name} test CLI: {metrics}, counts {eval_counts}")
+        out[name] = {"frame": frame, "classes": len(classes), "train_s": train_s,
+                     "test_s": time.perf_counter() - t0, "images_per_s": summary["images_per_s"],
+                     "losses": m, "counts": counts, "eval_counts": eval_counts,
+                     "bbox_mAP": metrics["bbox_mAP"]}
+        say(f"{name} DetectoRS Cascade R-CNN through the train and test CLIs ({gpu}): "
+            f"{out[name]}")
+    return out
+
+
+def detectors_swin_phase(gpu: str) -> dict:
+    """The phase "detectors + swin" at full width: the DetectoRS Cascade
+    R-CNN (SAC and RFP) and the Swin-T Mask R-CNN (AdamW) in float32 and
+    bfloat16, ``REQUESTS`` requests and ``DSWIN_STEPS`` steps each
+    (``run_dswin``); the DetectoRS HTC R50 and R101, the SAC-only Cascade
+    R-CNN, the RFP-only HTC and the Swin-S Mask R-CNN in bfloat16, one
+    request and one step each.  Its CLIs are ``detectors_swin_entry``'s, its
+    tiny checks ``detectors_swin_tiny``'s."""
+    t0 = time.perf_counter()
+    out = {"detectors": {d: run_dswin(DETECTORS_CONFIG, d, gpu, REQUESTS, DSWIN_STEPS)
+                         for d in (torch.float32, BF16)},
+           "swin": {d: run_dswin(SWIN_CONFIG, d, gpu, REQUESTS, DSWIN_STEPS)
+                    for d in (torch.float32, BF16)},
+           "bf16": {name: run_dswin(path, BF16, gpu) for name, path in DSWIN_BF16.items()}}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase detectors + swin: {out['wall_s']:.1f} s")
+    return out
+
+
+def detectors_swin_entry(gpu: str) -> dict:
+    """The Brackish and TrashCan configs through the CLIs
+    (``underwater_entry``) in a scratch directory; in the whole run beside
+    the e2e trainings, as the other entry points."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dswin_")
+    try:
+        out = underwater_entry(gpu, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"detectors + swin CLIs: {out['wall_s']:.1f} s")
+    return out
+
+
+def dswin_runs(out: dict):
+    """Every ``run_dswin`` result of the phase with its dtype and name."""
+    for model in ("detectors", "swin"):
+        for d, r in out[model].items():
+            yield model, d, r
+    for name, r in out["bf16"].items():
+        yield name, BF16, r
+
+
+def tiny_detectors_config():
+    """The DetectoRS Cascade R-CNN as ``--tiny`` shrinks it (both
+    ResNet-50s at width 8, neck and RPN 32, FC 64, 32 RoIs a stage), 4
+    classes."""
+    mc = shrink_model(load_config(DETECTORS_CONFIG).model.to_dict())
+    for head in mc["roi_head"]["bbox_head"]:
+        head["num_classes"] = 4
+    return mc
+
+
+def tiny_swin_config():
+    """The Swin-T Mask R-CNN as ``--tiny`` shrinks Swin (16 dims, depths 2,
+    1, 1, 1, heads 1-8), with the CPU tests' heads (neck and RPN 32, FC 16,
+    mask convs 16, 4 classes)."""
+    mc = load_config(SWIN_CONFIG).model.to_dict()
+    mc["backbone"].update(embed_dims=16, depths=[2, 1, 1, 1], num_heads=[1, 2, 4, 8])
+    return _tiny_two_stage(mc, [16, 32, 64, 128], mask=True)
+
+
+def condition_detectors(det) -> None:
+    """Each bottleneck's last norm of the DetectoRS ResNets (the backbone's
+    and the RFP's feedback copy) times ``TINY_RESIDUAL_SCALE``
+    (tests/test_torch_detectors.py::condition_detectors).  Undamped, the
+    full-width random DetectoRS Cascade R-CNN diverged under its config's
+    SGD (no clip): gradient norm 3.2e3, 5.1e3, 8.8e5 and loss 12 -> 6930
+    over 3 float32 steps on an H100, its features NaN after; at the tiny
+    size 84% of the gradient's squared norm is in SAC's ``aws_beta``, one
+    value added to every tap of a filter, whose gradient sums them all (the
+    JAX module trains it; mmcv's is a buffer)."""
+    rfp = getattr(det.net.neck, "rfp_backbone", None)
+    with torch.no_grad():
+        for backbone in (det.net.backbone, rfp):
+            for block in backbone.modules() if backbone is not None else ():
+                if hasattr(block, "conv3"):
+                    block.bn3.weight.mul_(TINY_RESIDUAL_SCALE)
+
+
+TINY_DSWIN = (("detectors", Tiny(tiny_detectors_config, condition_detectors)),
+              ("swin", Tiny(tiny_swin_config, opt_type="adamw")))
+
+
+def saconv_gpu_matches_cpu(seed: int = 3) -> dict:
+    """An ``SAConv`` at stage 3's first SAC shapes (``SACONV_SHAPE``, stride
+    2) on a channels-last input on the card, as cuDNN hands a block its
+    maps, against the CPU in float32 (TF32 off): the output and every
+    gradient (the parameters' and the input's; PyTorch 2.11's CUDA
+    ``avg_pool2d`` backward is wrong on channels-last maps, which
+    ``layers.avg_pool``'s contiguous copy avoids) within ``SACONV_TOL`` of
+    the largest value."""
+    rs = np.random.RandomState(seed)
+    b, c, h, w = SACONV_SHAPE
+    x = rs.randn(b, c, h, w).astype(np.float32)
+    cot = rs.randn(b, c, h // 2, w // 2).astype(np.float32)
+    conv = SAConv(c, c, 2, torch.Generator().manual_seed(seed))
+    with torch.no_grad():  # every branch live: contexts, switch and the dilated weight
+        for p in (conv.pre_context.weight, conv.switch.weight, conv.post_context.weight,
+                  conv.weight_diff):
+            p.copy_(torch.from_numpy(rs.randn(*p.shape).astype(np.float32) * 0.02))
+    out = {}
+    for device in ("cpu", "cuda"):
+        m = copy.deepcopy(conv).to(device)
+        xs = torch.from_numpy(x).to(device)
+        if device == "cuda":
+            xs = xs.contiguous(memory_format=torch.channels_last)
+        xs.requires_grad_(True)
+        y = m(xs)
+        (y * torch.from_numpy(cot).to(device)).sum().backward()
+        out[device] = {"output": y.detach().cpu(), "input grad": xs.grad.cpu(),
+                       **{f"{k} grad": p.grad.cpu() for k, p in m.named_parameters()}}
+    errs = {}
+    for k, ref in out["cpu"].items():
+        errs[k] = (out["cuda"][k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if not errs[k] <= SACONV_TOL:
+            raise AssertionError(f"SAConv on the card against the CPU: {k} {errs[k]:.3g} of its "
+                                 f"largest value (> {SACONV_TOL})")
+    say(f"SAConv {SACONV_SHAPE} stride 2, channels-last on the card against the CPU (float32, "
+        f"TF32 off): worst {max(errs.values()):.3g} of the largest value ({max(errs, key=errs.get)})")
+    return errs
+
+
+def adamw_gpu_matches_cpu(seed: int = 4, steps: int = 3) -> dict:
+    """The port's AdamW (weight decay 0.05, the clip at 35 acting at step
+    0) on the card and on the CPU on the same parameters and gradients:
+    the parameters within ``ADAMW_CARD_RTOL`` of each tensor's largest value
+    after each step (the card's ``_foreach`` kernels against the CPU's; an
+    element near 0 is a few ulps of its update apart, which is 2e-5 of its
+    own value on an H100); and the card's optimizer rebuilt from its
+    ``state_dict`` after step 1 gives step 2's bits."""
+    rs = np.random.RandomState(seed)
+    shapes = [(64, 32, 3, 3), (64,), (128, 256), (1, 1, 1, 64)]
+    p0 = [rs.randn(*s).astype(np.float32) * 0.1 for s in shapes]
+    grads = [[rs.randn(*s).astype(np.float32) * scale for s in shapes]
+             for scale in (2.0, 0.05, 1e-3)]
+    lrs = (1e-4, 8e-5, 5e-5)
+
+    def make(device, values):
+        ps = [torch.nn.Parameter(torch.from_numpy(v.copy()).to(device)) for v in values]
+        return ps, make_optimizer(ps, lambda s: lrs[s], weight_decay=0.05, opt_type="adamw")
+
+    runs = {d: make(d, p0) for d in ("cpu", "cuda")}
+    worst = 0.0
+    for k in range(steps):
+        if k == 1:
+            saved = ([p.detach().clone() for p in runs["cuda"][0]],
+                     copy.deepcopy(runs["cuda"][1].state_dict()))
+        for d, (ps, opt) in runs.items():
+            for p, g in zip(ps, grads[k]):
+                p.grad = torch.from_numpy(g).to(d)
+            opt.step()
+        for a, b_ in zip(runs["cuda"][0], runs["cpu"][0]):
+            err = ((a.detach().cpu() - b_.detach()).abs().max()
+                   / b_.detach().abs().max()).item()
+            worst = max(worst, err)
+    if not worst <= ADAMW_CARD_RTOL:
+        raise AssertionError(f"AdamW on the card against the CPU: {worst:.3g} of a tensor's "
+                             "largest value")
+    ps, opt = make("cuda", [p.cpu().numpy() for p in saved[0]])
+    opt.load_state_dict(saved[1])
+    for k in (1, 2):
+        for p, g in zip(ps, grads[k]):
+            p.grad = torch.from_numpy(g).cuda()
+        opt.step()
+    resumed = all(torch.equal(a.detach(), b_.detach()) for a, b_ in zip(ps, runs["cuda"][0]))
+    if not resumed:
+        raise AssertionError("AdamW rebuilt from its state_dict on the card did not repeat "
+                             "steps 1-2 bit for bit")
+    say(f"AdamW on the card against the CPU over {steps} steps: worst {worst:.3g} of a tensor's "
+        f"largest value; "
+        f"rebuilt from its state_dict it repeats the steps bit for bit")
+    return {"worst_rel": worst, "resume_bitwise": resumed}
+
+
+def detectors_swin_tiny() -> dict:
+    """The phase "detectors + swin"'s checks without timings: the tiny
+    DetectoRS Cascade R-CNN's (both ResNet-50s damped, ``condition_detectors``)
+    and the tiny Swin Mask R-CNN's ``predict`` on the card against the CPU,
+    their float32 steps by ``f32_step_rule`` and bfloat16 steps by the
+    bfloat16 rule (SGD, whose update is linear in the gradient), and the
+    C.2 check of their steps in both dtypes (the Swin model's with AdamW,
+    its moments among the compared tensors); ``saconv_gpu_matches_cpu``
+    and ``adamw_gpu_matches_cpu``."""
+    t0 = time.perf_counter()
+    tiny, repeat = {}, {}
+    for name, config in TINY_DSWIN:
+        tiny[name] = {"predict_detections": tiny_gpu_matches_cpu(3, config)}
+        for dtype in (torch.float32, BF16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            m, worst, _, summary = tiny_train_gpu_matches_cpu(7, dtype, config)
+            tiny[name][tag] = {"loss": m["loss"], "worst_of_tolerance": worst, **summary}
+            repeat.update(c2_check(name, config, dtype))
+        say(f"tiny {name}: GPU predict matches CPU predict, its steps hold their rules: "
+            f"{json.dumps(tiny[name])}")
+    tiny["saconv"] = saconv_gpu_matches_cpu()
+    tiny["adamw"] = adamw_gpu_matches_cpu()
+    tiny["wall_s"] = time.perf_counter() - t0
+    return {"tiny": tiny, "repeat": repeat}
+
+
 def kernel_records(r: dict, dtype, o: str = "", box: dict | None = None) -> list:
     """The ``{"kernels": [...]}`` records of one dtype's kernels at one
     pooled size (``o``: '' for 7 x 7, '_o14' for 14 x 14): K1, K4 and their
@@ -5988,11 +6451,11 @@ def main(argv) -> int:
     if readings is None and e2e_child is None and dp_rank is None and argv not in (
             [], ["--cascade"], ["--htc"], ["--mask-entry"], ["--fork-heads"], ["--tta-caffe"],
             ["--norms-plugins"], ["--heads-scoring"], ["--c4-pointrend"],
-            ["--pisa-backbones"], ["--data-aug"], ["--dg-parallel"]):
+            ["--pisa-backbones"], ["--data-aug"], ["--dg-parallel"], ["--detectors-swin"]):
         print("usage: python3 chip_smoke.py [--step-readings [f32|bf16] [model ...] | "
               "--cascade | --htc | --mask-entry | --fork-heads | --tta-caffe | --norms-plugins "
               "| --heads-scoring | --c4-pointrend | --pisa-backbones | --data-aug "
-              "| --dg-parallel]", file=sys.stderr)
+              "| --dg-parallel | --detectors-swin]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6066,6 +6529,11 @@ def main(argv) -> int:
     if argv == ["--dg-parallel"]:
         dg_parallel_phase(gpu)
         dg_parallel_tiny()
+        return 0
+    if argv == ["--detectors-swin"]:
+        detectors_swin_phase(gpu)
+        detectors_swin_entry(gpu)
+        detectors_swin_tiny()
         return 0
     if argv == ["--mask-entry"]:  # the full-width part alone, then the e2e
         mask_entry_phase(gpu, MASK_ENTRY_STEPS_ALONE)
@@ -6144,6 +6612,10 @@ def main(argv) -> int:
     dgp = dg_parallel_phase(gpu)
     phase_done("dg + data-parallel")
 
+    # ------------------------------------------------------- detectors + swin
+    dswin = detectors_swin_phase(gpu)
+    phase_done("detectors + swin")
+
 
     # ------------------ entry points: COCO-format data, train / test CLIs, e2e
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6175,6 +6647,8 @@ def main(argv) -> int:
         # ---- datasets + augmentations: LVIS, wrappers, InstaBoost, Albu, LSJ
         data_aug = data_aug_phase(gpu)
         phase_done("datasets + augmentations, beside the e2e trainings")
+        dswin["underwater"] = detectors_swin_entry(gpu)
+        phase_done("detectors + swin CLIs, beside the e2e trainings")
         e2e[torch.float32] = e2e_trains(torch.float32, gpu, synth, work)
 
         # -------------------------------------------- tiny flagship, GPU vs CPU
@@ -6247,6 +6721,7 @@ def main(argv) -> int:
         c4pr.update(c4_pointrend_tiny())
         pbb.update(pisa_backbones_tiny())
         dgp.update(dg_parallel_tiny())
+        dswin.update(detectors_swin_tiny())
 
         # ---------------------------------- ROADMAP C.2: a bitwise repeatable step
         repeat_report = {}
@@ -6263,6 +6738,7 @@ def main(argv) -> int:
         repeat_report.update(c4pr["repeat"])
         repeat_report.update(pbb["repeat"])
         repeat_report.update(dgp["repeat"])
+        repeat_report.update(dswin["repeat"])
         phase_done("tiny models and C.2, beside the e2e trainings")
         torch.set_num_threads(threads)
         e2e[BF16] = finish_e2e(*children[0])
@@ -6377,6 +6853,12 @@ def main(argv) -> int:
             **{f"{name}_bf16": c4pr_summary(dgp[name]) for name in ("jigen", "dgaug", "ema")},
             "suodac": dgp["suodac"], "data_parallel": dgp["data_parallel"],
             "tiny": dgp["tiny"], "wall_s": dgp["wall_s"]},
+        "detectors_swin": {
+            **{f"{model}_{'f32' if d == torch.float32 else 'bf16'}": {
+                k: v for k, v in r.items() if not k.endswith("_counts") and k != "checks"}
+               for model, d, r in dswin_runs(dswin)},
+            "underwater": dswin["underwater"], "tiny": dswin["tiny"],
+            "wall_s": dswin["wall_s"]},
         "mask_entry": mask_entry,
         "data_aug": {k: ({kk: vv for kk, vv in v.items() if not kk.startswith("check_")}
                          if isinstance(v, dict) else v) for k, v in data_aug.items()},
@@ -6444,7 +6926,13 @@ def main(argv) -> int:
         for name in ("jigen", "dgaug", "ema") for part in ("predict", "train")] + [
         (f"suodac_{name}_train", r["counts"])
         for name, r in dgp["suodac"].items() if isinstance(r, dict) and "counts" in r] + [
-        ("data_parallel_ranks_train", dgp["data_parallel"]["rank_counts"])]
+        ("data_parallel_ranks_train", dgp["data_parallel"]["rank_counts"])] + [
+        (f"dswin_{model}_{part}", {k: sum(r[f"{part}_counts"][k]
+                                          for m, _, r in dswin_runs(dswin) if m == model)
+                                   for k in counters()})
+        for model in ("detectors", "swin", *DSWIN_BF16) for part in ("predict", "train")] + [
+        (f"underwater_{name}_{part}", r[key]) for name, r in dswin["underwater"].items()
+        if isinstance(r, dict) for part, key in (("train", "counts"), ("eval", "eval_counts"))]
     # ... and the X101 and cascade paths held them to their plain versions
     checked = {d: [x101[d][k] for k in ("check_predict", "check_train")]
                + [utdac[d][k] for k in ("check_predict", "check_train")] for d in x101}
@@ -6492,6 +6980,14 @@ def main(argv) -> int:
             for part in ("fwd", "bwd"):
                 name = f"roi_align_{part}{sfx}"
                 more_errs[name] = max(more_errs.get(name, 0.0), r[key]["check"][part][0])
+    # ... and every path of "detectors + swin": the pyramid's and HTC's
+    # semantic level's RoIs at 7 and 14, at predict and at the train slots
+    for _, d, r in dswin_runs(dswin):
+        sfx = "" if d == torch.float32 else "_bf16"
+        for size, check in r["checks"].values():
+            for part in ("fwd", "bwd"):
+                key = f"roi_align_{part}{sfx}{'' if size == 7 else '_o14'}"
+                more_errs[key] = max(more_errs.get(key, 0.0), check["check"][part][0])
     # ... and every path of "datasets + augmentations" at its own poolings
     for name, r in data_aug.items():
         if not isinstance(r, dict):

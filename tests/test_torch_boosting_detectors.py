@@ -132,22 +132,61 @@ def _rpn_uniforms(rng, num_anchors, images: int = 2):
     return np.asarray(out, np.float32)
 
 
+def _adam_state(opt_state):
+    """The moments (optax ``ScaleByAdamState``) in a JAX optimizer state."""
+    if isinstance(opt_state, optax.ScaleByAdamState):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_moments(state):
+    """A JAX AdamW train state's count and moments, by the port's names."""
+    adam = _adam_state(state.opt_state)
+    return (int(adam.count), from_jax_params(jax.tree.map(np.asarray, adam.mu)),
+            from_jax_params(jax.tree.map(np.asarray, adam.nu)))
+
+
+def sync_adamw(det, opt, state):
+    """The port's detector and AdamW at a JAX train state: its parameters,
+    moments, count and step."""
+    params = from_jax_params(jax.tree.map(np.asarray, state.params))
+    det.net.load_state_dict({**det.net.state_dict(), **params}, strict=True)
+    count, mu, nu = adam_moments(state)
+    names = {id(p): k for k, p in det.net.named_parameters()}
+    opt.adamw.count = count
+    opt.adamw.mu = [mu[names[id(p)]].reshape(p.shape).clone() for p in opt.adamw.params]
+    opt.adamw.nu = [nu[names[id(p)]].reshape(p.shape).clone() for p in opt.adamw.params]
+    opt.step_count = int(state.step)
+
+
 def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1, targets=None,
-             predict: bool = True):
+             predict: bool = True, optimizer=None, base_lr: float = 0.02):
     """Both packages on ``make_cfg(load_config(...))``'s model (the JAX
     package's and the port's config readers each read the file) through
     predict (unless not ``predict``), the loss, its gradients and two
     train steps on the same weights, batch, samples and RPN draws, drawn
     from ``seed``, on ``canvas``; ``targets(rs, batch)`` adds keys to the
     batch; the JAX optimizer masks the parameters of the backbone's
-    ``frozen_stages``.  The buffers after each step are kept too (JAX's
-    ``batch_stats`` through ``from_jax_params``, the port's)."""
+    ``frozen_stages``; ``optimizer`` (``opt_type``, ``weight_decay``) goes
+    to both packages' ``make_optimizer`` at ``base_lr``'s schedule (SGD at
+    1e-4 without it; with
+    AdamW the port starts its second step from JAX's state, its parameters
+    and moments, as the cascade harness's fused steps do, and each step's
+    gradients and JAX's state before it are kept).  The
+    buffers after each step are kept too (JAX's ``batch_stats`` through
+    ``from_jax_params``, the port's)."""
     mc = make_cfg(jax_load_config)
     num_classes = mc["roi_head"]["bbox_head"]["num_classes"]
     jdet = jax_build(mc, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), canvas))
     rs = np.random.RandomState(seed)
     variables = _random_variables(shapes, rs)
+    variables.setdefault("batch_stats", {})  # a model without norm statistics (Swin)
     batch = _batch(rs, num_classes, canvas)
     if targets is not None:
         batch.update(targets(rs, batch))
@@ -191,22 +230,40 @@ def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1, tar
     t_grads = {k: (None if p.grad is None else p.grad.clone())
                for k, p in tdet.net.named_parameters()}
 
-    kw = dict(decay_epochs=(1,), warmup_iters=2, warmup_ratio=0.5)  # lr 0.01, then 0.0015
-    j_sched, t_sched = (m.step_lr_schedule(0.02, 1, **kw) for m in (j_train, t_train))
-    tx = j_train.make_optimizer(j_sched, params=jv["params"], frozen_stages=frozen_stages)
+    # lr base_lr / 2, then 0.075 base_lr (0.01, then 0.0015)
+    kw = dict(decay_epochs=(1,), warmup_iters=2, warmup_ratio=0.5)
+    j_sched, t_sched = (m.step_lr_schedule(base_lr, 1, **kw) for m in (j_train, t_train))
+    optimizer = optimizer or {}
+    tx = j_train.make_optimizer(j_sched, params=jv["params"], frozen_stages=frozen_stages,
+                                **optimizer)
     state = j_train.create_train_state(jv, tx)
     apply_fn = jax.jit(lambda st, g, ns: (st.apply_gradients(g).replace(
         batch_stats=jax.lax.stop_gradient(ns)), optax.global_norm(g)))
-    t_step = t_train.make_train_step(
-        tdet_train, t_anchors, t_nla,
-        t_train.make_optimizer(tdet_train.net.parameters(), t_sched,
-                               aux_params=t_train.aux_parameters(tdet_train.net)))
+    t_opt = t_train.make_optimizer(tdet_train.net.parameters(), t_sched,
+                                   aux_params=t_train.aux_parameters(tdet_train.net), **optimizer)
+    t_step = t_train.make_train_step(tdet_train, t_anchors, t_nla, t_opt)
+    # each step's gradients as the optimizer is given them (before its clip)
+    t_step_grads, named = [], list(tdet_train.net.named_parameters())
+    opt_step = t_opt.step
+
+    def keep_grads_and_step():
+        t_step_grads.append({k: p.grad.clone() for k, p in named if p.grad is not None})
+        return opt_step()
+
+    t_opt.step = keep_grads_and_step
     p0 = {k: v.detach().clone() for k, v in tdet_train.net.named_parameters()}
-    steps, buffers = [], []
+    steps, buffers, step_grads, starts = [], [], [], []
+    adamw = optimizer.get("opt_type") == "adamw"
     for k in range(2):
+        if adamw:
+            if k:
+                sync_adamw(tdet_train, t_opt, state)
+            starts.append((from_jax_params(jax.tree.map(np.asarray, state.params)),
+                           *adam_moments(state)))
         sample = sample_fn({"params": state.params, "batch_stats": state.batch_stats}, rng)
         (total, (losses, new_stats)), grads = grad_fn(
             state.params, state.batch_stats, sample, jax.random.fold_in(rng, state.step))
+        step_grads.append(from_jax_params(jax.tree.map(np.asarray, grads)))
         state, grad_norm = apply_fn(state, grads, new_stats)
         j_metrics = {"loss": total, **{n: jnp.sum(v) for n, v in losses.items()},
                      "grad_norm": grad_norm}
@@ -222,7 +279,8 @@ def run_pair(make_cfg, seed: int = 0, canvas=CANVAS, frozen_stages: int = 1, tar
                 t_pred=t_pred,
                 sample0=sample0, j_losses=j_losses, t_losses=t_losses,
                 j_grads=from_jax_params(jax.tree.map(np.asarray, j_grads)), t_grads=t_grads,
-                p0=p0, steps=steps, buffers=buffers)
+                p0=p0, steps=steps, buffers=buffers, step_grads=step_grads,
+                t_step_grads=t_step_grads, starts=starts, lr=[t_sched(k) for k in range(2)])
 
 
 @pytest.fixture(autouse=True, scope="module")

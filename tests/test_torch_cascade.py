@@ -183,12 +183,12 @@ def _sync(det, opt, state):
     opt.step_count = step
 
 
-def run_cascade_pair(make_cfg, seed: int = 0):
+def run_cascade_pair(make_cfg, seed: int = 0, edit_variables=None):
     """Both packages on ``make_cfg(load_config(...))``'s cascade (each
     package's config reader reads the file) through predict, the loss with
     its per-stage samples, its gradients and two fused train steps on the
     same weights, batch and random draws (the weights and batch drawn from
-    ``seed``)."""
+    ``seed``; ``edit_variables`` sets variables of the random ones)."""
     mc = make_cfg(jax_load_config)
     heads = mc["roi_head"]["bbox_head"]
     num_classes = heads[0]["num_classes"]
@@ -196,6 +196,8 @@ def run_cascade_pair(make_cfg, seed: int = 0):
     shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0), CANVAS))
     rs = np.random.RandomState(seed)
     variables = _random_variables(shapes, rs)
+    if edit_variables is not None:
+        variables = edit_variables(variables)
     batch = _batch(rs, num_classes)
     jv = jax.tree.map(jnp.asarray, variables)
     jb = jax.tree.map(jnp.asarray, batch)

@@ -3,12 +3,11 @@ width (no JAX).
 
 Every config file named ``*cascade*`` is a ``CascadeRCNN``.  The box-only
 ones and the Cascade Mask R-CNN ones on the ported backbones build
-(``BUILDS``, 27 + 45 files, the ensemble configs' ATSS and RetinaNet-style
-RPNs, the caffe-style ResNets, the Seesaw loss and
-HRNet, RegNet and ResNeSt among them; files with the same model, such as
+(``BUILDS``, 32 + 45 files, the ensemble configs' ATSS and RetinaNet-style
+RPNs, the caffe-style ResNets, the Seesaw loss,
+HRNet, RegNet and ResNeSt and DetectoRS among them; files with the same model, such as
 a 1x and a 20e schedule, are built once); every other one raises
-``NotImplementedError`` naming what is missing (``_reason``): DetectoRS and
-SABL heads.  Each built one is
+``NotImplementedError`` naming what is missing (``_reason``): SABL heads.  Each built one is
 checked against its config: one class-agnostic stage head per stage, the
 IoU ladder, the stage loss weights, boosting and fusion for
 ``ProbCascadeRoIHead`` only, the ensemble configs' RPN (its type, ATSS
@@ -37,6 +36,7 @@ from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.models import layers as t_layers  # noqa: E402
 from boosting_rcnn_tpu_torch.models import plugins as t_plugins  # noqa: E402
+from boosting_rcnn_tpu_torch.models.backbones import detectors_resnet as t_det  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.cascade import CascadeDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.htc import HTCDetector  # noqa: E402
 from boosting_rcnn_tpu_torch.models.detectors.two_stage import (  # noqa: E402
@@ -63,6 +63,12 @@ BUILDS = {
     "pascal_voc/cascade_rcnn_r50_fpn_1x_voc0712.py", "res2net/cascade_rcnn_r2_101_fpn_20e_coco.py",
     "cascade_rcnn/cascade_rcnn_r50_caffe_fpn_1x_coco.py",
     "cascade_rcnn/cascade_rcnn_r101_caffe_fpn_1x_coco.py",
+    # DetectoRS: SAC and the RFP neck (the fork's Brackish and TrashCan ones
+    # too), SAC alone, RFP alone
+    *(f"detectors/{m}.py" for m in (
+        "detectors_cascade_rcnn_r50_1x_coco", "detectors_cascade_rcnn_r50_1x_brackish",
+        "detectors_cascade_rcnn_r50_1x_trashcanins", "cascade_rcnn_r50_sac_1x_coco",
+        "cascade_rcnn_r50_rfp_1x_coco")),
     # Cascade Mask R-CNN
     *(f"cascade_rcnn/cascade_mask_rcnn_{m}.py" for m in (
         "r50_fpn_1x_coco", "r50_fpn_20e_coco", "r50_fpn_mstrain_3x_coco", "r101_fpn_1x_coco",
@@ -110,7 +116,7 @@ def _names():
 
 def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
-    for key, what in (("detectors/", "DetectoRS_ResNet"), ("sabl/", "SABLHead")):
+    for key, what in (("sabl/", "SABLHead"),):
         if name.startswith(key):
             return what
     raise AssertionError(f"{name}: no expected reason")
@@ -132,7 +138,7 @@ def seeded_init_skipped():
     built detectors' structure and configs, never their weights, and the
     draws took most of the file's time."""
     with pytest.MonkeyPatch.context() as mp:
-        for module in (t_layers, t_plugins):
+        for module in (t_layers, t_plugins, t_det):
             mp.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
         for name in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
             mp.setattr(torch.nn.init, name, lambda tensor, *a, **k: tensor)

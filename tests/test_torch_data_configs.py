@@ -1,6 +1,7 @@
 """The 41 built configs that the runner refused before the port had their
 datasets and augmentations (24 LVIS, 6 InstaBoost, 6 LSJ, 2 Cityscapes, 2
-VOC0712, 1 Albu), on the CPU and without JAX.
+VOC0712, 1 Albu), and the 15 DetectoRS and Swin configs, on the CPU and
+without JAX.
 
 Each config, its ``data.*`` paths pointed at a set from the port's
 generators, passes the runner's data, pipeline, optimizer and schedule
@@ -11,6 +12,7 @@ end-to-end run: a shrunk LVIS Mask R-CNN under ``ClassBalancedDataset``,
 with InstaBoost and Albu on, takes 2 steps through ``train_detector``,
 and the test CLI gives its federated AP.
 """
+import glob
 import json
 import os
 import sys
@@ -24,7 +26,9 @@ sys.path.insert(0, REPO)
 
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.data.builder import build_dataset  # noqa: E402
-from boosting_rcnn_tpu_torch.data.image_io import load_png_gray  # noqa: E402
+from boosting_rcnn_tpu_torch.data.coco import (BRACKISH_CLASSES,  # noqa: E402
+                                               TRASHCAN_INSTANCE_CLASSES)
+from boosting_rcnn_tpu_torch.data.image_io import load_png_gray, write_png_gray  # noqa: E402
 from boosting_rcnn_tpu_torch.data.synthetic import (generate, generate_cityscapes,  # noqa: E402
                                                      generate_lvis, generate_voc)
 from boosting_rcnn_tpu_torch.engine import runner  # noqa: E402
@@ -63,6 +67,12 @@ OTHERS = ["cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py",
           "pascal_voc/cascade_rcnn_r50_fpn_1x_voc0712.py",
           "albu_example/mask_rcnn_r50_fpn_albu_1x_coco.py"]
 CONFIGS = LVIS + INSTABOOST + LSJ + OTHERS
+# DetectoRS and Swin, which the builder refused before the port had them
+DETECTORS_SWIN = sorted(os.path.relpath(p, os.path.join(REPO, "configs")) for d in (
+    "detectors", "swin") for p in glob.glob(os.path.join(REPO, "configs", d, "*.py")))
+# the fork's underwater sets, generated with their class names
+UNDERWATER = {"BrackishDataset": ("brackish", BRACKISH_CLASSES),
+              "TrashCanInstanceDataset": ("trashcan", TRASHCAN_INSTANCE_CLASSES)}
 LVIS_E2E = "lvis/mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py"
 SMALL_MASK_HEAD = {"model.roi_head.mask_head.conv_out_channels": "16",
                    "model.test_cfg.rcnn.max_per_img": "100", "model.backbone.init_cfg": "None",
@@ -86,6 +96,9 @@ def sets(tmp_path_factory):
     generate_voc(os.path.join(root, "voc"), n_train=3, n_test=2, seed=4, frame=(80, 64))
     generate(os.path.join(root, "coco"), n_train=4, n_val=2, seed=5, frame_sizes=[(80, 64)],
              object_scale=0.5)
+    for seed, (name, classes) in enumerate(UNDERWATER.values()):
+        generate(os.path.join(root, name), n_train=2, n_val=1, seed=7 + seed,
+                 frame_sizes=[(80, 64)], object_scale=0.5, classes=classes)
     return root
 
 
@@ -110,7 +123,8 @@ def _point(ds, root):
                   img_prefix=f"{root}/voc/VOC{year}")
     elif "ann_file" in ds:
         split = "train" if train else "val"
-        ds.update(ann_file=f"{root}/coco/{split}.json", img_prefix=f"{root}/coco/{split}")
+        d = UNDERWATER.get(t, ("coco",))[0]
+        ds.update(ann_file=f"{root}/{d}/{split}.json", img_prefix=f"{root}/{d}/{split}")
 
 
 def _config(name, root):
@@ -138,6 +152,39 @@ def test_config_passes_the_runner_checks(name, sets):
     if name in LSJ:
         assert loader.lsj_range == (0.1, 2.0) and loader.batch_size == 8
         assert runner.compute_dtype(cfg) == torch.bfloat16
+
+
+def test_the_15_detectors_and_swin_configs():
+    assert len(DETECTORS_SWIN) == 15
+    assert sum(n.startswith("swin/") for n in DETECTORS_SWIN) == 6
+
+
+@pytest.mark.parametrize("name", DETECTORS_SWIN)
+def test_detectors_and_swin_configs_pass_the_runner_checks(name, sets):
+    """The DetectoRS and Swin configs pass the runner's data, optimizer and
+    schedule checks (the Swin ones' ``adamw``) and give a first tiny batch:
+    with masks for HTC and Mask R-CNN, with stuff maps for HTC; Brackish
+    and TrashCan on sets of their class names."""
+    cfg = _config(name, sets)
+    train = cfg._data["data"]["train"]
+    if cfg.model.roi_head.get("semantic_head"):  # HTC's stuff maps, one a train image
+        stuff = os.path.join(sets, "stuff")
+        os.makedirs(stuff, exist_ok=True)
+        with open(train["ann_file"]) as f:
+            for im in json.load(f)["images"]:
+                write_png_gray(os.path.join(stuff, im["file_name"].rsplit(".", 1)[0] + ".png"),
+                               np.full((im["height"], im["width"]), 7, np.uint8))
+        train["seg_prefix"] = stuff
+    runner.check_schedule(cfg)
+    runner.check_data(cfg)
+    assert (str(cfg.optimizer.type).lower() == "adamw") == name.startswith("swin/")
+    mc = runner.model_config(cfg)
+    loader = runner.train_loader(cfg, mc, "cpu", seed=0, tiny=True)
+    batch = next(iter(loader.epoch_iter(0)))
+    assert tuple(batch["images"].shape[1:3]) in (runner.TINY_CANVAS, runner.TINY_CANVAS[::-1])
+    assert batch["gt_mask"].any()
+    assert ("gt_mask_crops" in batch) == bool(mc["roi_head"].get("mask_head"))
+    assert ("gt_semantic_seg" in batch) == bool(mc["roi_head"].get("semantic_head"))
 
 
 def test_suodac_still_raises_naming_domain_file(sets, tmp_path):

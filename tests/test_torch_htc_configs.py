@@ -1,10 +1,10 @@
 """Which HTC configs the PyTorch port builds, on the CPU, at full width
 (no JAX): the probe of ``tests/test_torch_cascade_configs.py`` over every
 config file named ``*htc*``, each a ``HybridTaskCascade``.  Those on the
-ported backbones build (``BUILDS``, 13 files, HRNet's among them; a
-model shared by several files is built once); every other one
-raises ``NotImplementedError`` naming what is missing: DetectoRS's
-recursive backbone and switchable atrous convs.  Each built one is checked against its config:
+ported backbones build (``BUILDS``, 17 files, HRNet's and, since the
+twenty-first slice, DetectoRS's among them; a model shared by several
+files is built once); any other one would raise ``NotImplementedError``
+naming what is missing (``_reason``: none is left).  Each built one is checked against its config:
 one mask head per stage, interleaved, with information flow (a
 ``conv_res`` in the heads after the first), and the semantic head where
 the config has one (183 stuff classes, its embedding pooled at stride 8).
@@ -26,6 +26,7 @@ from boosting_rcnn_tpu_torch.builder import build_detector  # noqa: E402
 from boosting_rcnn_tpu_torch.config import load_config  # noqa: E402
 from boosting_rcnn_tpu_torch.models import layers as t_layers  # noqa: E402
 from boosting_rcnn_tpu_torch.models import plugins as t_plugins  # noqa: E402
+from boosting_rcnn_tpu_torch.models.backbones import detectors_resnet as t_det  # noqa: E402
 from test_torch_cascade_configs import check_mask_heads  # noqa: E402
 
 CONFIGS = os.path.join(REPO, "configs")
@@ -38,6 +39,9 @@ BUILDS = {
     # HRNet with HRFPN
     "hrnet/htc_hrnetv2p_w18_20e_coco.py", "hrnet/htc_hrnetv2p_w32_20e_coco.py",
     "hrnet/htc_hrnetv2p_w40_20e_coco.py", "hrnet/htc_hrnetv2p_w40_28e_coco.py",
+    # DetectoRS: SAC and the RFP neck, SAC alone, RFP alone
+    "detectors/detectors_htc_r50_1x_coco.py", "detectors/detectors_htc_r101_20e_coco.py",
+    "detectors/htc_r50_sac_1x_coco.py", "detectors/htc_r50_rfp_1x_coco.py",
 }
 
 
@@ -48,9 +52,6 @@ def _names():
 
 def _reason(name: str) -> str:
     """The missing piece that the builder names for a config it rejects."""
-    for key, what in (("detectors/", "DetectoRS_ResNet"),):
-        if name.startswith(key):
-            return what
     raise AssertionError(f"{name}: no expected reason")
 
 
@@ -68,7 +69,7 @@ def seeded_init_skipped():
     built detectors' structure and configs, never their weights, and the
     draws took most of the file's time."""
     with pytest.MonkeyPatch.context() as mp:
-        for module in (t_layers, t_plugins):
+        for module in (t_layers, t_plugins, t_det):
             mp.setattr(module, "lecun_normal_", lambda weight, fan_in, gen: None)
         for name in ("kaiming_uniform_", "uniform_"):  # torch's own inits, overwritten
             mp.setattr(torch.nn.init, name, lambda tensor, *a, **k: tensor)
